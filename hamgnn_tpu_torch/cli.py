@@ -1,0 +1,199 @@
+"""Command-line entry point of the port:
+``python -m hamgnn_tpu_torch.cli --config config.yaml [--device cpu]``.
+
+Counterpart of ``hamgnn_tpu/cli.py`` for the prediction path
+(``setup.stage: test``): load the YAML over the defaults, build the dataset
+and the ConvE3 model, load weights from ``setup.checkpoint_path`` (the port's
+``torch.save`` state dict, or an ``.npz`` of the flattened flax tree), run the
+test batches under ``torch.inference_mode()``, print the metrics and save
+``prediction_hamiltonian.npy`` / ``target_hamiltonian.npy`` in the
+reference's interleaved layout.  Training (``stage: fit``) comes with the
+training slice.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .models.model import HamGNNModel, compute_losses, compute_metrics, init_weights
+from .models.output import HamGNNPlusPlusOut, concatenate_by_crystal
+from .models.representation import HamGNNConvE3
+from .train.config import config_to_dict, load_config
+
+
+def build_model(config) -> HamGNNModel:
+    """Representation + output modules from a reference-schema config."""
+    pre = config.representation_nets.HamGNN_pre
+    out = config.output_nets.HamGNN_out
+    if config.setup.get("GNN_Net", "HamGNNpre").lower() == "hamgnntransformer":
+        raise NotImplementedError(
+            "HamGNNTransformer is not ported yet (a later slice)")
+    for key, what in (("use_corr_prod", "CorrProductBlock"), ("use_kan", "KAN")):
+        if pre.get(key, False):
+            raise NotImplementedError(f"{what} is not ported yet (a later slice)")
+    for key, what in (("soc_switch", "the SOC head"),
+                      ("spin_constrained", "the magnetic head"),
+                      ("calculate_band_energy", "the band head")):
+        if out.get(key, False):
+            raise NotImplementedError(f"{what} is not ported yet (a later slice)")
+    # use_gradient_checkpointing only changes the memory of a backward pass;
+    # this slice runs forward only, so it has no effect here
+    rep = HamGNNConvE3(
+        num_types=pre.num_types,
+        irreps_edge_sh=pre.irreps_edge_sh,
+        irreps_node_features=pre.irreps_node_features,
+        num_layers=pre.num_layers,
+        num_radial=pre.num_radial,
+        rbf_func=pre.rbf_func.lower(),
+        cutoff=pre.cutoff,
+        cutoff_func=pre.get("cutoff_func", "cos"),
+        radial_mlp=tuple(pre.radial_MLP),
+        lite_mode=pre.get("lite_mode", False),
+        apply_charge_doping=pre.get("apply_charge_doping", False),
+        num_charge_attr_feas=pre.get("num_charge_attr_feas", 8),
+        legacy_edge_update=pre.get("legacy_edge_update", False),
+    )
+    head = HamGNNPlusPlusOut(
+        irreps_in_node=pre.irreps_node_features,
+        irreps_in_edge=pre.irreps_node_features,
+        nao_max=out.nao_max,
+        ham_type=out.ham_type.lower(),
+        ham_only=out.ham_only,
+        symmetrize=out.symmetrize,
+        add_H0=out.add_H0,
+        zero_point_shift=out.get("zero_point_shift", True),
+        nonlinearity_type=out.get("nonlinearity_type", "gate"),
+    )
+    return HamGNNModel(rep, head)
+
+
+def prepare_dataset(config, device="cpu"):
+    from .data.dataset import GraphDataModule, load_graph_npz
+    from .models.basis import get_basis_set, validate_elements_in_basis_def
+
+    path = config.dataset_params.graph_data_path
+    fmt = str(config.dataset_params.get("data_format", "auto")).lower()
+    if fmt == "lmdb" or path.lower().endswith(".lmdb"):
+        raise NotImplementedError("LMDB graph stores are not ported yet")
+    if not os.path.isfile(path):
+        path = os.path.join(path, "graph_data.npz")
+    graphs = load_graph_npz(path)
+    out = config.output_nets.HamGNN_out
+    basis = get_basis_set(out.ham_type.lower(), out.nao_max)
+    validate_elements_in_basis_def(
+        np.unique(np.concatenate([np.asarray(g["z"]) for g in graphs])), basis)
+    return GraphDataModule(
+        graphs,
+        batch_size=config.dataset_params.batch_size,
+        train_ratio=config.dataset_params.train_ratio,
+        val_ratio=config.dataset_params.val_ratio,
+        test_ratio=config.dataset_params.test_ratio,
+        split_file=config.dataset_params.split_file,
+        test_mode=(config.setup.stage == "test"),
+        device=device,
+    )
+
+
+def load_weights(model: HamGNNModel, path: str) -> None:
+    """``path``: an ``.npz`` of the flattened flax tree, or a ``torch.save``
+    state dict of this model."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory: reading orbax checkpoints comes with a "
+            "later slice; pass an .npz of the flax parameters or a torch "
+            "state dict")
+    if path.endswith(".npz"):
+        from .interfaces.jax_params import load_flax_npz
+
+        load_flax_npz(model, path)
+    else:
+        model.load_state_dict(torch.load(path, map_location="cpu"), strict=True)
+
+
+def eval_epoch(model, batches, losses, metrics):
+    """Forward, losses and metrics over ``batches``; returns (mean loss,
+    mean logs, [(graph, {name: numpy prediction})])."""
+    totals, aggs, preds_all = [], [], []
+    with torch.inference_mode():
+        for g in batches:
+            preds = model(g)
+            total, logs = compute_losses(preds, g, losses)
+            mets = compute_metrics(preds, g, metrics)
+            totals.append(float(total))
+            aggs.append({k: float(v) for k, v in {**logs, **mets}.items()})
+            preds_all.append((g, {k: v.cpu().numpy() for k, v in preds.items()}))
+    agg = {}
+    for d in aggs:
+        for k, v in d.items():
+            agg[k] = agg.get(k, 0.0) + v
+    agg = {k: v / max(len(aggs), 1) for k, v in agg.items()}
+    return (float(np.mean(totals)) if totals else 0.0), agg, preds_all
+
+
+def _dump_resolved_config(config) -> None:
+    import yaml
+
+    out_dir = config.profiler_params.train_dir
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "config_resolved.yaml"), "w") as f:
+        yaml.safe_dump(config_to_dict(config), f, sort_keys=False)
+
+
+def train_and_evaluate(config, device=None) -> dict:
+    if config.setup.stage != "test":
+        raise NotImplementedError(
+            f"stage {config.setup.stage!r}: training comes with the training "
+            "slice (backward kernel B2, amsgrad, trainer); this port runs "
+            "stage 'test'")
+    dev = resolve_device(device)
+    model = build_model(config)
+    data = prepare_dataset(config, dev)
+    _dump_resolved_config(config)
+    init_weights(model, 666)
+    ckpt = config.setup.checkpoint_path
+    if ckpt and os.path.exists(ckpt):
+        load_weights(model, ckpt)
+    model.to(dev).eval()
+    _, logs, preds_all = eval_epoch(
+        model, data.test_batches(),
+        [config_to_dict(l) for l in config.losses_metrics.losses],
+        [config_to_dict(m) for m in config.losses_metrics.metrics])
+    _save_predictions(config, preds_all)
+    print("test metrics:", logs)
+    return logs
+
+
+def _save_predictions(config, preds_all) -> None:
+    """prediction/target .npy in the reference's interleaved layout."""
+    out_dir = config.profiler_params.train_dir
+    os.makedirs(out_dir, exist_ok=True)
+    preds, targets = [], []
+    for g, p in preds_all:
+        preds.append(concatenate_by_crystal(g, p["hamiltonian_on"], p["hamiltonian_off"]))
+        targets.append(concatenate_by_crystal(g, g.Hon.cpu().numpy(), g.Hoff.cpu().numpy()))
+    if preds:
+        np.save(os.path.join(out_dir, "prediction_hamiltonian.npy"),
+                np.concatenate(preds, axis=0))
+        np.save(os.path.join(out_dir, "target_hamiltonian.npy"),
+                np.concatenate(targets, axis=0))
+
+
+def main(argv: Optional[list] = None) -> None:
+    parser = argparse.ArgumentParser(description="HamGNN, PyTorch/CUDA port")
+    parser.add_argument("--config", "-c", default="config_default.yaml")
+    parser.add_argument("--device", default=None,
+                        help="cuda (default) or cpu")
+    args, _ = parser.parse_known_args(argv)
+    config = load_config(args.config)
+    np.random.seed(666)
+    train_and_evaluate(config, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

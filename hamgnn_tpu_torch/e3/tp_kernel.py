@@ -1,0 +1,354 @@
+"""Hopper kernel for the packed TP -> radial scale -> Linear forward.
+
+``packed_tp_forward`` is the wrapper of ``csrc/packed_tp_fwd.cu``, the port
+of the TPU kernel ``hamgnn_tpu/e3/pallas_tp.py`` ``_fwd_call``.  On a CPU
+tensor it runs the plain version (``packed_tp.plain_apply``); on a CUDA
+tensor it launches the kernel or raises.  The backward (B2) belongs to the
+training slice.
+
+``KernelSpec`` is the kernel's host-side schedule, rebuilt from the
+reference's ``PallasSpec`` for the GPU: instead of lane layouts (x_perm,
+Crep, out_deint, 8-row-aligned Wcat blocks) it holds per-column int32 index
+tables: one record per output chunk (a CUDA block per edge tile and chunk,
+covering all its m3 components), per BLK column its coupling slot, d1, x
+offset in the u-major layout and radial-weight column, and per coupling slot
+the nonzero range of its coupling column.
+
+The library is compiled with nvcc at first use into ``build/kernels/`` from
+the sources in this checkout and loaded with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .packed_tp import PackedTPPlan, get_plan, plain_apply
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# H100 SXM peaks used for the bound of a launch (NVIDIA data sheet): fp32 on
+# the CUDA cores (the kernel uses no tensor cores) and HBM3 bandwidth
+H100_FP32_FLOPS = 67e12
+H100_HBM_BYTES_PER_S = 3.35e12
+
+
+# ----------------------------------------------------------------------
+# build and load
+# ----------------------------------------------------------------------
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME)")
+    return found
+
+
+def build_kernels(names) -> dict:
+    """Compile the named ``csrc/<name>.cu`` sources into shared libraries,
+    one nvcc per source, all started together.  Returns {name: (path,
+    compiler log)}; a library newer than its source is reused."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    out = {}
+    for name in names:
+        src = CSRC / f"{name}.cu"
+        lib = BUILD_DIR / f"lib{name}.so"
+        if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+            out[name] = (lib, "")
+            continue
+        tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, lib)
+    failed = []
+    for name, (proc, tmp, lib) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, lib)
+        out[name] = (lib, log)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+class CudaKernel:
+    """A kernel library built at first use, with a count of launches.
+
+    ``symbols`` maps each exported C function to (argtypes, restype); the
+    launch function is ``name`` and returns a CUDA error code, which
+    ``<name>_error_string`` turns into text.  ``launches`` rises by one each
+    time ``launch`` starts the kernel and nowhere else, so a run can show
+    that its path went through the kernel.
+    """
+
+    def __init__(self, name: str, symbols: dict):
+        self.name = name
+        self.symbols = {name: symbols[name],
+                        f"{name}_error_string": ([ctypes.c_int], ctypes.c_char_p),
+                        **symbols}
+        self.launches = 0
+        self._lib = None
+
+    def library(self):
+        if self._lib is None:
+            path, _ = build_kernels([self.name])[self.name]
+            lib = ctypes.CDLL(str(path))
+            for sym, (argtypes, restype) in self.symbols.items():
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            self._lib = lib
+        return self._lib
+
+    def launch(self, *args):
+        lib = self.library()
+        rc = getattr(lib, self.name)(*args)
+        if rc != 0:
+            msg = getattr(lib, f"{self.name}_error_string")(rc).decode()
+            raise RuntimeError(f"{self.name} launch failed: {msg} ({rc})")
+        self.launches += 1
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+PACKED_TP_FWD = CudaKernel("packed_tp_fwd", {
+    "packed_tp_fwd": ([_P] * 9 + [_I] * 11 + [_P], _I),
+    "packed_tp_fwd_smem_bytes": ([_I] * 4, ctypes.c_size_t),
+    "packed_tp_fwd_rows_per_thread": ([_I] * 2, _I),
+    "packed_tp_fwd_max_rows": ([], _I),
+    "packed_tp_fwd_max_d1": ([], _I),
+})
+
+# every kernel of the port, by name (chip_smoke.py resets and reads the counts)
+KERNELS = {"packed_tp_fwd": PACKED_TP_FWD}
+
+
+# ----------------------------------------------------------------------
+# host-side schedule
+# ----------------------------------------------------------------------
+
+class KernelSpec:
+    """Per-column index tables of one plan for ``packed_tp_fwd.cu``.
+
+    ``grp``: one record per covered output chunk (a CUDA block per edge tile
+    and record): out offset b, d3, V, Wcat offset, fan_in, column offset,
+    coupling-slot offset, slots per m3 (nq).  ``cols``: per BLK column its
+    slot offset within an m3 block, d1, x offset, radial-weight column; the
+    same for every m3.  ``qtab``: per slot (m3-major, then source, path, i)
+    its coefficient offset, first SH component and count; ``coef`` the
+    nonzero coupling values.
+    """
+
+    def __init__(self, plan: PackedTPPlan):
+        self.plan = plan
+        self.d_in = plan.irreps_in.dim
+        self.d_out = plan.irreps_out.dim
+        self.n_ch = plan.weight_numel
+        self.S = plan.irreps_sh.dim
+
+        grp, cols, qtab, coef = [], [], [], []
+        widx, wscale = [], []
+        wofs = 0
+        for k_out, mio in enumerate(plan.irreps_out):
+            fan_in, ofs = plan.out_plans[k_out]
+            if fan_in == 0:
+                continue
+            V, d3 = mio.mul, mio.ir.dim
+            b = plan.irreps_out.slices()[k_out].start
+            # Wcat block of this output chunk: source rows stacked in
+            # out_sources order, 1/sqrt(fan_in) folded in
+            perm = np.concatenate([rp for (_g, _gi, rp) in plan.out_sources[k_out]])
+            widx.append(ofs + perm[:, None].astype(np.int64) * V + np.arange(V)[None, :])
+            wscale.append(np.full(fan_in * V, 1.0 / np.sqrt(fan_in)))
+            col_ofs, q_ofs = len(cols), len(qtab)
+            for m3 in range(d3):
+                q_src = 0
+                for (g, gi, _rp) in plan.out_sources[k_out]:
+                    sl, mul, d1, C, groups = plan.per_chunk[g]
+                    ir3, n_cols, k0, _k1 = groups[gi]
+                    cb = plan._grp_w_base[(g, gi)]
+                    for j in range(n_cols):
+                        k = k0 + m3 * n_cols + j
+                        for i in range(d1):
+                            cc = C[:, i, k]
+                            nz = np.nonzero(cc)[0]
+                            s0 = int(nz[0]) if len(nz) else 0
+                            ns = int(nz[-1]) + 1 - s0 if len(nz) else 0
+                            qtab.append((len(coef), s0, ns))
+                            coef.extend(cc[s0 : s0 + ns].tolist())
+                        if m3 == 0:
+                            for u in range(mul):
+                                cols.append((q_src + j * d1, d1, sl.start + u * d1,
+                                             cb + j * mul + u))
+                    q_src += n_cols * d1
+            nq = (len(qtab) - q_ofs) // d3
+            grp.append((b, d3, V, wofs, fan_in, col_ofs, q_ofs, nq))
+            wofs += fan_in * V
+        self.grp = np.asarray(grp, np.int32).reshape(-1, 8)
+        self.cols = np.asarray(cols, np.int32).reshape(-1, 4)
+        self.qtab = np.asarray(qtab, np.int32).reshape(-1, 3)
+        self.coef = np.asarray(coef, np.float32)
+        self.wcat_idx = (np.concatenate([w.reshape(-1) for w in widx])
+                         if widx else np.zeros(0, np.int64))
+        self.wcat_scale = (np.concatenate(wscale).astype(np.float32)
+                           if wscale else np.zeros(0, np.float32))
+        g = self.grp
+        self.nq_all_max = int((g[:, 1] * g[:, 7]).max()) if len(g) else 0
+        self.d3_max = int(g[:, 1].max()) if len(g) else 1
+        self.v_max = int(g[:, 2].max()) if len(g) else 1
+        self.d1_max = max((d1 for (_sl, _m, d1, _C, _g) in plan.per_chunk), default=1)
+        self.fully_covered = len(g) == len(plan.irreps_out)
+        self._device_tables = {}
+
+    def tables(self, device):
+        key = str(device)
+        if key not in self._device_tables:
+            def t(a, dt):
+                return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                       device=device)
+            self._device_tables[key] = dict(
+                grp=t(self.grp, torch.int32),
+                cols=t(self.cols, torch.int32),
+                qtab=t(self.qtab, torch.int32),
+                coef=t(self.coef if len(self.coef) else np.zeros(1), torch.float32),
+                wcat_idx=t(self.wcat_idx, torch.long),
+                wcat_scale=t(self.wcat_scale, torch.float32))
+        return self._device_tables[key]
+
+    def build_wcat(self, flat_w):
+        """Flat Linear weight -> the kernel's Wcat: per output chunk its
+        (fan_in, V) block, rows in BLK column order, 1/sqrt(fan_in) folded."""
+        tb = self.tables(flat_w.device)
+        return flat_w[tb["wcat_idx"]] * tb["wcat_scale"]
+
+    def work(self, E: int, has_w: bool):
+        """(FLOPs, bytes) the function needs for E edges: coupling products
+        over the nonzero CG entries, mid FMAs, the radial scale and the Wcat
+        product; each operand read once and the output written once."""
+        plan = self.plan
+        flops = 0
+        for (sl, mul, d1, C, groups) in plan.per_chunk:
+            K = C.shape[-1]
+            flops += 2 * int(np.count_nonzero(C)) + 2 * d1 * K * mul
+            if has_w:
+                flops += K * mul
+        for k_out, mio in enumerate(plan.irreps_out):
+            fan_in, _ = plan.out_plans[k_out]
+            flops += 2 * mio.ir.dim * fan_in * mio.mul
+        words = E * (self.d_in + self.S + (self.n_ch if has_w else 0)
+                     + self.d_out) + len(self.wcat_idx)
+        return flops * E, 4 * words
+
+    def bound_ms(self, E: int, has_w: bool) -> tuple:
+        """Least time on an H100 for E edges, and which side bounds it."""
+        flops, nbytes = self.work(E, has_w)
+        t_ops = flops / H100_FP32_FLOPS * 1e3
+        t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+@functools.lru_cache(maxsize=None)
+def _spec_for_key(key) -> KernelSpec:
+    return KernelSpec(get_plan(*key))
+
+
+def get_spec(plan: PackedTPPlan) -> KernelSpec:
+    return _spec_for_key(plan.key)
+
+
+# ----------------------------------------------------------------------
+# wrapper
+# ----------------------------------------------------------------------
+
+def _check(name, t, shape, device):
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(spec: KernelSpec, x, sh, w, flat_w):
+    E = x.shape[0]
+    dev = x.device
+    _check("x", x, (E, spec.d_in), dev)
+    _check("sh", sh, (E, spec.S), dev)
+    if w is not None:
+        _check("w", w, (E, spec.n_ch), dev)
+    out = (torch.empty if spec.fully_covered else torch.zeros)(
+        (E, spec.d_out), dtype=torch.float32, device=dev)
+    if E == 0 or len(spec.grp) == 0:
+        return out
+    _check("flat_w", flat_w, (spec.plan.linear_numel,), dev)
+    lib = PACKED_TP_FWD.library()
+    r_max = max(lib.packed_tp_fwd_rows_per_thread(int(d3), int(V))
+                for (_b, d3, V, *_rest) in spec.grp)
+    if r_max < 1 or r_max > lib.packed_tp_fwd_max_rows() \
+            or spec.d1_max > lib.packed_tp_fwd_max_d1():
+        raise ValueError(f"packed_tp_fwd takes at most {lib.packed_tp_fwd_max_rows()} "
+                         f"rows per thread and d1 <= {lib.packed_tp_fwd_max_d1()}; "
+                         f"this plan needs {r_max} and {spec.d1_max}")
+    smem = lib.packed_tp_fwd_smem_bytes(spec.S, spec.nq_all_max, spec.d3_max,
+                                        spec.v_max)
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"packed_tp_fwd needs {smem} B of shared memory, "
+                         f"the card allows {limit}")
+    tb = spec.tables(dev)
+    wcat = spec.build_wcat(flat_w).contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    PACKED_TP_FWD.launch(
+        x.data_ptr(), sh.data_ptr(), 0 if w is None else w.data_ptr(),
+        wcat.data_ptr(), tb["coef"].data_ptr(), tb["grp"].data_ptr(),
+        tb["cols"].data_ptr(), tb["qtab"].data_ptr(), out.data_ptr(),
+        E, spec.d_in, spec.S, spec.n_ch, spec.d_out, len(spec.grp),
+        spec.nq_all_max, spec.d3_max, spec.v_max, r_max, 0 if w is None else 1,
+        stream)
+    return out
+
+
+class _PackedTPForward(torch.autograd.Function):
+    """Forward kernel B1; its backward (B2) comes with the training slice."""
+
+    @staticmethod
+    def forward(ctx, x, sh, w, flat_w, spec):
+        return _launch(spec, x, sh, w, flat_w)
+
+    @staticmethod
+    def backward(ctx, gout):
+        raise NotImplementedError("B2: training slice")
+
+
+def packed_tp_forward(plan: PackedTPPlan, x, sh, w, flat_w):
+    """The packed pipeline of ``plan``: x (E, d_in), sh (E, S), w (E, n_ch)
+    in packed order or None, flat_w (linear_numel,) -> (E, d_out) float32.
+
+    CPU tensors take ``plain_apply``; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return plain_apply(plan, x, sh, w, flat_w)
+    if x.device.type != "cuda":
+        raise ValueError(f"packed_tp_forward runs on cpu or cuda, not {x.device}")
+    return _PackedTPForward.apply(x, sh, w, flat_w, get_spec(plan))

@@ -1,0 +1,102 @@
+"""Combined model (representation + output head) and loss/metric computation,
+counterpart of ``hamgnn_tpu/models/model.py`` (forward only in this slice)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..data.graph import Graph
+from ..train.losses import get_metric
+
+
+class HamGNNModel(nn.Module):
+    def __init__(self, representation: nn.Module, output: nn.Module):
+        super().__init__()
+        self.representation = representation
+        self.output = output
+
+    def forward(self, graph: Graph) -> Dict[str, torch.Tensor]:
+        return self.output(graph, self.representation(graph))
+
+
+def init_weights(model: nn.Module, seed: int) -> nn.Module:
+    """Draw every random weight (the Linear ``w`` and MLP ``w<i>`` parameters,
+    N(0, 1) as in the reference) from a ``torch.Generator`` seeded with
+    ``seed``; parameters with fixed initial values keep them."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "w" or (leaf[0] == "w" and leaf[1:].isdigit()):
+                p.copy_(torch.randn(p.shape, generator=gen))
+    return model
+
+
+def _stack_pred_target(name: str, preds: Dict, graph: Graph):
+    """Map a loss name to (pred rows, target rows, row mask)."""
+    nm = name.lower()
+    if nm in ("hamiltonian", "overlap"):
+        key, t_on, t_off = (("hamiltonian", graph.Hon, graph.Hoff) if nm == "hamiltonian"
+                            else ("overlap", graph.Son, graph.Soff))
+        pred = torch.cat([preds[f"{key}_on"], preds[f"{key}_off"]], 0)
+        target = torch.cat([t_on, t_off], 0)
+        mask = torch.cat([graph.node_mask, graph.edge_mask], 0)[:, None]
+        return (pred.reshape(pred.shape[0], -1), target.reshape(target.shape[0], -1),
+                mask)
+    # generic result-dict keys: the target is the graph field of that name,
+    # else the prediction's "<name>_ref" counterpart
+    by_lower = {k.lower(): k for k in preds}
+    if nm in by_lower:
+        key = by_lower[nm]
+        pred = preds[key]
+        target = getattr(graph, name, None)
+        if target is None:
+            target = getattr(graph, key, None)
+        if target is None:
+            target = preds.get(key + "_ref")
+        if target is None:
+            raise KeyError(f"loss target '{name}': no graph field or '_ref' "
+                           f"prediction; available predictions: {sorted(preds)}")
+        mask = torch.ones((pred.shape[0], 1), dtype=torch.float32, device=pred.device)
+        return pred.reshape(pred.shape[0], -1), target.reshape(target.shape[0], -1), mask
+    raise KeyError(f"unknown loss target {name} (available predictions: {sorted(preds)})")
+
+
+def compute_losses(preds: Dict[str, torch.Tensor], graph: Graph,
+                   losses: Sequence[Dict[str, Any]]) -> Tuple[torch.Tensor, Dict]:
+    """Weighted total loss + per-component logs; Hamiltonian components are
+    scaled by the sparsity ratio, as in the reference."""
+    total = torch.zeros((), dtype=torch.float32, device=graph.z.device)
+    logs = {}
+    for spec in losses:
+        fn = get_metric(spec["metric"])
+        pname = spec["prediction"].lower()
+        if spec.get("target") is not None:
+            pred, target, mask = _stack_pred_target(pname, preds, graph)
+        else:
+            pred = preds[pname].reshape(preds[pname].shape[0], -1)
+            target = torch.zeros_like(pred)
+            mask = torch.ones((pred.shape[0], 1), dtype=torch.float32, device=pred.device)
+        value = fn(pred, target, mask)
+        if pname in ("hamiltonian", "hamiltonian_real", "hamiltonian_imag") \
+                and "sparsity_ratio" in preds:
+            value = value * preds["sparsity_ratio"]
+        logs[f"{spec['metric']}_{pname}"] = value
+        total = total + spec.get("loss_weight", 1.0) * value
+    return total, logs
+
+
+def compute_metrics(preds, graph, metrics: Sequence[Dict[str, Any]]):
+    out = {}
+    for spec in metrics:
+        fn = get_metric(spec["metric"])
+        pname = spec["prediction"].lower()
+        pred, target, mask = _stack_pred_target(pname, preds, graph)
+        value = fn(pred, target, mask)
+        if pname.startswith("hamiltonian") and "sparsity_ratio" in preds:
+            value = value * preds["sparsity_ratio"]
+        out[f"{spec['metric']}_{pname}"] = value
+    return out

@@ -14,7 +14,8 @@ setup(
         "tight-binding Hamiltonians (OpenMX/SIESTA/ABACUS), built on "
         "JAX/XLA/Pallas"
     ),
-    packages=find_packages(include=["hamgnn_tpu", "hamgnn_tpu.*"]),
+    packages=find_packages(include=["hamgnn_tpu", "hamgnn_tpu.*",
+                                    "hamgnn_tpu_torch", "hamgnn_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "numpy", "scipy", "pyyaml",

@@ -1,0 +1,46 @@
+"""The packed-TP CUDA kernel against its plain PyTorch version, on the card.
+
+Marked ``cuda``: skips where no GPU is present.  Imports no JAX, so it runs
+on a machine with only the port installed:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
+
+Tolerance: max|kernel - plain| <= 1e-4 * max|plain| in fp32 (only the
+summation order differs).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hamgnn_tpu_torch.e3 import tp_kernel
+from hamgnn_tpu_torch.e3.irreps import Irreps
+from hamgnn_tpu_torch.e3.packed_tp import get_plan, plain_apply
+
+BENCH_FEAT = "64x0e+32x0o+24x1o+12x1e+12x2e+6x2o+4x3o+4x3e+2x4e"
+BENCH_SH = "0e + 1o + 2e + 3o + 4e"
+BENCH_IN = ["96x0e", repr(Irreps([(2 * m, ir) for m, ir in Irreps(BENCH_FEAT)])),
+            BENCH_FEAT, "8x0e+4x0o+3x1o+2x1e+2x2e+1x2o+1x3o"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("irreps_in", BENCH_IN, ids=["pair", "node", "edge", "small"])
+@pytest.mark.parametrize("with_w", [True, False])
+def test_cuda_kernel_matches_plain(irreps_in, with_w):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f = repr(Irreps(BENCH_FEAT))
+    plan = get_plan(repr(Irreps(irreps_in)), repr(Irreps(BENCH_SH)), f, f)
+    rng = np.random.default_rng(5)
+    E = 333  # 20 full 16-edge tiles and a ragged one
+    x, sh, w, fw = (torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
+                    for shape in ((E, plan.irreps_in.dim), (E, plan.irreps_sh.dim),
+                                  (E, plan.weight_numel), (plan.linear_numel,)))
+    w = w if with_w else None
+    before = tp_kernel.PACKED_TP_FWD.launches
+    with torch.inference_mode():
+        out = tp_kernel.packed_tp_forward(plan, x, sh, w, fw)
+        ref = plain_apply(plan, x, sh, w, fw)
+    torch.cuda.synchronize()
+    assert tp_kernel.PACKED_TP_FWD.launches == before + 1
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())

@@ -1,0 +1,103 @@
+"""The port imports no JAX and nothing of the JAX package.
+
+In a subprocess where ``jax``, ``flax``, ``optax``, ``orbax`` and
+``hamgnn_tpu`` cannot be imported, every module of ``hamgnn_tpu_torch``
+imports and ``python -m hamgnn_tpu_torch.cli`` runs a ``stage: test`` config
+on the CPU.  ``chip_smoke.py`` must fail, printing no result, where no GPU is
+available.
+"""
+
+import ast
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "hamgnn_tpu_torch"
+BLOCKED = ("jax", "flax", "optax", "orbax", "hamgnn_tpu")
+
+SCRIPT = r"""
+import sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {root!r})
+import importlib, pkgutil, runpy
+import numpy as np
+import yaml
+import hamgnn_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(hamgnn_tpu_torch.__path__, "hamgnn_tpu_torch.")]
+for name in mods:
+    importlib.import_module(name)
+from hamgnn_tpu_torch.data.dataset import save_graph_npz
+from hamgnn_tpu_torch.data.synthetic import add_random_hamiltonian_targets, make_crystal
+work = {work!r}
+rng = np.random.default_rng(0)
+save_graph_npz(work + "/graph_data.npz",
+               [add_random_hamiltonian_targets(rng, make_crystal(rng, n_atoms=4, cutoff=4.0))
+                for _ in range(2)])
+cfg = {{
+    "setup": {{"stage": "test", "checkpoint_path": work + "/none.pt"}},
+    "dataset_params": {{"graph_data_path": work, "batch_size": 1}},
+    "profiler_params": {{"train_dir": work + "/out"}},
+    "representation_nets": {{"HamGNN_pre": {{
+        "irreps_node_features": "4x0e+2x1o", "irreps_edge_sh": "0e+1o+2e",
+        "num_layers": 1, "num_radial": 4, "cutoff": 4.0, "radial_MLP": [4],
+        "num_types": 16}}}},
+    "output_nets": {{"HamGNN_out": {{"nao_max": 14}}}},
+}}
+with open(work + "/config.yaml", "w") as f:
+    yaml.safe_dump(cfg, f)
+sys.argv = ["hamgnn_tpu_torch.cli", "--config", work + "/config.yaml", "--device", "cpu"]
+runpy.run_module("hamgnn_tpu_torch.cli", run_name="__main__")
+assert not any(sys.modules.get(b) for b in {blocked!r})
+pred = np.load(work + "/out/prediction_hamiltonian.npy")
+print("MODULES", len(mods), "PRED", pred.shape, bool(np.isfinite(pred).all()))
+"""
+
+
+def test_port_modules_and_cli_run_without_jax(tmp_path):
+    code = SCRIPT.format(blocked=BLOCKED, root=str(ROOT), work=str(tmp_path))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stderr[-3000:]
+    line = [l for l in r.stdout.splitlines() if l.startswith("MODULES")][-1]
+    n_mods = int(line.split()[1])
+    assert n_mods >= 20
+    assert line.endswith("True")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax(path):
+    for name in _imports(path):
+        assert name.split(".")[0] not in BLOCKED, f"{path.name} imports {name}"
+
+
+def test_chip_smoke_fails_without_gpu(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run")
+    env = dict(os.environ)
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, shutil.copy(ROOT / "chip_smoke.py", tmp_path))):
+        r = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                           timeout=120, cwd=str(cwd), env=env)
+        assert r.returncode != 0
+        for line in r.stdout.splitlines():
+            with pytest.raises(ValueError):
+                json.loads(line)
