@@ -1,14 +1,20 @@
 """Command-line entry point of the port:
 ``python -m hamgnn_tpu_torch.cli --config config.yaml [--device cpu]``.
 
-Counterpart of ``hamgnn_tpu/cli.py`` for the prediction path
-(``setup.stage: test``): load the YAML over the defaults, build the dataset
-and the ConvE3 model, load weights from ``setup.checkpoint_path`` (the port's
-``torch.save`` state dict, or an ``.npz`` of the flattened flax tree), run the
-test batches under ``torch.inference_mode()``, print the metrics and save
-``prediction_hamiltonian.npy`` / ``target_hamiltonian.npy`` in the
-reference's interleaved layout.  Training (``stage: fit``) comes with the
-training slice.
+Counterpart of ``hamgnn_tpu/cli.py``: load the YAML over the defaults, build
+the dataset and the ConvE3 model, then
+
+* ``setup.stage: fit``: train with ``train.trainer.Trainer`` (metrics.jsonl
+  and ``best.pt`` in ``profiler_params.train_dir``), warm-started from
+  ``setup.checkpoint_path`` when ``setup.load_from_checkpoint`` is set (the
+  learning rate restarts at ``optim_params.lr`` unless ``setup.resume``),
+  then a final test pass;
+* ``setup.stage: test``: load weights from ``setup.checkpoint_path`` (a
+  trainer checkpoint, the port's ``torch.save`` state dict, or an ``.npz``
+  of the flattened flax tree) and run the test batches;
+
+and save ``prediction_hamiltonian.npy`` / ``target_hamiltonian.npy`` in the
+reference's interleaved layout.
 """
 
 from __future__ import annotations
@@ -21,10 +27,11 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .models.model import HamGNNModel, compute_losses, compute_metrics, init_weights
+from .models.model import HamGNNModel, init_weights
 from .models.output import HamGNNPlusPlusOut, concatenate_by_crystal
 from .models.representation import HamGNNConvE3
 from .train.config import config_to_dict, load_config
+from .train.trainer import Trainer, load_params
 
 
 def build_model(config) -> HamGNNModel:
@@ -42,8 +49,6 @@ def build_model(config) -> HamGNNModel:
                       ("calculate_band_energy", "the band head")):
         if out.get(key, False):
             raise NotImplementedError(f"{what} is not ported yet (a later slice)")
-    # use_gradient_checkpointing only changes the memory of a backward pass;
-    # this slice runs forward only, so it has no effect here
     rep = HamGNNConvE3(
         num_types=pre.num_types,
         irreps_edge_sh=pre.irreps_edge_sh,
@@ -58,6 +63,9 @@ def build_model(config) -> HamGNNModel:
         apply_charge_doping=pre.get("apply_charge_doping", False),
         num_charge_attr_feas=pre.get("num_charge_attr_feas", 8),
         legacy_edge_update=pre.get("legacy_edge_update", False),
+        use_gradient_checkpointing=bool(
+            pre.get("use_gradient_checkpointing", False)
+            or config.setup.get("use_gradient_checkpointing", False)),
     )
     head = HamGNNPlusPlusOut(
         irreps_in_node=pre.irreps_node_features,
@@ -73,7 +81,9 @@ def build_model(config) -> HamGNNModel:
     return HamGNNModel(rep, head)
 
 
-def prepare_dataset(config, device="cpu"):
+def prepare_dataset(config, device=None):
+    """The config's npz graphs split into a ``GraphDataModule`` whose
+    batches live on ``device`` (cuda unless the caller asks for the CPU)."""
     from .data.dataset import GraphDataModule, load_graph_npz
     from .models.basis import get_basis_set, validate_elements_in_basis_def
 
@@ -96,13 +106,13 @@ def prepare_dataset(config, device="cpu"):
         test_ratio=config.dataset_params.test_ratio,
         split_file=config.dataset_params.split_file,
         test_mode=(config.setup.stage == "test"),
-        device=device,
+        device=resolve_device(device),
     )
 
 
 def load_weights(model: HamGNNModel, path: str) -> None:
-    """``path``: an ``.npz`` of the flattened flax tree, or a ``torch.save``
-    state dict of this model."""
+    """``path``: an ``.npz`` of the flattened flax tree, a ``torch.save``
+    state dict of this model, or a trainer checkpoint (its parameters)."""
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory: reading orbax checkpoints comes with a "
@@ -113,27 +123,11 @@ def load_weights(model: HamGNNModel, path: str) -> None:
 
         load_flax_npz(model, path)
     else:
-        model.load_state_dict(torch.load(path, map_location="cpu"), strict=True)
-
-
-def eval_epoch(model, batches, losses, metrics):
-    """Forward, losses and metrics over ``batches``; returns (mean loss,
-    mean logs, [(graph, {name: numpy prediction})])."""
-    totals, aggs, preds_all = [], [], []
-    with torch.inference_mode():
-        for g in batches:
-            preds = model(g)
-            total, logs = compute_losses(preds, g, losses)
-            mets = compute_metrics(preds, g, metrics)
-            totals.append(float(total))
-            aggs.append({k: float(v) for k, v in {**logs, **mets}.items()})
-            preds_all.append((g, {k: v.cpu().numpy() for k, v in preds.items()}))
-    agg = {}
-    for d in aggs:
-        for k, v in d.items():
-            agg[k] = agg.get(k, 0.0) + v
-    agg = {k: v / max(len(aggs), 1) for k, v in agg.items()}
-    return (float(np.mean(totals)) if totals else 0.0), agg, preds_all
+        state = torch.load(path, map_location="cpu")
+        if "params" in state and "opt_state" in state:
+            load_params(model, state["params"])
+        else:
+            model.load_state_dict(state, strict=True)
 
 
 def _dump_resolved_config(config) -> None:
@@ -146,24 +140,42 @@ def _dump_resolved_config(config) -> None:
 
 
 def train_and_evaluate(config, device=None) -> dict:
-    if config.setup.stage != "test":
+    stage = config.setup.stage
+    if stage not in ("fit", "test"):
+        raise ValueError(f"setup.stage must be 'fit' or 'test', not {stage!r}")
+    par = config.setup.get("parallel", None)
+    mode = str(par.get("mode", "none") if par is not None else "none").lower()
+    if mode != "none":
         raise NotImplementedError(
-            f"stage {config.setup.stage!r}: training comes with the training "
-            "slice (backward kernel B2, amsgrad, trainer); this port runs "
-            "stage 'test'")
+            f"setup.parallel.mode {mode!r}: the port's training slice runs on "
+            "one device; data parallel and the halo partition come later")
     dev = resolve_device(device)
     model = build_model(config)
     data = prepare_dataset(config, dev)
     _dump_resolved_config(config)
     init_weights(model, 666)
+    opt = config.optim_params
+    trainer = Trainer(
+        model,
+        losses=[config_to_dict(l) for l in config.losses_metrics.losses],
+        metrics=[config_to_dict(m) for m in config.losses_metrics.metrics],
+        lr=opt.lr, lr_decay=opt.lr_decay, lr_patience=opt.lr_patience,
+        gradient_clip_val=opt.gradient_clip_val, stop_patience=opt.stop_patience,
+        min_epochs=opt.min_epochs, max_epochs=opt.max_epochs,
+        train_dir=config.profiler_params.train_dir, device=dev)
     ckpt = config.setup.checkpoint_path
-    if ckpt and os.path.exists(ckpt):
-        load_weights(model, ckpt)
-    model.to(dev).eval()
-    _, logs, preds_all = eval_epoch(
-        model, data.test_batches(),
-        [config_to_dict(l) for l in config.losses_metrics.losses],
-        [config_to_dict(m) for m in config.losses_metrics.metrics])
+    if stage == "test":
+        if ckpt and os.path.exists(ckpt):
+            load_weights(model, ckpt)
+    elif config.setup.get("load_from_checkpoint") and ckpt and os.path.exists(ckpt):
+        trainer.load_checkpoint(ckpt)
+        if not config.setup.get("resume", False):
+            # warm start: a fresh LR schedule at the configured rate;
+            # `resume: true` keeps the checkpointed LR
+            trainer.sched.lr = float(opt.lr)
+    if stage == "fit":
+        trainer.fit(data)
+    _, logs, preds_all = trainer.eval_epoch(data.test_batches(), collect=True)
     _save_predictions(config, preds_all)
     print("test metrics:", logs)
     return logs

@@ -132,8 +132,11 @@ class GraphDataModule:
             self.train_idx, self.val_idx, self.test_idx = reference_split(
                 n, train_ratio, val_ratio, test_ratio, split_file)
 
-    def _batches(self, indices: Sequence[int]) -> Iterator[Graph]:
+    def _batches(self, indices: Sequence[int], shuffle: bool = False,
+                 rng=None) -> Iterator[Graph]:
         order = list(indices)
+        if shuffle:
+            (rng or np.random.default_rng()).shuffle(order)
         for i in range(0, len(order), self.batch_size):
             chunk = [self.graphs[j] for j in order[i : i + self.batch_size]]
             n_tot = sum(c["z"].shape[0] for c in chunk)
@@ -141,6 +144,12 @@ class GraphDataModule:
             yield pad_and_batch(chunk, node_bucket=_bucket(n_tot, self.node_quantum),
                                 edge_bucket=_bucket(e_tot, self.edge_quantum),
                                 device=self.device)
+
+    def train_batches(self, rng: Optional[np.random.Generator] = None
+                      ) -> Iterator[Graph]:
+        """Train batches in an order shuffled by ``rng`` exactly as the JAX
+        data module shuffles them, so one generator state gives one order."""
+        return self._batches(self.train_idx, shuffle=True, rng=rng)
 
     def val_batches(self) -> Iterator[Graph]:
         return self._batches(self.val_idx)

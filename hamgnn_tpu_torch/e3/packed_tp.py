@@ -10,8 +10,9 @@ Counterpart of ``hamgnn_tpu/e3/packed_tp.py``.  Per input chunk g =
 
 ``PackedTPPlan`` holds the channel/row permutations as numpy index arrays,
 identical to the reference's; ``plain_apply`` is the plain PyTorch version of
-the pipeline and the oracle of the Hopper kernel in ``tp_kernel.py``, which
-``PackedTPPlan.__call__`` dispatches to.
+the pipeline and ``plain_backward`` of its backward, the oracles of the
+Hopper kernels in ``tp_kernel.py``, which ``PackedTPPlan.__call__``
+dispatches to.
 """
 
 from __future__ import annotations
@@ -166,15 +167,17 @@ class PackedTPPlan:
         return tp_kernel.packed_tp_forward(self, x, sh, weight, flat_w)
 
     def _tables(self, device):
-        """Coupling matrices and row permutations as tensors on ``device``."""
+        """Coupling matrices and row permutations as tensors on ``device``
+        (made outside inference mode: the cache also serves autograd)."""
         key = str(device)
         if key not in self._device_tables:
-            coup = [None if C.shape[-1] == 0 else torch.as_tensor(
-                        C.reshape(C.shape[0], -1), dtype=torch.float32,
-                        device=device)
-                    for (_sl, _mul, _d1, C, _groups) in self.per_chunk]
-            perms = [[torch.as_tensor(rp, dtype=torch.long, device=device)
-                      for (_g, _gi, rp) in srcs] for srcs in self.out_sources]
+            with torch.inference_mode(False):
+                coup = [None if C.shape[-1] == 0 else torch.as_tensor(
+                            C.reshape(C.shape[0], -1), dtype=torch.float32,
+                            device=device)
+                        for (_sl, _mul, _d1, C, _groups) in self.per_chunk]
+                perms = [[torch.as_tensor(rp, dtype=torch.long, device=device)
+                          for (_g, _gi, rp) in srcs] for srcs in self.out_sources]
             self._device_tables[key] = (coup, perms)
         return self._device_tables[key]
 
@@ -224,6 +227,24 @@ def plain_apply(plan: PackedTPPlan, x, sh, weight, flat_w):
         out_chunks.append(
             acc.reshape(E, d3, mio.mul).transpose(1, 2).reshape(E, mio.mul * d3))
     return torch.cat(out_chunks, dim=-1)
+
+
+def plain_backward(plan: PackedTPPlan, x, sh, weight, flat_w, gout,
+                   need_dsh: bool = False):
+    """Plain version of the pipeline's backward (the custom VJP of
+    ``pallas_tp._pipeline``): autograd through ``plain_apply``.
+
+    Returns (dx, dsh or None, dw or None, d(flat_w)) for the output gradient
+    ``gout`` (E, d_out); dsh only with ``need_dsh``, dw only with weights."""
+    with torch.enable_grad():
+        x_, sh_, fw_ = (t.detach().requires_grad_(True) for t in (x, sh, flat_w))
+        w_ = None if weight is None else weight.detach().requires_grad_(True)
+        inputs = [t for t in (x_, sh_, w_, fw_) if t is not None]
+        grads = torch.autograd.grad(plain_apply(plan, x_, sh_, w_, fw_), inputs,
+                                    gout, allow_unused=True, materialize_grads=True)
+    dx, dsh = grads[0], grads[1]
+    dw = grads[2] if weight is not None else None
+    return dx, (dsh if need_dsh else None), dw, grads[-1]
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,10 +1,13 @@
-"""Hopper kernel for the packed TP -> radial scale -> Linear forward.
+"""Hopper kernels for the packed TP -> radial scale -> Linear pipeline.
 
 ``packed_tp_forward`` is the wrapper of ``csrc/packed_tp_fwd.cu``, the port
-of the TPU kernel ``hamgnn_tpu/e3/pallas_tp.py`` ``_fwd_call``.  On a CPU
-tensor it runs the plain version (``packed_tp.plain_apply``); on a CUDA
-tensor it launches the kernel or raises.  The backward (B2) belongs to the
-training slice.
+of the TPU kernel ``hamgnn_tpu/e3/pallas_tp.py`` ``_fwd_call``;
+``packed_tp_backward`` the wrapper of ``csrc/packed_tp_bwd.cu``, the port of
+``_bwd_call``.  ``PackedTP`` ties them together as one
+``torch.autograd.Function`` (the port of the custom VJP ``_pipeline``).  On
+CPU tensors the wrappers run the plain versions (``packed_tp.plain_apply``,
+``packed_tp.plain_backward``); on CUDA tensors they launch the kernels or
+raise.
 
 ``KernelSpec`` is the kernel's host-side schedule, rebuilt from the
 reference's ``PallasSpec`` for the GPU: instead of lane layouts (x_perm,
@@ -12,7 +15,8 @@ Crep, out_deint, 8-row-aligned Wcat blocks) it holds per-column int32 index
 tables: one record per output chunk (a CUDA block per edge tile and chunk,
 covering all its m3 components), per BLK column its coupling slot, d1, x
 offset in the u-major layout and radial-weight column, and per coupling slot
-the nonzero range of its coupling column.
+the nonzero range of its coupling column.  The backward adds, per slab of
+64 columns, the columns grouped by x offset and by coupling slot.
 
 The library is compiled with nvcc at first use into ``build/kernels/`` from
 the sources in this checkout and loaded with ctypes.
@@ -30,7 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .packed_tp import PackedTPPlan, get_plan, plain_apply
+from .packed_tp import PackedTPPlan, get_plan, plain_apply, plain_backward
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -139,8 +143,20 @@ PACKED_TP_FWD = CudaKernel("packed_tp_fwd", {
     "packed_tp_fwd_max_d1": ([], _I),
 })
 
+PACKED_TP_BWD = CudaKernel("packed_tp_bwd", {
+    "packed_tp_bwd": ([_P] * 21 + [_I] * 15 + [_P], _I),
+    "packed_tp_bwd_smem_bytes": ([_I] * 6, ctypes.c_size_t),
+    "packed_tp_bwd_slab_cols": ([], _I),
+    "packed_tp_bwd_max_d1": ([], _I),
+    "packed_tp_bwd_tile_edges": ([], _I),
+    "packed_tp_bwd_resident_blocks": ([ctypes.c_size_t], _I),
+})
+
 # every kernel of the port, by name (chip_smoke.py resets and reads the counts)
-KERNELS = {"packed_tp_fwd": PACKED_TP_FWD}
+KERNELS = {"packed_tp_fwd": PACKED_TP_FWD, "packed_tp_bwd": PACKED_TP_BWD}
+
+# columns per slab of the backward kernel (packed_tp_bwd.cu KS)
+BWD_SLAB_COLS = 64
 
 
 # ----------------------------------------------------------------------
@@ -148,7 +164,8 @@ KERNELS = {"packed_tp_fwd": PACKED_TP_FWD}
 # ----------------------------------------------------------------------
 
 class KernelSpec:
-    """Per-column index tables of one plan for ``packed_tp_fwd.cu``.
+    """Per-column index tables of one plan for ``packed_tp_fwd.cu`` and
+    ``packed_tp_bwd.cu``.
 
     ``grp``: one record per covered output chunk (a CUDA block per edge tile
     and record): out offset b, d3, V, Wcat offset, fan_in, column offset,
@@ -156,7 +173,8 @@ class KernelSpec:
     slot offset within an m3 block, d1, x offset, radial-weight column; the
     same for every m3.  ``qtab``: per slot (m3-major, then source, path, i)
     its coefficient offset, first SH component and count; ``coef`` the
-    nonzero coupling values.
+    nonzero coupling values.  The backward's slab tables: see
+    ``_build_slabs``.
     """
 
     def __init__(self, plan: PackedTPPlan):
@@ -218,21 +236,55 @@ class KernelSpec:
         self.v_max = int(g[:, 2].max()) if len(g) else 1
         self.d1_max = max((d1 for (_sl, _m, d1, _C, _g) in plan.per_chunk), default=1)
         self.fully_covered = len(g) == len(plan.irreps_out)
+        self.gmax = int((g[:, 1] * g[:, 2]).max()) if len(g) else 1
+        self._build_slabs()
         self._device_tables = {}
 
+    def _build_slabs(self):
+        """Backward tables: per output chunk the index of its first slab;
+        per slab (BWD_SLAB_COLS columns) its x groups and slot groups, each
+        (x offset or slot, d1, offset into ``lst``, count), ``lst`` holding
+        the chunk-relative columns of each group in column order."""
+        slab_base, slabs, xgrp, qgrp, lst = [], [], [], [], []
+        for (_b, _d3, _V, _wofs, fan_in, col_ofs, _q, _nq) in self.grp:
+            slab_base.append(len(slabs))
+            for c0 in range(0, fan_in, BWD_SLAB_COLS):
+                by_x, by_q = {}, {}
+                for c in range(c0, min(c0 + BWD_SLAB_COLS, fan_in)):
+                    qb, d1, xb, _wc = (int(v) for v in self.cols[col_ofs + c])
+                    by_x.setdefault((xb, d1), []).append(c)
+                    by_q.setdefault((qb, d1), []).append(c)
+                slabs.append((len(xgrp), len(by_x), len(qgrp), len(by_q)))
+                for groups, out in ((by_x, xgrp), (by_q, qgrp)):
+                    for (start, d1), cl in groups.items():
+                        out.append((start, d1, len(lst), len(cl)))
+                        lst.extend(cl)
+        self.slab_base = np.asarray(slab_base, np.int32)
+        self.slabs = np.asarray(slabs, np.int32).reshape(-1, 4)
+        self.xgrp = np.asarray(xgrp, np.int32).reshape(-1, 4)
+        self.qgrp = np.asarray(qgrp, np.int32).reshape(-1, 4)
+        self.lst = np.asarray(lst, np.int32)
+
     def tables(self, device):
+        """The index tables as tensors on ``device``, made outside inference
+        mode (``build_wcat`` also runs under autograd)."""
         key = str(device)
         if key not in self._device_tables:
             def t(a, dt):
                 return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                        device=device)
-            self._device_tables[key] = dict(
-                grp=t(self.grp, torch.int32),
-                cols=t(self.cols, torch.int32),
-                qtab=t(self.qtab, torch.int32),
-                coef=t(self.coef if len(self.coef) else np.zeros(1), torch.float32),
-                wcat_idx=t(self.wcat_idx, torch.long),
-                wcat_scale=t(self.wcat_scale, torch.float32))
+            with torch.inference_mode(False):
+                self._device_tables[key] = dict(
+                    grp=t(self.grp, torch.int32),
+                    cols=t(self.cols, torch.int32),
+                    qtab=t(self.qtab, torch.int32),
+                    coef=t(self.coef if len(self.coef) else np.zeros(1), torch.float32),
+                    wcat_idx=t(self.wcat_idx, torch.long),
+                    wcat_scale=t(self.wcat_scale, torch.float32),
+                    **{name: t(arr if arr.size else np.zeros(1), torch.int32)
+                       for name, arr in (("slab_base", self.slab_base),
+                                         ("slabs", self.slabs), ("xgrp", self.xgrp),
+                                         ("qgrp", self.qgrp), ("lst", self.lst))})
         return self._device_tables[key]
 
     def build_wcat(self, flat_w):
@@ -259,12 +311,41 @@ class KernelSpec:
                      + self.d_out) + len(self.wcat_idx)
         return flops * E, 4 * words
 
-    def bound_ms(self, E: int, has_w: bool) -> tuple:
-        """Least time on an H100 for E edges, and which side bounds it."""
-        flops, nbytes = self.work(E, has_w)
+    def work_bwd(self, E: int, has_w: bool, need_dsh: bool = False):
+        """(FLOPs, bytes) of the backward for E edges: the mids recomputed
+        as in ``work``, the dBLK and dWcat products, dw, the dmid scale, the
+        dx FMAs and, with ``need_dsh``, dW and the coupling transpose; x, sh,
+        w, gout and Wcat read once, dx, dw, d(flat_w) (and dsh) written once."""
+        plan = self.plan
+        flops = 0
+        for (sl, mul, d1, C, groups) in plan.per_chunk:
+            nnz, K = int(np.count_nonzero(C)), C.shape[-1]
+            flops += 2 * nnz + 4 * d1 * K * mul
+            if has_w:
+                flops += 4 * K * mul
+            if need_dsh:
+                flops += 2 * nnz + 2 * d1 * K * mul
+        for k_out, mio in enumerate(plan.irreps_out):
+            fan_in, _ = plan.out_plans[k_out]
+            flops += 4 * mio.ir.dim * fan_in * mio.mul
+        words = E * (2 * self.d_in + self.S + (2 * self.n_ch if has_w else 0)
+                     + self.d_out + (self.S if need_dsh else 0)) \
+            + 2 * len(self.wcat_idx)
+        return flops * E, 4 * words
+
+    @staticmethod
+    def _bound(flops: int, nbytes: int) -> tuple:
         t_ops = flops / H100_FP32_FLOPS * 1e3
         t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+    def bound_ms(self, E: int, has_w: bool) -> tuple:
+        """Least time on an H100 for E edges, and which side bounds it."""
+        return self._bound(*self.work(E, has_w))
+
+    def bound_bwd_ms(self, E: int, has_w: bool, need_dsh: bool = False) -> tuple:
+        """Least time on an H100 for the backward of E edges."""
+        return self._bound(*self.work_bwd(E, has_w, need_dsh))
 
 
 @functools.lru_cache(maxsize=None)
@@ -330,25 +411,102 @@ def _launch(spec: KernelSpec, x, sh, w, flat_w):
     return out
 
 
-class _PackedTPForward(torch.autograd.Function):
-    """Forward kernel B1; its backward (B2) comes with the training slice."""
+def _launch_bwd(spec: KernelSpec, x, sh, w, flat_w, gout, need_dsh: bool):
+    E = x.shape[0]
+    dev = x.device
+    _check("x", x, (E, spec.d_in), dev)
+    _check("sh", sh, (E, spec.S), dev)
+    _check("gout", gout, (E, spec.d_out), dev)
+    if w is not None:
+        _check("w", w, (E, spec.n_ch), dev)
+    _check("flat_w", flat_w, (spec.plan.linear_numel,), dev)
+    zeros = functools.partial(torch.zeros, dtype=torch.float32, device=dev)
+    dx = zeros((E, spec.d_in))
+    dsh = zeros((E, spec.S)) if need_dsh else None
+    dw = zeros((E, spec.n_ch)) if w is not None else None
+    dflat = zeros((spec.plan.linear_numel,))
+    if E == 0 or len(spec.grp) == 0:
+        return dx, dsh, dw, dflat
+    lib = PACKED_TP_BWD.library()
+    if lib.packed_tp_bwd_slab_cols() != BWD_SLAB_COLS:
+        raise RuntimeError("packed_tp_bwd.cu and tp_kernel.py disagree on the slab width")
+    if spec.d1_max > lib.packed_tp_bwd_max_d1() or spec.v_max > 512:
+        raise ValueError(f"packed_tp_bwd takes d1 <= {lib.packed_tp_bwd_max_d1()} "
+                         f"and V <= 512; this plan needs {spec.d1_max}, {spec.v_max}")
+    smem = lib.packed_tp_bwd_smem_bytes(spec.S, spec.nq_all_max, spec.gmax,
+                                        spec.d3_max, spec.v_max, int(need_dsh))
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"packed_tp_bwd needs {smem} B of shared memory, "
+                         f"the card allows {limit}")
+    resident = lib.packed_tp_bwd_resident_blocks(smem)
+    if resident < 1:
+        raise RuntimeError(f"packed_tp_bwd: no block of {smem} B fits on the card")
+    # each block walks a contiguous range of edge tiles, so it alone writes
+    # its rows of dx/dw/dsh and its own partial row of dWcat
+    n_tiles = -(-E // lib.packed_tp_bwd_tile_edges())
+    per_block = -(-n_tiles // min(n_tiles, resident))
+    nblk = -(-n_tiles // per_block)
+    part = torch.empty((nblk, spec.plan.linear_numel), dtype=torch.float32, device=dev)
+    tb = spec.tables(dev)
+    wcat = spec.build_wcat(flat_w).contiguous()
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    PACKED_TP_BWD.launch(
+        x.data_ptr(), sh.data_ptr(), ptr(w), wcat.data_ptr(), gout.data_ptr(),
+        tb["coef"].data_ptr(), tb["grp"].data_ptr(), tb["cols"].data_ptr(),
+        tb["qtab"].data_ptr(), tb["slab_base"].data_ptr(), tb["slabs"].data_ptr(),
+        tb["xgrp"].data_ptr(), tb["qgrp"].data_ptr(), tb["lst"].data_ptr(),
+        tb["wcat_scale"].data_ptr(), tb["wcat_idx"].data_ptr(),
+        dx.data_ptr(), ptr(dsh), ptr(dw), part.data_ptr(), dflat.data_ptr(),
+        E, spec.d_in, spec.S, spec.n_ch, spec.d_out, len(spec.grp),
+        spec.plan.linear_numel, spec.nq_all_max, spec.gmax, spec.d3_max,
+        spec.v_max, nblk, per_block, 0 if w is None else 1, int(need_dsh), stream)
+    return dx, dsh, dw, dflat
+
+
+class PackedTP(torch.autograd.Function):
+    """The packed pipeline on the card: forward kernel B1, backward kernel
+    B2.  Saves only its inputs; B2 recomputes the mids."""
 
     @staticmethod
     def forward(ctx, x, sh, w, flat_w, spec):
+        ctx.spec = spec
+        ctx.save_for_backward(x, sh, w, flat_w)
         return _launch(spec, x, sh, w, flat_w)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
-        raise NotImplementedError("B2: training slice")
+        x, sh, w, flat_w = ctx.saved_tensors
+        dx, dsh, dw, dflat = _launch_bwd(ctx.spec, x, sh, w, flat_w,
+                                         gout.contiguous(), ctx.needs_input_grad[1])
+        return dx, dsh, dw, dflat, None
+
+
+def _device_kind(x, name):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    return x.device.type
 
 
 def packed_tp_forward(plan: PackedTPPlan, x, sh, w, flat_w):
     """The packed pipeline of ``plan``: x (E, d_in), sh (E, S), w (E, n_ch)
     in packed order or None, flat_w (linear_numel,) -> (E, d_out) float32.
 
-    CPU tensors take ``plain_apply``; CUDA tensors launch the kernel."""
-    if x.device.type == "cpu":
+    CPU tensors take ``plain_apply``; CUDA tensors launch the kernels (B1
+    forward, B2 in the backward)."""
+    if _device_kind(x, "packed_tp_forward") == "cpu":
         return plain_apply(plan, x, sh, w, flat_w)
-    if x.device.type != "cuda":
-        raise ValueError(f"packed_tp_forward runs on cpu or cuda, not {x.device}")
-    return _PackedTPForward.apply(x, sh, w, flat_w, get_spec(plan))
+    return PackedTP.apply(x, sh, w, flat_w, get_spec(plan))
+
+
+def packed_tp_backward(plan: PackedTPPlan, x, sh, w, flat_w, gout,
+                       need_dsh: bool = False):
+    """Backward of the pipeline for the output gradient ``gout`` (E, d_out):
+    (dx, dsh or None, dw or None, d(flat_w)).
+
+    CPU tensors take ``plain_backward``; CUDA tensors launch kernel B2."""
+    if _device_kind(x, "packed_tp_backward") == "cpu":
+        return plain_backward(plan, x, sh, w, flat_w, gout, need_dsh)
+    return _launch_bwd(get_spec(plan), x, sh, w, flat_w, gout.contiguous(), need_dsh)

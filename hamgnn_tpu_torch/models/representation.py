@@ -4,7 +4,10 @@
 one-hot / charge-doped embedding -> edge SH -> RBF x cutoff -> pair-interaction
 edge embedding -> chemical embedding -> num_layers x (ConvBlockE3 ->
 PairInteractionBlock).  Padded edges get edge length 1 so no 0-length vector
-reaches the radial basis.
+reaches the radial basis.  ``use_gradient_checkpointing`` recomputes each
+layer's ``ConvBlockE3.gathered_call``, ``PairInteractionBlock.lift`` and
+``PairInteractionBlock.gathered_call`` in the backward (the calls the JAX
+model wraps in ``flax.linen.remat``).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..data.graph import Graph
 from ..e3.irreps import Irreps
@@ -66,8 +70,10 @@ class HamGNNConvE3(nn.Module):
                  cutoff: float = 26.0, cutoff_func: str = "cos",
                  radial_mlp: Sequence[int] = (64, 64), lite_mode: bool = False,
                  apply_charge_doping: bool = False, num_charge_attr_feas: int = 8,
-                 legacy_edge_update: bool = False):
+                 legacy_edge_update: bool = False,
+                 use_gradient_checkpointing: bool = False):
         super().__init__()
+        self.use_gradient_checkpointing = use_gradient_checkpointing
         self.irreps_sh = Irreps(irreps_edge_sh)
         self.irreps_feat = Irreps(irreps_node_features)
         irreps_onehot = Irreps(f"{num_types}x0e")
@@ -120,13 +126,18 @@ class HamGNNConvE3(nn.Module):
 
         edge_feats = self.pair_embedding(onehot_src, onehot_dst, edge_sh, edge_scalars)
         node_feats = self.chemical_embedding(node_attrs)
+        remat = self.use_gradient_checkpointing and torch.is_grad_enabled()
+
+        def call(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
         for i in range(self.num_layers):
             conv = getattr(self, f"conv_{i}")
             pair = getattr(self, f"pair_{i}")
-            node_feats = conv.gathered_call(
-                node_feats, node_feats[src], node_feats[dst], edge_feats, edge_sh,
-                edge_scalars, dst, graph.edge_mask)
-            up_src, up_dst = pair.lift(node_feats)
-            edge_feats = pair.gathered_call(up_src[src], up_dst[dst], edge_feats,
-                                            edge_sh, edge_scalars)
+            node_feats = call(conv.gathered_call,
+                              node_feats, node_feats[src], node_feats[dst], edge_feats,
+                              edge_sh, edge_scalars, dst, graph.edge_mask)
+            up_src, up_dst = call(pair.lift, node_feats)
+            edge_feats = call(pair.gathered_call, up_src[src], up_dst[dst], edge_feats,
+                              edge_sh, edge_scalars)
         return {"node_attr": node_feats, "edge_attr": edge_feats}

@@ -1,0 +1,218 @@
+"""Training loop, counterpart of ``hamgnn_tpu/train/trainer.py``.
+
+One train step is a forward, the masked loss, a backward (through the packed
+TP kernels on the card) and the flat-vector amsgrad update of
+``train/optim.py``, with the JAX trainer's non-finite guard on the device.
+Host-side ``PlateauScheduler`` (torch ReduceLROnPlateau semantics: factor
+lr_decay, threshold 1e-6, cooldown patience // 2, min_lr 1e-6) and
+``EarlyStopping`` are the JAX classes.  ``fit`` writes ``metrics.jsonl``
+records with the JAX trainer's keys and keeps the best validation
+checkpoint as ``train_dir/best.pt`` (a ``torch.save`` of params, optimizer
+state and learning rate).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Any, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..models.model import HamGNNModel, compute_losses, compute_metrics
+from .optim import Amsgrad, flatten_parameters
+
+
+@dataclasses.dataclass
+class PlateauScheduler:
+    """ReduceLROnPlateau with cooldown, matching torch semantics."""
+
+    lr: float
+    factor: float = 0.5
+    patience: int = 5
+    threshold: float = 1e-6
+    cooldown: int = 2
+    min_lr: float = 1e-6
+
+    best: float = float("inf")
+    num_bad: int = 0
+    cooldown_counter: int = 0
+
+    def step(self, metric: float) -> float:
+        if metric < self.best - self.threshold:
+            self.best = metric
+            self.num_bad = 0
+        elif self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+            if self.num_bad > self.patience:
+                self.lr = max(self.lr * self.factor, self.min_lr)
+                self.cooldown_counter = self.cooldown
+                self.num_bad = 0
+        return self.lr
+
+
+@dataclasses.dataclass
+class EarlyStopping:
+    patience: int = 30
+    threshold: float = 0.0
+    best: float = float("inf")
+    num_bad: int = 0
+
+    def step(self, metric: float) -> bool:
+        if metric < self.best - self.threshold:
+            self.best = metric
+            self.num_bad = 0
+            return False
+        self.num_bad += 1
+        return self.num_bad > self.patience
+
+
+class Trainer:
+    """Single-device trainer.  The model's parameters become views of one
+    flat buffer on ``device`` (cuda unless the caller asks for the CPU)."""
+
+    def __init__(self, model: HamGNNModel, losses: List[Dict[str, Any]],
+                 metrics: List[Dict[str, Any]], lr: float = 0.01,
+                 lr_decay: float = 0.5, lr_patience: int = 5,
+                 gradient_clip_val: float = 0.0, stop_patience: int = 30,
+                 min_epochs: int = 100, max_epochs: int = 3000,
+                 train_dir: str = "./train_out", device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.losses = losses
+        self.metrics = metrics
+        self.sched = PlateauScheduler(lr=lr, factor=lr_decay, patience=lr_patience,
+                                      cooldown=lr_patience // 2)
+        self.stopper = EarlyStopping(patience=stop_patience)
+        self.min_epochs = min_epochs
+        self.max_epochs = max_epochs
+        self.train_dir = train_dir
+        self.flat, self.grad = flatten_parameters(self.model)
+        self.opt = Amsgrad(self.flat.numel(), self.device, gradient_clip_val)
+        self.nonfinite_steps = 0  # of the last train_epoch
+        os.makedirs(train_dir, exist_ok=True)
+        self._log_path = os.path.join(train_dir, "metrics.jsonl")
+
+    # --- steps -----------------------------------------------------------
+
+    def train_step(self, graph):
+        """One update on ``graph``; returns (loss, logs) as device scalars,
+        with ``logs["nonfinite_step"]`` 1.0 where the guard dropped it."""
+        self.model.train()
+        self.grad.zero_()
+        preds = self.model(graph)
+        total, logs = compute_losses(preds, graph, self.losses)
+        total.backward()
+        ok = self.opt.step(self.flat, self.grad, self.sched.lr, loss=total.detach())
+        logs = {k: v.detach() for k, v in logs.items()}
+        logs["nonfinite_step"] = 1.0 - ok.to(torch.float32)
+        return total.detach(), logs
+
+    # --- loops -----------------------------------------------------------
+
+    def train_epoch(self, batches: Iterable) -> float:
+        """Mean loss of the finite steps; one host sync per epoch."""
+        losses, bad = [], []
+        for g in batches:
+            loss, logs = self.train_step(g)
+            losses.append(loss)
+            bad.append(logs["nonfinite_step"])
+        if not losses:
+            self.nonfinite_steps = 0
+            return 0.0
+        vals, bad = torch.stack([torch.stack(losses), torch.stack(bad)]).double().cpu().numpy()
+        self.nonfinite_steps = int(bad.sum())
+        finite = np.isfinite(vals)
+        return float(vals[finite].mean()) if finite.any() else 0.0
+
+    def eval_epoch(self, batches: Iterable, collect: bool = False):
+        """(mean loss, mean logs and metrics[, [(graph, numpy predictions)]])."""
+        self.model.eval()
+        losses, aggs, preds_all = [], [], []
+        with torch.inference_mode():
+            for g in batches:
+                preds = self.model(g)
+                total, logs = compute_losses(preds, g, self.losses)
+                mets = compute_metrics(preds, g, self.metrics)
+                losses.append(total)
+                aggs.append({**logs, **mets})
+                if collect:
+                    preds_all.append((g, {k: v.cpu().numpy() for k, v in preds.items()}))
+        agg: Dict[str, float] = {}
+        if aggs:
+            keys = list(aggs[0])
+            host = torch.stack([torch.stack([d[k] for k in keys]) for d in aggs]).cpu()
+            for i, k in enumerate(keys):
+                agg[k] = float(host[:, i].double().mean())
+        loss = float(torch.stack(losses).double().mean().cpu()) if losses else 0.0
+        return (loss, agg, preds_all) if collect else (loss, agg)
+
+    def fit(self, data_module, max_epochs: Optional[int] = None,
+            checkpoint: bool = True) -> float:
+        max_epochs = max_epochs or self.max_epochs
+        rng = np.random.default_rng(666)
+        best_val = float("inf")
+        with open(self._log_path, "a") as log_f:
+            for epoch in range(max_epochs):
+                t0 = time.time()
+                train_loss = self.train_epoch(data_module.train_batches(rng))
+                val_loss, val_logs = self.eval_epoch(data_module.val_batches())
+                lr = self.sched.step(val_loss)
+                record = {
+                    "epoch": epoch,
+                    "train_loss": train_loss,
+                    "val_loss": val_loss,
+                    "lr": lr,
+                    "sec": time.time() - t0,
+                    **{f"val/{k}": v for k, v in val_logs.items()},
+                }
+                if self.nonfinite_steps:
+                    record["nonfinite_steps"] = self.nonfinite_steps
+                log_f.write(json.dumps(record) + "\n")
+                log_f.flush()
+                if val_loss < best_val:
+                    best_val = val_loss
+                    if checkpoint:
+                        self.save_checkpoint(os.path.join(self.train_dir, "best.pt"))
+                if epoch >= self.min_epochs and self.stopper.step(val_loss):
+                    break
+        return best_val
+
+    # --- checkpointing ---------------------------------------------------
+
+    def save_checkpoint(self, path: str) -> None:
+        torch.save({
+            "params": {n: p.detach().cpu() for n, p in self.model.named_parameters()},
+            "opt_state": {k: v.cpu() for k, v in self.opt.state_dict().items()},
+            "lr": float(self.sched.lr),
+        }, path)
+
+    def load_checkpoint(self, path: str) -> None:
+        ckpt = torch.load(path, map_location=self.device)
+        load_params(self.model, ckpt["params"])
+        self.opt.load_state_dict(ckpt["opt_state"])
+        self.sched.lr = float(ckpt["lr"])
+
+
+def load_params(model: torch.nn.Module, params: Dict[str, torch.Tensor]) -> None:
+    """Copy named tensors into ``model``'s parameters in place (the flat
+    views stay); raises on a missing or extra name or a shape mismatch."""
+    own = dict(model.named_parameters())
+    if set(own) != set(params):
+        raise KeyError(f"checkpoint parameters do not match the model: missing "
+                       f"{sorted(set(own) - set(params))[:5]}, extra "
+                       f"{sorted(set(params) - set(own))[:5]}")
+    with torch.no_grad():
+        for name, p in own.items():
+            src = params[name]
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: checkpoint shape {tuple(src.shape)}, "
+                                 f"model shape {tuple(p.shape)}")
+            p.copy_(src)

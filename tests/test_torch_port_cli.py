@@ -93,7 +93,7 @@ def test_cli_stage_test_predictions(case, tmp_path, ckpt):
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"setup": {"stage": "fit"}}, "training slice"),
+    ({"setup": {"stage": "fit", "parallel": {"mode": "dp"}}}, "training slice"),
     ({"setup": {"stage": "test", "GNN_Net": "HamGNNTransformer"}}, "Transformer"),
     ({"setup": {"stage": "test"}, "output_nets": {"HamGNN_out": {"soc_switch": True}}}, "SOC"),
 ])

@@ -1,4 +1,4 @@
-"""The packed-TP CUDA kernel against its plain PyTorch version, on the card.
+"""The packed-TP CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: skips where no GPU is present.  Imports no JAX, so it runs
 on a machine with only the port installed:
@@ -6,7 +6,8 @@ on a machine with only the port installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
 Tolerance: max|kernel - plain| <= 1e-4 * max|plain| in fp32 (only the
-summation order differs).
+summation order differs), per output of the forward (B1) and of the
+backward (B2: dx, dsh, dw, d(flat_w)); a repeat of B2 is bit-identical.
 """
 
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 
 from hamgnn_tpu_torch.e3 import tp_kernel
 from hamgnn_tpu_torch.e3.irreps import Irreps
-from hamgnn_tpu_torch.e3.packed_tp import get_plan, plain_apply
+from hamgnn_tpu_torch.e3.packed_tp import get_plan, plain_apply, plain_backward
 
 BENCH_FEAT = "64x0e+32x0o+24x1o+12x1e+12x2e+6x2o+4x3o+4x3e+2x4e"
 BENCH_SH = "0e + 1o + 2e + 3o + 4e"
@@ -44,3 +45,58 @@ def test_cuda_kernel_matches_plain(irreps_in, with_w):
     torch.cuda.synchronize()
     assert tp_kernel.PACKED_TP_FWD.launches == before + 1
     assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("irreps_in", BENCH_IN, ids=["pair", "node", "edge", "small"])
+@pytest.mark.parametrize("with_w", [True, False])
+def test_cuda_backward_matches_plain(irreps_in, with_w):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f = repr(Irreps(BENCH_FEAT))
+    plan = get_plan(repr(Irreps(irreps_in)), repr(Irreps(BENCH_SH)), f, f)
+    rng = np.random.default_rng(6)
+    E = 333
+    x, sh, w, fw, gy = (torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                                        device="cuda")
+                        for shape in ((E, plan.irreps_in.dim), (E, plan.irreps_sh.dim),
+                                      (E, plan.weight_numel), (plan.linear_numel,),
+                                      (E, plan.irreps_out.dim)))
+    w = w if with_w else None
+    before = tp_kernel.PACKED_TP_BWD.launches
+    got = tp_kernel.packed_tp_backward(plan, x, sh, w, fw, gy, need_dsh=True)
+    again = tp_kernel.packed_tp_backward(plan, x, sh, w, fw, gy, need_dsh=True)
+    ref = plain_backward(plan, x, sh, w, fw, gy, need_dsh=True)
+    torch.cuda.synchronize()
+    assert tp_kernel.PACKED_TP_BWD.launches == before + 2
+    for name, a, b, c in zip(("dx", "dsh", "dw", "dflat_w"), got, again, ref):
+        if c is None:
+            assert a is None and b is None
+            continue
+        assert torch.equal(a, b), name
+        assert float((a - c).abs().max()) <= 1e-4 * float(c.abs().max()), name
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_runs_both_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f = repr(Irreps(BENCH_FEAT))
+    plan = get_plan(repr(Irreps(BENCH_IN[3])), repr(Irreps(BENCH_SH)), f, f)
+    rng = np.random.default_rng(7)
+    E = 100
+    x, sh, w, fw = (torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
+                    for shape in ((E, plan.irreps_in.dim), (E, plan.irreps_sh.dim),
+                                  (E, plan.weight_numel), (plan.linear_numel,)))
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    fw.requires_grad_(True)
+    counts = (tp_kernel.PACKED_TP_FWD.launches, tp_kernel.PACKED_TP_BWD.launches)
+    out = plan(x, sh, w, fw)
+    got = torch.autograd.grad(out.square().sum(), (x, w, fw))
+    torch.cuda.synchronize()
+    assert (tp_kernel.PACKED_TP_FWD.launches, tp_kernel.PACKED_TP_BWD.launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    ref = plain_backward(plan, x, sh, w, fw, 2 * out.detach())
+    for a, b in zip(got, (ref[0], ref[2], ref[3])):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

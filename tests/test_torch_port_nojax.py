@@ -2,8 +2,9 @@
 
 In a subprocess where ``jax``, ``flax``, ``optax``, ``orbax`` and
 ``hamgnn_tpu`` cannot be imported, every module of ``hamgnn_tpu_torch``
-imports and ``python -m hamgnn_tpu_torch.cli`` runs a ``stage: test`` config
-on the CPU.  ``chip_smoke.py`` must fail, printing no result, where no GPU is
+imports (the trainer and optimizer included) and ``python -m
+hamgnn_tpu_torch.cli`` runs a ``stage: fit`` config and then a ``stage:
+test`` config from its ``best.pt`` on the CPU.  ``chip_smoke.py`` must fail, printing no result, where no GPU is
 available.
 """
 
@@ -39,21 +40,28 @@ work = {work!r}
 rng = np.random.default_rng(0)
 save_graph_npz(work + "/graph_data.npz",
                [add_random_hamiltonian_targets(rng, make_crystal(rng, n_atoms=4, cutoff=4.0))
-                for _ in range(2)])
+                for _ in range(3)])
 cfg = {{
-    "setup": {{"stage": "test", "checkpoint_path": work + "/none.pt"}},
-    "dataset_params": {{"graph_data_path": work, "batch_size": 1}},
-    "profiler_params": {{"train_dir": work + "/out"}},
+    "setup": {{"stage": "fit"}},
+    "dataset_params": {{"graph_data_path": work, "batch_size": 1, "train_ratio": 1 / 3,
+                        "val_ratio": 1 / 3, "test_ratio": 1 / 3}},
+    "optim_params": {{"min_epochs": 0, "max_epochs": 1}},
+    "profiler_params": {{"train_dir": work + "/fit"}},
     "representation_nets": {{"HamGNN_pre": {{
         "irreps_node_features": "4x0e+2x1o", "irreps_edge_sh": "0e+1o+2e",
         "num_layers": 1, "num_radial": 4, "cutoff": 4.0, "radial_MLP": [4],
         "num_types": 16}}}},
     "output_nets": {{"HamGNN_out": {{"nao_max": 14}}}},
 }}
-with open(work + "/config.yaml", "w") as f:
-    yaml.safe_dump(cfg, f)
-sys.argv = ["hamgnn_tpu_torch.cli", "--config", work + "/config.yaml", "--device", "cpu"]
-runpy.run_module("hamgnn_tpu_torch.cli", run_name="__main__")
+for stage in ("fit", "test"):
+    if stage == "test":
+        cfg["setup"] = {{"stage": "test", "checkpoint_path": work + "/fit/best.pt"}}
+        cfg["profiler_params"] = {{"train_dir": work + "/out"}}
+    with open(work + "/config.yaml", "w") as f:
+        yaml.safe_dump(cfg, f)
+    sys.argv = ["hamgnn_tpu_torch.cli", "--config", work + "/config.yaml", "--device", "cpu"]
+    runpy.run_module("hamgnn_tpu_torch.cli", run_name="__main__")
+assert open(work + "/fit/metrics.jsonl").read().count("train_loss") == 1
 assert not any(sys.modules.get(b) for b in {blocked!r})
 pred = np.load(work + "/out/prediction_hamiltonian.npy")
 print("MODULES", len(mods), "PRED", pred.shape, bool(np.isfinite(pred).all()))
