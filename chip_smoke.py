@@ -8,30 +8,45 @@ Phases (any failure exits non-zero, before the result lines are printed):
      per source, all started together) and print the card's name and power
      limit as nvidia-smi reports them;
   2. hold each kernel against its plain PyTorch version at the shapes the
-     main path gives it (bench widths, E = 19,968 padded edges), with
+     main paths give it (bench widths, E = 19,968 padded edges), with
      max|kernel - plain| <= 1e-4 * max|plain| in fp32 (only the summation
-     order differs), and time both with CUDA events: the forward kernel
-     (B1) against ``plain_apply``; the backward kernel (B2) against
+     order differs), and time both with CUDA events: the lab-frame forward
+     kernel (B1) against ``plain_apply``; its backward (B2) against
      ``plain_backward`` (dx, dw, d(flat_w) at the pair, node and edge plans,
-     dsh at the pair plan), and a second launch bit-identical to the first;
-  3. drive the prediction path: one ``HamGNNModel`` forward at the
-     ``bench.py`` width on the ``bench.py`` 512-atom crystal, random weights
-     from a seeded ``torch.Generator``; B1 must launch 13 times at 3 layers,
-     the outputs must be finite and agree with the same model run through
-     the plain version, within the tolerance of phase 2; the forward is
-     timed, and a torch.profiler pass writes device time by kernel per
-     forward to chiprun_out/profile_forward.txt;
-  4. drive the training path (the ``bench.py`` step: masked MAE x 27.211 on
-     ``hamiltonian``, amsgrad at lr 1e-3, no gradient checkpointing) through
-     ``train.trainer.Trainer``: one step must launch B1 and B2 13 times each;
-     the parameter gradients must agree with the same model's through the
-     plain TP, per tensor within 1e-3 * max|ref|; 5 steps are timed
+     dsh at the pair plan); the edge-frame forward kernel (B3) against
+     ``plain_zonal_core`` and its backward (B4) against
+     ``plain_zonal_core_backward`` (dx_rot, dw, d(flat_w)) at the pair,
+     pair_lite (no radial weights), node and edge plans, on x rotated into
+     the frames of directions that include +z, -z and near -z; a second
+     launch of B2 and of B4 bit-identical to the first; and the whole zonal
+     engine (rotation, B3, rotation back) against ``plain_apply`` at the node
+     plan within 2e-5 * max|ref| (engine against engine: the rounding of two
+     rotations besides the summation order), with the rotations timed alone;
+  3. drive the prediction path under both engines: one ``HamGNNModel``
+     forward at the ``bench.py`` width on the ``bench.py`` 512-atom crystal,
+     random weights from a seeded ``torch.Generator``.  With
+     ``HAMGNN_TP_ENGINE`` unset B1 must launch 13 times at 3 layers and no
+     other kernel; with ``zonal`` B3 13 times and no other, the Wigner-D
+     matrices built once.  The outputs must be finite, the default engine's
+     agree with the same model run through the plain version within the
+     tolerance of phase 2, and the zonal engine's with the default engine's
+     within the engine limit; the forwards are timed in turns, and a
+     torch.profiler pass writes device time by kernel per forward to
+     chiprun_out/profile_forward.txt and profile_forward_zonal.txt;
+  4. drive the training path under both engines (the ``bench.py`` step:
+     masked MAE x 27.211 on ``hamiltonian``, amsgrad at lr 1e-3, no gradient
+     checkpointing) through ``train.trainer.Trainer``: one step must launch
+     B1 and B2 (default) or B3 and B4 (``zonal``) 13 times each and no other
+     kernel; the parameter gradients must agree with the same model's through
+     the plain TP, per tensor within 1e-3 * max|ref|; 5 steps are timed
      (edges/s, median) and a torch.profiler pass writes device time by
-     kernel per step to chiprun_out/profile_train_step.txt;
-  5. run the CLI end to end: ``stage: test`` on a few small crystals
-     (``prediction_hamiltonian.npy`` / ``target_hamiltonian.npy``), then
-     ``stage: fit`` for two epochs (``metrics.jsonl``, ``best.pt``,
-     predictions) and ``stage: test`` from its ``best.pt``;
+     kernel per step to chiprun_out/profile_train_step.txt and
+     profile_train_step_zonal.txt;
+  5. run the CLI end to end under both engines: ``stage: test`` on a few
+     small crystals (``prediction_hamiltonian.npy`` /
+     ``target_hamiltonian.npy``), then ``stage: fit`` for two epochs
+     (``metrics.jsonl``, ``best.pt``, predictions) and ``stage: test`` from
+     its ``best.pt``;
   6. print one JSON line describing each kernel, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
@@ -42,17 +57,19 @@ under ``build/`` in the checkout, and exits non-zero without a result when
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
-from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 TOL = 1e-4        # max|kernel - plain| <= TOL * max|plain|, fp32
+ENGINE_TOL = 2e-5  # zonal engine vs lab-frame engine: two rotations' rounding too
 GRAD_TOL = 1e-3   # model gradients, kernel path vs plain-TP path, per tensor
 E_BENCH = 19_968  # bench.py crystal: 19,672 edges padded to a multiple of 512
 BENCH_CFG = {
@@ -71,7 +88,43 @@ KERNEL_SOURCES = {
                       "hamgnn_tpu/e3/pallas_tp.py:582"),
     "packed_tp_bwd": ("hamgnn_tpu_torch/csrc/packed_tp_bwd.cu",
                       "hamgnn_tpu/e3/pallas_tp.py:637"),
+    "zonal_tp_fwd": ("hamgnn_tpu_torch/csrc/zonal_tp_fwd.cu",
+                     "hamgnn_tpu/e3/pallas_zonal.py:295"),
+    "zonal_tp_bwd": ("hamgnn_tpu_torch/csrc/zonal_tp_bwd.cu",
+                     "hamgnn_tpu/e3/pallas_zonal.py:336"),
 }
+# value of HAMGNN_TP_ENGINE -> its forward and backward kernel
+ENGINES = {"auto": ("packed_tp_fwd", "packed_tp_bwd"),
+           "zonal": ("zonal_tp_fwd", "zonal_tp_bwd")}
+
+
+@contextlib.contextmanager
+def engine(name: str):
+    """Run the body under ``HAMGNN_TP_ENGINE=name`` (``auto``: unset)."""
+    old = os.environ.pop("HAMGNN_TP_ENGINE", None)
+    if name != "auto":
+        os.environ["HAMGNN_TP_ENGINE"] = name
+    try:
+        yield
+    finally:
+        os.environ.pop("HAMGNN_TP_ENGINE", None)
+        if old is not None:
+            os.environ["HAMGNN_TP_ENGINE"] = old
+
+
+def reset_launches(tp_kernel):
+    for k in tp_kernel.KERNELS.values():
+        k.launches = 0
+
+
+def check_launches(tp_kernel, expect: dict, what: str) -> dict:
+    """The counts of every kernel; fails unless each equals ``expect`` (0
+    where a kernel is not named)."""
+    launches = {n: k.launches for n, k in tp_kernel.KERNELS.items()}
+    for n, c in launches.items():
+        if c != expect.get(n, 0):
+            fail(f"kernel {n}: {c} launches in {what}, expected {expect.get(n, 0)}")
+    return launches
 
 
 def fail(msg: str):
@@ -234,12 +287,172 @@ def phase_bwd_kernels(tp_kernel, dev):
     return rows
 
 
+def zonal_inputs(plan, has_w, seed, dev, with_gout=False):
+    """Seeded inputs of the zonal kernels at E_BENCH edges: x rotated into
+    the frames of random directions that include +z, -z and near -z."""
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch.e3 import zonal_tp
+    from hamgnn_tpu_torch.e3.spherical import spherical_harmonics
+
+    rng = np.random.default_rng(seed)
+    E = E_BENCH
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev)
+
+    vec = rng.normal(size=(E, 3)).astype(np.float32)
+    vec[:3] = [[0, 0, 1], [0, 0, -1], [1e-7, -1e-7, -1]]
+    ls = [ir.l for _, ir in plan.irreps_sh]
+    x = t(E, plan.irreps_in.dim)
+    with torch.no_grad():
+        sh = spherical_harmonics(ls, torch.as_tensor(vec, device=dev), normalize=True)
+        Ds = zonal_tp.edge_frames(zonal_tp.get_zonal_spec(plan), sh)
+        x_rot = zonal_tp.rotate_in(plan, x, Ds).contiguous()
+    w = t(E, plan.weight_numel) if has_w else None
+    fw = t(plan.linear_numel)
+    gy = t(E, plan.irreps_out.dim) if with_gout else None
+    return x, sh, x_rot, w, fw, gy
+
+
+def phase_zonal_kernels(dev):
+    """B3 against ``plain_zonal_core`` at the bench plans, CUDA-event times
+    and bounds."""
+    import torch
+
+    from hamgnn_tpu_torch.e3 import zonal_kernel, zonal_tp
+
+    rows = []
+    for name, plan, has_w, per_fwd in bench_plans():
+        spec = zonal_kernel.get_zonal_kernel_spec(plan)
+        E = E_BENCH
+        _x, _sh, x_rot, w, fw, _gy = zonal_inputs(plan, has_w, 17, dev)
+        with torch.inference_mode():
+            ref = zonal_tp.plain_zonal_core(plan, x_rot, w, fw)
+            out = zonal_kernel.zonal_core_forward(plan, x_rot, w, fw)
+            torch.cuda.synchronize()
+            err, scale = rel_err(out, ref)
+            if not math.isfinite(err) or err > TOL * scale:
+                fail(f"zonal_tp_fwd[{name}]: max|d| {err:.3e} > {TOL} * {scale:.3e}")
+            ms = cuda_time_ms(lambda: zonal_kernel.zonal_core_forward(plan, x_rot, w, fw), 20)
+            plain_ms = cuda_time_ms(lambda: zonal_tp.plain_zonal_core(plan, x_rot, w, fw), 5)
+        bound, bound_by = spec.bound_ms(E, has_w)
+        flops, nbytes = spec.work(E, has_w)
+        rows.append(dict(plan=name, E=E, has_w=has_w, launches_per_forward=per_fwd,
+                         max_abs_err=err, max_abs_ref=scale, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=bound_by, gflop=flops / 1e9,
+                         mbytes=nbytes / 1e6,
+                         achieved_tflops=flops / (ms * 1e-3) / 1e12,
+                         achieved_gbytes_per_s=nbytes / (ms * 1e-3) / 1e9))
+        print(f"[kernel] zonal_tp_fwd  {name:9s} E={E} max|d|={err:.3e} "
+              f"(max|ref| {scale:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"bound {bound:.4f} ms ({bound_by})", flush=True)
+        del x_rot, w, fw, ref, out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_zonal_bwd_kernels(dev):
+    """B4 against ``plain_zonal_core_backward`` at the bench plans, a repeat
+    bit-identical, CUDA-event times and bounds."""
+    import torch
+
+    from hamgnn_tpu_torch.e3 import zonal_kernel, zonal_tp
+
+    rows = []
+    for name, plan, has_w, per_step in bench_plans():
+        spec = zonal_kernel.get_zonal_kernel_spec(plan)
+        E = E_BENCH
+        _x, _sh, x_rot, w, fw, gy = zonal_inputs(plan, has_w, 18, dev, with_gout=True)
+        args = (plan, x_rot, w, fw, gy)
+        got = zonal_kernel.zonal_core_backward(*args)
+        again = zonal_kernel.zonal_core_backward(*args)
+        ref = zonal_tp.plain_zonal_core_backward(*args)
+        torch.cuda.synchronize()
+        errs = {}
+        for key, a, b, c in zip(("dx_rot", "dw", "dflat_w"), got, again, ref):
+            if c is None:
+                if a is not None:
+                    fail(f"zonal_tp_bwd[{name}]: {key} returned where none was asked")
+                continue
+            if not torch.equal(a, b):
+                fail(f"zonal_tp_bwd[{name}]: {key} differs between two launches")
+            err, scale = rel_err(a, c)
+            if not math.isfinite(err) or err > TOL * scale:
+                fail(f"zonal_tp_bwd[{name}] {key}: max|d| {err:.3e} > {TOL} * {scale:.3e}")
+            errs[key] = (err, scale)
+        del got, again, ref
+        ms = cuda_time_ms(lambda: zonal_kernel.zonal_core_backward(*args), 10)
+        plain_ms = cuda_time_ms(lambda: zonal_tp.plain_zonal_core_backward(*args), 3)
+        bound, bound_by = spec.bound_bwd_ms(E, has_w)
+        flops, nbytes = spec.work_bwd(E, has_w)
+        rows.append(dict(plan=name, E=E, has_w=has_w, launches_per_step=per_step,
+                         max_abs_err=max(e for e, _ in errs.values()),
+                         errors={k: list(v) for k, v in errs.items()},
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                         gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                         achieved_tflops=flops / (ms * 1e-3) / 1e12,
+                         achieved_gbytes_per_s=nbytes / (ms * 1e-3) / 1e9))
+        print(f"[kernel] zonal_tp_bwd  {name:9s} E={E} "
+              + ", ".join(f"{k} max|d|={e:.3e} (max|ref| {s_:.3e})" for k, (e, s_) in errs.items())
+              + f"; bit-identical repeat; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"bound {bound:.4f} ms ({bound_by})", flush=True)
+        del x_rot, w, fw, gy, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_zonal_engine(tp_kernel, dev):
+    """The whole zonal engine (frames, rotation in, B3, rotation back)
+    against ``plain_apply`` at the node plan, and the time of its parts that
+    are not the kernel: the Wigner-D build and the two rotations."""
+    import torch
+
+    from hamgnn_tpu_torch.e3 import zonal_kernel, zonal_tp
+    from hamgnn_tpu_torch.e3.packed_tp import plain_apply
+
+    name, plan, has_w, _n = next(p for p in bench_plans() if p[0] == "node")
+    zspec = zonal_tp.get_zonal_spec(plan)
+    x, sh, x_rot, w, fw, _gy = zonal_inputs(plan, has_w, 19, dev)
+    with torch.inference_mode():
+        reset_launches(tp_kernel)
+        out = zonal_kernel.zonal_forward(plan, x, sh, w, fw)
+        torch.cuda.synchronize()
+        check_launches(tp_kernel, {"zonal_tp_fwd": 1}, "one zonal_forward")
+        ref = plain_apply(plan, x, sh, w, fw)
+        err, scale = rel_err(out, ref)
+        if not math.isfinite(err) or err > ENGINE_TOL * scale:
+            fail(f"zonal_forward[{name}] vs plain_apply: max|d| {err:.3e} > "
+                 f"{ENGINE_TOL} * {scale:.3e}")
+        Ds = zonal_tp.edge_frames(zspec, sh)
+        out_rot = zonal_kernel.zonal_core_forward(plan, x_rot, w, fw)
+        engine_ms = cuda_time_ms(lambda: zonal_kernel.zonal_forward(plan, x, sh, w, fw), 10)
+        rot_in_ms = cuda_time_ms(lambda: zonal_tp.rotate_in(plan, x, Ds).contiguous(), 10)
+        rot_out_ms = cuda_time_ms(lambda: zonal_tp.rotate_out(plan, out_rot, Ds), 10)
+
+        def frames():
+            zonal_tp.FRAME_MEMO.clear()
+            zonal_tp.edge_frames(zspec, sh)
+
+        frames_ms = cuda_time_ms(frames, 10)
+    print(f"[engine] zonal_forward {name} E={E_BENCH} vs plain_apply max|d|={err:.3e} "
+          f"(max|ref| {scale:.3e}, limit {ENGINE_TOL}); engine {engine_ms:.4f} ms per call "
+          f"with the frames from the memo; rotation in {rot_in_ms:.4f} ms, rotation back "
+          f"{rot_out_ms:.4f} ms, Wigner-D build (l <= {zspec.max_l_feat}) {frames_ms:.4f} ms",
+          flush=True)
+    zonal_tp.FRAME_MEMO.clear()
+    torch.cuda.empty_cache()
+    return dict(plan=name, max_abs_err=err, max_abs_ref=scale, engine_ms=engine_ms,
+                rotate_in_ms=rot_in_ms, rotate_out_ms=rot_out_ms, frames_ms=frames_ms)
+
+
 def phase_model(tp_kernel, dev, card):
     import numpy as np
     import torch
 
     from hamgnn_tpu_torch.cli import build_model
-    from hamgnn_tpu_torch.e3.packed_tp import plain_apply
+    from hamgnn_tpu_torch.e3 import zonal_tp
     from hamgnn_tpu_torch.models.model import init_weights
     from hamgnn_tpu_torch.train.config import load_config
 
@@ -247,57 +460,77 @@ def phase_model(tp_kernel, dev, card):
     model = build_model(load_config(None, overrides=BENCH_CFG))
     init_weights(model, 0).to(dev).eval()
     layers = BENCH_CFG["representation_nets"]["HamGNN_pre"]["num_layers"]
-    expect = {"packed_tp_fwd": 4 * layers + 1}
+    keys = ("hamiltonian_on", "hamiltonian_off")
 
+    outs, launches, builds = {}, {}, {}
     with torch.inference_mode():
-        for k in tp_kernel.KERNELS.values():
-            k.launches = 0
-        out = model(graph)
-        torch.cuda.synchronize()
-        launches = {n: k.launches for n, k in tp_kernel.KERNELS.items()}
-        # the prediction path runs the forward kernel only
-        for n, c in launches.items():
-            if c != expect.get(n, 0):
-                fail(f"kernel {n}: {c} launches in one forward, expected {expect.get(n, 0)}")
-        for key in ("hamiltonian_on", "hamiltonian_off"):
-            if not bool(torch.isfinite(out[key]).all()):
-                fail(f"{key} is not finite")
-        if tuple(out["hamiltonian_on"].shape) != (512, 361) or \
-                tuple(out["hamiltonian_off"].shape) != (graph.num_edges, 361):
-            fail(f"unexpected output shapes {out['hamiltonian_on'].shape}, "
-                 f"{out['hamiltonian_off'].shape}")
+        for eng, (fwd, _bwd) in ENGINES.items():
+            with engine(eng):
+                reset_launches(tp_kernel)
+                zonal_tp.FRAME_MEMO.clear()
+                builds0 = zonal_tp.FRAME_MEMO.builds
+                out = model(graph)
+                torch.cuda.synchronize()
+                # the prediction path runs its engine's forward kernel only
+                launches[eng] = check_launches(tp_kernel, {fwd: 4 * layers + 1},
+                                               f"one forward ({eng})")
+                builds[eng] = zonal_tp.FRAME_MEMO.builds - builds0
+            for key in keys:
+                if not bool(torch.isfinite(out[key]).all()):
+                    fail(f"{key} is not finite ({eng})")
+            if tuple(out["hamiltonian_on"].shape) != (512, 361) or \
+                    tuple(out["hamiltonian_off"].shape) != (graph.num_edges, 361):
+                fail(f"unexpected output shapes {out['hamiltonian_on'].shape}, "
+                     f"{out['hamiltonian_off'].shape} ({eng})")
+            outs[eng] = out
+        if builds != {"auto": 0, "zonal": 1}:
+            fail(f"Wigner-D builds per forward {builds}, expected none (auto), one (zonal)")
 
-        # the same model with the plain TP in place of the kernel
-        def plain(plan, x, sh, w, flat_w):
-            return plain_apply(plan, x, sh, w, flat_w)
-
-        with mock.patch.object(tp_kernel, "packed_tp_forward", plain):
+        # the same model with the plain TP in place of the kernels
+        with engine("xla"):
             ref = model(graph)
             torch.cuda.synchronize()
             plain_fwd_ms = 1e3 * min(_host_time(lambda: model(graph)) for _ in range(2))
         errs = {}
-        for key in ("hamiltonian_on", "hamiltonian_off"):
-            err, scale = rel_err(out[key], ref[key])
-            errs[key] = (err, scale)
-            if not math.isfinite(err) or err > TOL * scale:
-                fail(f"model {key}: kernel vs plain max|d| {err:.3e} > {TOL} * {scale:.3e}")
+        for eng, base, limit in (("auto", ref, TOL), ("zonal", outs["auto"], ENGINE_TOL)):
+            for key in keys:
+                err, scale = rel_err(outs[eng][key], base[key])
+                errs[f"{eng}:{key}"] = (err, scale)
+                if not math.isfinite(err) or err > limit * scale:
+                    fail(f"model {key} ({eng}): max|d| {err:.3e} > {limit} * {scale:.3e}")
 
-        model(graph)
-        times = [_host_time(lambda: model(graph)) for _ in range(5)]
-    fwd_ms = 1e3 * float(np.median(times))
-    device_ms = profile_forward(model, graph)
+        # timed in turns, so that both engines see the same host
+        times = {eng: [] for eng in ENGINES}
+        for eng in ENGINES:
+            with engine(eng):
+                model(graph)
+        for _ in range(5):
+            for eng in ENGINES:
+                with engine(eng):
+                    times[eng].append(_host_time(lambda: model(graph)))
+    result = {}
+    for eng in ENGINES:
+        fwd_ms = 1e3 * float(np.median(times[eng]))
+        with engine(eng):
+            device_ms = profile_forward(
+                model, graph, "profile_forward.txt" if eng == "auto"
+                else f"profile_forward_{eng}.txt")
+        print(f"[model] engine {eng}: forward {fwd_ms:.3f} ms (median of 5: "
+              + ", ".join(f"{1e3 * t:.3f}" for t in times[eng])
+              + f") = {n_edges / (fwd_ms * 1e-3):.1f} edges/s ({n_edges} edges, "
+              f"{graph.num_edges} padded), launches {launches[eng]}, Wigner-D builds "
+              f"{builds[eng]}, card {card}", flush=True)
+        result[eng] = dict(forward_ms=fwd_ms, forward_times_ms=[1e3 * t for t in times[eng]],
+                           edges_per_s=n_edges / (fwd_ms * 1e-3), launches=launches[eng],
+                           wigner_builds=builds[eng], device_ms_by_kernel=device_ms)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    print(f"[model] forward {fwd_ms:.3f} ms (median of 5) = "
-          f"{n_edges / (fwd_ms * 1e-3):.1f} edges/s ({n_edges} edges, "
-          f"{graph.num_edges} padded), plain-TP forward {plain_fwd_ms:.3f} ms, "
-          f"launches {launches}, kernel vs plain max|d| "
+    print(f"[model] plain-TP forward {plain_fwd_ms:.3f} ms; max|d| "
           + ", ".join(f"{k} {e:.3e} of {s:.3e}" for k, (e, s) in errs.items())
-          + f", peak memory {peak_gb:.2f} GB, card {card}", flush=True)
-    return dict(forward_ms=fwd_ms, edges_per_s=n_edges / (fwd_ms * 1e-3),
-                n_edges=n_edges, padded_edges=graph.num_edges,
-                plain_forward_ms=plain_fwd_ms, launches=launches,
-                errors={k: list(v) for k, v in errs.items()}, peak_gb=peak_gb,
-                device_ms_by_kernel=device_ms)
+          + f" (auto vs plain TP, limit {TOL}; zonal vs auto, limit {ENGINE_TOL}); "
+          f"peak memory {peak_gb:.2f} GB", flush=True)
+    return dict(engines=result, n_edges=n_edges, padded_edges=graph.num_edges,
+                plain_forward_ms=plain_fwd_ms,
+                errors={k: list(v) for k, v in errs.items()}, peak_gb=peak_gb)
 
 
 def bench_graph(dev):
@@ -311,13 +544,13 @@ def bench_graph(dev):
     return graph, n_edges
 
 
-def phase_train(tp_kernel, dev, card):
-    """The bench.py train step through the port's Trainer."""
+def phase_train(tp_kernel, dev, card, eng):
+    """The bench.py train step through the port's Trainer, under engine
+    ``eng``."""
     import numpy as np
     import torch
 
     from hamgnn_tpu_torch.cli import build_model
-    from hamgnn_tpu_torch.e3.packed_tp import plain_apply
     from hamgnn_tpu_torch.models.model import compute_losses, init_weights
     from hamgnn_tpu_torch.train.config import load_config
     from hamgnn_tpu_torch.train.trainer import Trainer
@@ -328,21 +561,9 @@ def phase_train(tp_kernel, dev, card):
         fail("the bench training phase runs without gradient checkpointing")
     WORK.mkdir(parents=True, exist_ok=True)
     tr = Trainer(model, losses=BENCH_LOSSES, metrics=[], lr=1e-3,
-                 train_dir=str(WORK / "train"), device=dev)
+                 train_dir=str(WORK / f"train_{eng}"), device=dev)
     layers = BENCH_CFG["representation_nets"]["HamGNN_pre"]["num_layers"]
-    expect = {"packed_tp_fwd": 4 * layers + 1, "packed_tp_bwd": 4 * layers + 1}
-
-    torch.cuda.reset_peak_memory_stats(dev)
-    for k in tp_kernel.KERNELS.values():
-        k.launches = 0
-    loss, logs = tr.train_step(graph)
-    torch.cuda.synchronize()
-    launches = {n: k.launches for n, k in tp_kernel.KERNELS.items()}
-    for n, c in launches.items():
-        if c != expect.get(n, 0):
-            fail(f"kernel {n}: {c} launches in one train step, expected {expect.get(n, 0)}")
-    if not math.isfinite(float(loss)) or float(logs["nonfinite_step"]) != 0.0:
-        fail(f"train step loss {float(loss)} is not finite")
+    expect = {k: 4 * layers + 1 for k in ENGINES[eng]}
 
     # one step's parameter gradients, kernel path vs plain-TP path
     def grads():
@@ -352,8 +573,16 @@ def phase_train(tp_kernel, dev, card):
         torch.cuda.synchronize()
         return tr.grad.clone()
 
-    g_kernel = grads()
-    with mock.patch.object(tp_kernel, "packed_tp_forward", plain_apply):
+    torch.cuda.reset_peak_memory_stats(dev)
+    with engine(eng):
+        reset_launches(tp_kernel)
+        loss, logs = tr.train_step(graph)
+        torch.cuda.synchronize()
+        launches = check_launches(tp_kernel, expect, f"one train step ({eng})")
+        if not math.isfinite(float(loss)) or float(logs["nonfinite_step"]) != 0.0:
+            fail(f"train step loss {float(loss)} is not finite ({eng})")
+        g_kernel = grads()
+    with engine("xla"):
         g_plain = grads()
     worst, ofs = (0.0, ""), 0
     for name, p in tr.model.named_parameters():
@@ -361,24 +590,31 @@ def phase_train(tp_kernel, dev, card):
         ofs += p.numel()
         err, scale = rel_err(a, b)
         if not math.isfinite(err) or err > GRAD_TOL * scale:
-            fail(f"gradient {name}: kernel vs plain max|d| {err:.3e} > {GRAD_TOL} * {scale:.3e}")
+            fail(f"gradient {name} ({eng}): kernel vs plain max|d| {err:.3e} > "
+                 f"{GRAD_TOL} * {scale:.3e}")
         if scale > 0 and err / scale > worst[0]:
             worst = (err / scale, name)
+    del g_kernel, g_plain
 
-    losses = [float(tr.train_step(graph)[0])]
-    times = []
-    for _ in range(5):
-        times.append(_host_time(lambda: tr.train_step(graph)))
-    step_ms = 1e3 * float(np.median(times))
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    device_ms = profile_train_step(tr, graph)
-    print(f"[train] step {step_ms:.3f} ms (median of 5: "
+    with engine(eng):
+        losses = [float(tr.train_step(graph)[0])]
+        times = []
+        for _ in range(5):
+            times.append(_host_time(lambda: tr.train_step(graph)))
+        step_ms = 1e3 * float(np.median(times))
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        device_ms = profile_train_step(
+            tr, graph, "profile_train_step.txt" if eng == "auto"
+            else f"profile_train_step_{eng}.txt")
+    print(f"[train] engine {eng}: step {step_ms:.3f} ms (median of 5: "
           + ", ".join(f"{1e3 * t:.3f}" for t in times)
           + f") = {n_edges / (step_ms * 1e-3):.1f} edges/s ({n_edges} edges, "
           f"{graph.num_edges} padded), launches per step {launches}, loss "
           f"{float(loss):.6f} -> {losses[-1]:.6f}, worst gradient kernel vs plain "
           f"{worst[0]:.3e} of max|ref| ({worst[1]}), peak memory {peak_gb:.2f} GB, "
           f"card {card}", flush=True)
+    del tr, model
+    torch.cuda.empty_cache()
     return dict(step_ms=step_ms, step_times_ms=[1e3 * t for t in times],
                 edges_per_s=n_edges / (step_ms * 1e-3), n_edges=n_edges,
                 padded_edges=graph.num_edges, launches=launches,
@@ -386,9 +622,9 @@ def phase_train(tp_kernel, dev, card):
                 loss_first=float(loss), device_ms_by_kernel=device_ms)
 
 
-def profile_train_step(tr, graph):
+def profile_train_step(tr, graph, fname):
     """Device time by kernel name over 3 train steps, written to
-    chiprun_out/profile_train_step.txt."""
+    chiprun_out/<fname>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -398,7 +634,7 @@ def profile_train_step(tr, graph):
             tr.train_step(graph)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / 3
-    return _write_profile(prof, wall, 3, "profile_train_step.txt", "step")
+    return _write_profile(prof, wall, 3, fname, "step")
 
 
 def _write_profile(prof, wall, n, fname, unit):
@@ -422,17 +658,17 @@ def _write_profile(prof, wall, n, fname, unit):
         f.write(f"wall {wall * 1e3:.3f} ms/{unit}, device busy {total:.3f} ms/{unit}\n")
         for ms, cnt, key in rows:
             f.write(f"{ms:10.4f} ms {cnt:6d} launches  {key}\n")
-    print(f"[profile] wall {wall * 1e3:.3f} ms/{unit}, device kernels {total:.3f} "
+    print(f"[profile] {fname}: wall {wall * 1e3:.3f} ms/{unit}, device kernels {total:.3f} "
           f"ms/{unit} in {sum(r[1] for r in rows)} launches; top: "
           + "; ".join(f"{key[:40]} {ms:.3f} ms" for ms, cnt, key in rows[:5]), flush=True)
     return {"__all__": total, "__wall__": wall * 1e3,
             **{key[:80]: ms for ms, cnt, key in rows[:15]}}
 
 
-def profile_forward(model, graph):
+def profile_forward(model, graph, fname):
     """Device time by kernel name over 3 forwards (torch.profiler), written to
-    chiprun_out/profile_forward.txt; returns {name: ms per forward} of the top
-    kernels and the total under "__all__"."""
+    chiprun_out/<fname>; returns {name: ms per forward} of the top kernels and
+    the total under "__all__"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -443,7 +679,7 @@ def profile_forward(model, graph):
             model(graph)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / 3
-    return _write_profile(prof, wall, 3, "profile_forward.txt", "forward")
+    return _write_profile(prof, wall, 3, fname, "forward")
 
 
 def _host_time(fn) -> float:
@@ -456,7 +692,8 @@ def _host_time(fn) -> float:
     return time.perf_counter() - t0
 
 
-def phase_cli(tp_kernel, dev):
+def phase_cli(tp_kernel, eng):
+    """``stage: test`` through the CLI under engine ``eng``."""
     import numpy as np
     import torch
     import yaml
@@ -467,80 +704,86 @@ def phase_cli(tp_kernel, dev):
     from hamgnn_tpu_torch.models.model import init_weights
     from hamgnn_tpu_torch.train.config import load_config
 
-    WORK.mkdir(parents=True, exist_ok=True)
+    work = WORK / f"cli_{eng}"
+    work.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(1)
     crystals = [add_random_hamiltonian_targets(
         rng, make_crystal(rng, n_atoms=8, cell_size=6.0, cutoff=5.0), nao_max=19)
         for _ in range(3)]
-    save_graph_npz(str(WORK / "graph_data.npz"), crystals)
+    save_graph_npz(str(work / "graph_data.npz"), crystals)
     cfg = json.loads(json.dumps(BENCH_CFG))
-    cfg["setup"] = {"stage": "test", "checkpoint_path": str(WORK / "weights.pt")}
-    cfg["dataset_params"] = {"graph_data_path": str(WORK), "batch_size": 2}
-    cfg["profiler_params"] = {"train_dir": str(WORK / "out")}
+    cfg["setup"] = {"stage": "test", "checkpoint_path": str(work / "weights.pt")}
+    cfg["dataset_params"] = {"graph_data_path": str(work), "batch_size": 2}
+    cfg["profiler_params"] = {"train_dir": str(work / "out")}
     model = cli.build_model(load_config(None, overrides=cfg))
-    torch.save(init_weights(model, 3).state_dict(), WORK / "weights.pt")
-    with open(WORK / "config.yaml", "w") as f:
+    torch.save(init_weights(model, 3).state_dict(), work / "weights.pt")
+    with open(work / "config.yaml", "w") as f:
         yaml.safe_dump(cfg, f)
-    for k in tp_kernel.KERNELS.values():
-        k.launches = 0
-    cli.main(["--config", str(WORK / "config.yaml")])
-    if tp_kernel.PACKED_TP_FWD.launches == 0:
-        fail("the CLI run did not launch the packed-TP kernel")
+    fwd, bwd = ENGINES[eng]
+    reset_launches(tp_kernel)
+    with engine(eng):
+        cli.main(["--config", str(work / "config.yaml")])
+    launches = {n: k.launches for n, k in tp_kernel.KERNELS.items()}
+    if launches[fwd] == 0 or any(c for n, c in launches.items() if n != fwd):
+        fail(f"the CLI test run ({eng}) should launch {fwd} only: {launches}")
     rows = sum(c["z"].shape[0] + c["edge_index"].shape[1] for c in crystals)
     for fname in ("prediction_hamiltonian.npy", "target_hamiltonian.npy"):
-        path = WORK / "out" / fname
+        path = work / "out" / fname
         if not path.exists():
-            fail(f"CLI wrote no {fname}")
+            fail(f"CLI wrote no {fname} ({eng})")
         arr = np.load(path)
         if arr.shape != (rows, 361) or not np.isfinite(arr).all():
-            fail(f"{fname}: shape {arr.shape}, expected ({rows}, 361), finite")
-    print(f"[cli] stage test: {len(crystals)} crystals, {rows} rows x 361 "
-          f"written; {tp_kernel.PACKED_TP_FWD.launches} kernel launches", flush=True)
+            fail(f"{fname} ({eng}): shape {arr.shape}, expected ({rows}, 361), finite")
+    print(f"[cli] engine {eng}: stage test: {len(crystals)} crystals, {rows} rows x 361 "
+          f"written; {launches[fwd]} {fwd} launches", flush=True)
     return cfg, rows
 
 
-def phase_cli_fit(tp_kernel, cfg, rows):
-    """``stage: fit`` for two epochs on the phase-5 crystals (one each for
-    train, val and test), then ``stage: test`` from its best.pt."""
+def phase_cli_fit(tp_kernel, eng, cfg, rows):
+    """``stage: fit`` for two epochs on the ``phase_cli`` crystals (one each
+    for train, val and test), then ``stage: test`` from its best.pt, under
+    engine ``eng``."""
     import numpy as np
     import yaml
 
     from hamgnn_tpu_torch import cli
 
+    work = WORK / f"cli_{eng}"
     fit = json.loads(json.dumps(cfg))
     fit["setup"] = {"stage": "fit"}
     fit["dataset_params"].update(batch_size=1, train_ratio=1 / 3, val_ratio=1 / 3,
                                  test_ratio=1 / 3)
     fit["optim_params"] = {"lr": 1e-3, "min_epochs": 0, "max_epochs": 2}
-    fit["profiler_params"] = {"train_dir": str(WORK / "fit")}
-    with open(WORK / "fit.yaml", "w") as f:
+    fit["profiler_params"] = {"train_dir": str(work / "fit")}
+    with open(work / "fit.yaml", "w") as f:
         yaml.safe_dump(fit, f)
-    for k in tp_kernel.KERNELS.values():
-        k.launches = 0
+    reset_launches(tp_kernel)
     t0 = time.perf_counter()
-    cli.main(["--config", str(WORK / "fit.yaml")])
+    with engine(eng):
+        cli.main(["--config", str(work / "fit.yaml")])
     fit_s = time.perf_counter() - t0
     launches = {n: k.launches for n, k in tp_kernel.KERNELS.items()}
-    if min(launches.values()) == 0:
-        fail(f"the fit run did not launch every kernel: {launches}")
-    records = [json.loads(line) for line in open(WORK / "fit" / "metrics.jsonl")]
+    if any((c == 0) == (n in ENGINES[eng]) for n, c in launches.items()):
+        fail(f"the fit run ({eng}) should launch {ENGINES[eng]} and no other: {launches}")
+    records = [json.loads(line) for line in open(work / "fit" / "metrics.jsonl")]
     if [r["epoch"] for r in records] != [0, 1] or not all(
             math.isfinite(r["train_loss"]) and math.isfinite(r["val_loss"]) for r in records):
-        fail(f"fit metrics.jsonl: {records}")
+        fail(f"fit metrics.jsonl ({eng}): {records}")
     for fname in ("best.pt", "prediction_hamiltonian.npy"):
-        if not (WORK / "fit" / fname).exists():
-            fail(f"the fit run wrote no {fname}")
+        if not (work / "fit" / fname).exists():
+            fail(f"the fit run ({eng}) wrote no {fname}")
 
     test = json.loads(json.dumps(cfg))
-    test["setup"] = {"stage": "test", "checkpoint_path": str(WORK / "fit" / "best.pt")}
-    test["profiler_params"] = {"train_dir": str(WORK / "fit_test")}
-    with open(WORK / "fit_test.yaml", "w") as f:
+    test["setup"] = {"stage": "test", "checkpoint_path": str(work / "fit" / "best.pt")}
+    test["profiler_params"] = {"train_dir": str(work / "fit_test")}
+    with open(work / "fit_test.yaml", "w") as f:
         yaml.safe_dump(test, f)
-    cli.main(["--config", str(WORK / "fit_test.yaml")])
-    arr = np.load(WORK / "fit_test" / "prediction_hamiltonian.npy")
+    with engine(eng):
+        cli.main(["--config", str(work / "fit_test.yaml")])
+    arr = np.load(work / "fit_test" / "prediction_hamiltonian.npy")
     if arr.shape != (rows, 361) or not np.isfinite(arr).all():
-        fail(f"test from best.pt: shape {arr.shape}, expected ({rows}, 361), finite")
-    print(f"[cli] stage fit: 2 epochs in {fit_s:.1f} s, launches {launches}, "
+        fail(f"test from best.pt ({eng}): shape {arr.shape}, expected ({rows}, 361), finite")
+    print(f"[cli] engine {eng}: stage fit: 2 epochs in {fit_s:.1f} s, launches {launches}, "
           f"train_loss {[round(r['train_loss'], 6) for r in records]}, val_loss "
           f"{[round(r['val_loss'], 6) for r in records]}; stage test from best.pt: "
           f"{rows} rows x 361 written", flush=True)
@@ -557,6 +800,7 @@ def main():
         from hamgnn_tpu_torch.e3 import tp_kernel
     except ImportError as exc:
         fail(f"cannot import the port next to this script: {exc}")
+    os.environ.pop("HAMGNN_TP_ENGINE", None)  # each phase names its engine
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -565,39 +809,45 @@ def main():
 
     card = phase_build(tp_kernel)
     rows = {"packed_tp_fwd": phase_kernels(tp_kernel, dev),
-            "packed_tp_bwd": phase_bwd_kernels(tp_kernel, dev)}
+            "packed_tp_bwd": phase_bwd_kernels(tp_kernel, dev),
+            "zonal_tp_fwd": phase_zonal_kernels(dev),
+            "zonal_tp_bwd": phase_zonal_bwd_kernels(dev)}
+    zonal_engine = phase_zonal_engine(tp_kernel, dev)
     model = phase_model(tp_kernel, dev, card)
-    train = phase_train(tp_kernel, dev, card)
-    cfg, n_rows = phase_cli(tp_kernel, dev)
-    fit = phase_cli_fit(tp_kernel, cfg, n_rows)
+    train = {eng: phase_train(tp_kernel, dev, card, eng) for eng in ENGINES}
+    fit = {}
+    for eng in ENGINES:
+        cfg, n_rows = phase_cli(tp_kernel, eng)
+        fit[eng] = phase_cli_fit(tp_kernel, eng, cfg, n_rows)
 
-    report = {"card": card, "kernel_rows": rows, "model": model, "train": train,
-              "fit": fit}
+    report = {"card": card, "kernel_rows": rows, "zonal_engine": zonal_engine,
+              "model": model, "train": train, "fit": fit}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     kernels = []
-    for name in tp_kernel.KERNELS:
-        # per training step: each kernel's 13 launches at their plans' shapes
-        per = "launches_per_forward" if name == "packed_tp_fwd" else "launches_per_step"
-        path_rows = [r for r in rows[name] if r[per] > 0]
-        per_step = lambda key: sum(r[key] * r[per] for r in path_rows)  # noqa: E731
-        ops_ms = per_step("gflop") * 1e9 / tp_kernel.H100_FP32_FLOPS * 1e3
-        bytes_ms = per_step("mbytes") * 1e6 / tp_kernel.H100_HBM_BYTES_PER_S * 1e3
-        src, replaces = KERNEL_SOURCES[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": train["launches"][name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
-            "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None,
-            "per_plan": {r["plan"]: {k: r[k] for k in
-                                     ("ms", "plain_ms", "bound_ms", "bound_by",
-                                      "max_abs_err")} for r in rows[name]},
-        })
+    for eng, names in ENGINES.items():
+        for name, per in zip(names, ("launches_per_forward", "launches_per_step")):
+            # per training step of the kernel's engine: its 13 launches at
+            # their plans' shapes
+            path_rows = [r for r in rows[name] if r[per] > 0]
+            per_step = lambda key: sum(r[key] * r[per] for r in path_rows)  # noqa: E731
+            ops_ms = per_step("gflop") * 1e9 / tp_kernel.H100_FP32_FLOPS * 1e3
+            bytes_ms = per_step("mbytes") * 1e6 / tp_kernel.H100_HBM_BYTES_PER_S * 1e3
+            src, replaces = KERNEL_SOURCES[name]
+            kernels.append({
+                "name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": train[eng]["launches"][name],
+                "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+                "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": None,
+                "per_plan": {r["plan"]: {k: r[k] for k in
+                                         ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "max_abs_err")} for r in rows[name]},
+            })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,13 +11,15 @@ Counterpart of ``hamgnn_tpu/e3/packed_tp.py``.  Per input chunk g =
 ``PackedTPPlan`` holds the channel/row permutations as numpy index arrays,
 identical to the reference's; ``plain_apply`` is the plain PyTorch version of
 the pipeline and ``plain_backward`` of its backward, the oracles of the
-Hopper kernels in ``tp_kernel.py``, which ``PackedTPPlan.__call__``
-dispatches to.
+Hopper kernels in ``tp_kernel.py``.  ``PackedTPPlan.__call__`` dispatches to
+those, or to the edge-frame engine (``zonal_kernel.py``, ``zonal_tp.py``) on
+request.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -25,6 +27,10 @@ import torch
 
 from .irreps import Irrep, Irreps
 from .wigner import wigner_3j
+
+
+# the values of HAMGNN_TP_ENGINE (see ``PackedTPPlan.__call__``)
+TP_ENGINES = ("auto", "pallas", "zonal", "zonal-xla", "xla")
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,11 +166,32 @@ class PackedTPPlan:
 
     def __call__(self, x, sh, weight, flat_w):
         """Apply the pipeline; ``weight`` is in packed order (``scale_perm``)
-        or None.  CUDA tensors go through the Hopper kernel, CPU tensors
-        through ``plain_apply``."""
-        from . import tp_kernel
+        or None.  The engine is read from ``HAMGNN_TP_ENGINE`` at call time,
+        with the JAX package's values:
 
-        return tp_kernel.packed_tp_forward(self, x, sh, weight, flat_w)
+        * unset, ``auto`` or ``pallas``: the lab-frame Hopper kernels on CUDA
+          tensors, ``plain_apply`` on CPU tensors;
+        * ``zonal``: the edge-frame engine (``zonal_kernel.zonal_forward``:
+          its Hopper kernels on CUDA tensors, ``zonal_apply`` on CPU tensors);
+        * ``zonal-xla``: ``zonal_tp.zonal_apply``, plain PyTorch on any device;
+        * ``xla``: ``plain_apply``, plain PyTorch on any device.
+        """
+        eng = os.environ.get("HAMGNN_TP_ENGINE", "auto")
+        if eng in ("auto", "pallas"):
+            from . import tp_kernel
+
+            return tp_kernel.packed_tp_forward(self, x, sh, weight, flat_w)
+        if eng == "zonal":
+            from . import zonal_kernel
+
+            return zonal_kernel.zonal_forward(self, x, sh, weight, flat_w)
+        if eng == "zonal-xla":
+            from . import zonal_tp
+
+            return zonal_tp.zonal_apply(self, x, sh, weight, flat_w)
+        if eng == "xla":
+            return plain_apply(self, x, sh, weight, flat_w)
+        raise ValueError(f"HAMGNN_TP_ENGINE={eng!r}: expected one of {TP_ENGINES}")
 
     def _tables(self, device):
         """Coupling matrices and row permutations as tensors on ``device``

@@ -18,8 +18,11 @@ offset in the u-major layout and radial-weight column, and per coupling slot
 the nonzero range of its coupling column.  The backward adds, per slab of
 64 columns, the columns grouped by x offset and by coupling slot.
 
-The library is compiled with nvcc at first use into ``build/kernels/`` from
-the sources in this checkout and loaded with ctypes.
+Each library is compiled with nvcc at first use into ``build/kernels/`` from
+the sources in this checkout and loaded with ctypes.  The module also holds
+what the zonal engine's kernels (``zonal_kernel.py``) share with these: the
+build, the registry of every kernel with its count of launches (``KERNELS``)
+and ``PipelineSpec``, the part of the host schedule common to both engines.
 """
 
 from __future__ import annotations
@@ -152,10 +155,27 @@ PACKED_TP_BWD = CudaKernel("packed_tp_bwd", {
     "packed_tp_bwd_resident_blocks": ([ctypes.c_size_t], _I),
 })
 
-# every kernel of the port, by name (chip_smoke.py resets and reads the counts)
-KERNELS = {"packed_tp_fwd": PACKED_TP_FWD, "packed_tp_bwd": PACKED_TP_BWD}
+# the zonal engine's kernels (wrappers and host tables in zonal_kernel.py)
+ZONAL_TP_FWD = CudaKernel("zonal_tp_fwd", {
+    "zonal_tp_fwd": ([_P] * 8 + [_I] * 9 + [_P], _I),
+    "zonal_tp_fwd_smem_bytes": ([_I] * 2, ctypes.c_size_t),
+    "zonal_tp_fwd_rows_per_thread": ([_I] * 2, _I),
+    "zonal_tp_fwd_max_rows": ([], _I),
+})
 
-# columns per slab of the backward kernel (packed_tp_bwd.cu KS)
+ZONAL_TP_BWD = CudaKernel("zonal_tp_bwd", {
+    "zonal_tp_bwd": ([_P] * 19 + [_I] * 12 + [_P], _I),
+    "zonal_tp_bwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
+    "zonal_tp_bwd_slab_cols": ([], _I),
+    "zonal_tp_bwd_tile_edges": ([], _I),
+    "zonal_tp_bwd_resident_blocks": ([ctypes.c_size_t], _I),
+})
+
+# every kernel of the port, by name (chip_smoke.py resets and reads the counts)
+KERNELS = {"packed_tp_fwd": PACKED_TP_FWD, "packed_tp_bwd": PACKED_TP_BWD,
+           "zonal_tp_fwd": ZONAL_TP_FWD, "zonal_tp_bwd": ZONAL_TP_BWD}
+
+# columns per slab of the backward kernels (packed_tp_bwd.cu, zonal_tp_bwd.cu KS)
 BWD_SLAB_COLS = 64
 
 
@@ -163,7 +183,112 @@ BWD_SLAB_COLS = 64
 # host-side schedule
 # ----------------------------------------------------------------------
 
-class KernelSpec:
+def append_groups(by_key: dict, records: list, *lists: list):
+    """Append one (key..., offset, count) record per group of ``by_key`` to
+    ``records``, in first-seen order, and the groups' members to ``lists``:
+    a member is one value, or with several lists one value for each."""
+    for key, members in by_key.items():
+        records.append((*key, len(lists[0]), len(members)))
+        for m in members:
+            for out, v in zip(lists, m if len(lists) > 1 else (m,)):
+                out.append(v)
+
+
+class PipelineSpec:
+    """What the schedules of both engines' kernels share: one record per
+    covered output chunk (``out_chunks``: k_out, out offset b, d3, V, Wcat
+    offset, fan_in; a CUDA block per edge tile and record), the Wcat layout
+    (per chunk its (fan_in, V) block, rows in BLK column order, so
+    ``wcat_idx`` / ``wcat_scale`` gather it from the flat Linear weight),
+    the BLK column order of a chunk (``sources``) and the device copies of
+    the tables."""
+
+    def __init__(self, plan: PackedTPPlan):
+        self.plan = plan
+        self.d_in = plan.irreps_in.dim
+        self.d_out = plan.irreps_out.dim
+        self.n_ch = plan.weight_numel
+
+        chunks, widx, wscale = [], [], []
+        wofs = 0
+        for k_out, mio in enumerate(plan.irreps_out):
+            fan_in, ofs = plan.out_plans[k_out]
+            if fan_in == 0:
+                continue
+            V, d3 = mio.mul, mio.ir.dim
+            b = plan.irreps_out.slices()[k_out].start
+            # Wcat block of this output chunk: source rows stacked in
+            # out_sources order, 1/sqrt(fan_in) folded in
+            perm = np.concatenate([rp for (_g, _gi, rp) in plan.out_sources[k_out]])
+            widx.append(ofs + perm[:, None].astype(np.int64) * V + np.arange(V)[None, :])
+            wscale.append(np.full(fan_in * V, 1.0 / np.sqrt(fan_in)))
+            chunks.append((k_out, b, d3, V, wofs, fan_in))
+            wofs += fan_in * V
+        self.out_chunks = chunks
+        self.wcat_idx = (np.concatenate([w.reshape(-1) for w in widx])
+                         if widx else np.zeros(0, np.int64))
+        self.wcat_scale = (np.concatenate(wscale).astype(np.float32)
+                           if wscale else np.zeros(0, np.float32))
+        self.d3_max = max((c[2] for c in chunks), default=1)
+        self.v_max = max((c[3] for c in chunks), default=1)
+        self.gmax = max((c[2] * c[3] for c in chunks), default=1)
+        self.d1_max = max((d1 for (_sl, _m, d1, _C, _g) in plan.per_chunk), default=1)
+        self.fully_covered = len(chunks) == len(plan.irreps_out)
+        self._device_tables = {}
+
+    def sources(self, k_out: int):
+        """The sources of output chunk ``k_out`` in BLK column order: per
+        source (g, x slice, mul, d1, n_cols, k0, radial-weight base); its
+        columns run path-major, u-minor."""
+        plan = self.plan
+        for (g, gi, _rp) in plan.out_sources[k_out]:
+            sl, mul, d1, _C, groups = plan.per_chunk[g]
+            _ir3, n_cols, k0, _k1 = groups[gi]
+            yield g, sl, mul, d1, n_cols, k0, plan._grp_w_base[(g, gi)]
+
+    def _host_tables(self) -> dict:
+        """name -> (numpy array, torch dtype) of every table a kernel reads."""
+        return {"wcat_idx": (self.wcat_idx, torch.long),
+                "wcat_scale": (self.wcat_scale, torch.float32)}
+
+    def tables(self, device):
+        """The index tables as tensors on ``device``, made outside inference
+        mode (``build_wcat`` also runs under autograd).  An empty kernel
+        table becomes one zero, so that it has an address; the Wcat gather
+        of a plan that covers no output chunk stays empty."""
+        key = str(device)
+        if key not in self._device_tables:
+            with torch.inference_mode(False):
+                self._device_tables[key] = {
+                    name: torch.as_tensor(
+                        np.ascontiguousarray(arr if arr.size or name.startswith("wcat")
+                                             else np.zeros(1)),
+                        dtype=dt, device=device)
+                    for name, (arr, dt) in self._host_tables().items()}
+        return self._device_tables[key]
+
+    def build_wcat(self, flat_w):
+        """Flat Linear weight -> the kernel's Wcat: per output chunk its
+        (fan_in, V) block, rows in BLK column order, 1/sqrt(fan_in) folded."""
+        tb = self.tables(flat_w.device)
+        return flat_w[tb["wcat_idx"]] * tb["wcat_scale"]
+
+    @staticmethod
+    def _bound(flops: int, nbytes: int) -> tuple:
+        t_ops = flops / H100_FP32_FLOPS * 1e3
+        t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
+        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+    def bound_ms(self, E: int, has_w: bool) -> tuple:
+        """Least time on an H100 for E edges, and which side bounds it."""
+        return self._bound(*self.work(E, has_w))
+
+    def bound_bwd_ms(self, E: int, has_w: bool, **kw) -> tuple:
+        """Least time on an H100 for the backward of E edges."""
+        return self._bound(*self.work_bwd(E, has_w, **kw))
+
+
+class KernelSpec(PipelineSpec):
     """Per-column index tables of one plan for ``packed_tp_fwd.cu`` and
     ``packed_tp_bwd.cu``.
 
@@ -178,33 +303,16 @@ class KernelSpec:
     """
 
     def __init__(self, plan: PackedTPPlan):
-        self.plan = plan
-        self.d_in = plan.irreps_in.dim
-        self.d_out = plan.irreps_out.dim
-        self.n_ch = plan.weight_numel
+        super().__init__(plan)
         self.S = plan.irreps_sh.dim
 
         grp, cols, qtab, coef = [], [], [], []
-        widx, wscale = [], []
-        wofs = 0
-        for k_out, mio in enumerate(plan.irreps_out):
-            fan_in, ofs = plan.out_plans[k_out]
-            if fan_in == 0:
-                continue
-            V, d3 = mio.mul, mio.ir.dim
-            b = plan.irreps_out.slices()[k_out].start
-            # Wcat block of this output chunk: source rows stacked in
-            # out_sources order, 1/sqrt(fan_in) folded in
-            perm = np.concatenate([rp for (_g, _gi, rp) in plan.out_sources[k_out]])
-            widx.append(ofs + perm[:, None].astype(np.int64) * V + np.arange(V)[None, :])
-            wscale.append(np.full(fan_in * V, 1.0 / np.sqrt(fan_in)))
+        for (k_out, b, d3, V, wofs, fan_in) in self.out_chunks:
             col_ofs, q_ofs = len(cols), len(qtab)
             for m3 in range(d3):
                 q_src = 0
-                for (g, gi, _rp) in plan.out_sources[k_out]:
-                    sl, mul, d1, C, groups = plan.per_chunk[g]
-                    ir3, n_cols, k0, _k1 = groups[gi]
-                    cb = plan._grp_w_base[(g, gi)]
+                for (g, sl, mul, d1, n_cols, k0, cb) in self.sources(k_out):
+                    C = plan.per_chunk[g][3]
                     for j in range(n_cols):
                         k = k0 + m3 * n_cols + j
                         for i in range(d1):
@@ -221,24 +329,13 @@ class KernelSpec:
                     q_src += n_cols * d1
             nq = (len(qtab) - q_ofs) // d3
             grp.append((b, d3, V, wofs, fan_in, col_ofs, q_ofs, nq))
-            wofs += fan_in * V
         self.grp = np.asarray(grp, np.int32).reshape(-1, 8)
         self.cols = np.asarray(cols, np.int32).reshape(-1, 4)
         self.qtab = np.asarray(qtab, np.int32).reshape(-1, 3)
         self.coef = np.asarray(coef, np.float32)
-        self.wcat_idx = (np.concatenate([w.reshape(-1) for w in widx])
-                         if widx else np.zeros(0, np.int64))
-        self.wcat_scale = (np.concatenate(wscale).astype(np.float32)
-                           if wscale else np.zeros(0, np.float32))
         g = self.grp
         self.nq_all_max = int((g[:, 1] * g[:, 7]).max()) if len(g) else 0
-        self.d3_max = int(g[:, 1].max()) if len(g) else 1
-        self.v_max = int(g[:, 2].max()) if len(g) else 1
-        self.d1_max = max((d1 for (_sl, _m, d1, _C, _g) in plan.per_chunk), default=1)
-        self.fully_covered = len(g) == len(plan.irreps_out)
-        self.gmax = int((g[:, 1] * g[:, 2]).max()) if len(g) else 1
         self._build_slabs()
-        self._device_tables = {}
 
     def _build_slabs(self):
         """Backward tables: per output chunk the index of its first slab;
@@ -255,43 +352,20 @@ class KernelSpec:
                     by_x.setdefault((xb, d1), []).append(c)
                     by_q.setdefault((qb, d1), []).append(c)
                 slabs.append((len(xgrp), len(by_x), len(qgrp), len(by_q)))
-                for groups, out in ((by_x, xgrp), (by_q, qgrp)):
-                    for (start, d1), cl in groups.items():
-                        out.append((start, d1, len(lst), len(cl)))
-                        lst.extend(cl)
+                append_groups(by_x, xgrp, lst)
+                append_groups(by_q, qgrp, lst)
         self.slab_base = np.asarray(slab_base, np.int32)
         self.slabs = np.asarray(slabs, np.int32).reshape(-1, 4)
         self.xgrp = np.asarray(xgrp, np.int32).reshape(-1, 4)
         self.qgrp = np.asarray(qgrp, np.int32).reshape(-1, 4)
         self.lst = np.asarray(lst, np.int32)
 
-    def tables(self, device):
-        """The index tables as tensors on ``device``, made outside inference
-        mode (``build_wcat`` also runs under autograd)."""
-        key = str(device)
-        if key not in self._device_tables:
-            def t(a, dt):
-                return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
-                                       device=device)
-            with torch.inference_mode(False):
-                self._device_tables[key] = dict(
-                    grp=t(self.grp, torch.int32),
-                    cols=t(self.cols, torch.int32),
-                    qtab=t(self.qtab, torch.int32),
-                    coef=t(self.coef if len(self.coef) else np.zeros(1), torch.float32),
-                    wcat_idx=t(self.wcat_idx, torch.long),
-                    wcat_scale=t(self.wcat_scale, torch.float32),
-                    **{name: t(arr if arr.size else np.zeros(1), torch.int32)
-                       for name, arr in (("slab_base", self.slab_base),
-                                         ("slabs", self.slabs), ("xgrp", self.xgrp),
-                                         ("qgrp", self.qgrp), ("lst", self.lst))})
-        return self._device_tables[key]
-
-    def build_wcat(self, flat_w):
-        """Flat Linear weight -> the kernel's Wcat: per output chunk its
-        (fan_in, V) block, rows in BLK column order, 1/sqrt(fan_in) folded."""
-        tb = self.tables(flat_w.device)
-        return flat_w[tb["wcat_idx"]] * tb["wcat_scale"]
+    def _host_tables(self) -> dict:
+        return {**super()._host_tables(),
+                "coef": (self.coef, torch.float32),
+                **{name: (getattr(self, name), torch.int32)
+                   for name in ("grp", "cols", "qtab", "slab_base", "slabs",
+                                "xgrp", "qgrp", "lst")}}
 
     def work(self, E: int, has_w: bool):
         """(FLOPs, bytes) the function needs for E edges: coupling products
@@ -332,20 +406,6 @@ class KernelSpec:
                      + self.d_out + (self.S if need_dsh else 0)) \
             + 2 * len(self.wcat_idx)
         return flops * E, 4 * words
-
-    @staticmethod
-    def _bound(flops: int, nbytes: int) -> tuple:
-        t_ops = flops / H100_FP32_FLOPS * 1e3
-        t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
-        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-    def bound_ms(self, E: int, has_w: bool) -> tuple:
-        """Least time on an H100 for E edges, and which side bounds it."""
-        return self._bound(*self.work(E, has_w))
-
-    def bound_bwd_ms(self, E: int, has_w: bool, need_dsh: bool = False) -> tuple:
-        """Least time on an H100 for the backward of E edges."""
-        return self._bound(*self.work_bwd(E, has_w, need_dsh))
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,7 +15,8 @@ from math import factorial
 
 import numpy as np
 
-__all__ = ["su2_clebsch_gordan", "change_basis_real_to_complex", "wigner_3j"]
+__all__ = ["su2_clebsch_gordan", "change_basis_real_to_complex", "wigner_3j",
+           "wigner_D"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,3 +98,26 @@ def wigner_3j(l1: int, l2: int, l3: int) -> np.ndarray:
     if n > 0:
         C = C / n
     return np.ascontiguousarray(C)
+
+
+# rows (y, z, x) <- (x, y, z): Cartesian vectors in the l=1 real-SH order
+PERM_YZX = np.array([[0.0, 1.0, 0.0],
+                     [0.0, 0.0, 1.0],
+                     [1.0, 0.0, 0.0]])
+
+
+def wigner_D(l: int, R: np.ndarray) -> np.ndarray:
+    """Real Wigner-D matrix of angular momentum l for a Cartesian rotation R,
+    in the yzx real-SH basis (float64).
+
+    CG recursion D_l = (2l+1) W^T (D_{l-1} (x) D_1) W with
+    W = wigner_3j(l-1, 1, l), exact because W^T W = I / (2l+1).  The oracle
+    of ``zonal_tp.batched_wigner_D``.
+    """
+    if l == 0:
+        return np.ones((1, 1))
+    D1 = PERM_YZX @ np.asarray(R, dtype=np.float64) @ PERM_YZX.T
+    if l == 1:
+        return D1
+    W = wigner_3j(l - 1, 1, l).reshape((2 * l - 1) * 3, 2 * l + 1)
+    return (2.0 * l + 1.0) * (W.T @ np.kron(wigner_D(l - 1, R), D1) @ W)

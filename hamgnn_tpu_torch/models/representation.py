@@ -22,6 +22,7 @@ from ..data.graph import Graph
 from ..e3.irreps import Irreps
 from ..e3.linear import Linear
 from ..e3.spherical import spherical_harmonics
+from ..e3.zonal_tp import FRAME_MEMO
 from ..nn.blocks import ConvBlockE3, PairInteractionBlock, PairInteractionEmbeddingBlock
 from ..nn.mlp import FullyConnectedNet
 from ..nn.radial import RBF_REGISTRY, cosine_cutoff, polynomial_envelope
@@ -103,6 +104,7 @@ class HamGNNConvE3(nn.Module):
                 use_skip_connections=(i > 0) if legacy_edge_update else True,
                 lite_mode=lite_mode, legacy_edge_update=legacy_edge_update))
 
+    @FRAME_MEMO.one_forward()  # every pipeline below runs on this call's one edge_sh
     def forward(self, graph: Graph):
         src, dst = graph.edge_index[0], graph.edge_index[1]
         doping = None

@@ -4,8 +4,9 @@ In a subprocess where ``jax``, ``flax``, ``optax``, ``orbax`` and
 ``hamgnn_tpu`` cannot be imported, every module of ``hamgnn_tpu_torch``
 imports (the trainer and optimizer included) and ``python -m
 hamgnn_tpu_torch.cli`` runs a ``stage: fit`` config and then a ``stage:
-test`` config from its ``best.pt`` on the CPU.  ``chip_smoke.py`` must fail, printing no result, where no GPU is
-available.
+test`` config from its ``best.pt`` on the CPU, under the default engine and
+under ``HAMGNN_TP_ENGINE=zonal``.  ``chip_smoke.py`` must fail, printing no
+result, where no GPU is available.
 """
 
 import ast
@@ -64,19 +65,42 @@ for stage in ("fit", "test"):
 assert open(work + "/fit/metrics.jsonl").read().count("train_loss") == 1
 assert not any(sys.modules.get(b) for b in {blocked!r})
 pred = np.load(work + "/out/prediction_hamiltonian.npy")
+from hamgnn_tpu_torch.e3 import zonal_tp
+print("FRAME_BUILDS", zonal_tp.FRAME_MEMO.builds)
 print("MODULES", len(mods), "PRED", pred.shape, bool(np.isfinite(pred).all()))
 """
 
 
-def test_port_modules_and_cli_run_without_jax(tmp_path):
+def _run_script(tmp_path, engine):
+    """Runs SCRIPT in a subprocess; returns (modules imported, Wigner-D
+    frame builds, whether the predictions are finite)."""
     code = SCRIPT.format(blocked=BLOCKED, root=str(ROOT), work=str(tmp_path))
+    env = {k: v for k, v in os.environ.items() if k != "HAMGNN_TP_ENGINE"}
+    if engine is not None:
+        env["HAMGNN_TP_ENGINE"] = engine
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                       timeout=300, cwd=str(tmp_path))
+                       timeout=300, cwd=str(tmp_path), env=env)
     assert r.returncode == 0, r.stderr[-3000:]
-    line = [l for l in r.stdout.splitlines() if l.startswith("MODULES")][-1]
-    n_mods = int(line.split()[1])
-    assert n_mods >= 20
-    assert line.endswith("True")
+    lines = r.stdout.splitlines()
+    line = [l for l in lines if l.startswith("MODULES")][-1]
+    builds = int([l for l in lines if l.startswith("FRAME_BUILDS")][-1].split()[1])
+    return int(line.split()[1]), builds, line.endswith("True")
+
+
+def test_port_modules_and_cli_run_without_jax(tmp_path):
+    n_mods, builds, finite = _run_script(tmp_path, None)
+    assert n_mods >= 22
+    assert builds == 0  # the default engine builds no edge frames
+    assert finite
+
+
+def test_port_cli_trains_and_predicts_under_zonal_without_jax(tmp_path):
+    """The same fit-then-test run with ``HAMGNN_TP_ENGINE=zonal``: the edge
+    frames are built (once per forward), and nothing of JAX is imported."""
+    n_mods, builds, finite = _run_script(tmp_path, "zonal")
+    assert n_mods >= 22
+    assert builds >= 3  # one train step, one validation pass, one test pass at least
+    assert finite
 
 
 def _imports(path):
