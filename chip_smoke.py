@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, before the result lines are printed):
-  1. build every kernel of the port from ``hamgnn_tpu_torch/csrc`` (one nvcc
-     per source, all started together) and print the card's name and power
-     limit as nvidia-smi reports them;
+  1. build every kernel of the port from ``hamgnn_tpu_torch/csrc`` (six
+     sources, one nvcc each, all started together) and print the card's name
+     and power limit as nvidia-smi reports them;
   2. hold each kernel against its plain PyTorch version at the shapes the
      main paths give it (bench widths, E = 19,968 padded edges), with
      max|kernel - plain| <= 1e-4 * max|plain| in fp32 (only the summation
@@ -47,7 +47,25 @@ Phases (any failure exits non-zero, before the result lines are printed):
      ``target_hamiltonian.npy``), then ``stage: fit`` for two epochs
      (``metrics.jsonl``, ``best.pt``, predictions) and ``stage: test`` from
      its ``best.pt``;
-  6. print one JSON line describing each kernel, then the result line
+  6. the probes: hold every probe kernel of ``tools_dev`` (``op_probe``,
+     ``op_probe2``, ``throughput_probe``) against its plain version at its
+     full size (E = 19,968, slab 4,800; fp32 within 1e-4, the bf16 sweep 2e-2,
+     the tf32 product 2e-3, all * max|plain|), ``k_acc`` bit-identical on a
+     repeat, and time kernel, plain version and library call; then run the
+     three entry points on the card with every count at 0 before: each probe
+     kernel must have launched, and no kernel of the model;
+  7. the band path: ``HamGNNModel`` at the bench width with
+     ``calculate_band_energy`` (6 k-points, a window of 2 x 8 bands) on a batch
+     of 4 synthetic 16-atom crystals (H(k), S(k) of 1,216 x 1,216, complex64):
+     a forward with finite outputs whose ``band_energy_ref`` agrees with a
+     float64 ``scipy.linalg.eigh`` of the same H(k), S(k) on the host within
+     5e-4; one ``Trainer.train_step`` with the bench loss plus ``band_energy``
+     at 0.27211 (13 B1 and 13 B2 launches, finite loss and gradients); timed
+     steps and, by torch.profiler, the share of Cholesky and ``eigh``
+     (chiprun_out/profile_band_step.txt); then the CLI: ``stage: fit`` two
+     epochs with the band loss, ``stage: test`` from its ``best.pt`` and
+     ``tools.band_cal`` on the prediction;
+  8. print one JSON line describing each kernel, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 It needs one card, imports nothing of JAX or of the JAX package, writes only
@@ -68,6 +86,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
+BAND_TOL = 5e-4   # fp32 reference bands on the card vs a float64 host solve
 TOL = 1e-4        # max|kernel - plain| <= TOL * max|plain|, fp32
 ENGINE_TOL = 2e-5  # zonal engine vs lab-frame engine: two rotations' rounding too
 GRAD_TOL = 1e-3   # model gradients, kernel path vs plain-TP path, per tensor
@@ -112,19 +131,26 @@ def engine(name: str):
             os.environ["HAMGNN_TP_ENGINE"] = old
 
 
+def all_kernels(tp_kernel) -> dict:
+    """Every kernel of the port by name: the model's and the probes'."""
+    from hamgnn_tpu_torch.tools_dev import op_probe, op_probe2, throughput_probe  # noqa: F401
+    from hamgnn_tpu_torch.tools_dev.probe import PROBE_KERNELS
+
+    return {**tp_kernel.KERNELS, **PROBE_KERNELS}
+
+
 def reset_launches(tp_kernel):
-    for k in tp_kernel.KERNELS.values():
+    for k in all_kernels(tp_kernel).values():
         k.launches = 0
 
 
 def check_launches(tp_kernel, expect: dict, what: str) -> dict:
-    """The counts of every kernel; fails unless each equals ``expect`` (0
-    where a kernel is not named)."""
-    launches = {n: k.launches for n, k in tp_kernel.KERNELS.items()}
-    for n, c in launches.items():
-        if c != expect.get(n, 0):
-            fail(f"kernel {n}: {c} launches in {what}, expected {expect.get(n, 0)}")
-    return launches
+    """The counts of the model's kernels; fails unless each kernel of the
+    port equals ``expect`` (0 where a kernel is not named)."""
+    for n, k in all_kernels(tp_kernel).items():
+        if k.launches != expect.get(n, 0):
+            fail(f"kernel {n}: {k.launches} launches in {what}, expected {expect.get(n, 0)}")
+    return {n: k.launches for n, k in tp_kernel.KERNELS.items()}
 
 
 def fail(msg: str):
@@ -133,18 +159,10 @@ def fail(msg: str):
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
+    """Median of ``iters`` CUDA-event times after ``warmup`` runs."""
+    from hamgnn_tpu_torch.utils.profiling import device_time_ms
 
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    return device_time_ms(fn, n=iters, warmup=warmup, device="cuda")
 
 
 def rel_err(out, ref):
@@ -155,7 +173,8 @@ def rel_err(out, ref):
 
 def phase_build(tp_kernel):
     t0 = time.perf_counter()
-    built = tp_kernel.build_kernels(list(tp_kernel.KERNELS))
+    built = tp_kernel.build_kernels(
+        sorted({k.source for k in all_kernels(tp_kernel).values()}))
     for name, (path, log) in built.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -790,6 +809,275 @@ def phase_cli_fit(tp_kernel, eng, cfg, rows):
     return dict(fit_s=fit_s, launches=launches, records=records)
 
 
+def phase_probes(tp_kernel, dev):
+    """Every probe kernel against its plain version at its full size, with
+    times; then the three entry points on the card, which must launch every
+    probe kernel and no kernel of the model."""
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch.tools_dev import op_probe, op_probe2, probe, throughput_probe
+
+    modules = (op_probe, op_probe2, throughput_probe)
+    rows = {}
+    for mod in modules:
+        rng = np.random.default_rng(23)
+        for name, p in mod.PROBES.items():
+            tensors = p.inputs(rng, dev)
+            row = probe.check(p, tensors)
+            out = row.pop("out")
+            if not row["ok"]:
+                fail(f"probe {name}: max|d| {row['max_abs_err']:.3e} > {p.tol} * "
+                     f"{row['max_abs_ref']:.3e} (shape {row['shape']})")
+            if name == "k_acc" and not torch.equal(out, p(*tensors)):
+                fail("probe k_acc differs between two launches")
+            del out
+            row.update(probe.measure(p, tensors, n=8, warmup=2))
+            row.update(source=f"hamgnn_tpu_torch/csrc/{p.source}.cu", replaces=p.replaces,
+                       rows=p.rows, tol=p.tol)
+            rows[f"probe_{name}"] = row
+            lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+            print(f"[probe] {name:11s} rows={p.rows} max|d|={row['max_abs_err']:.3e} (max|ref| "
+                  f"{row['max_abs_ref']:.3e}, limit {p.tol:g}) kernel {row['ms']:.4f} ms plain "
+                  f"{row['plain_ms']:.4f} ms library {lib} bound {row['bound_ms']:.5f} ms "
+                  f"({row['bound_by']})", flush=True)
+            del tensors
+        torch.cuda.empty_cache()
+
+    # path 1: the entry points as a user calls them, on the card by default
+    reset_launches(tp_kernel)
+    for mod in modules:
+        mod.main([])
+    torch.cuda.synchronize()
+    for name, k in all_kernels(tp_kernel).items():
+        if (k.launches > 0) != (name in rows):
+            fail(f"kernel {name}: {k.launches} launches in the probes' run")
+        if name in rows:
+            rows[name]["launches"] = k.launches
+    torch.cuda.empty_cache()
+    print(f"[probe] entry points ran: {len(rows)} probe kernels launched, "
+          f"{sum(r['launches'] for r in rows.values())} launches", flush=True)
+    return rows
+
+
+BAND_OUT = {"calculate_band_energy": True, "num_k": 6, "band_num_control": 8}
+BAND_LOSSES = BENCH_LOSSES + [{"metric": "mae", "prediction": "band_energy",
+                               "target": "band_energy", "loss_weight": 0.27211}]
+
+
+def band_config():
+    cfg = json.loads(json.dumps(BENCH_CFG))
+    cfg["output_nets"]["HamGNN_out"].update(BAND_OUT)
+    return cfg
+
+
+def host_bands(crystal, k_cart, basis, nao, width):
+    """float64 bands of one crystal's stored H and S on the host, in the
+    head's window of ``2 * width`` around half filling: (nk, 2 * width)."""
+    import numpy as np
+    import scipy.linalg
+
+    from hamgnn_tpu_torch.tools.band_cal import assemble_k_matrices_numpy
+
+    z = crystal["z"]
+    n = len(z)
+    valid = np.concatenate([basis.orbital_mask_table[zi] > 0 for zi in z])
+    mats = [assemble_k_matrices_numpy(
+        np.concatenate([crystal[on], crystal[off]]), n, crystal["edge_index"],
+        crystal["nbr_shift"], k_cart, nao, valid) for on, off in (("Hon", "Hoff"), ("Son", "Soff"))]
+    half = int(np.ceil(sum(basis.num_valence[int(zi)] for zi in z) / 2))
+    start = min(max(half - width, 0), max(int(valid.sum()) - 2 * width, 0))
+    return np.stack([scipy.linalg.eigh(h, s_, eigvals_only=True)[start : start + 2 * width]
+                     for h, s_ in zip(*mats)])
+
+
+def phase_band(tp_kernel, dev, card):
+    """The band branch at the bench width on 4 crystals of 16 atoms."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.data.graph import pad_and_batch
+    from hamgnn_tpu_torch.data.synthetic import add_random_hamiltonian_targets, make_crystal
+    from hamgnn_tpu_torch.models.basis import get_basis_set
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.physics.kpoints import k_vecs_for_graph
+    from hamgnn_tpu_torch.train.config import load_config
+    from hamgnn_tpu_torch.train.trainer import Trainer
+
+    nao, width, nk = 19, BAND_OUT["band_num_control"], BAND_OUT["num_k"]
+    rng = np.random.default_rng(5)
+    crystals = [add_random_hamiltonian_targets(
+        rng, make_crystal(rng, n_atoms=16, cell_size=8.0, cutoff=5.0), nao_max=nao)
+        for _ in range(4)]
+    n_edges = sum(c["edge_index"].shape[1] for c in crystals)
+    graph = pad_and_batch(crystals, node_bucket=64,
+                          edge_bucket=((n_edges + 255) // 256) * 256, device=dev)
+    norb = graph.num_nodes * nao
+    model = init_weights(build_model(load_config(None, overrides=band_config())), 0)
+    WORK.mkdir(parents=True, exist_ok=True)
+    tr = Trainer(model, losses=BAND_LOSSES, metrics=[], lr=1e-3,
+                 train_dir=str(WORK / "train_band"), device=dev)
+    layers = BENCH_CFG["representation_nets"]["HamGNN_pre"]["num_layers"]
+
+    # forward: shapes, finiteness, the reference bands against the host
+    k_np = k_vecs_for_graph(graph, nk, None, rng=np.random.default_rng(6))
+    k_vecs = torch.as_tensor(k_np, device=dev)
+    tr.model.eval()
+    with torch.inference_mode():
+        reset_launches(tp_kernel)
+        out = tr.model(graph, k_vecs=k_vecs)
+        torch.cuda.synchronize()
+        check_launches(tp_kernel, {"packed_tp_fwd": 4 * layers + 1}, "one band forward")
+    shapes = {"band_energy": (4, nk, 2 * width), "band_energy_ref": (4, nk, 2 * width),
+              "band_gap": (4,), "wavefunction": (4, nk, 2 * width, norb),
+              "H_sym": (4, nk, norb, norb)}
+    for key, shape in shapes.items():
+        if tuple(out[key].shape) != shape or not bool(torch.isfinite(out[key].abs()).all()):
+            fail(f"band forward: {key} has shape {tuple(out[key].shape)}, expected {shape}, finite")
+    basis = get_basis_set("openmx", nao)
+    ref = out["band_energy_ref"].cpu().numpy()
+    worst = 0.0
+    for b, c in enumerate(crystals):
+        host = host_bands(c, k_np[b].astype(np.float64), basis, nao, width)
+        worst = max(worst, float(np.abs(ref[b] - host).max()))
+    if not worst <= BAND_TOL:
+        fail(f"band_energy_ref vs the float64 host solve: max|d| {worst:.3e} > {BAND_TOL}")
+    del out
+
+    # one training step with the band loss
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(tp_kernel)
+    loss, logs = tr.train_step(graph)
+    torch.cuda.synchronize()
+    launches = check_launches(tp_kernel, {k: 4 * layers + 1 for k in ENGINES["auto"]},
+                              "one band train step")
+    if not math.isfinite(float(loss)) or float(logs["nonfinite_step"]) != 0.0 \
+            or not math.isfinite(float(logs["mae_band_energy"])):
+        fail(f"band train step: loss {float(loss)}, logs {logs}")
+    if not bool(torch.isfinite(tr.grad).all()) or float(tr.grad.abs().max()) == 0.0:
+        fail("band train step: gradients are not finite, or all zero")
+
+    times = [_host_time(lambda: tr.train_step(graph)) for _ in range(3)]
+    step_ms = 1e3 * float(np.median(times))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            tr.train_step(graph)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 2
+    device_ms = _write_profile(prof, wall, 2, "profile_band_step.txt", "step")
+    # host time inside the solver ops (they wait for the card), per step
+    solver = {}
+    for ev in prof.key_averages():
+        if ev.key in ("aten::linalg_eigh", "aten::linalg_cholesky", "aten::linalg_cholesky_ex",
+                      "aten::linalg_solve_triangular"):
+            solver[ev.key] = ev.cpu_time_total / 2e3
+    solver_ms = solver.get("aten::linalg_eigh", 0.0) + max(
+        solver.get("aten::linalg_cholesky", 0.0), solver.get("aten::linalg_cholesky_ex", 0.0))
+
+    # Cholesky and eigh alone on matrices of the step's size, host clock
+    g = torch.Generator(device="cpu").manual_seed(1)
+    a = torch.randn((4, nk, norb, norb), dtype=torch.complex64, generator=g).to(dev)
+    spd = a @ a.mH / norb + torch.eye(norb, device=dev)
+    chol_ms = 1e3 * min(_host_time(lambda: torch.linalg.cholesky(spd)) for _ in range(2))
+    eigh_ms = 1e3 * min(_host_time(lambda: torch.linalg.eigh(spd)) for _ in range(2))
+    del a, spd
+    print(f"[band] 4 crystals x 16 atoms ({n_edges} edges, {graph.num_edges} padded), "
+          f"{nk} k, H(k) {norb} x {norb} complex64: band_energy_ref vs float64 host solve "
+          f"max|d| {worst:.3e} (limit {BAND_TOL}); train step {step_ms:.3f} ms (median of 3: "
+          + ", ".join(f"{1e3 * t:.3f}" for t in times)
+          + f"), launches {launches}, loss {float(loss):.6f}, mae_band_energy "
+          f"{float(logs['mae_band_energy']):.6f}; profiler: wall {1e3 * wall:.3f} ms/step, "
+          f"device kernels {device_ms['__all__']:.3f} ms/step, host time inside eigh + Cholesky "
+          f"{solver_ms:.3f} ms/step = {solver_ms / (1e3 * wall):.1%} of the step ({solver}); "
+          f"alone, one batch of 24: Cholesky {chol_ms:.3f} ms, eigh {eigh_ms:.3f} ms; "
+          f"peak memory {peak_gb:.2f} GB, card {card}", flush=True)
+    del tr, model
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, step_times_ms=[1e3 * t for t in times], launches=launches,
+                n_edges=n_edges, padded_edges=graph.num_edges, norb=norb, nk=nk,
+                ref_vs_host_max_abs_err=worst, profile_wall_ms=1e3 * wall,
+                device_ms_by_kernel=device_ms, solver_host_ms=solver,
+                solver_share_of_step=solver_ms / (1e3 * wall), cholesky_alone_ms=chol_ms,
+                eigh_alone_ms=eigh_ms, peak_gb=peak_gb, loss=float(loss))
+
+
+def phase_band_cli(tp_kernel):
+    """``stage: fit`` two epochs with the band loss, ``stage: test`` from its
+    best.pt, then ``tools.band_cal`` on the prediction."""
+    import numpy as np
+    import yaml
+
+    from hamgnn_tpu_torch import cli
+    from hamgnn_tpu_torch.data.dataset import save_graph_npz
+    from hamgnn_tpu_torch.data.synthetic import add_random_hamiltonian_targets, make_crystal
+    from hamgnn_tpu_torch.tools import band_cal
+
+    work = WORK / "cli_band"
+    work.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(2)
+    crystals = [add_random_hamiltonian_targets(
+        rng, make_crystal(rng, n_atoms=8, cell_size=6.0, cutoff=5.0), nao_max=19)
+        for _ in range(3)]
+    save_graph_npz(str(work / "graph_data.npz"), crystals)
+    cfg = band_config()
+    cfg["output_nets"]["HamGNN_out"]["k_path"] = "auto"
+    cfg["setup"] = {"stage": "fit"}
+    cfg["dataset_params"] = {"graph_data_path": str(work), "batch_size": 1,
+                             "train_ratio": 1 / 3, "val_ratio": 1 / 3, "test_ratio": 1 / 3}
+    cfg["optim_params"] = {"lr": 1e-3, "min_epochs": 0, "max_epochs": 2}
+    cfg["losses_metrics"] = {"losses": BAND_LOSSES, "metrics": [
+        {"metric": "mae", "prediction": "band_energy", "target": "band_energy"},
+        {"metric": "mae", "prediction": "band_gap", "target": "band_gap"}]}
+    cfg["profiler_params"] = {"train_dir": str(work / "fit")}
+    with open(work / "fit.yaml", "w") as f:
+        yaml.safe_dump(cfg, f)
+    reset_launches(tp_kernel)
+    t0 = time.perf_counter()
+    cli.main(["--config", str(work / "fit.yaml")])
+    fit_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in all_kernels(tp_kernel).items() if k.launches}
+    if set(launches) != set(ENGINES["auto"]):
+        fail(f"the band fit run should launch {ENGINES['auto']} and no other: {launches}")
+    records = [json.loads(line) for line in open(work / "fit" / "metrics.jsonl")]
+    if [r["epoch"] for r in records] != [0, 1] or not all(
+            math.isfinite(r[key]) for r in records
+            for key in ("train_loss", "val_loss", "val/mae_band_energy", "val/mae_band_gap")):
+        fail(f"band fit metrics.jsonl: {records}")
+
+    cfg["setup"] = {"stage": "test", "checkpoint_path": str(work / "fit" / "best.pt")}
+    cfg["dataset_params"]["batch_size"] = 2
+    cfg["profiler_params"] = {"train_dir": str(work / "test")}
+    with open(work / "test.yaml", "w") as f:
+        yaml.safe_dump(cfg, f)
+    cli.main(["--config", str(work / "test.yaml")])
+    rows = sum(c["z"].shape[0] + c["edge_index"].shape[1] for c in crystals)
+    pred = np.load(work / "test" / "prediction_hamiltonian.npy")
+    if pred.shape != (rows, 361) or not np.isfinite(pred).all():
+        fail(f"band test run: prediction shape {pred.shape}, expected ({rows}, 361), finite")
+
+    with open(work / "band_cal.yaml", "w") as f:
+        yaml.safe_dump({"nao_max": 19, "graph_data_path": str(work / "graph_data.npz"),
+                        "hamiltonian_path": str(work / "test" / "prediction_hamiltonian.npy"),
+                        "nk": 12, "save_dir": str(work / "bands"), "strcture_name": "smoke",
+                        "auto_mode": True}, f)
+    band_cal.main(["--config", str(work / "band_cal.yaml")])
+    gaps = []
+    for i in range(len(crystals)):
+        res = np.load(work / "bands" / f"smoke_{i}_bands.npz")
+        if res["bands"].shape[0] != 12 or not np.isfinite(res["bands"]).all():
+            fail(f"band_cal: crystal {i} bands {res['bands'].shape}, expected 12 k, finite")
+        gaps.append(float(res["gap"]))
+    print(f"[cli] band: stage fit 2 epochs in {fit_s:.1f} s, launches {launches}, val "
+          f"mae_band_energy {[round(r['val/mae_band_energy'], 6) for r in records]}; stage "
+          f"test from best.pt: {rows} rows x 361; band_cal: {len(gaps)} band structures, "
+          f"gaps {[round(g_, 4) for g_ in gaps]} eV", flush=True)
+    return dict(fit_s=fit_s, launches=launches, records=records, band_cal_gaps_ev=gaps)
+
+
 def main():
     import torch
 
@@ -820,8 +1108,13 @@ def main():
         cfg, n_rows = phase_cli(tp_kernel, eng)
         fit[eng] = phase_cli_fit(tp_kernel, eng, cfg, n_rows)
 
+    probes = phase_probes(tp_kernel, dev)
+    band = phase_band(tp_kernel, dev, card)
+    band_fit = phase_band_cli(tp_kernel)
+
     report = {"card": card, "kernel_rows": rows, "zonal_engine": zonal_engine,
-              "model": model, "train": train, "fit": fit}
+              "model": model, "train": train, "fit": fit, "probes": probes,
+              "band": band, "band_fit": band_fit}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -848,6 +1141,12 @@ def main():
                                          ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "max_abs_err")} for r in rows[name]},
             })
+    for name, r in probes.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

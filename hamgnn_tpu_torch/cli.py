@@ -14,13 +14,19 @@ the dataset and the ConvE3 model, then
   of the flattened flax tree) and run the test batches;
 
 and save ``prediction_hamiltonian.npy`` / ``target_hamiltonian.npy`` in the
-reference's interleaved layout.
+reference's interleaved layout.  With ``output_nets.HamGNN_out.
+calculate_band_energy`` the head also solves the bands (``num_k``,
+``k_path``, ``band_num_control``, ``export_reciprocal_values``), so
+``band_energy`` / ``band_gap`` can sit under ``losses_metrics``; they reach
+``metrics.jsonl`` and the printed test metrics, and no band file is written
+(``tools/band_cal.py`` computes band structures from the predictions).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -30,7 +36,7 @@ from . import resolve_device
 from .models.model import HamGNNModel, init_weights
 from .models.output import HamGNNPlusPlusOut, concatenate_by_crystal
 from .models.representation import HamGNNConvE3
-from .train.config import config_to_dict, load_config
+from .train.config import NS, config_to_dict, load_config
 from .train.trainer import Trainer, load_params
 
 
@@ -45,8 +51,7 @@ def build_model(config) -> HamGNNModel:
         if pre.get(key, False):
             raise NotImplementedError(f"{what} is not ported yet (a later slice)")
     for key, what in (("soc_switch", "the SOC head"),
-                      ("spin_constrained", "the magnetic head"),
-                      ("calculate_band_energy", "the band head")):
+                      ("spin_constrained", "the magnetic head")):
         if out.get(key, False):
             raise NotImplementedError(f"{what} is not ported yet (a later slice)")
     rep = HamGNNConvE3(
@@ -77,8 +82,51 @@ def build_model(config) -> HamGNNModel:
         add_H0=out.add_H0,
         zero_point_shift=out.get("zero_point_shift", True),
         nonlinearity_type=out.get("nonlinearity_type", "gate"),
+        calculate_band_energy=out.get("calculate_band_energy", False),
+        num_k=out.get("num_k", 5),
+        k_path=_freeze_k_path(out.get("k_path", None)),
+        export_reciprocal_values=out.get("export_reciprocal_values", False),
+        **_band_control_kwargs(out),
     )
     return HamGNNModel(rep, head)
+
+
+def _band_control_kwargs(out) -> dict:
+    """Map the reference's int or dict ``band_num_control`` onto the head's
+    static-shape attributes.
+
+    int -> a window of that many bands either side of half filling.
+    dict {Z: count} -> per-species counts; the head exports the lowest
+    ``max_bands`` (config key, default 32) bands plus a per-crystal mask.
+    Any other value (a float fraction, say) means "no truncation" in the
+    reference; static shapes need a fixed window, so this warns and takes a
+    +/-``max_bands`` window around half filling.
+    """
+    bnc = out.get("band_num_control", 8)
+    if bnc is None or isinstance(bnc, bool):  # bool is an int subclass: unset
+        bnc = 8
+    if isinstance(bnc, int):
+        return {"band_num_control": bnc}
+    max_bands = int(out.get("max_bands", 32))
+    if isinstance(bnc, (dict, NS)):
+        # the loader turns a mapping with string keys ("6": 2) into an NS
+        items = bnc.items() if isinstance(bnc, dict) else vars(bnc).items()
+        counts = tuple(sorted((int(z), int(n)) for z, n in items))
+        return {"band_num_control": max_bands, "band_species_counts": counts}
+    warnings.warn(
+        f"band_num_control={bnc!r}: only an int or a per-species dict is "
+        f"supported. The reference treats this as no truncation (all bands); "
+        f"static shapes need a fixed window, so a +/-{max_bands}-band window "
+        f"around half filling is taken instead (set max_bands to widen it)",
+        stacklevel=2)
+    return {"band_num_control": max_bands}
+
+
+def _freeze_k_path(spec):
+    """YAML k_path -> head attribute: 'auto', a tuple of reduced nodes, or None."""
+    if spec is None or isinstance(spec, str):
+        return spec
+    return tuple(tuple(float(v) for v in node) for node in spec)
 
 
 def prepare_dataset(config, device=None):

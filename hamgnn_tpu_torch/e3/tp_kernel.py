@@ -33,6 +33,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -99,27 +100,34 @@ def build_kernels(names) -> dict:
 
 
 class CudaKernel:
-    """A kernel library built at first use, with a count of launches.
+    """A kernel of a library built at first use, with a count of launches.
 
     ``symbols`` maps each exported C function to (argtypes, restype); the
     launch function is ``name`` and returns a CUDA error code, which
-    ``<name>_error_string`` turns into text.  ``launches`` rises by one each
-    time ``launch`` starts the kernel and nowhere else, so a run can show
-    that its path went through the kernel.
+    ``<source>_error_string`` turns into text.  ``source`` names the
+    ``csrc/<source>.cu`` that holds the kernel (default: ``name``); kernels
+    of one source share its library.  ``launches`` rises by one each time
+    ``launch`` starts the kernel and nowhere else, so a run can show that
+    its path went through the kernel.
     """
 
-    def __init__(self, name: str, symbols: dict):
+    _libraries: dict = {}  # source -> loaded library, shared by its kernels
+
+    def __init__(self, name: str, symbols: dict, source: Optional[str] = None):
         self.name = name
+        self.source = source or name
         self.symbols = {name: symbols[name],
-                        f"{name}_error_string": ([ctypes.c_int], ctypes.c_char_p),
+                        f"{self.source}_error_string": ([ctypes.c_int], ctypes.c_char_p),
                         **symbols}
         self.launches = 0
         self._lib = None
 
     def library(self):
         if self._lib is None:
-            path, _ = build_kernels([self.name])[self.name]
-            lib = ctypes.CDLL(str(path))
+            lib = self._libraries.get(self.source)
+            if lib is None:
+                path, _ = build_kernels([self.source])[self.source]
+                lib = self._libraries[self.source] = ctypes.CDLL(str(path))
             for sym, (argtypes, restype) in self.symbols.items():
                 fn = getattr(lib, sym)
                 fn.argtypes = argtypes
@@ -131,7 +139,7 @@ class CudaKernel:
         lib = self.library()
         rc = getattr(lib, self.name)(*args)
         if rc != 0:
-            msg = getattr(lib, f"{self.name}_error_string")(rc).decode()
+            msg = getattr(lib, f"{self.source}_error_string")(rc).decode()
             raise RuntimeError(f"{self.name} launch failed: {msg} ({rc})")
         self.launches += 1
 

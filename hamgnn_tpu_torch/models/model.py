@@ -1,5 +1,5 @@
 """Combined model (representation + output head) and loss/metric computation,
-counterpart of ``hamgnn_tpu/models/model.py`` (forward only in this slice)."""
+counterpart of ``hamgnn_tpu/models/model.py``."""
 
 from __future__ import annotations
 
@@ -18,8 +18,13 @@ class HamGNNModel(nn.Module):
         self.representation = representation
         self.output = output
 
-    def forward(self, graph: Graph) -> Dict[str, torch.Tensor]:
-        return self.output(graph, self.representation(graph))
+    def forward(self, graph: Graph, k_vecs=None) -> Dict[str, torch.Tensor]:
+        """``k_vecs`` (B, nk, 3) Cartesian: the k-points of the band branch,
+        for a head built with ``calculate_band_energy``."""
+        feats = self.representation(graph)
+        if k_vecs is None:
+            return self.output(graph, feats)
+        return self.output(graph, feats, k_vecs=k_vecs)
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
@@ -46,6 +51,19 @@ def _stack_pred_target(name: str, preds: Dict, graph: Graph):
         mask = torch.cat([graph.node_mask, graph.edge_mask], 0)[:, None]
         return (pred.reshape(pred.shape[0], -1), target.reshape(target.shape[0], -1),
                 mask)
+    if nm == "band_energy":
+        pred, target = preds["band_energy"], preds["band_energy_ref"]
+        if "band_mask" in preds:
+            # per-species band_num_control: only the bands below the
+            # per-crystal count are physical
+            mask = torch.broadcast_to(preds["band_mask"], pred.shape)
+        else:
+            mask = torch.ones(pred.shape[:1] + (1,) * (pred.ndim - 1), dtype=pred.dtype,
+                              device=pred.device)
+        return pred, target, mask
+    if nm == "band_gap":
+        pred = preds["band_gap"]
+        return pred, preds["band_gap_ref"], torch.ones_like(pred)
     # generic result-dict keys: the target is the graph field of that name,
     # else the prediction's "<name>_ref" counterpart
     by_lower = {k.lower(): k for k in preds}

@@ -1,16 +1,18 @@
-"""HamGNN++ output head (non-SOC, no band branch), counterpart of
+"""HamGNN++ output head (non-SOC), counterpart of
 ``hamgnn_tpu/models/output.py``.
 
 Irreps features -> nao x nao Hamiltonian blocks through one precomputed
 merge/reorder matrix per head; Hermitian symmetrisation through the inverse
 edge (the transposed merge matrix ``M_T`` gives the Hermitian mates straight
-from the head matmul), orbital masks, H0 and the zero-point shift.
+from the head matmul), orbital masks, H0 and the zero-point shift; with
+``calculate_band_energy`` and k-points, the band branch
+(``physics/band.py``) on the predicted and on the reference Hamiltonian.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,14 +82,34 @@ class HamLayer(nn.Module):
 class HamGNNPlusPlusOut(nn.Module):
     """Non-SOC head: per-atom ``hamiltonian_on`` (N, nao^2) and per-edge
     ``hamiltonian_off`` (E, nao^2), optional overlaps, masks and the
-    sparsity ratio."""
+    sparsity ratio.
+
+    Band branch (``calculate_band_energy`` and ``k_vecs`` given):
+    ``band_energy``, ``wavefunction``, ``band_gap`` (and ``band_mask`` with
+    ``band_species_counts``, ``HK``/``SK``/``dSK`` with
+    ``export_reciprocal_values``, else ``H_sym``) from the predicted
+    Hamiltonian, and their ``_ref`` twins from the reference Hamiltonian of
+    the graph, without gradient.  ``k_path``: None (random k), ``"auto"`` or
+    a tuple of reduced nodes, read by the trainer; ``band_num_control``: the
+    half-width of the band window, or with ``band_species_counts``
+    (((z, count), ...)) the number of bottom bands exported."""
 
     def __init__(self, irreps_in_node: str, irreps_in_edge: str, nao_max: int = 14,
                  ham_type: str = "openmx", ham_only: bool = True,
                  symmetrize: bool = True, add_H0: bool = True,
                  zero_point_shift: bool = True, nonlinearity_type: str = "gate",
-                 export_mask: bool = True):
+                 export_mask: bool = True, calculate_band_energy: bool = False,
+                 num_k: int = 5, k_path: Optional[Any] = None,
+                 band_num_control: int = 8,
+                 band_species_counts: Optional[Tuple[Tuple[int, int], ...]] = None,
+                 export_reciprocal_values: bool = False):
         super().__init__()
+        self.calculate_band_energy = calculate_band_energy
+        self.num_k = num_k
+        self.k_path = k_path
+        self.band_num_control = band_num_control
+        self.band_species_counts = band_species_counts
+        self.export_reciprocal_values = export_reciprocal_values
         self.basis = get_basis_set(ham_type, nao_max)
         self.nao = self.basis.nao_max
         ham_irreps = hamiltonian_irreps(self.basis)
@@ -120,7 +142,8 @@ class HamGNNPlusPlusOut(nn.Module):
         comps = getattr(self, head_name)(feats)
         return comps @ self.M, (comps @ self.M_T if self.symmetrize else None)
 
-    def forward(self, graph: Graph, representation: Dict[str, torch.Tensor]):
+    def forward(self, graph: Graph, representation: Dict[str, torch.Tensor],
+                k_vecs: Optional[torch.Tensor] = None):
         nao = self.nao
         src, dst = graph.edge_index[0], graph.edge_index[1]
         inv = graph.inv_edge_idx
@@ -182,7 +205,59 @@ class HamGNNPlusPlusOut(nn.Module):
             self.n_orb[graph.z[src]] * self.n_orb[graph.z[dst]] * edge_mask)
         total = (torch.sum(node_mask) + torch.sum(edge_mask)) * float(nao * nao)
         result["sparsity_ratio"] = total / torch.clamp(eff, min=1.0)
+
+        if self.calculate_band_energy and k_vecs is not None:
+            self._band_branch(graph, k_vecs, result)
         return result
+
+    def _band_branch(self, graph: Graph, k_vecs: torch.Tensor, result: Dict) -> None:
+        """Bands of the predicted Hamiltonian, and of the graph's reference
+        Hamiltonian (no gradient), against the reference overlap."""
+        from ..physics.band import band_counts_per_crystal, band_energies_batched
+
+        band_counts = None
+        if self.band_species_counts is not None:
+            band_counts = band_counts_per_crystal(graph, self.band_species_counts)
+        # ham_only=False + export_reciprocal: the exported SK comes from the
+        # PREDICTED overlap while the solve factorizes the reference S
+        sk_pred = {}
+        if self.export_reciprocal_values and not self.ham_only:
+            sk_pred = {"sk_export_on": result["overlap_on"],
+                       "sk_export_off": result["overlap_off"]}
+        # H_sym (the Cholesky-transformed H) goes out on the non-reciprocal path
+        want_H_sym = not self.export_reciprocal_values
+        band, wfn, gap, *extras = band_energies_batched(
+            graph, result["hamiltonian_on"], result["hamiltonian_off"],
+            graph.Son, graph.Soff, k_vecs, self.basis,
+            num_bands=self.band_num_control,
+            export_reciprocal=self.export_reciprocal_values,
+            band_counts=band_counts, export_H_sym=want_H_sym, **sk_pred)
+        if band_counts is not None:
+            result["band_mask"] = extras.pop(0)
+        if self.export_reciprocal_values:
+            result["HK"] = extras.pop(0)
+            result["SK"] = extras.pop(0)
+            if len(extras) > (1 if want_H_sym else 0):
+                result["dSK"] = extras.pop(0)
+        if want_H_sym:
+            result["H_sym"] = extras.pop(0)
+        result["band_energy"] = band
+        result["wavefunction"] = wfn
+        result["band_gap"] = gap
+        with torch.no_grad():
+            ref_out = band_energies_batched(
+                graph, graph.Hon, graph.Hoff, graph.Son, graph.Soff, k_vecs, self.basis,
+                num_bands=self.band_num_control, band_counts=band_counts,
+                export_H_sym=want_H_sym)
+        result["band_energy_ref"] = ref_out[0]
+        result["band_gap_ref"] = ref_out[2]
+        # reference-H twins, so that wavefunction / H_sym can sit under a loss
+        # spec like any other result key
+        result["wavefunction_ref"] = ref_out[1]
+        if want_H_sym:
+            result["H_sym_ref"] = ref_out[3 + (1 if band_counts is not None else 0)]
+        if self.zero_point_shift:
+            result["band_energy"] = band - torch.mean(band - ref_out[0])
 
 
 def concatenate_by_crystal(graph: Graph, on_rows: np.ndarray, off_rows: np.ndarray):

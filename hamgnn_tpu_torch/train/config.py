@@ -137,6 +137,10 @@ class NS(SimpleNamespace):
 
 def _to_ns(obj):
     if isinstance(obj, dict):
+        if not all(isinstance(k, str) for k in obj):
+            # a mapping keyed by numbers (band_num_control: {6: 2, 14: 4}) has
+            # no attribute form: it stays a dict
+            return {k: _to_ns(v) for k, v in obj.items()}
         return NS(**{k: _to_ns(v) for k, v in obj.items()})
     if isinstance(obj, list):
         return [_to_ns(v) for v in obj]

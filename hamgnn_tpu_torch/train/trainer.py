@@ -97,17 +97,29 @@ class Trainer:
         self.flat, self.grad = flatten_parameters(self.model)
         self.opt = Amsgrad(self.flat.numel(), self.device, gradient_clip_val)
         self.nonfinite_steps = 0  # of the last train_epoch
+        # draws the random k-points of the band branch when no k_path is set
+        self.k_rng = np.random.default_rng(0)
         os.makedirs(train_dir, exist_ok=True)
         self._log_path = os.path.join(train_dir, "metrics.jsonl")
 
     # --- steps -----------------------------------------------------------
+
+    def _band_kwargs(self, graph) -> Dict[str, torch.Tensor]:
+        """Host-generated k-points when the output head computes bands."""
+        out = self.model.output
+        if not getattr(out, "calculate_band_energy", False):
+            return {}
+        from ..physics.kpoints import k_vecs_for_graph
+
+        k = k_vecs_for_graph(graph, out.num_k, out.k_path, rng=self.k_rng)
+        return {"k_vecs": torch.as_tensor(k, device=self.device)}
 
     def train_step(self, graph):
         """One update on ``graph``; returns (loss, logs) as device scalars,
         with ``logs["nonfinite_step"]`` 1.0 where the guard dropped it."""
         self.model.train()
         self.grad.zero_()
-        preds = self.model(graph)
+        preds = self.model(graph, **self._band_kwargs(graph))
         total, logs = compute_losses(preds, graph, self.losses)
         total.backward()
         ok = self.opt.step(self.flat, self.grad, self.sched.lr, loss=total.detach())
@@ -138,7 +150,7 @@ class Trainer:
         losses, aggs, preds_all = [], [], []
         with torch.inference_mode():
             for g in batches:
-                preds = self.model(g)
+                preds = self.model(g, **self._band_kwargs(g))
                 total, logs = compute_losses(preds, g, self.losses)
                 mets = compute_metrics(preds, g, self.metrics)
                 losses.append(total)

@@ -12,7 +12,10 @@ The same holds for the zonal engine's kernels (B3 against
 ``plain_zonal_core``, B4 against ``plain_zonal_core_backward``); the whole
 zonal engine (two rotations around the kernels) is held to the lab-frame
 plain version within 2e-5 * max|ref| (outputs) and 1e-4 * max|ref|
-(gradients).
+(gradients).  Every probe kernel (``tools_dev``) is held to its plain version
+within its stated limit (fp32 1e-4, bf16 2e-2, tf32 operands 2e-3, all *
+max|plain|) at its own size, the throughput probes at E = 256; ``k_acc``
+repeats bit for bit.
 """
 
 import numpy as np
@@ -23,6 +26,9 @@ from hamgnn_tpu_torch.e3 import tp_kernel, zonal_kernel, zonal_tp
 from hamgnn_tpu_torch.e3.irreps import Irreps
 from hamgnn_tpu_torch.e3.packed_tp import get_plan, plain_apply, plain_backward
 from hamgnn_tpu_torch.e3.spherical import spherical_harmonics
+from hamgnn_tpu_torch.tools_dev import op_probe, op_probe2, probe, throughput_probe
+
+PROBES = {**op_probe.PROBES, **op_probe2.PROBES, **throughput_probe.PROBES}
 
 BENCH_FEAT = "64x0e+32x0o+24x1o+12x1e+12x2e+6x2o+4x3o+4x3e+2x4e"
 BENCH_SH = "0e + 1o + 2e + 3o + 4e"
@@ -183,3 +189,38 @@ def test_cuda_zonal_engine_runs_both_kernels(monkeypatch):
     ref = plain_backward(plan, x, sh, w, fw, 2 * out.detach())
     for a, b in zip(got, (ref[0], ref[2], ref[3])):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PROBES))
+def test_cuda_probe_matches_plain(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p = PROBES[name]
+    rows = 256 if p.source == "probe_throughput" else None
+    tensors = p.inputs(np.random.default_rng(12), "cuda", rows)
+    before = p.kernel.launches
+    row = probe.check(p, tensors)
+    assert p.kernel.launches == before + 1
+    assert row["ok"], row
+    if name == "k_acc":
+        assert torch.equal(row["out"], p(*tensors))
+
+
+@pytest.mark.cuda
+def test_cuda_probe_wrapper_refuses_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(13)
+    p = PROBES["p7"]
+    a, b = p.inputs(rng, "cuda", 64)
+    before = p.kernel.launches
+    with pytest.raises(ValueError, match="multiple of 64"):
+        p(a[:32].contiguous(), b)
+    with pytest.raises(ValueError, match="shapes"):
+        p(a, b[:, :32].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        p(a.double(), b.double())
+    with pytest.raises(ValueError, match="at most 128"):
+        PROBES["k_dot_t"](*PROBES["k_dot_t"].inputs(rng, "cuda", 256))
+    assert p.kernel.launches == before

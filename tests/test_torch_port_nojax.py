@@ -2,11 +2,13 @@
 
 In a subprocess where ``jax``, ``flax``, ``optax``, ``orbax`` and
 ``hamgnn_tpu`` cannot be imported, every module of ``hamgnn_tpu_torch``
-imports (the trainer and optimizer included) and ``python -m
-hamgnn_tpu_torch.cli`` runs a ``stage: fit`` config and then a ``stage:
-test`` config from its ``best.pt`` on the CPU, under the default engine and
-under ``HAMGNN_TP_ENGINE=zonal``.  ``chip_smoke.py`` must fail, printing no
-result, where no GPU is available.
+imports (the trainer and optimizer, the probes, the band physics and the
+tools included) and ``python -m hamgnn_tpu_torch.cli`` runs a ``stage: fit``
+config and then a ``stage: test`` config from its ``best.pt`` on the CPU,
+under the default engine and under ``HAMGNN_TP_ENGINE=zonal``; with a band
+loss in the config, followed by ``tools.band_cal`` on the prediction and the
+three probe entry points.  ``chip_smoke.py`` must fail, printing no result,
+where no GPU is available.
 """
 
 import ast
@@ -54,6 +56,15 @@ cfg = {{
         "num_types": 16}}}},
     "output_nets": {{"HamGNN_out": {{"nao_max": 14}}}},
 }}
+band = {band!r}
+if band:
+    cfg["output_nets"]["HamGNN_out"].update(
+        calculate_band_energy=True, num_k=2, band_num_control=2, k_path="auto")
+    cfg["losses_metrics"] = {{"losses": [
+        {{"metric": "mae", "prediction": "hamiltonian", "target": "hamiltonian",
+          "loss_weight": 27.211}},
+        {{"metric": "mae", "prediction": "band_energy", "target": "band_energy",
+          "loss_weight": 0.27211}}], "metrics": []}}
 for stage in ("fit", "test"):
     if stage == "test":
         cfg["setup"] = {{"stage": "test", "checkpoint_path": work + "/fit/best.pt"}}
@@ -63,18 +74,34 @@ for stage in ("fit", "test"):
     sys.argv = ["hamgnn_tpu_torch.cli", "--config", work + "/config.yaml", "--device", "cpu"]
     runpy.run_module("hamgnn_tpu_torch.cli", run_name="__main__")
 assert open(work + "/fit/metrics.jsonl").read().count("train_loss") == 1
-assert not any(sys.modules.get(b) for b in {blocked!r})
 pred = np.load(work + "/out/prediction_hamiltonian.npy")
+if band:
+    assert "val/mae_band_energy" in open(work + "/fit/metrics.jsonl").read()
+    with open(work + "/band_cal.yaml", "w") as f:
+        yaml.safe_dump({{"nao_max": 14, "graph_data_path": work + "/graph_data.npz",
+                        "hamiltonian_path": work + "/out/prediction_hamiltonian.npy",
+                        "nk": 5, "save_dir": work + "/bands", "auto_mode": True}}, f)
+    sys.argv = ["band_cal", "--config", work + "/band_cal.yaml"]
+    runpy.run_module("hamgnn_tpu_torch.tools.band_cal", run_name="__main__")
+    assert np.isfinite(np.load(work + "/bands/structure_2_bands.npz")["bands"]).all()
+    for name, extra in (("op_probe", []), ("op_probe2", []),
+                        ("throughput_probe", ["--edges", "64"])):
+        sys.argv = [name, "--device", "cpu"] + extra
+        runpy.run_module("hamgnn_tpu_torch.tools_dev." + name, run_name="__main__")
+for sub in ("tools_dev.op_probe", "tools_dev.op_probe2", "tools_dev.throughput_probe",
+            "physics.band", "physics.kpoints", "tools.band_cal", "utils.profiling"):
+    assert "hamgnn_tpu_torch." + sub in mods, sub
+assert not any(sys.modules.get(b) for b in {blocked!r})
 from hamgnn_tpu_torch.e3 import zonal_tp
 print("FRAME_BUILDS", zonal_tp.FRAME_MEMO.builds)
 print("MODULES", len(mods), "PRED", pred.shape, bool(np.isfinite(pred).all()))
 """
 
 
-def _run_script(tmp_path, engine):
+def _run_script(tmp_path, engine, band=False):
     """Runs SCRIPT in a subprocess; returns (modules imported, Wigner-D
     frame builds, whether the predictions are finite)."""
-    code = SCRIPT.format(blocked=BLOCKED, root=str(ROOT), work=str(tmp_path))
+    code = SCRIPT.format(blocked=BLOCKED, root=str(ROOT), work=str(tmp_path), band=band)
     env = {k: v for k, v in os.environ.items() if k != "HAMGNN_TP_ENGINE"}
     if engine is not None:
         env["HAMGNN_TP_ENGINE"] = engine
@@ -100,6 +127,14 @@ def test_port_cli_trains_and_predicts_under_zonal_without_jax(tmp_path):
     n_mods, builds, finite = _run_script(tmp_path, "zonal")
     assert n_mods >= 22
     assert builds >= 3  # one train step, one validation pass, one test pass at least
+    assert finite
+
+
+def test_port_band_path_tools_and_probes_run_without_jax(tmp_path):
+    """Fit and test with a band loss (``k_path: auto``), ``band_cal`` on the
+    prediction and the probes' entry points, nothing of JAX importable."""
+    n_mods, _builds, finite = _run_script(tmp_path, None, band=True)
+    assert n_mods >= 32
     assert finite
 
 
