@@ -12,6 +12,8 @@
 //       blocks at once), one multiply, a tree sum over the D1 blocks   (ops)
 //   p4 / p4b / p4c  8 sweeps acc *= b (fp32, bf16x2) or acc += a*b (FFMA)
 //       over the slab                                                 (bytes)
+//   p4c_ns256  p4c with 256 sweeps, enough arithmetic per byte to read the
+//       FFMA rate of the card (the original stops at 8)                 (ops)
 //   p5  the tiling of x alone                                         (bytes)
 //   p6  sh @ Crep alone, written out                                  (bytes)
 //   p7  (E,2048) @ (2048,64) in fp32 FFMA, and p7_tf32 the same on the
@@ -41,6 +43,7 @@ constexpr int KM = K * MUL;   // 960
 constexpr int W = D1 * KM;    // 4800
 constexpr int XW = D1 * MUL;  // 120
 constexpr int NS = 8;         // sweeps
+constexpr int NS_DEEP = 256;  // sweeps of p4c_ns256
 constexpr int FAN = 2048, V = 64;
 
 constexpr int BM = 64;  // edges per block of the products
@@ -227,14 +230,15 @@ __global__ void p4b_kernel(const uint4* __restrict__ a, const uint4* __restrict_
   }
 }
 
+template <int SWEEPS>
 __global__ void p4c_kernel(const float4* __restrict__ a, const float4* __restrict__ b,
                            float4* __restrict__ out, size_t n4) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
        i += (size_t)gridDim.x * blockDim.x) {
     const float4 av = a[i], bv = b[i];
     float4 acc = av;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
+#pragma unroll 32
+    for (int s = 0; s < SWEEPS; ++s) {
       acc.x = fmaf(av.x, bv.x, acc.x);
       acc.y = fmaf(av.y, bv.y, acc.y);
       acc.z = fmaf(av.z, bv.z, acc.z);
@@ -503,7 +507,15 @@ int probe_p4b(const void* a, const void* b, void* out, int E, void* stream) {
 
 int probe_p4c(const float* a, const float* b, float* out, int E, void* stream) {
   if (E <= 0) return (int)cudaErrorInvalidValue;
-  p4c_kernel<<<sweep_blocks(), 256, 0, (cudaStream_t)stream>>>(
+  p4c_kernel<NS><<<sweep_blocks(), 256, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(a), reinterpret_cast<const float4*>(b),
+      reinterpret_cast<float4*>(out), (size_t)E * W / 4);
+  return (int)cudaGetLastError();
+}
+
+int probe_p4c_ns256(const float* a, const float* b, float* out, int E, void* stream) {
+  if (E <= 0) return (int)cudaErrorInvalidValue;
+  p4c_kernel<NS_DEEP><<<sweep_blocks(), 256, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(a), reinterpret_cast<const float4*>(b),
       reinterpret_cast<float4*>(out), (size_t)E * W / 4);
   return (int)cudaGetLastError();

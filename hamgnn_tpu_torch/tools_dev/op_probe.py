@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .probe import main_checks, rowwise
 
@@ -79,23 +80,28 @@ PROBES = {p.name: p for p in [
     _rowwise("k_repeat", 37, "tile x4 along the columns, (TE,K) -> (TE,4K)",
              [(None, K)], 4 * K, plain_k_repeat, 0, library=lambda a: a.repeat(1, 4)),
     _rowwise("k_squeeze", 48, "view (TE,K,MUL), middle index 3 -> (TE,MUL)",
-             [(None, KM)], MUL, plain_k_squeeze, 0),
+             [(None, KM)], MUL, plain_k_squeeze, 0,
+             library=lambda x: x[:, 3 * MUL : 4 * MUL].contiguous()),
     _rowwise("k_merge128", 56, "view (TE,8,128), +1, merge -> (TE,1024)",
              [(None, 1024)], 1024, plain_k_merge128, 1024, library=lambda x: x + 1.0),
     _rowwise("k_merge64", 64, "view (TE,16,64), +1, merge -> (TE,1024)",
              [(None, KM)], KM, plain_k_merge64, KM, library=lambda x: x + 1.0),
     _rowwise("k_outer", 71, "outer (TE,K,1)x(TE,1,MUL), sum over K",
-             [(None, K), (None, MUL)], MUL, plain_k_outer, 2 * K * MUL),
+             [(None, K), (None, MUL)], MUL, plain_k_outer, 2 * K * MUL,
+             library=lambda a, b: torch.einsum("ek,em->em", a, b)),
     _rowwise("k_lred", 79, "view (TE,K,MUL), sum over MUL -> (TE,K)",
-             [(None, KM)], K, plain_k_lred, KM),
+             [(None, KM)], K, plain_k_lred, KM,
+             library=lambda x: torch.sum(x.view(-1, K, MUL), dim=2)),
     _rowwise("k_atadd", 86, "zeros, add x[:, :128] into columns 64..191",
-             [(None, KM)], KM, plain_k_atadd, 128),
+             [(None, KM)], KM, plain_k_atadd, 128,
+             library=lambda x: F.pad(x[:, :128], (64, KM - 64 - 128))),
     _rowwise("k_gather", 94, "columns 0, K, 2K, ... -> (TE,MUL)",
              [(None, KM)], MUL, plain_k_gather, 0,
              library=lambda x: x[:, ::K].contiguous()),
     _rowwise("k_dot", 101, "(TE,MUL) @ (MUL,24)",
              [(None, MUL), (MUL, NV)], NV, plain_k_dot, 2 * MUL * NV,
              library=torch.matmul),
+    # no library call: a sum of two slices and then a product are two calls
     _rowwise("k_slice_dot", 110, "view (TE,K,MUL), middle 2 + 3, @ (MUL,24)",
              [(None, KM), (MUL, NV)], NV, plain_k_slice_dot, MUL + 2 * MUL * NV),
 ]}

@@ -14,6 +14,7 @@ reduce, so a second launch is bit-identical (checked here).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -70,6 +71,12 @@ def plain_k_acc(a):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _block_scales(device):
+    """(KM,) factors 0,..,0,1,..,1,...: block i of MUL columns holds i."""
+    return torch.arange(K, dtype=torch.float32, device=device).repeat_interleave(MUL)
+
+
 def _rowwise(name, line, *args, **kw):
     return rowwise(name, f"{_SRC}:{line}", *args, **kw)
 
@@ -81,13 +88,17 @@ PROBES = {p.name: p for p in [
              [(None, K)], KM, plain_k_erep, 0,
              library=lambda a: a.repeat_interleave(MUL, dim=1)),
     _rowwise("k_split_sum", 55, "view (TE,K,MUL), sum over K (the dx op)",
-             [(None, KM)], MUL, plain_k_split_sum, KM),
+             [(None, KM)], MUL, plain_k_split_sum, KM,
+             library=lambda x: torch.sum(x.view(-1, K, MUL), dim=1)),
     _rowwise("k_bc_merge", 67, "broadcast (TE,K,1) -> (TE,K,MUL), merge",
-             [(None, K)], KM, plain_k_bc_merge, 0),
+             [(None, K)], KM, plain_k_bc_merge, 0,
+             library=lambda a: a.repeat_interleave(MUL, dim=1)),
     _rowwise("k_rep_slice", 76, "columns 3..9 tiled x5 -> (TE,35)",
-             [(None, K)], 35, plain_k_rep_slice, 0),
+             [(None, K)], 35, plain_k_rep_slice, 0,
+             library=lambda a: a[:, 3 : 3 + 7].repeat(1, 5)),
     _rowwise("k_concat", 83, f"{K} column blocks, block i scaled by i, side by side",
-             [(None, KM)], KM, plain_k_concat, KM),
+             [(None, KM)], KM, plain_k_concat, KM,
+             library=lambda x: torch.mul(x, _block_scales(x.device))),
     _rowwise("k_dot_odd", 91, "(TE,120 at column 7) @ (120,24)",
              [(None, KM), (120, NV)], NV, plain_k_dot_odd, 2 * 120 * NV,
              library=lambda x, w: torch.matmul(x[:, 7 : 7 + 120], w)),
@@ -98,6 +109,7 @@ PROBES = {p.name: p for p in [
           work=lambda rows: (2 * rows * MUL * NV,
                              4 * words((rows, MUL), (rows, NV), (MUL, NV))),
           library=lambda a, b: torch.matmul(a.t(), b), row_quantum=TE, max_rows=TE),
+    # no library call: four products, each added into a slice of one output
     Probe(name="k_acc", source="probe_ops", replaces=f"{_SRC}:111",
           what="out[3:51,:24] += a_t^T @ a_t[:, :24] over 4 tiles of one output block",
           rows=4 * TE, shapes=lambda rows: [(rows, MUL)],

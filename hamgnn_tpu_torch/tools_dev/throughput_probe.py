@@ -13,6 +13,8 @@ its plain PyTorch version (``plain_<name>`` below) and timed alone:
   p3: the same function as one wide product, one multiply, a tree sum
   p4 / p4b: 8 multiply sweeps over the slab in fp32 / bf16
   p4c: 8 sweeps acc + a * b (FFMA)
+  p4c_ns256: the same with 256 sweeps, where the arithmetic and no longer the
+      bytes bounds it: the card's FFMA rate (the original has 8 sweeps only)
   p5: the tiling of x alone
   p6: sh @ Crep alone
   p7 / p7_tf32: the Wcat-stage product in fp32 FFMA / on the tensor cores
@@ -43,6 +45,7 @@ S, D1, MUL, K = 25, 5, 24, 40
 KM = K * MUL
 W = D1 * KM
 NS = 8
+NS_DEEP = 256
 FAN, V = 2048, 64
 _SRC = "tools_dev/vpu_probe.py"
 
@@ -80,11 +83,15 @@ def plain_p4(a, b):
     return acc
 
 
-def plain_p4c(a, b):
+def plain_p4c(a, b, ns=NS):
     acc = a
-    for _ in range(NS):
+    for _ in range(ns):
         acc = acc + a * b
     return acc
+
+
+def plain_p4c_ns256(a, b):
+    return plain_p4c(a, b, NS_DEEP)
 
 
 def plain_p5(x):
@@ -99,9 +106,9 @@ def plain_p7(a, b):
     return a @ b
 
 
-def _lib_p4c(a, b):
+def _lib_p4c(a, b, ns=NS):
     acc = a
-    for _ in range(NS):
+    for _ in range(ns):
         acc = torch.addcmul(acc, a, b)
     return acc
 
@@ -124,6 +131,8 @@ _p7_shapes = lambda n: [(n, FAN), (FAN, V)]  # noqa: E731
 _p7_bytes = lambda n: 4 * words((n, FAN), (FAN, V), (n, V))  # noqa: E731
 
 PROBES = {p.name: p for p in [
+    # p1, p3: no library call (a product, a tiling, a multiply and a sum over
+    # column blocks are four calls at the least)
     _probe("p1", 73, "per i: dot + tile + multiply + add", _x_sh_crep, KM, plain_p1,
            _p13_work, row_quantum=64),
     _probe("p3", 104, "one wide dot + multiply + tree sum", _x_sh_crep, KM, plain_p3,
@@ -137,6 +146,9 @@ PROBES = {p.name: p for p in [
            dtype=torch.bfloat16, tol=2e-2),
     _probe("p4c", 176, f"fp32 a + a*b x{NS} sweeps (FFMA)", _slabs, W, plain_p4c,
            lambda n: (2 * NS * n * W, 4 * 3 * n * W), library=_lib_p4c),
+    _probe("p4c_ns256", 176, f"fp32 a + a*b x{NS_DEEP} sweeps: the FFMA rate", _slabs, W,
+           plain_p4c_ns256, lambda n: (2 * NS_DEEP * n * W, 4 * 3 * n * W),
+           library=lambda a, b: _lib_p4c(a, b, NS_DEEP)),
     _probe("p5", 196, "x tiled K times per D1 block", lambda n: [(n, D1 * MUL)], W,
            plain_p5, lambda n: (0, 4 * words((n, D1 * MUL), (n, W))),
            library=lambda x: x.view(-1, D1, MUL).repeat(1, 1, K).view(-1, W)),
@@ -157,11 +169,11 @@ PROBES = {p.name: p for p in [
 
 def rate_line(probe: Probe, rows: int, ms: float) -> Optional[str]:
     """The achieved rate as the original printed it, where it printed one."""
-    vol = rows * W * NS
+    vol = rows * W * (NS_DEEP if probe.name == "p4c_ns256" else NS)
     if probe.name in ("p4", "p4b"):
         kind = "bf16" if probe.name == "p4b" else "fp32"
         return f"{vol / (ms * 1e-3) / 1e12:.2f} T lane-ops/s {kind}"
-    if probe.name == "p4c":
+    if probe.name in ("p4c", "p4c_ns256"):
         return f"{2 * vol / (ms * 1e-3) / 1e12:.2f} T flop-ops/s if 2ops"
     return None
 
@@ -174,16 +186,18 @@ def main(argv: Optional[list] = None) -> list:
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
     dev = resolve_device(args.device)
+    # on the CPU one run is enough: its time says nothing of the card
+    on_card = dev.type == "cuda"
+    n, warmup = (8, 2) if on_card else (1, 0)
     print(f"throughput_probe: {len(PROBES)} probes at E={args.edges} on "
-          f"{describe_device(dev)}; times are medians of 8 after 2 warm-up runs")
+          f"{describe_device(dev)}; times are medians of {n} after {warmup} warm-up runs")
     rows = []
     for probe, tensors, row in run_checks(list(PROBES.values()), dev, args.seed, args.edges):
         del row["out"]
         if row["ok"]:
-            row.update(measure(probe, tensors, n=8, warmup=2))
+            row.update(measure(probe, tensors, n=n, warmup=warmup))
             flops, nbytes, ms = row["flops"], row["bytes"], row["ms"]
-            if dev.type != "cuda":
-                # a host time of the plain version says nothing of the card
+            if not on_card:
                 print(f"   {ms:8.4f} ms on the host clock (plain version; no device rate)")
             else:
                 lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"

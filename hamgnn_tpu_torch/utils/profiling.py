@@ -16,10 +16,10 @@ _SPIN_CYCLES = 2_000_000
 def device_time_ms(fn, args=(), n: int = 5, warmup: int = 2, device=None) -> float:
     """Median time (ms) of one ``fn(*args)`` over ``n`` runs after ``warmup``.
 
-    On a CUDA ``device`` (default: the device of the first tensor argument,
-    else the current CUDA device when there is one) each run is bracketed by
-    CUDA events, so the time is the device's; on the CPU it is the host
-    clock around the call.
+    ``device`` defaults to that of the first tensor among ``args``; with no
+    tensor argument it must be given.  On a CUDA device each run is
+    bracketed by CUDA events, so the time is the device's; on the CPU it is
+    the host clock around the call.
 
     Before each timed run the stream is given about a millisecond of
     busy-waiting, so that the host has enqueued the whole of ``fn`` before
@@ -27,23 +27,28 @@ def device_time_ms(fn, args=(), n: int = 5, warmup: int = 2, device=None) -> flo
     the device's work alone, without the host's launch latency, which for a
     kernel of a few microseconds would be most of the reading.  Work that
     takes the host longer than that to enqueue is host-bound, and its
-    reading includes the wait."""
+    reading includes the wait.  The busy-wait is ``torch.cuda._sleep``; a
+    PyTorch without it raises, so that a reading never silently holds the
+    launch latency."""
     if device is None:
         first = next((a for a in args if isinstance(a, torch.Tensor)), None)
-        if first is not None:
-            device = first.device
-        else:
-            device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if first is None:
+            raise ValueError("device_time_ms: no tensor among args, so name the device")
+        device = first.device
     device = torch.device(device)
+    spin = None
+    if device.type == "cuda":
+        spin = getattr(torch.cuda, "_sleep", None)
+        if spin is None:
+            raise RuntimeError("device_time_ms needs torch.cuda._sleep to keep the host's "
+                               "launch latency out of a reading; this PyTorch has none")
     for _ in range(warmup):
         fn(*args)
     times = []
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-        spin = getattr(torch.cuda, "_sleep", None)
         for _ in range(n):
-            if spin is not None:
-                spin(_SPIN_CYCLES)
+            spin(_SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()

@@ -105,6 +105,8 @@ def _run_script(tmp_path, engine, band=False):
     env = {k: v for k, v in os.environ.items() if k != "HAMGNN_TP_ENGINE"}
     if engine is not None:
         env["HAMGNN_TP_ENGINE"] = engine
+    # tiny tensors: threads only contend with the other test workers
+    env["OMP_NUM_THREADS"] = "1"
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                        timeout=300, cwd=str(tmp_path), env=env)
     assert r.returncode == 0, r.stderr[-3000:]

@@ -29,6 +29,16 @@ ALL = {**op_probe.PROBES, **op_probe2.PROBES, **throughput_probe.PROBES}
 P3_ROWS = 128  # small E for the throughput probes here
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The tensors here are tiny and the sweeps are thousands of small ops:
+    intra-op threads only contend with the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tile(a, n):
     return jnp.tile(a, (1, n))
 
@@ -65,9 +75,9 @@ def _p4(a, b):  # vpu_probe.py:136-140, in the inputs' type
     return acc
 
 
-def _p4c(a, b):  # vpu_probe.py:176-180
+def _p4c(a, b, ns=8):  # vpu_probe.py:176-180
     acc = a
-    for _ in range(8):
+    for _ in range(ns):
         acc = acc + a * b
     return acc
 
@@ -118,6 +128,7 @@ JAX_FORMS = {
     "p4": _p4,
     "p4b": _p4,
     "p4c": _p4c,
+    "p4c_ns256": lambda a, b: _p4c(a, b, 256),  # the same closure at 256 sweeps
     "p5": lambda x: jnp.concatenate(
         [_tile(x[:, i * 24:(i + 1) * 24], 40) for i in range(5)], axis=1),      # :196-199
     "p6": lambda a, b: jnp.dot(a, b, preferred_element_type=jnp.float32),       # :215-217
@@ -134,8 +145,8 @@ def _inputs(p, seed=3):
 def test_every_closure_has_a_probe():
     assert set(JAX_FORMS) == set(ALL)
     assert len(op_probe.PROBES) == 10 and len(op_probe2.PROBES) == 9
-    assert set(throughput_probe.PROBES) == {"p1", "p3", "p4", "p4b", "p4c", "p5", "p6",
-                                            "p7", "p7_tf32"}
+    assert set(throughput_probe.PROBES) == {"p1", "p3", "p4", "p4b", "p4c", "p4c_ns256",
+                                            "p5", "p6", "p7", "p7_tf32"}
 
 
 @pytest.mark.parametrize("name", sorted(ALL))
@@ -191,6 +202,7 @@ def test_throughput_work_counts():
         "p4": (8 * E * W, 3 * E * W * 4),
         "p4b": (8 * E * W, 3 * E * W * 2),
         "p4c": (16 * E * W, 3 * E * W * 4),
+        "p4c_ns256": (512 * E * W, 3 * E * W * 4),
         "p5": (0, 4 * E * (D1 * MUL + W)),
         "p6": (2 * S * W * E, 4 * (E * S + S * W + E * W)),
         "p7": (2 * 2048 * 64 * E, 4 * (E * 2048 + 2048 * 64 + E * 64)),
@@ -207,6 +219,9 @@ def test_throughput_work_counts():
     assert b["p7_tf32"][1] == "bytes" and abs(b["p7_tf32"][0] - 0.0505) < 1e-3
     assert b["p1"] == b["p3"] and b["p1"][1] == "operations" and abs(b["p1"][0] - 0.0741) < 1e-3
     assert b["p5"][1] == "bytes" and b["p6"][1] == "bytes"
+    # 256 sweeps: 49.1 GFLOP on the same 1.15 GB, bound by the fp32 rate
+    assert b["p4c"][1] == "bytes" and abs(b["p4c"][0] - 0.3433) < 1e-3
+    assert b["p4c_ns256"][1] == "operations" and abs(b["p4c_ns256"][0] - 0.7324) < 1e-3
 
 
 def test_op_probe_work_counts():
@@ -263,6 +278,124 @@ def test_device_time_ms_on_cpu():
     assert device_time_ms(lambda: None, n=3, warmup=0, device="cpu") >= 0
 
 
+def test_device_time_ms_is_strict():
+    # no tensor to take the device from: it must be named
+    with pytest.raises(ValueError, match="name the device"):
+        device_time_ms(lambda: None, n=1, warmup=0)
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the busy-wait exists and is used")
+    # a card's reading is never taken without the busy-wait in front of it
+    real = getattr(torch.cuda, "_sleep", None)
+    try:
+        if real is not None:
+            del torch.cuda._sleep
+        with pytest.raises(RuntimeError, match="_sleep"):
+            device_time_ms(lambda: None, n=1, warmup=0, device="cuda")
+    finally:
+        if real is not None:
+            torch.cuda._sleep = real
+
+
+def _body(text, name):
+    """The source of ``def <name>(`` in ``text``: its line and the lines
+    below it that are blank or indented deeper."""
+    lines = text.splitlines()
+    start = next(i for i, ln in enumerate(lines) if ln.lstrip().startswith(f"def {name}("))
+    indent = len(lines[start]) - len(lines[start].lstrip())
+    end = start + 1
+    while end < len(lines) and (not lines[end].strip()
+                                or len(lines[end]) - len(lines[end].lstrip()) > indent):
+        end += 1
+    return "\n".join(lines[start:end])
+
+
+# closure -> expressions its body in the TPU probe must still hold: what
+# JAX_FORMS and the port's plain versions restate
+RESTATED = {
+    "tools_dev/mosaic_probe.py": {
+        "k_repeat": ["pltpu.repeat(a_ref[:], 4, axis=1)"],
+        "k_squeeze": ["reshape(TE, K, MUL)", "a3[:, 3:4, :].reshape(TE, MUL)"],
+        "k_merge128": ["reshape(TE, 8, 128)", "(a3 + 1.0).reshape(TE, 8 * 128)"],
+        "k_merge64": ["reshape(TE, K, MUL)", "(a3 + 1.0).reshape(TE, K * MUL)"],
+        "k_outer": ["a_ref[:][:, :, None] * b_ref[:][:, None, :]", "jnp.sum(t, axis=1)"],
+        "k_lred": ["reshape(TE, K, MUL)", "jnp.sum(a3, axis=2)"],
+        "k_atadd": ["jnp.zeros((TE, K * MUL), jnp.float32)",
+                    "v.at[:, 64 : 64 + 128].add(a_ref[:][:, :128])"],
+        "k_gather": ["np.arange(0, K * MUL, K, dtype=np.int32)", "a_ref[:][:, idx]"],
+        "k_dot": ["jnp.dot(a_ref[:], b_ref[:],"],
+        "k_slice_dot": ["a3[:, 2:4, :]", "blk[:, 0:1, :].reshape(TE, MUL) + "
+                        "blk[:, 1:2, :].reshape(TE, MUL)", "jnp.dot(s, b_ref[:],"],
+    },
+    "tools_dev/mosaic_probe2.py": {
+        "k_tile": ["pltpu.repeat(a_ref[:], K, axis=1)"],
+        "k_erep": ["jnp.repeat(a_ref[:], MUL, axis=1)"],
+        "k_split_sum": ["reshape(TE, K, MUL)", "jnp.sum(a3, axis=1)"],
+        "k_bc_merge": ["a_ref[:][:, :, None]", "jnp.broadcast_to(a3, (TE, K, MUL))",
+                       "b.reshape(TE, K * MUL)"],
+        "k_rep_slice": ["pltpu.repeat(a_ref[:][:, 3 : 3 + 7], 5, axis=1)"],
+        "k_concat": ["a_ref[:][:, i * MUL : (i + 1) * MUL] * float(i) for i in range(K)",
+                     "jnp.concatenate(parts, axis=1)"],
+        "k_dot_odd": ["jnp.dot(a_ref[:][:, 7 : 7 + 120], b_ref[:],"],
+        "k_dot_t": ["a_ref[:], b_ref[:], (((0,), (0,)), ((), ())),"],
+        "k_acc": ["pl.program_id(0) == 0", "jnp.zeros_like(o_ref)",
+                  "o_ref[3 : 3 + MUL, :24] += jax.lax.dot_general(",
+                  "a_ref[:], a_ref[:][:, :24], (((0,), (0,)), ((), ())),"],
+    },
+    "tools_dev/vpu_probe.py": {
+        "p1": ["for i in range(D1):", "crep_ref[:, i * KM:(i + 1) * KM],",
+               "pltpu.repeat(x_ref[:, i * MUL:(i + 1) * MUL], K, axis=1)", "term = W * B",
+               "midf = term if midf is None else midf + term"],
+        "p3": ["jnp.dot(sh_ref[:], crep_ref[:],",
+               "pltpu.repeat(x_ref[:, i * MUL:(i + 1) * MUL], K, axis=1)",
+               "jnp.concatenate(Bs, axis=1)", "prod = W * B", "h = n // 2",
+               "prod[:, :h * KM] + prod[:, h * KM:2 * h * KM] if n % 2 == 0",
+               "prod[:, 2 * h * KM:]], axis=1)", "n = n - h", "prod[:, :KM]"],
+        "p4": ["for _ in range(NS):", "acc = acc * b_ref[:]"],
+        "p4c": ["for _ in range(NS):", "acc = acc + a_ref[:] * b_ref[:]"],
+        "p5": ["pltpu.repeat(x_ref[:, i * MUL:(i + 1) * MUL], K, axis=1)",
+               "for i in range(D1)]", "jnp.concatenate(outs, axis=1)"],
+        "p6": ["jnp.dot(sh_ref[:], crep_ref[:],"],
+        "p7": ["jnp.dot(b_ref[:], w_ref[:],"],
+    },
+}
+
+# the sizes the closures run at, as their files set them
+SIZES = {
+    "tools_dev/mosaic_probe.py": ["TE, K, MUL = 128, 16, 64", "size=(MUL, 24)"],
+    "tools_dev/mosaic_probe2.py": ["TE, K, MUL = 128, 25, 48", "grid=(4,),", "size=(120, 24)",
+                                   "jax.ShapeDtypeStruct((64, 32), jnp.float32)",
+                                   "np.allclose(r, np.tile(np.asarray(xi), (1, K)))"],
+    "tools_dev/vpu_probe.py": ["E = 19968", "S = 25", "D1 = 5 ", "MUL = 24", "K = 40 ",
+                               "NS = 8", "FAN, V = 2048, 64", "n=8, warmup=2"],
+}
+
+
+@pytest.mark.parametrize("path", sorted(RESTATED))
+def test_tpu_probe_sources_still_say_what_is_restated(path):
+    """JAX_FORMS restates the closures, which cannot be imported; if one of
+    them changes in its file, this fails and the restatement is looked at
+    again.  ``mosaic_probe2.py`` itself checks (on a TPU) that ``pltpu.repeat``
+    tiles, which is what ``_tile`` takes it to do."""
+    text = (Path(__file__).resolve().parents[1] / path).read_text()
+    for line in SIZES[path]:
+        assert line in text, line
+    for name, exprs in RESTATED[path].items():
+        body = _body(text, name)
+        for expr in exprs:
+            assert expr in body, (name, expr)
+    mod = {"tools_dev/mosaic_probe.py": op_probe, "tools_dev/mosaic_probe2.py": op_probe2,
+           "tools_dev/vpu_probe.py": throughput_probe}[path]
+    # every probe names a closure of this file, at the line of its def (or of
+    # the comment that heads it)
+    lines = text.splitlines()
+    for name, p in mod.PROBES.items():
+        src, line = p.replaces.split(":")
+        closure = {"p4b": "p4", "p4c_ns256": "p4c", "p7_tf32": "p7"}.get(name, name)
+        assert src == path and closure in RESTATED[path]
+        near = "\n".join(lines[int(line) - 1:int(line) + 1])
+        assert f"def {closure}(" in near, (name, near)
+
+
 SOURCES = {"probe_ops": {**op_probe.PROBES, **op_probe2.PROBES},
            "probe_throughput": throughput_probe.PROBES}
 
@@ -271,7 +404,9 @@ SOURCES = {"probe_ops": {**op_probe.PROBES, **op_probe2.PROBES},
 def test_sources_hold_a_kernel_per_probe_and_no_library(src):
     text = (Path(tp_kernel.CSRC) / f"{src}.cu").read_text()
     n_global = len(re.findall(r"__global__", text))
-    assert n_global >= len(SOURCES[src])
+    # p4c_ns256 is the second instance of p4c's templated kernel
+    n_instances = n_global + (src == "probe_throughput")
+    assert n_instances >= len(SOURCES[src])
     for name, p in SOURCES[src].items():
         assert re.search(rf"\bprobe_{name}\b", text) or f"ROWWISE_1({name}," in text \
             or f"ROWWISE_2({name}," in text, name
@@ -282,10 +417,11 @@ def test_sources_hold_a_kernel_per_probe_and_no_library(src):
     assert not re.search(r"cublas\w*\s*\(|cutlass::", text)
     if src == "probe_throughput":
         assert "wmma::precision::tf32" in text and "__nv_bfloat162" in text
+        assert "p4c_kernel<NS><<<" in text and "p4c_kernel<NS_DEEP><<<" in text
 
 
 def test_probe_kernels_share_one_library_per_source():
     assert {k.source for k in probe.PROBE_KERNELS.values()} == {"probe_ops", "probe_throughput"}
-    assert len(probe.PROBE_KERNELS) == 28
+    assert len(probe.PROBE_KERNELS) == 29
     # the model's kernels keep a library each
     assert {k.source for k in tp_kernel.KERNELS.values()} == set(tp_kernel.KERNELS)
