@@ -9,14 +9,22 @@ CPU tensors the wrappers run the plain versions (``packed_tp.plain_apply``,
 ``packed_tp.plain_backward``); on CUDA tensors they launch the kernels or
 raise.
 
-``KernelSpec`` is the kernel's host-side schedule, rebuilt from the
+``KernelSpec`` is the kernels' host-side schedule, rebuilt from the
 reference's ``PallasSpec`` for the GPU: instead of lane layouts (x_perm,
-Crep, out_deint, 8-row-aligned Wcat blocks) it holds per-column int32 index
-tables: one record per output chunk (a CUDA block per edge tile and chunk,
-covering all its m3 components), per BLK column its coupling slot, d1, x
-offset in the u-major layout and radial-weight column, and per coupling slot
-the nonzero range of its coupling column.  The backward adds, per slab of
-64 columns, the columns grouped by x offset and by coupling slot.
+Crep, out_deint, 8-row-aligned Wcat blocks) it holds int32 index tables: one
+record per output chunk, per coupling slot of a chunk the nonzero range of
+its coupling column, and per BLK column its coupling slot, d1, x offset in
+the u-major layout and radial-weight column.  The forward takes a CUDA block
+per edge tile and work item (a chunk's (m3, n8) output tiles, at most 64 of
+them and 64 of its V columns, ``fitems``).  The backward cuts each chunk's
+columns into slabs of at most 64 columns and ``SLAB_SLOTS`` coupling slots:
+per slab the coupling slots its columns use (so a block computes only
+those), its columns grouped by x offset and by coupling slot (the edge
+pass's gathers), and per column its slot base in the slab's list and its
+offset in the slab's compact x row; its weight pass takes a block per edge
+split and work item (a slab and 32 of its chunk's V columns, ``witems``).
+``csrc/packed_tp_mma.cuh`` holds what the kernels share (the 3xTF32
+``mma.sync`` product, the cp.async copies, the backward's slab build).
 
 Each library is compiled with nvcc at first use into ``build/kernels/`` from
 the sources in this checkout and loaded with ctypes.  The module also holds
@@ -30,6 +38,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -47,7 +56,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # H100 SXM peaks used for the bound of a launch (NVIDIA data sheet): fp32 on
-# the CUDA cores (the kernel uses no tensor cores) and HBM3 bandwidth
+# the CUDA cores and HBM3 bandwidth.  The lab-frame kernels run their Wcat
+# products on the tensor cores in 3xTF32 (three TF32 products per fp32
+# product); the bound keeps counting fp32 FLOPs at the CUDA-core rate, so that
+# it compares with earlier kernels of the same function
 H100_FP32_FLOPS = 67e12
 H100_HBM_BYTES_PER_S = 3.35e12
 
@@ -68,17 +80,43 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(src: Path) -> list:
+    """``src`` and every file it includes with quotes from its own directory,
+    recursively (the ``csrc/*.cuh`` headers a ``.cu`` shares)."""
+    seen, todo = [], [src]
+    while todo:
+        f = todo.pop()
+        if f in seen or not f.exists():
+            continue
+        seen.append(f)
+        todo += [f.parent / m for m in _INCLUDE.findall(f.read_text())]
+    return seen
+
+
+def is_stale(lib: Path, src: Path) -> bool:
+    """True when ``lib`` is missing, or older than ``src`` or a header that
+    ``src`` includes."""
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(f.stat().st_mtime > built for f in source_files(src))
+
+
 def build_kernels(names) -> dict:
     """Compile the named ``csrc/<name>.cu`` sources into shared libraries,
     one nvcc per source, all started together.  Returns {name: (path,
-    compiler log)}; a library newer than its source is reused."""
+    compiler log)}; a library newer than its source and the headers the
+    source includes is reused."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     out = {}
     for name in names:
         src = CSRC / f"{name}.cu"
         lib = BUILD_DIR / f"lib{name}.so"
-        if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+        if not is_stale(lib, src):
             out[name] = (lib, "")
             continue
         tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
@@ -147,20 +185,30 @@ class CudaKernel:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 PACKED_TP_FWD = CudaKernel("packed_tp_fwd", {
-    "packed_tp_fwd": ([_P] * 9 + [_I] * 11 + [_P], _I),
-    "packed_tp_fwd_smem_bytes": ([_I] * 4, ctypes.c_size_t),
-    "packed_tp_fwd_rows_per_thread": ([_I] * 2, _I),
-    "packed_tp_fwd_max_rows": ([], _I),
+    "packed_tp_fwd": ([_P] * 12 + [_I] * 8 + [_P], _I),
+    "packed_tp_fwd_smem_bytes": ([_P, _I, _I], ctypes.c_size_t),
+    "packed_tp_fwd_slab_cols": ([], _I),
     "packed_tp_fwd_max_d1": ([], _I),
+    "packed_tp_fwd_max_pairs": ([], _I),
+    "packed_tp_fwd_item_n8": ([], _I),
+    "packed_tp_fwd_resident_blocks": ([ctypes.c_size_t], _I),
 })
 
+# the backward's C entries share one argument list: packed_tp_bwd runs the
+# edge pass, the weight pass and the reduce; packed_tp_bwd_edge and
+# packed_tp_bwd_wcat (the weight pass and the reduce) exist to time the
+# passes apart and are not counted as launches
+_BWD_ARGS = [_P] * 24 + [_I] * 13 + [_P]
 PACKED_TP_BWD = CudaKernel("packed_tp_bwd", {
-    "packed_tp_bwd": ([_P] * 21 + [_I] * 15 + [_P], _I),
-    "packed_tp_bwd_smem_bytes": ([_I] * 6, ctypes.c_size_t),
+    "packed_tp_bwd": (_BWD_ARGS, _I),
+    "packed_tp_bwd_edge": (_BWD_ARGS, _I),
+    "packed_tp_bwd_wcat": (_BWD_ARGS, _I),
+    "packed_tp_bwd_smem_bytes": ([_P] + [_I] * 6, ctypes.c_size_t),
     "packed_tp_bwd_slab_cols": ([], _I),
     "packed_tp_bwd_max_d1": ([], _I),
     "packed_tp_bwd_tile_edges": ([], _I),
-    "packed_tp_bwd_resident_blocks": ([ctypes.c_size_t], _I),
+    "packed_tp_bwd_item_n8": ([], _I),
+    "packed_tp_bwd_resident_blocks": ([_I, ctypes.c_size_t], _I),
 })
 
 # the zonal engine's kernels (wrappers and host tables in zonal_kernel.py)
@@ -183,8 +231,22 @@ ZONAL_TP_BWD = CudaKernel("zonal_tp_bwd", {
 KERNELS = {"packed_tp_fwd": PACKED_TP_FWD, "packed_tp_bwd": PACKED_TP_BWD,
            "zonal_tp_fwd": ZONAL_TP_FWD, "zonal_tp_bwd": ZONAL_TP_BWD}
 
-# columns per slab of the backward kernels (packed_tp_bwd.cu, zonal_tp_bwd.cu KS)
+# columns per slab (packed_tp_fwd.cu, packed_tp_bwd.cu, zonal_tp_bwd.cu KS)
 BWD_SLAB_COLS = 64
+# coupling slots a slab of the backward may use (one group of a column's
+# d1 x d3 slots may exceed it alone): it bounds its passes' shared memory
+SLAB_SLOTS = 192
+# edges per tile of the lab-frame kernels (packed_tp_mma.cuh TE)
+TILE_EDGES = 16
+# waves of resident blocks the backward's weight pass is cut into
+WCAT_WAVES = 6
+# (m3, n8) output tiles and n8 tiles of V a work item of the forward holds
+# (packed_tp_fwd.cu: 16 warps of at most 4 tiles each), and the n8 tiles of V
+# of a work item of the backward's weight pass (packed_tp_bwd.cu: 4 n8 tiles
+# of accumulators a warp)
+ITEM_PAIRS = 64
+ITEM_N8 = 8
+WCAT_ITEM_N8 = 4
 
 
 # ----------------------------------------------------------------------
@@ -297,17 +359,22 @@ class PipelineSpec:
 
 
 class KernelSpec(PipelineSpec):
-    """Per-column index tables of one plan for ``packed_tp_fwd.cu`` and
+    """Index tables of one plan for ``packed_tp_fwd.cu`` and
     ``packed_tp_bwd.cu``.
 
-    ``grp``: one record per covered output chunk (a CUDA block per edge tile
-    and record): out offset b, d3, V, Wcat offset, fan_in, column offset,
-    coupling-slot offset, slots per m3 (nq).  ``cols``: per BLK column its
-    slot offset within an m3 block, d1, x offset, radial-weight column; the
-    same for every m3.  ``qtab``: per slot (m3-major, then source, path, i)
-    its coefficient offset, first SH component and count; ``coef`` the
-    nonzero coupling values.  The backward's slab tables: see
-    ``_build_slabs``.
+    ``grp``: one record per covered output chunk: out offset b, d3, V, Wcat
+    offset, fan_in, column offset, coupling-slot offset, slots per m3 (nq).
+    ``qtab``: per coupling slot (m3-major, then source, path, i) its
+    coefficient offset, first SH component and count; ``coef`` the nonzero
+    coupling values.  ``fcols`` (the forward's): per BLK column its slot
+    offset qb within an m3 block, d1, x offset and radial-weight column; its
+    slot for (m3, i) is ``qtab[q_ofs + m3 * nq + qb + i]``.  ``fitems`` (the
+    forward's work items): chunk, first n8 tile, n8 tiles, each item at most
+    ``ITEM_N8`` n8 tiles and ``ITEM_PAIRS`` (m3, n8) tiles.  The backward's
+    slabs: ``_build_slabs``; ``slab_base[k] : slab_base[k + 1]`` are chunk
+    k's; ``cols``: per BLK column its slot base in its slab's list ``sq``,
+    d1, offset in the slab's compact x row and radial-weight column; its
+    slot for (m3, i) is ``sq[sq_ofs + base + m3 * d1 + i]``.
     """
 
     def __init__(self, plan: PackedTPPlan):
@@ -338,42 +405,104 @@ class KernelSpec(PipelineSpec):
             nq = (len(qtab) - q_ofs) // d3
             grp.append((b, d3, V, wofs, fan_in, col_ofs, q_ofs, nq))
         self.grp = np.asarray(grp, np.int32).reshape(-1, 8)
-        self.cols = np.asarray(cols, np.int32).reshape(-1, 4)
         self.qtab = np.asarray(qtab, np.int32).reshape(-1, 3)
         self.coef = np.asarray(coef, np.float32)
+        self.fcols = np.asarray(cols, np.int32).reshape(-1, 4)
         g = self.grp
         self.nq_all_max = int((g[:, 1] * g[:, 7]).max()) if len(g) else 0
-        self._build_slabs()
+        items = []
+        for k, (_b, d3, V, *_rest) in enumerate(self.grp):
+            n8 = -(-int(V) // 8)
+            per = max(1, min(ITEM_N8, ITEM_PAIRS // int(d3)))
+            items += [(k, t0, min(per, n8 - t0)) for t0 in range(0, n8, per)]
+        self.fitems = np.asarray(items, np.int32).reshape(-1, 3)
+        self.fwd_pairs = max((int(self.grp[k][1]) * n for k, _t, n in items), default=0)
+        self._build_slabs(self.fcols)
 
-    def _build_slabs(self):
-        """Backward tables: per output chunk the index of its first slab;
-        per slab (BWD_SLAB_COLS columns) its x groups and slot groups, each
-        (x offset or slot, d1, offset into ``lst``, count), ``lst`` holding
-        the chunk-relative columns of each group in column order."""
-        slab_base, slabs, xgrp, qgrp, lst = [], [], [], [], []
-        for (_b, _d3, _V, _wofs, fan_in, col_ofs, _q, _nq) in self.grp:
+    def _build_slabs(self, cols):
+        """Cut each chunk's columns (``cols``: slot offset qb within an m3
+        block, d1, x offset, radial-weight column) into slabs of at most
+        ``BWD_SLAB_COLS`` columns, ending a slab early where a new coupling
+        group would take its slots past ``SLAB_SLOTS``.  A coupling group is
+        the columns of one (qb, d1) (the u of one path); its slots are
+        ``d3 * d1``, listed in ``sq`` group by group, m3-major, each as its
+        qtab record (coefficient offset, first SH component, count).  An x
+        group is the columns of one (x offset, d1); the slab's x values are
+        gathered into a compact row, group by group, whose x offsets are
+        ``xmap``.  Per slab (``slabs``): chunk, first column, columns, offset
+        and count in ``sq``, offset and count of its x groups and of its slot
+        groups, offset and length of its compact x row in ``xmap``.  Groups
+        are (compact x offset or slot base, d1, offset into ``lst``, count),
+        ``lst`` holding the chunk-relative columns of each group in column
+        order.  ``cols`` keeps d1 and the radial-weight column, with qb
+        replaced by the column's slot base and the x offset by its compact x
+        offset in its slab.  ``witems``: the weight pass's work items, (slab,
+        first V column) for every ``8 * WCAT_ITEM_N8`` columns of V of each
+        slab, the slabs by work, largest first."""
+        slab_base, slabs, sq, xmap, xgrp, qgrp, lst, cost = [], [], [], [], [], [], [], []
+        cols = cols.copy()
+        for k, (_b, d3, _V, _wofs, fan_in, col_ofs, q_ofs, nq) in enumerate(self.grp):
             slab_base.append(len(slabs))
-            for c0 in range(0, fan_in, BWD_SLAB_COLS):
-                by_x, by_q = {}, {}
-                for c in range(c0, min(c0 + BWD_SLAB_COLS, fan_in)):
-                    qb, d1, xb, _wc = (int(v) for v in self.cols[col_ofs + c])
-                    by_x.setdefault((xb, d1), []).append(c)
-                    by_q.setdefault((qb, d1), []).append(c)
-                slabs.append((len(xgrp), len(by_x), len(qgrp), len(by_q)))
+            c = 0
+            while c < fan_in:
+                c0, groups, n_sq = c, {}, 0
+                while c < fan_in and c - c0 < BWD_SLAB_COLS:
+                    key = (int(cols[col_ofs + c][0]), int(cols[col_ofs + c][1]))
+                    if key not in groups:
+                        if groups and n_sq + key[1] * d3 > SLAB_SLOTS:
+                            break
+                        groups[key] = n_sq
+                        n_sq += key[1] * d3
+                    c += 1
+                by_x, by_q, xbase = {}, {}, {}
+                xm_ofs = len(xmap)
+                for cc in range(c0, c):
+                    qb, d1, xb, _wc = (int(v) for v in cols[col_ofs + cc])
+                    if xb not in xbase:
+                        xbase[xb] = len(xmap) - xm_ofs
+                        xmap.extend(range(xb, xb + d1))
+                    by_x.setdefault((xbase[xb], d1), []).append(cc)
+                    by_q.setdefault((groups[(qb, d1)], d1), []).append(cc)
+                    cols[col_ofs + cc][0] = groups[(qb, d1)]
+                    cols[col_ofs + cc][2] = xbase[xb]
+                slabs.append((k, c0, c - c0, len(sq), n_sq, len(xgrp), len(by_x),
+                              len(qgrp), len(by_q), xm_ofs, len(xmap) - xm_ofs))
+                cost.append(d3 * sum(int(cols[col_ofs + cc][1]) + 1 for cc in range(c0, c)))
+                for (qb, d1) in groups:
+                    sq.extend(self.qtab[q_ofs + m3 * nq + qb + i]
+                              for m3 in range(d3) for i in range(d1))
                 append_groups(by_x, xgrp, lst)
                 append_groups(by_q, qgrp, lst)
+        slab_base.append(len(slabs))
+        self.cols = cols
         self.slab_base = np.asarray(slab_base, np.int32)
-        self.slabs = np.asarray(slabs, np.int32).reshape(-1, 4)
+        self.slabs = np.asarray(slabs, np.int32).reshape(-1, 11)
+        self.sq = np.asarray(sq, np.int32).reshape(-1, 3)
+        self.xmap = np.asarray(xmap, np.int32)
         self.xgrp = np.asarray(xgrp, np.int32).reshape(-1, 4)
         self.qgrp = np.asarray(qgrp, np.int32).reshape(-1, 4)
         self.lst = np.asarray(lst, np.int32)
+        vb = 8 * WCAT_ITEM_N8
+        self.witems = np.asarray(
+            [(si, v0) for si in np.argsort(-np.asarray(cost), kind="stable")
+             for v0 in range(0, int(self.grp[slabs[si][0]][2]), vb)], np.int32).reshape(-1, 2)
+        self.sq_max = int(self.slabs[:, 4].max()) if len(self.slabs) else 0
+        self.nx_max = int(self.slabs[:, 10].max()) if len(self.slabs) else 0
 
     def _host_tables(self) -> dict:
         return {**super()._host_tables(),
                 "coef": (self.coef, torch.float32),
                 **{name: (getattr(self, name), torch.int32)
-                   for name in ("grp", "cols", "qtab", "slab_base", "slabs",
-                                "xgrp", "qgrp", "lst")}}
+                   for name in ("grp", "qtab", "fcols", "fitems", "cols", "slab_base",
+                                "slabs", "sq", "xmap", "xgrp", "qgrp", "lst", "witems")}}
+
+    def wcat_splits(self, E: int, resident: int) -> int:
+        """Edge splits of the backward's weight pass: enough (work item,
+        split) blocks for ``WCAT_WAVES`` waves of ``resident`` blocks, so that
+        the slabs' unequal work (d3 times the sum of their columns' d1) evens
+        out across the card; at most one split per edge tile."""
+        n_tiles = -(-E // TILE_EDGES)
+        return max(1, min(n_tiles, -(-WCAT_WAVES * resident // max(1, len(self.witems)))))
 
     def work(self, E: int, has_w: bool):
         """(FLOPs, bytes) the function needs for E edges: coupling products
@@ -440,6 +569,21 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _smem_limit(name, smem, dev):
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"{name} needs {smem} B of shared memory, the card allows {limit}")
+
+
+def _check_limits(lib, name, spec):
+    slab_cols = getattr(lib, f"{name}_slab_cols")()
+    max_d1 = getattr(lib, f"{name}_max_d1")()
+    if slab_cols != BWD_SLAB_COLS:
+        raise RuntimeError(f"{name}.cu and tp_kernel.py disagree on the slab width")
+    if spec.d1_max > max_d1:
+        raise ValueError(f"{name} takes d1 <= {max_d1}; this plan needs {spec.d1_max}")
+
+
 def _launch(spec: KernelSpec, x, sh, w, flat_w):
     E = x.shape[0]
     dev = x.device
@@ -453,33 +597,37 @@ def _launch(spec: KernelSpec, x, sh, w, flat_w):
         return out
     _check("flat_w", flat_w, (spec.plan.linear_numel,), dev)
     lib = PACKED_TP_FWD.library()
-    r_max = max(lib.packed_tp_fwd_rows_per_thread(int(d3), int(V))
-                for (_b, d3, V, *_rest) in spec.grp)
-    if r_max < 1 or r_max > lib.packed_tp_fwd_max_rows() \
-            or spec.d1_max > lib.packed_tp_fwd_max_d1():
-        raise ValueError(f"packed_tp_fwd takes at most {lib.packed_tp_fwd_max_rows()} "
-                         f"rows per thread and d1 <= {lib.packed_tp_fwd_max_d1()}; "
-                         f"this plan needs {r_max} and {spec.d1_max}")
-    smem = lib.packed_tp_fwd_smem_bytes(spec.S, spec.nq_all_max, spec.d3_max,
-                                        spec.v_max)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"packed_tp_fwd needs {smem} B of shared memory, "
-                         f"the card allows {limit}")
+    _check_limits(lib, "packed_tp_fwd", spec)
+    if (lib.packed_tp_fwd_max_pairs() != ITEM_PAIRS or lib.packed_tp_fwd_item_n8() != ITEM_N8):
+        raise RuntimeError("packed_tp_fwd.cu and tp_kernel.py disagree on the work items")
+    if spec.fwd_pairs > ITEM_PAIRS:
+        raise ValueError(f"packed_tp_fwd takes at most {ITEM_PAIRS} (m3, n8) output tiles "
+                         f"per work item; this plan needs {spec.fwd_pairs}")
+    grp_host = spec.grp.ctypes.data
+    _smem_limit("packed_tp_fwd", lib.packed_tp_fwd_smem_bytes(grp_host, len(spec.grp),
+                                                              spec.S), dev)
     tb = spec.tables(dev)
     wcat = spec.build_wcat(flat_w).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
     PACKED_TP_FWD.launch(
         x.data_ptr(), sh.data_ptr(), 0 if w is None else w.data_ptr(),
         wcat.data_ptr(), tb["coef"].data_ptr(), tb["grp"].data_ptr(),
-        tb["cols"].data_ptr(), tb["qtab"].data_ptr(), out.data_ptr(),
-        E, spec.d_in, spec.S, spec.n_ch, spec.d_out, len(spec.grp),
-        spec.nq_all_max, spec.d3_max, spec.v_max, r_max, 0 if w is None else 1,
-        stream)
+        tb["fcols"].data_ptr(), tb["qtab"].data_ptr(), tb["fitems"].data_ptr(),
+        out.data_ptr(), grp_host, spec.fitems.ctypes.data,
+        E, spec.d_in, spec.S, spec.n_ch, spec.d_out, len(spec.grp), len(spec.fitems),
+        0 if w is None else 1, stream)
     return out
 
 
-def _launch_bwd(spec: KernelSpec, x, sh, w, flat_w, gout, need_dsh: bool):
+def bwd_call(spec: KernelSpec, x, sh, w, flat_w, gout, need_dsh: bool):
+    """Checks the backward's inputs, allocates its outputs and returns
+    ``(outputs, call)``: (dx, dsh or None, dw or None, d(flat_w)) and
+    ``(args, tensors)``, the argument list of the C entries (``packed_tp_bwd``
+    and the passes alone) and the scratch tensors behind its pointers, which
+    the caller keeps while it launches (``call`` is None where there is
+    nothing to launch).  The edge pass writes dx, dw and dsh into the zeroed
+    outputs; the weight pass writes one partial row of dWcat per edge split,
+    which the reduce sums into d(flat_w)."""
     E = x.shape[0]
     dev = x.device
     _check("x", x, (E, spec.d_in), dev)
@@ -493,44 +641,45 @@ def _launch_bwd(spec: KernelSpec, x, sh, w, flat_w, gout, need_dsh: bool):
     dsh = zeros((E, spec.S)) if need_dsh else None
     dw = zeros((E, spec.n_ch)) if w is not None else None
     dflat = zeros((spec.plan.linear_numel,))
+    outs = (dx, dsh, dw, dflat)
     if E == 0 or len(spec.grp) == 0:
-        return dx, dsh, dw, dflat
+        return outs, None
     lib = PACKED_TP_BWD.library()
-    if lib.packed_tp_bwd_slab_cols() != BWD_SLAB_COLS:
-        raise RuntimeError("packed_tp_bwd.cu and tp_kernel.py disagree on the slab width")
-    if spec.d1_max > lib.packed_tp_bwd_max_d1() or spec.v_max > 512:
-        raise ValueError(f"packed_tp_bwd takes d1 <= {lib.packed_tp_bwd_max_d1()} "
-                         f"and V <= 512; this plan needs {spec.d1_max}, {spec.v_max}")
-    smem = lib.packed_tp_bwd_smem_bytes(spec.S, spec.nq_all_max, spec.gmax,
-                                        spec.d3_max, spec.v_max, int(need_dsh))
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"packed_tp_bwd needs {smem} B of shared memory, "
-                         f"the card allows {limit}")
-    resident = lib.packed_tp_bwd_resident_blocks(smem)
-    if resident < 1:
-        raise RuntimeError(f"packed_tp_bwd: no block of {smem} B fits on the card")
-    # each block walks a contiguous range of edge tiles, so it alone writes
-    # its rows of dx/dw/dsh and its own partial row of dWcat
-    n_tiles = -(-E // lib.packed_tp_bwd_tile_edges())
-    per_block = -(-n_tiles // min(n_tiles, resident))
-    nblk = -(-n_tiles // per_block)
-    part = torch.empty((nblk, spec.plan.linear_numel), dtype=torch.float32, device=dev)
+    _check_limits(lib, "packed_tp_bwd", spec)
+    if (lib.packed_tp_bwd_tile_edges() != TILE_EDGES
+            or lib.packed_tp_bwd_item_n8() != WCAT_ITEM_N8):
+        raise RuntimeError("packed_tp_bwd.cu and tp_kernel.py disagree on the tile size "
+                           "or the weight pass's work items")
+    grp_host = spec.grp.ctypes.data
+    smem = [lib.packed_tp_bwd_smem_bytes(grp_host, len(spec.grp), spec.S, spec.sq_max,
+                                         spec.nx_max, int(need_dsh), pass_) for pass_ in (0, 1)]
+    for nbytes in smem:
+        _smem_limit("packed_tp_bwd", nbytes, dev)
+    per_sm = lib.packed_tp_bwd_resident_blocks(1, smem[1])
+    if per_sm < 1:
+        raise RuntimeError("packed_tp_bwd: no block of the weight pass fits on an SM")
+    resident = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split = spec.wcat_splits(E, resident)
+    part = torch.empty((n_split, spec.plan.linear_numel), dtype=torch.float32, device=dev)
     tb = spec.tables(dev)
     wcat = spec.build_wcat(flat_w).contiguous()
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    PACKED_TP_BWD.launch(
-        x.data_ptr(), sh.data_ptr(), ptr(w), wcat.data_ptr(), gout.data_ptr(),
-        tb["coef"].data_ptr(), tb["grp"].data_ptr(), tb["cols"].data_ptr(),
-        tb["qtab"].data_ptr(), tb["slab_base"].data_ptr(), tb["slabs"].data_ptr(),
-        tb["xgrp"].data_ptr(), tb["qgrp"].data_ptr(), tb["lst"].data_ptr(),
-        tb["wcat_scale"].data_ptr(), tb["wcat_idx"].data_ptr(),
-        dx.data_ptr(), ptr(dsh), ptr(dw), part.data_ptr(), dflat.data_ptr(),
-        E, spec.d_in, spec.S, spec.n_ch, spec.d_out, len(spec.grp),
-        spec.plan.linear_numel, spec.nq_all_max, spec.gmax, spec.d3_max,
-        spec.v_max, nblk, per_block, 0 if w is None else 1, int(need_dsh), stream)
-    return dx, dsh, dw, dflat
+    args = (x.data_ptr(), sh.data_ptr(), ptr(w), wcat.data_ptr(), gout.data_ptr(),
+            *(tb[n].data_ptr() for n in ("coef", "grp", "cols", "slab_base", "slabs", "sq",
+                                         "xmap", "xgrp", "qgrp", "lst", "witems",
+                                         "wcat_scale", "wcat_idx")),
+            dx.data_ptr(), ptr(dsh), ptr(dw), part.data_ptr(), dflat.data_ptr(), grp_host,
+            E, spec.d_in, spec.S, spec.n_ch, spec.d_out, len(spec.grp), len(spec.witems),
+            spec.plan.linear_numel, spec.sq_max, spec.nx_max, n_split, 0 if w is None else 1,
+            int(need_dsh), torch.cuda.current_stream(dev).cuda_stream)
+    return outs, (args, (wcat, part))
+
+
+def _launch_bwd(spec: KernelSpec, x, sh, w, flat_w, gout, need_dsh: bool):
+    outs, call = bwd_call(spec, x, sh, w, flat_w, gout, need_dsh)
+    if call is not None:
+        PACKED_TP_BWD.launch(*call[0])
+    return outs
 
 
 class PackedTP(torch.autograd.Function):

@@ -7,7 +7,9 @@ on a machine with only the port installed:
 
 Tolerance: max|kernel - plain| <= 1e-4 * max|plain| in fp32 (only the
 summation order differs), per output of the forward (B1) and of the
-backward (B2: dx, dsh, dw, d(flat_w)); a repeat of B2 is bit-identical.
+backward (B2: dx, dsh, dw, d(flat_w)), also at outputs wider than one work
+item; a repeat of B2 is bit-identical; at the bench plans both fit the
+blocks per SM their designs assume (the C entries' own shared-memory sizes).
 The same holds for the zonal engine's kernels (B3 against
 ``plain_zonal_core``, B4 against ``plain_zonal_core_backward``); the whole
 zonal engine (two rotations around the kernels) is held to the lab-frame
@@ -87,6 +89,61 @@ def test_cuda_backward_matches_plain(irreps_in, with_w):
             continue
         assert torch.equal(a, b), name
         assert float((a - c).abs().max()) <= 1e-4 * float(c.abs().max()), name
+
+
+WIDE = ("16x0e+4x1o+2x2e", "0e+1o+2e", "128x0e+2x1o+57x4e")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_w", [True, False])
+def test_cuda_kernels_take_wide_outputs(with_w):
+    """128x0e (V > 64) and 57x4e (72 (m3, n8) tiles) take several work
+    items of B1 and of B2's weight pass."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan = get_plan(*(repr(Irreps(s_)) for s_ in (WIDE[0], WIDE[1], WIDE[2], WIDE[2])))
+    spec = tp_kernel.get_spec(plan)
+    assert len(spec.fitems) > len(spec.grp) and len(spec.witems) > len(spec.slabs)
+    rng = np.random.default_rng(14)
+    E = 333
+    x, sh, w, fw, gy = (torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                                        device="cuda")
+                        for shape in ((E, plan.irreps_in.dim), (E, plan.irreps_sh.dim),
+                                      (E, plan.weight_numel), (plan.linear_numel,),
+                                      (E, plan.irreps_out.dim)))
+    w = w if with_w else None
+    with torch.inference_mode():
+        out = tp_kernel.packed_tp_forward(plan, x, sh, w, fw)
+        ref = plain_apply(plan, x, sh, w, fw)
+    got = tp_kernel.packed_tp_backward(plan, x, sh, w, fw, gy, need_dsh=True)
+    refb = plain_backward(plan, x, sh, w, fw, gy, need_dsh=True)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    for name, a, c in zip(("dx", "dsh", "dw", "dflat_w"), got, refb):
+        if c is None:
+            assert a is None
+            continue
+        assert float((a - c).abs().max()) <= 1e-4 * float(c.abs().max()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("irreps_in", BENCH_IN[:3], ids=["pair", "node", "edge"])
+def test_cuda_kernels_fit_their_blocks_per_sm(irreps_in):
+    """At the bench plans two B1 blocks (512 threads) and two blocks of each
+    B2 pass (256 threads) share an SM, by the kernels' own shared-memory
+    sizes and the occupancy the runtime reports."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f = repr(Irreps(BENCH_FEAT))
+    spec = tp_kernel.get_spec(get_plan(repr(Irreps(irreps_in)), repr(Irreps(BENCH_SH)), f, f))
+    fwd, bwd = tp_kernel.PACKED_TP_FWD.library(), tp_kernel.PACKED_TP_BWD.library()
+    grp = spec.grp.ctypes.data
+    smem = fwd.packed_tp_fwd_smem_bytes(grp, len(spec.grp), spec.S)
+    assert fwd.packed_tp_fwd_resident_blocks(smem) >= 2, smem
+    for pass_ in (0, 1):
+        smem = bwd.packed_tp_bwd_smem_bytes(grp, len(spec.grp), spec.S, spec.sq_max,
+                                            spec.nx_max, 0, pass_)
+        assert bwd.packed_tp_bwd_resident_blocks(pass_, smem) >= 2, (pass_, smem)
 
 
 @pytest.mark.cuda

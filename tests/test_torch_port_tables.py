@@ -122,13 +122,10 @@ def test_kernel_wcat_matches_pallas_spec(name, key):
         fan_in = plan.out_plans[k_out][0]
         blocks.append(wj[r0 : r0 + fan_in, :V].reshape(-1))
     np.testing.assert_array_equal(np.concatenate(blocks), wt)
-    # the kernel's per-column x offsets address the same x elements as the
-    # Pallas spec's m-major x permutation
-    xs = set()
-    for (_b, _d3, _V, _wo, fan_in, col_ofs, _qo, _nq) in ts.grp:
-        for qb, d1, xb, wc in ts.cols[col_ofs : col_ofs + fan_in]:
-            xs.update(range(xb, xb + d1))
-    assert xs <= set(js.x_perm.tolist())
+    # the x elements the kernel's slabs gather (their compact x rows) are
+    # those of the Pallas spec's m-major x permutation
+    xs = set(ts.xmap.tolist())
+    assert xs and xs <= set(js.x_perm.tolist())
 
 
 @pytest.mark.parametrize("ham_type,nao", [("openmx", 13), ("openmx", 14), ("openmx", 19),
