@@ -18,9 +18,11 @@ Phases (any failure exits non-zero, before the result lines are printed):
      whose output chunks take several work items (128x0e, 57x4e); the
      edge-frame forward kernel (B3) against
      ``plain_zonal_core`` and its backward (B4) against
-     ``plain_zonal_core_backward`` (dx_rot, dw, d(flat_w)) at the pair,
-     pair_lite (no radial weights), node and edge plans, on x rotated into
-     the frames of directions that include +z, -z and near -z; a second
+     ``plain_zonal_core_backward`` (dx_rot, dw, d(flat_w) within 1e-5) at
+     the pair, pair_lite (no radial weights), node and edge plans, on x
+     rotated into the frames of directions that include +z, -z and near -z,
+     with B4's edge pass and weight pass (with its reduce) also timed apart,
+     and both at the wide plan with and without radial weights; a second
      launch of B2 and of B4 bit-identical to the first; and the whole zonal
      engine (rotation, B3, rotation back) against ``plain_apply`` at the node
      plan within 2e-5 * max|ref| (engine against engine: the rounding of two
@@ -91,7 +93,7 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 BAND_TOL = 5e-4   # fp32 reference bands on the card vs a float64 host solve
 TOL = 1e-4        # max|kernel - plain| <= TOL * max|plain|, fp32
-# B2's d(flat_w) (sums over all edges): within 1e-5 * max|plain|, which a
+# B2's and B4's d(flat_w) (sums over all edges): within 1e-5 * max|plain|, which a
 # sound 3xTF32 sum meets (~8e-7) and one kept long in the tensor cores'
 # truncating accumulator does not (~6e-5)
 DFLAT_TOL = 1e-5
@@ -119,7 +121,7 @@ KERNEL_SOURCES = {
     "zonal_tp_bwd": ("hamgnn_tpu_torch/csrc/zonal_tp_bwd.cu",
                      "hamgnn_tpu/e3/pallas_zonal.py:336"),
 }
-# outputs wider than one work item of B1 and of B2's weight pass
+# outputs wider than one work item of B1, B3 and both weight passes
 WIDE_OUT = "128x0e+2x1o+57x4e"
 # value of HAMGNN_TP_ENGINE -> its forward and backward kernel
 ENGINES = {"auto": ("packed_tp_fwd", "packed_tp_bwd"),
@@ -299,7 +301,8 @@ def phase_bwd_kernels(tp_kernel, dev):
         timed = (plan, x, sh, w, fw, gy, False)
         ms = cuda_time_ms(lambda: tp_kernel.packed_tp_backward(*timed), 10)
         plain_ms = cuda_time_ms(lambda: plain_backward(*timed), 3)
-        passes = bwd_pass_ms(tp_kernel, spec, x, sh, w, fw, gy)
+        passes = bwd_pass_ms(tp_kernel.PACKED_TP_BWD,
+                             tp_kernel.bwd_call(spec, x, sh, w, fw, gy, False))
         bound, bound_by = spec.bound_bwd_ms(E, True)
         flops, nbytes = spec.work_bwd(E, True)
         rows.append(dict(plan=name, E=E, launches_per_step=per_step,
@@ -319,10 +322,11 @@ def phase_bwd_kernels(tp_kernel, dev):
 
 
 def phase_wide_kernels(tp_kernel, dev):
-    """B1 and B2 against their plain versions at a plan whose output chunks
-    take several work items: 128x0e (V > 64: two items of B1, four of B2's
-    weight pass) and 57x4e (9 x 8 (m3, n8) tiles: two items of B1, two of
-    B2's weight pass)."""
+    """B1 and B2, then B3 and B4 (with and without radial weights), against
+    their plain versions at a plan whose output chunks take several work
+    items: 128x0e (V > 64: two items of B1 and of B3, four of each weight
+    pass) and 57x4e (9 x 8 (m3, n8) tiles: two items of B1, two of B2's
+    weight pass; 5 x 8 (|m3|, n8) tiles: two items of B3)."""
     import numpy as np
     import torch
 
@@ -353,23 +357,60 @@ def phase_wide_kernels(tp_kernel, dev):
           f"{len(spec.witems)} weight-pass items on {len(spec.slabs)} slabs) E={E} "
           + ", ".join(f"{k} max|d|={e:.3e} (max|ref| {s_:.3e})" for k, (e, s_) in errs.items()),
           flush=True)
-    return {k: list(v) for k, v in errs.items()}
+    out = {k: list(v) for k, v in errs.items()}
+
+    # B3 and B4 at the same outputs, with and without radial weights
+    from hamgnn_tpu_torch.e3 import zonal_kernel, zonal_tp
+
+    zspec = zonal_kernel.get_zonal_kernel_spec(plan)
+    for has_w in (True, False):
+        wz = w if has_w else None
+        with torch.inference_mode():
+            zout = zonal_kernel.zonal_core_forward(plan, x, wz, fw)
+            zref = zonal_tp.plain_zonal_core(plan, x, wz, fw)
+        got = zonal_kernel.zonal_core_backward(plan, x, wz, fw, gy)
+        again = zonal_kernel.zonal_core_backward(plan, x, wz, fw, gy)
+        refb = zonal_tp.plain_zonal_core_backward(plan, x, wz, fw, gy)
+        torch.cuda.synchronize()
+        zerrs = {"out_rot": rel_err(zout, zref)}
+        for k, a, b, c in zip(("dx_rot", "dw", "dflat_w"), got, again, refb):
+            if c is None:
+                continue
+            if not torch.equal(a, b):
+                fail(f"zonal_tp_bwd[wide] {k}: differs between two launches")
+            zerrs[k] = rel_err(a, c)
+        for key, (err, scale) in zerrs.items():
+            tol = DFLAT_TOL if key == "dflat_w" else TOL
+            if not math.isfinite(err) or err > tol * scale:
+                fail(f"zonal_tp_fwd/bwd[wide, w={has_w}] {key}: max|d| {err:.3e} > "
+                     f"{tol} * {scale:.3e}")
+        print(f"[kernel] zonal_tp_fwd/bwd wide ({WIDE_OUT}, w={has_w}; {len(zspec.fitems)} B3 "
+              f"items, {len(zspec.witems)} weight-pass items on {len(zspec.stages)} stages) "
+              f"E={E} " + ", ".join(f"{k} max|d|={e:.3e} (max|ref| {s_:.3e})"
+                                    for k, (e, s_) in zerrs.items()) + "; bit-identical repeat",
+              flush=True)
+        out.update({f"zonal{'' if has_w else '_no_w'}:{k}": list(v) for k, v in zerrs.items()})
+    return out
 
 
-def bwd_pass_ms(tp_kernel, spec, x, sh, w, fw, gy) -> dict:
-    """B2's two passes timed apart through their own C entries (not counted
-    as launches): the edge pass, and the weight pass with its reduce."""
+def bwd_pass_ms(kernel, call) -> dict:
+    """A backward's two passes timed apart through their own C entries (not
+    counted as launches): the edge pass, and the weight pass with its
+    reduce.  ``call`` is the wrapper's ``bwd_call`` result, (outputs, (C
+    arguments, scratch tensors)), held while the passes run."""
     import torch
 
-    lib = tp_kernel.PACKED_TP_BWD.library()
-    _outs, (args, _keep) = tp_kernel.bwd_call(spec, x, sh, w, fw, gy, False)
+    lib = kernel.library()
+    args = call[1][0]
     out = {}
-    for key, fn in (("edge_ms", lib.packed_tp_bwd_edge), ("wcat_ms", lib.packed_tp_bwd_wcat)):
+    for key in ("edge", "wcat"):
+        fn = getattr(lib, f"{kernel.name}_{key}")
         rc = fn(*args)
         torch.cuda.synchronize()
         if rc != 0:
-            fail(f"{fn.__name__}: {lib.packed_tp_bwd_error_string(rc).decode()} ({rc})")
-        out[key] = cuda_time_ms(lambda: fn(*args), 10)
+            fail(f"{fn.__name__}: {getattr(lib, f'{kernel.name}_error_string')(rc).decode()} "
+                 f"({rc})")
+        out[f"{key}_ms"] = cuda_time_ms(lambda: fn(*args), 10)
     return out
 
 
@@ -444,7 +485,7 @@ def phase_zonal_bwd_kernels(dev):
     bit-identical, CUDA-event times and bounds."""
     import torch
 
-    from hamgnn_tpu_torch.e3 import zonal_kernel, zonal_tp
+    from hamgnn_tpu_torch.e3 import tp_kernel, zonal_kernel, zonal_tp
 
     rows = []
     for name, plan, has_w, per_step in bench_plans():
@@ -465,12 +506,14 @@ def phase_zonal_bwd_kernels(dev):
             if not torch.equal(a, b):
                 fail(f"zonal_tp_bwd[{name}]: {key} differs between two launches")
             err, scale = rel_err(a, c)
-            if not math.isfinite(err) or err > TOL * scale:
-                fail(f"zonal_tp_bwd[{name}] {key}: max|d| {err:.3e} > {TOL} * {scale:.3e}")
+            tol = DFLAT_TOL if key == "dflat_w" else TOL
+            if not math.isfinite(err) or err > tol * scale:
+                fail(f"zonal_tp_bwd[{name}] {key}: max|d| {err:.3e} > {tol} * {scale:.3e}")
             errs[key] = (err, scale)
         del got, again, ref
         ms = cuda_time_ms(lambda: zonal_kernel.zonal_core_backward(*args), 10)
         plain_ms = cuda_time_ms(lambda: zonal_tp.plain_zonal_core_backward(*args), 3)
+        passes = bwd_pass_ms(tp_kernel.ZONAL_TP_BWD, zonal_kernel.bwd_call(spec, x_rot, w, fw, gy))
         bound, bound_by = spec.bound_bwd_ms(E, has_w)
         flops, nbytes = spec.work_bwd(E, has_w)
         rows.append(dict(plan=name, E=E, has_w=has_w, launches_per_step=per_step,
@@ -479,10 +522,11 @@ def phase_zonal_bwd_kernels(dev):
                          ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                          gflop=flops / 1e9, mbytes=nbytes / 1e6,
                          achieved_tflops=flops / (ms * 1e-3) / 1e12,
-                         achieved_gbytes_per_s=nbytes / (ms * 1e-3) / 1e9))
+                         achieved_gbytes_per_s=nbytes / (ms * 1e-3) / 1e9, **passes))
         print(f"[kernel] zonal_tp_bwd  {name:9s} E={E} "
               + ", ".join(f"{k} max|d|={e:.3e} (max|ref| {s_:.3e})" for k, (e, s_) in errs.items())
-              + f"; bit-identical repeat; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              + f"; bit-identical repeat; kernel {ms:.4f} ms (edge pass {passes['edge_ms']:.4f}, "
+              f"weight pass + reduce {passes['wcat_ms']:.4f}) plain {plain_ms:.4f} ms "
               f"bound {bound:.4f} ms ({bound_by})", flush=True)
         del x_rot, w, fw, gy, args
     torch.cuda.empty_cache()

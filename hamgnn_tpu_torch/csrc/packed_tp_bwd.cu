@@ -469,16 +469,6 @@ __global__ void packed_tp_bwd_reduce(const float* __restrict__ part, int n_split
   dflat[wcat_idx[k]] = acc * scale[k];
 }
 
-int resident_per_sm(const void* kernel, size_t smem) {
-  int per_sm = 0;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
-      cudaSuccess)
-    return -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem) != cudaSuccess)
-    return -1;
-  return per_sm;
-}
-
 enum Pass { EDGE = 1, WCAT = 2 };
 
 int run(int passes, const float* x, const float* sh, const float* w, const float* wcat,
@@ -554,7 +544,7 @@ int packed_tp_bwd_item_n8(void) { return ITEM_N8; }
 int packed_tp_bwd_resident_blocks(int pass, size_t smem) {
   return resident_per_sm(pass == 0 ? (const void*)packed_tp_bwd_edge_kernel
                                    : (const void*)packed_tp_bwd_wcat_kernel,
-                         smem);
+                         NT, smem);
 }
 
 #define PACKED_TP_BWD_PARAMS                                                                 \

@@ -248,13 +248,7 @@ int packed_tp_fwd_item_n8(void) { return ITEM_N8; }
 
 // Blocks resident on one SM at this shared-memory size.
 int packed_tp_fwd_resident_blocks(size_t smem) {
-  const void* kernel = (const void*)packed_tp_fwd_kernel<1>;
-  int per_sm = 0;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem) != cudaSuccess)
-    return -1;
-  return per_sm;
+  return resident_per_sm((const void*)packed_tp_fwd_kernel<1>, NT, smem);
 }
 
 int packed_tp_fwd(const float* x, const float* sh, const float* w, const float* wcat,

@@ -1,8 +1,10 @@
-// What the lab-frame pipeline kernels (packed_tp_fwd.cu, packed_tp_bwd.cu)
-// share: the host tables' record layouts, the Wcat-stage products on the
-// tensor cores in 3xTF32, cp.async copies and the loops unrolled to a
-// column's d1 (with_d1); and the backward's slab build (a slab's coupling
-// slots, compact x rows and BLK columns in shared memory).
+// What the pipeline kernels share.  All four (packed_tp_fwd.cu,
+// packed_tp_bwd.cu and the edge-frame zonal_tp_fwd.cu, zonal_tp_bwd.cu): the
+// Wcat-stage products on the tensor cores in 3xTF32, the fragment layouts
+// and operand strides, cp.async copies and the occupancy query.  The
+// lab-frame pair also: the host tables' record layouts, the loops unrolled
+// to a column's d1 (with_d1) and the backward's slab build (a slab's
+// coupling slots, compact x rows and BLK columns in shared memory).
 //
 // 3xTF32.  mma.sync m16n8k8 takes TF32 operands (10 mantissa bits); one pass
 // is off by ~3e-4 * max|ref| at these shapes, over the kernels' 1e-4 limit.
@@ -94,6 +96,19 @@ __device__ __forceinline__ void mma_3xtf32(float (&hi)[4], float (&lo)[4], const
   mma_tf32(lo, ab, bs);
 }
 
+// The same with the two correction terms in accumulators of their own, so
+// that each of the three chains is one product deep per call; the caller
+// adds (lo + lo2) + hi into fp32 registers.
+__device__ __forceinline__ void mma_3xtf32(float (&hi)[4], float (&lo)[4], float (&lo2)[4],
+                                           const float (&a)[4], const float (&b)[2]) {
+  uint32_t ab[4], as[4], bb[2], bs[2];
+  split_tf32(a, ab, as);
+  split_tf32(b, bb, bs);
+  mma_tf32(lo, as, bb);
+  mma_tf32(hi, ab, bb);
+  mma_tf32(lo2, ab, bs);
+}
+
 // ---------------------------------------------------------------- cp.async
 
 // 4-byte copy into shared memory; zero-fills where !valid (src is then not read)
@@ -102,8 +117,25 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 4 : 0));
 }
+// 16-byte copy (both addresses 16-byte aligned); zero-fills where !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// Blocks of nt threads of `kernel` resident on one SM at this shared-memory
+// size (-1 where the runtime refuses the size).
+inline int resident_per_sm(const void* kernel, int nt, size_t smem) {
+  int per_sm = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, nt, smem) != cudaSuccess)
+    return -1;
+  return per_sm;
+}
 
 // ---------------------------------------------------------------- slab build
 

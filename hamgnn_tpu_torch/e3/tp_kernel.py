@@ -211,27 +211,38 @@ PACKED_TP_BWD = CudaKernel("packed_tp_bwd", {
     "packed_tp_bwd_resident_blocks": ([_I, ctypes.c_size_t], _I),
 })
 
-# the zonal engine's kernels (wrappers and host tables in zonal_kernel.py)
+# the zonal engine's kernels (wrappers and host tables in zonal_kernel.py);
+# as for B2, zonal_tp_bwd runs both passes and the reduce, and the passes'
+# own entries exist to time them apart and are not counted as launches
 ZONAL_TP_FWD = CudaKernel("zonal_tp_fwd", {
-    "zonal_tp_fwd": ([_P] * 8 + [_I] * 9 + [_P], _I),
+    "zonal_tp_fwd": ([_P] * 11 + [_I] * 7 + [_P], _I),
     "zonal_tp_fwd_smem_bytes": ([_I] * 2, ctypes.c_size_t),
-    "zonal_tp_fwd_rows_per_thread": ([_I] * 2, _I),
-    "zonal_tp_fwd_max_rows": ([], _I),
+    "zonal_tp_fwd_tile_edges": ([], _I),
+    "zonal_tp_fwd_stage_entries": ([], _I),
+    "zonal_tp_fwd_item_tiles": ([], _I),
+    "zonal_tp_fwd_item_n8": ([], _I),
+    "zonal_tp_fwd_resident_blocks": ([ctypes.c_size_t], _I),
 })
 
+_ZBWD_ARGS = [_P] * 23 + [_I] * 12 + [_P]
 ZONAL_TP_BWD = CudaKernel("zonal_tp_bwd", {
-    "zonal_tp_bwd": ([_P] * 19 + [_I] * 12 + [_P], _I),
-    "zonal_tp_bwd_smem_bytes": ([_I] * 3, ctypes.c_size_t),
-    "zonal_tp_bwd_slab_cols": ([], _I),
+    "zonal_tp_bwd": (_ZBWD_ARGS, _I),
+    "zonal_tp_bwd_edge": (_ZBWD_ARGS, _I),
+    "zonal_tp_bwd_wcat": (_ZBWD_ARGS, _I),
+    "zonal_tp_bwd_smem_bytes": ([_I] * 4, ctypes.c_size_t),
     "zonal_tp_bwd_tile_edges": ([], _I),
-    "zonal_tp_bwd_resident_blocks": ([ctypes.c_size_t], _I),
+    "zonal_tp_bwd_stage_entries": ([], _I),
+    "zonal_tp_bwd_item_entries": ([], _I),
+    "zonal_tp_bwd_item_n8": ([], _I),
+    "zonal_tp_bwd_wcat_tile_edges": ([], _I),
+    "zonal_tp_bwd_resident_blocks": ([_I, ctypes.c_size_t], _I),
 })
 
 # every kernel of the port, by name (chip_smoke.py resets and reads the counts)
 KERNELS = {"packed_tp_fwd": PACKED_TP_FWD, "packed_tp_bwd": PACKED_TP_BWD,
            "zonal_tp_fwd": ZONAL_TP_FWD, "zonal_tp_bwd": ZONAL_TP_BWD}
 
-# columns per slab (packed_tp_fwd.cu, packed_tp_bwd.cu, zonal_tp_bwd.cu KS)
+# columns per slab (packed_tp_fwd.cu, packed_tp_bwd.cu KS)
 BWD_SLAB_COLS = 64
 # coupling slots a slab of the backward may use (one group of a column's
 # d1 x d3 slots may exceed it alone): it bounds its passes' shared memory

@@ -12,12 +12,18 @@ kernels between them.  On CPU tensors the wrappers run the plain versions
 ``zonal_apply``); on CUDA tensors they launch the kernels or raise.
 
 ``ZonalKernelSpec`` is the kernels' host-side schedule, rebuilt from the
-reference's ``ZonalPallasSpec`` for the GPU: no lane layouts, but per
-(output chunk, m3, BLK column) two x offsets in the rotated u-major row with
-their coefficients, and per column its radial-weight column.  Unlike the
-lab-frame schedule the sources depend on m3 (zonal CG couples m1 = +-m3).
-The backward adds, per slab of 64 columns, the (m3, column, term) entries
-grouped by x offset.
+reference's ``ZonalPallasSpec`` for the GPU.  In the edge frame about half
+of a chunk's (m3, column) records are structural zeros, and a live record
+has one term, a scaled gather ``c * x_rot[e, xo] * w[e, wc]``.  The live
+set of row +|m3| is that of -|m3|, so the kernels work on *entries*: one
+live column of one |m3| with its two records (+|m3| and -|m3|; one for
+m3 = 0), which share the radial weight and the Wcat row.  An m16 row tile
+of the products is (sign of m3, edge) over 8 edges.  Each chunk's entries
+are cut into stages (a range of its columns, at most ``STAGE_ENTRIES``
+entries, |m3|-major, each |m3| segment padded to 8), so that a column's
+entries lie in one stage.  ``went`` is Wcat in entry order (row per entry),
+gathered from the flat Linear weight, so a stage's Wcat rows are one
+contiguous block.
 """
 
 from __future__ import annotations
@@ -29,8 +35,25 @@ import torch
 
 from . import zonal_tp
 from .packed_tp import PackedTPPlan, get_plan
-from .tp_kernel import (BWD_SLAB_COLS, ZONAL_TP_BWD, ZONAL_TP_FWD, PipelineSpec,
-                        _check, _device_kind, append_groups)
+from .tp_kernel import (WCAT_ITEM_N8, WCAT_WAVES, ZONAL_TP_BWD, ZONAL_TP_FWD, PipelineSpec,
+                        _check, _device_kind, _smem_limit, append_groups)
+
+# edges per tile: an m16 row tile of the products is (sign of m3, edge)
+ZONAL_TILE_EDGES = 8
+# entries of a stage (zonal_tp_fwd.cu / zonal_tp_bwd.cu CAP)
+STAGE_ENTRIES = 128
+# (|m3|, n8) output tiles and n8 tiles of V of a forward work item (8 warps
+# of at most 4 tiles each)
+FWD_ITEM_TILES = 32
+FWD_ITEM_N8 = 8
+# entries of a weight-pass work item (4 m16 tiles); its V columns are
+# 8 * WCAT_ITEM_N8, as in the lab-frame weight pass; edges of its steps
+WCAT_ITEM_ENTRIES = 64
+WCAT_TILE_EDGES = 16
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
 
 
 class ZonalKernelSpec(PipelineSpec):
@@ -41,7 +64,8 @@ class ZonalKernelSpec(PipelineSpec):
     (chunk, m3, column), at record offset + m3 * fan_in + column, the two x
     offsets and the two coefficients of its mid (an unused term has
     coefficient 0 and a valid offset).  ``wcol``: per column of a chunk its
-    radial-weight column.  The backward's slab tables: see ``_build_slabs``.
+    radial-weight column.  The kernels read the entry tables of
+    ``_build_stages`` only.
     """
 
     def __init__(self, plan: PackedTPPlan):
@@ -65,41 +89,193 @@ class ZonalKernelSpec(PipelineSpec):
         self.zsrc = np.asarray(zsrc, np.int32).reshape(-1, 2)
         self.zcoef = np.asarray(zcoef, np.float32).reshape(-1, 2)
         self.wcol = np.asarray(wcol, np.int32)
-        self._build_slabs()
+        self._build_stages()
 
-    def _build_slabs(self):
-        """Backward tables: per output chunk the index of its first slab;
-        per slab (BWD_SLAB_COLS columns, all m3) its x groups, each (x
-        offset, offset into ``lst`` / ``lcoef``, count); per entry of a
-        group, in (m3, column, term) order, ``lst`` = m3 * BWD_SLAB_COLS +
-        slab column and ``lcoef`` its coefficient."""
-        slab_base, slabs, xgrp, lst, lcoef = [], [], [], [], []
-        for (_b, d3, _V, _wofs, fan_in, rec_ofs, _col) in self.grp:
-            slab_base.append(len(slabs))
-            for c0 in range(0, fan_in, BWD_SLAB_COLS):
-                by_x = {}
-                for m3 in range(d3):
-                    for c in range(c0, min(c0 + BWD_SLAB_COLS, fan_in)):
-                        rec = rec_ofs + m3 * fan_in + c
-                        for xo, cf in zip(self.zsrc[rec], self.zcoef[rec]):
-                            if cf != 0.0:
-                                by_x.setdefault((int(xo),), []).append(
-                                    (m3 * BWD_SLAB_COLS + c - c0, float(cf)))
-                slabs.append((len(xgrp), len(by_x)))
-                append_groups(by_x, xgrp, lst, lcoef)
-        self.slab_base = np.asarray(slab_base, np.int32)
-        self.slabs = np.asarray(slabs, np.int32).reshape(-1, 2)
-        self.xgrp = np.asarray(xgrp, np.int32).reshape(-1, 3)
-        self.lst = np.asarray(lst, np.int32)
-        self.lcoef = np.asarray(lcoef, np.float32)
+    def _column_entries(self, k: int, c: int):
+        """The entries of column ``c`` of chunk ``k``: per |m3| = a with a
+        nonzero term, one entry per term (a, (x offset, coefficient) of row
+        L + a, the same of row L - a), a missing term as (0, 0.0)."""
+        _b, d3, _V, _wofs, fan_in, rec, _col = (int(v) for v in self.grp[k])
+        L = (d3 - 1) // 2
+        out = []
+        for a in range(L + 1):
+            terms = []
+            for m3 in ((L + a, L - a) if a else (L,)):
+                r = rec + m3 * fan_in + c
+                terms.append([(int(xo), float(cf)) for xo, cf in zip(self.zsrc[r], self.zcoef[r])
+                              if cf != 0.0])
+            if len(terms) == 1:
+                terms.append([])
+            for t in range(max(len(terms[0]), len(terms[1]))):
+                out.append((a, *(tm[t] if t < len(tm) else (0, 0.0) for tm in terms)))
+        return out
+
+    def _build_stages(self):
+        """Entry tables of both kernels.
+
+        ``zgrp``: per chunk b, d3, V, first stage, end stage, offset of its
+        columns in ``wcol``, fan_in.  ``stages``: chunk, first entry, entries
+        (a multiple of 8, at most ``STAGE_ENTRIES``), segment offset and count, column-group offset
+        and count, x-group offset and count, went offset of the first entry,
+        offset and length of its members in ``clst`` and in ``xlst``.
+        ``segs``: per |m3| segment of a stage its a, first stage-local entry
+        and entries (a multiple of 8; pad entries have coefficient 0).
+        ``ent_i`` / ``ent_c``: per entry the x offsets of its +a and -a
+        records, its column in the chunk (its radial-weight column is
+        ``wcol[column offset + column]``) and a; their coefficients (0 for
+        the -a record of a = 0).  Column groups (``cgrp``: radial-weight
+        column, 1 where an earlier chunk has written that column of dw,
+        offset into ``clst``, count): the stage-local entries of each column.
+        x groups (``xgrp``: x offset, offset into ``xlst`` / ``xcoef``,
+        count): per x offset its (sign * STAGE_ENTRIES + entry) records and
+        coefficients, so that one thread owns an x offset.  ``went_idx`` /
+        ``went_scale``: per entry its chunk's V columns of Wcat (zero for a
+        pad entry).  ``red_ofs`` / ``red_lst``: per Wcat element (in
+        ``wcat_idx`` order) the went elements that sum to it.  ``fitems``
+        (chunk, first n8 tile, n8 tiles) and ``witems`` (stage, first
+        stage-local entry, entries, first V column): the work items, the
+        weight pass's heaviest first."""
+        ent_i, ent_c, ent_col = [], [], []
+        zgrp, stages, segs = [], [], []
+        cgrp, clst, xgrp, xlst, xcoef = [], [], [], [], []
+        went_idx, went_scale, red = [], [], [[] for _ in range(len(self.wcat_idx))]
+        seen_wc = set()
+        for k, (b, d3, V, wofs, fan_in, _rec, col) in enumerate(self.grp):
+            b, d3, V, wofs, fan_in, col = (int(v) for v in (b, d3, V, wofs, fan_in, col))
+            L = (d3 - 1) // 2
+            first_stage = len(stages)
+            c = 0
+            while c < fan_in:
+                buckets = [[] for _ in range(L + 1)]
+                while c < fan_in:
+                    ents = self._column_entries(k, c)
+                    size = sum(_round8(len(bk) + sum(e[0] == a for e in ents))
+                               for a, bk in enumerate(buckets))
+                    if size > STAGE_ENTRIES and any(buckets):
+                        break
+                    for e in ents:
+                        buckets[e[0]].append((c, *e[1:]))
+                    c += 1
+                if not any(buckets):  # columns without a live record
+                    continue
+                # each stage's lists start on a 16-byte boundary (the edge
+                # pass copies them in 16-byte pieces)
+                for lst_, w_ in ((clst, 1), (xgrp, 3), (xlst, 1), (xcoef, 1)):
+                    while (len(lst_) * w_) % 4:
+                        lst_.append((0, 0, 0) if w_ == 3 else 0)
+                st_ent, seg_ofs = len(ent_i), len(segs)
+                by_col, by_x = {}, {}
+                for a, bk in enumerate(buckets):
+                    if not bk:
+                        continue
+                    segs.append((a, len(ent_i) - st_ent, _round8(len(bk))))
+                    for j in range(_round8(len(bk))):
+                        kk = len(ent_i) - st_ent
+                        if j < len(bk):
+                            cc, (xp, cp), (xm, cm) = bk[j]
+                            wc = int(self.wcol[col + cc])
+                            by_col.setdefault((wc, int(wc in seen_wc)), []).append(kk)
+                            for s, (xo, cf) in enumerate(((xp, cp), (xm, cm))):
+                                if cf != 0.0:
+                                    by_x.setdefault((xo,), []).append(
+                                        (s * STAGE_ENTRIES + kk, cf))
+                        else:
+                            cc, xp, cp, xm, cm = -1, 0, 0.0, 0, 0.0
+                        ent_i.append((xp, xm, max(cc, 0), a))
+                        ent_c.append((cp, cm))
+                        ent_col.append(cc)
+                        row = wofs + cc * V + np.arange(V)
+                        for v in range(V):
+                            if cc >= 0:
+                                red[row[v]].append(len(went_idx))
+                            went_idx.append(self.wcat_idx[row[v]] if cc >= 0 else 0)
+                            went_scale.append(self.wcat_scale[row[v]] if cc >= 0 else 0.0)
+                went0 = len(went_idx) - (len(ent_i) - st_ent) * V
+                stages.append((k, st_ent, len(ent_i) - st_ent, seg_ofs, len(segs) - seg_ofs,
+                               len(cgrp), len(by_col), len(xgrp), len(by_x), went0,
+                               len(clst), sum(map(len, by_col.values())), len(xlst),
+                               sum(map(len, by_x.values()))))
+                append_groups(by_col, cgrp, clst)
+                append_groups(by_x, xgrp, xlst, xcoef)
+                seen_wc.update(wc for wc, _add in by_col)
+            zgrp.append((b, d3, V, first_stage, len(stages), col, fan_in))
+        self.zgrp = np.asarray(zgrp, np.int32).reshape(-1, 7)
+        self.stages = np.asarray(stages, np.int32).reshape(-1, 14)
+        self.segs = np.asarray(segs, np.int32).reshape(-1, 3)
+        self.ent_i = np.asarray(ent_i, np.int32).reshape(-1, 4)
+        self.ent_c = np.asarray(ent_c, np.float32).reshape(-1, 2)
+        self.ent_col = np.asarray(ent_col, np.int32)
+        # and 16 bytes past the last one, so that its last piece stays inside
+        pad = lambda a, w_: a + [0] * 4 * w_  # noqa: E731
+        self.cgrp = np.asarray(cgrp, np.int32).reshape(-1, 4)
+        self.clst = np.asarray(pad(clst, 1), np.int32)
+        self.xgrp = np.asarray(xgrp + [(0, 0, 0)] * 4, np.int32).reshape(-1, 3)
+        self.xlst = np.asarray(pad(xlst, 1), np.int32)
+        self.xcoef = np.asarray(pad(xcoef, 1), np.float32)
+        self.went_idx = np.asarray(went_idx, np.int64)
+        self.went_scale = np.asarray(went_scale, np.float32)
+        self.red_ofs = np.cumsum([0] + [len(r) for r in red]).astype(np.int32)
+        self.red_lst = np.asarray([i for r in red for i in r], np.int32)
+        items = []
+        for k, (_b, d3, V, *_r) in enumerate(self.zgrp):
+            n8, na = -(-int(V) // 8), (int(d3) + 1) // 2
+            per = max(1, min(FWD_ITEM_N8, FWD_ITEM_TILES // na))
+            items += [(k, t0, min(per, n8 - t0)) for t0 in range(0, n8, per)]
+        self.fitems = np.asarray(items, np.int32).reshape(-1, 3)
+        self.fwd_tiles = max((((int(self.zgrp[k][1]) + 1) // 2) * n for k, _t, n in items),
+                             default=0)
+        witems, cost = [], []
+        for si, (k, _e0, _n, seg_ofs, n_seg, *_r) in enumerate(self.stages):
+            V = int(self.zgrp[k][2])
+            for (_a, s0, n) in self.segs[seg_ofs : seg_ofs + n_seg]:
+                for e0 in range(s0, s0 + n, WCAT_ITEM_ENTRIES):
+                    ne = min(WCAT_ITEM_ENTRIES, s0 + n - e0)
+                    for v0 in range(0, V, 8 * WCAT_ITEM_N8):
+                        witems.append((si, e0, ne, v0))
+                        cost.append(ne * min(V - v0, 8 * WCAT_ITEM_N8))
+        order = np.argsort(-np.asarray(cost), kind="stable")
+        self.witems = np.asarray(witems, np.int32).reshape(-1, 4)[order]
+        # per edge, the floats of a chunk's output gradient in the edge pass's
+        # shared memory (row stride round8(V) + 4)
+        self.gmax = max((int(d3) * (_round8(int(V)) + 4) for (_b, d3, V, *_r) in self.zgrp),
+                        default=12)
+        # the most columns of a chunk (B3 stages their radial weights per tile)
+        self.fan_max = max((int(r[6]) for r in self.zgrp), default=1)
+        # the most words of a stage's group tables, packed in 16-byte parts
+        # (the edge pass keeps one stage's in shared memory)
+        r4 = lambda n: -(-int(n) // 4) * 4  # noqa: E731
+        self.tgrp_words = max((r4(4 * st[6]) + r4(st[11]) + r4(3 * st[8]) + 2 * r4(st[13])
+                               for st in self.stages), default=4)
 
     def _host_tables(self) -> dict:
         return {**super()._host_tables(),
-                "zcoef": (self.zcoef, torch.float32),
-                "lcoef": (self.lcoef, torch.float32),
+                "went_idx": (self.went_idx, torch.long),
+                "went_scale": (self.went_scale, torch.float32),
+                "ent_c": (self.ent_c, torch.float32),
+                "xcoef": (self.xcoef, torch.float32),
                 **{name: (getattr(self, name), torch.int32)
-                   for name in ("grp", "zsrc", "wcol", "slab_base", "slabs",
-                                "xgrp", "lst")}}
+                   for name in ("zgrp", "stages", "segs", "ent_i", "wcol", "cgrp", "clst",
+                                "xgrp", "xlst", "red_ofs", "red_lst", "fitems", "witems")}}
+
+    def build_went(self, flat_w):
+        """Flat Linear weight -> Wcat in entry order: per entry its chunk's
+        V columns of its Wcat row, 1/sqrt(fan_in) folded, zero for a pad."""
+        tb = self.tables(flat_w.device)
+        return flat_w[tb["went_idx"]] * tb["went_scale"]
+
+    def records_built(self) -> int:
+        """(m3, column) records the kernels build and multiply per edge: two
+        per entry of |m3| > 0, one per entry of m3 = 0, pads excluded."""
+        real = self.ent_col >= 0
+        return int(real.sum() + (real & (self.ent_i[:, 3] > 0)).sum())
+
+    def wcat_splits(self, E: int, resident: int) -> int:
+        """Edge splits of the backward's weight pass (as ``KernelSpec``'s):
+        ``WCAT_WAVES`` waves of resident blocks, at most one per 16-edge step, and
+        as few as give each split its share of tiles (none left empty)."""
+        n_tiles = -(-E // WCAT_TILE_EDGES)
+        p = max(1, min(n_tiles, -(-WCAT_WAVES * resident // max(1, len(self.witems)))))
+        return -(-n_tiles // -(-n_tiles // p))
 
     def _live(self):
         """Per covered output chunk (n, V): its n (m3, column) records with a
@@ -156,11 +332,10 @@ def get_zonal_kernel_spec(plan: PackedTPPlan) -> ZonalKernelSpec:
 # wrappers
 # ----------------------------------------------------------------------
 
-def _shared_memory_limit(name, smem, dev):
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"{name} needs {smem} B of shared memory, "
-                         f"the card allows {limit}")
+def _check_library(lib, name):
+    if (getattr(lib, f"{name}_tile_edges")() != ZONAL_TILE_EDGES
+            or getattr(lib, f"{name}_stage_entries")() != STAGE_ENTRIES):
+        raise RuntimeError(f"{name}.cu and zonal_kernel.py disagree on the tile or the stage")
 
 
 def _launch(spec: ZonalKernelSpec, x_rot, w, flat_w):
@@ -171,30 +346,35 @@ def _launch(spec: ZonalKernelSpec, x_rot, w, flat_w):
         _check("w", w, (E, spec.n_ch), dev)
     out = (torch.empty if spec.fully_covered else torch.zeros)(
         (E, spec.d_out), dtype=torch.float32, device=dev)
-    if E == 0 or len(spec.grp) == 0:
+    if E == 0 or len(spec.zgrp) == 0:
         return out
     _check("flat_w", flat_w, (spec.plan.linear_numel,), dev)
     lib = ZONAL_TP_FWD.library()
-    r_max = max(lib.zonal_tp_fwd_rows_per_thread(int(d3), int(V))
-                for (_b, d3, V, *_rest) in spec.grp)
-    if r_max < 1 or r_max > lib.zonal_tp_fwd_max_rows():
-        raise ValueError(f"zonal_tp_fwd takes at most {lib.zonal_tp_fwd_max_rows()} "
-                         f"rows per thread; this plan needs {r_max}")
-    _shared_memory_limit("zonal_tp_fwd",
-                         lib.zonal_tp_fwd_smem_bytes(spec.d3_max, spec.v_max), dev)
+    _check_library(lib, "zonal_tp_fwd")
+    if (lib.zonal_tp_fwd_item_tiles() != FWD_ITEM_TILES
+            or lib.zonal_tp_fwd_item_n8() != FWD_ITEM_N8):
+        raise RuntimeError("zonal_tp_fwd.cu and zonal_kernel.py disagree on the work items")
+    _smem_limit("zonal_tp_fwd", lib.zonal_tp_fwd_smem_bytes(spec.d_in, spec.fan_max), dev)
     tb = spec.tables(dev)
-    wcat = spec.build_wcat(flat_w).contiguous()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    went = spec.build_went(flat_w).contiguous()
     ZONAL_TP_FWD.launch(
-        x_rot.data_ptr(), 0 if w is None else w.data_ptr(), wcat.data_ptr(),
-        tb["grp"].data_ptr(), tb["zsrc"].data_ptr(), tb["zcoef"].data_ptr(),
-        tb["wcol"].data_ptr(), out.data_ptr(),
-        E, spec.d_in, spec.n_ch, spec.d_out, len(spec.grp), spec.d3_max,
-        spec.v_max, r_max, 0 if w is None else 1, stream)
+        x_rot.data_ptr(), 0 if w is None else w.data_ptr(), went.data_ptr(),
+        *(tb[n].data_ptr() for n in ("zgrp", "stages", "segs", "ent_i", "ent_c", "wcol",
+                                     "fitems")),
+        out.data_ptr(), E, spec.d_in, spec.n_ch, spec.d_out, len(spec.fitems), spec.fan_max,
+        0 if w is None else 1, torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
-def _launch_bwd(spec: ZonalKernelSpec, x_rot, w, flat_w, gout):
+def bwd_call(spec: ZonalKernelSpec, x_rot, w, flat_w, gout):
+    """Checks the backward's inputs, allocates its outputs and returns
+    ``(outputs, call)``: (dx_rot, dw or None, d(flat_w)) and ``(args,
+    tensors)``, the argument list of the C entries (``zonal_tp_bwd`` and the
+    passes alone) and the scratch tensors behind its pointers, which the
+    caller keeps while it launches (``call`` is None where there is nothing
+    to launch).  The edge pass writes dx_rot and dw; the weight pass writes
+    one partial row of dWcat (in entry order) per edge split, which the
+    reduce sums into d(flat_w)."""
     E = x_rot.shape[0]
     dev = x_rot.device
     _check("x_rot", x_rot, (E, spec.d_in), dev)
@@ -203,42 +383,51 @@ def _launch_bwd(spec: ZonalKernelSpec, x_rot, w, flat_w, gout):
         _check("w", w, (E, spec.n_ch), dev)
     _check("flat_w", flat_w, (spec.plan.linear_numel,), dev)
     zeros = functools.partial(torch.zeros, dtype=torch.float32, device=dev)
-    dx = zeros((E, spec.d_in))
+    # the edge pass writes every element of dx_rot (the tile's rows, kept in
+    # shared memory) and only the used columns of dw
+    dx = torch.empty((E, spec.d_in), dtype=torch.float32, device=dev)
     dw = zeros((E, spec.n_ch)) if w is not None else None
     dflat = zeros((spec.plan.linear_numel,))
-    if E == 0 or len(spec.grp) == 0:
-        return dx, dw, dflat
+    outs = (dx, dw, dflat)
+    if E == 0 or len(spec.zgrp) == 0:
+        dx.zero_()
+        return outs, None
     lib = ZONAL_TP_BWD.library()
-    if lib.zonal_tp_bwd_slab_cols() != BWD_SLAB_COLS:
-        raise RuntimeError("zonal_tp_bwd.cu and tp_kernel.py disagree on the slab width")
-    if spec.v_max > 512:
-        raise ValueError(f"zonal_tp_bwd takes V <= 512; this plan needs {spec.v_max}")
-    smem = lib.zonal_tp_bwd_smem_bytes(spec.gmax, spec.d3_max, spec.v_max)
-    _shared_memory_limit("zonal_tp_bwd", smem, dev)
-    resident = lib.zonal_tp_bwd_resident_blocks(smem)
-    if resident < 1:
-        raise RuntimeError(f"zonal_tp_bwd: no block of {smem} B fits on the card")
-    # each block walks a contiguous range of edge tiles, so it alone writes
-    # its rows of dx_rot/dw and its own partial row of dWcat
-    n_tiles = -(-E // lib.zonal_tp_bwd_tile_edges())
-    per_block = -(-n_tiles // min(n_tiles, resident))
-    nblk = -(-n_tiles // per_block)
-    part = torch.empty((nblk, spec.plan.linear_numel), dtype=torch.float32, device=dev)
+    _check_library(lib, "zonal_tp_bwd")
+    if (lib.zonal_tp_bwd_item_entries() != WCAT_ITEM_ENTRIES
+            or lib.zonal_tp_bwd_item_n8() != WCAT_ITEM_N8
+            or lib.zonal_tp_bwd_wcat_tile_edges() != WCAT_TILE_EDGES):
+        raise RuntimeError("zonal_tp_bwd.cu and zonal_kernel.py disagree on the weight "
+                           "pass's work items")
+    smem = [lib.zonal_tp_bwd_smem_bytes(spec.d_in, spec.gmax, spec.tgrp_words, p)
+            for p in (0, 1)]
+    for nbytes in smem:
+        _smem_limit("zonal_tp_bwd", nbytes, dev)
+    per_sm = lib.zonal_tp_bwd_resident_blocks(1, smem[1])
+    if per_sm < 1:
+        raise RuntimeError("zonal_tp_bwd: no block of the weight pass fits on an SM")
+    resident = per_sm * torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split = spec.wcat_splits(E, resident)
+    part = torch.empty((n_split, len(spec.went_idx)), dtype=torch.float32, device=dev)
     tb = spec.tables(dev)
-    wcat = spec.build_wcat(flat_w).contiguous()
+    went = spec.build_went(flat_w).contiguous()
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ZONAL_TP_BWD.launch(
-        x_rot.data_ptr(), ptr(w), wcat.data_ptr(), gout.data_ptr(),
-        tb["grp"].data_ptr(), tb["zsrc"].data_ptr(), tb["zcoef"].data_ptr(),
-        tb["wcol"].data_ptr(), tb["slab_base"].data_ptr(), tb["slabs"].data_ptr(),
-        tb["xgrp"].data_ptr(), tb["lst"].data_ptr(), tb["lcoef"].data_ptr(),
-        tb["wcat_scale"].data_ptr(), tb["wcat_idx"].data_ptr(),
-        dx.data_ptr(), ptr(dw), part.data_ptr(), dflat.data_ptr(),
-        E, spec.d_in, spec.n_ch, spec.d_out, len(spec.grp),
-        spec.plan.linear_numel, spec.gmax, spec.d3_max, spec.v_max, nblk,
-        per_block, 0 if w is None else 1, stream)
-    return dx, dw, dflat
+    args = (x_rot.data_ptr(), ptr(w), went.data_ptr(), gout.data_ptr(),
+            *(tb[n].data_ptr() for n in ("zgrp", "stages", "ent_i", "ent_c", "wcol", "cgrp",
+                                         "clst", "xgrp", "xlst", "xcoef", "witems", "red_ofs",
+                                         "red_lst", "wcat_idx", "wcat_scale")),
+            dx.data_ptr(), ptr(dw), part.data_ptr(), dflat.data_ptr(),
+            E, spec.d_in, spec.n_ch, spec.d_out, len(spec.zgrp), len(spec.witems),
+            len(spec.wcat_idx), len(spec.went_idx), spec.gmax, spec.tgrp_words, n_split,
+            0 if w is None else 1, torch.cuda.current_stream(dev).cuda_stream)
+    return outs, (args, (went, part))
+
+
+def _launch_bwd(spec: ZonalKernelSpec, x_rot, w, flat_w, gout):
+    outs, call = bwd_call(spec, x_rot, w, flat_w, gout)
+    if call is not None:
+        ZONAL_TP_BWD.launch(*call[0])
+    return outs
 
 
 class ZonalTP(torch.autograd.Function):
@@ -280,8 +469,7 @@ def zonal_core_backward(plan: PackedTPPlan, x_rot, w, flat_w, gout_rot):
     kernel B4."""
     if _device_kind(x_rot, "zonal_core_backward") == "cpu":
         return zonal_tp.plain_zonal_core_backward(plan, x_rot, w, flat_w, gout_rot)
-    return _launch_bwd(get_zonal_kernel_spec(plan), x_rot, w, flat_w,
-                       gout_rot.contiguous())
+    return _launch_bwd(get_zonal_kernel_spec(plan), x_rot, w, flat_w, gout_rot.contiguous())
 
 
 def zonal_forward(plan: PackedTPPlan, x, sh, w, flat_w):

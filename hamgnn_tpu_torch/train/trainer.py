@@ -97,21 +97,23 @@ class Trainer:
         self.flat, self.grad = flatten_parameters(self.model)
         self.opt = Amsgrad(self.flat.numel(), self.device, gradient_clip_val)
         self.nonfinite_steps = 0  # of the last train_epoch
-        # draws the random k-points of the band branch when no k_path is set
-        self.k_rng = np.random.default_rng(0)
         os.makedirs(train_dir, exist_ok=True)
         self._log_path = os.path.join(train_dir, "metrics.jsonl")
 
     # --- steps -----------------------------------------------------------
 
     def _band_kwargs(self, graph) -> Dict[str, torch.Tensor]:
-        """Host-generated k-points when the output head computes bands."""
+        """Host-generated k-points when the output head computes bands.
+
+        Without a ``k_path`` the random k set comes from a fresh seeded
+        generator at every call, as in the JAX trainer: each crystal slot of
+        a batch sees the same k set in every step and validation pass."""
         out = self.model.output
         if not getattr(out, "calculate_band_energy", False):
             return {}
         from ..physics.kpoints import k_vecs_for_graph
 
-        k = k_vecs_for_graph(graph, out.num_k, out.k_path, rng=self.k_rng)
+        k = k_vecs_for_graph(graph, out.num_k, out.k_path)
         return {"k_vecs": torch.as_tensor(k, device=self.device)}
 
     def train_step(self, graph):

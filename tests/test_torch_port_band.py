@@ -522,7 +522,7 @@ def test_trainer_band_kwargs_and_step(tmp_path, model_pair):
     k1 = tr._band_kwargs(tg)["k_vecs"]
     k2 = tr._band_kwargs(tg)["k_vecs"]
     assert tuple(k1.shape) == (2, 3, 3) and k1.dtype == torch.float32
-    assert not torch.equal(k1, k2)  # the trainer's generator moves on
+    assert torch.equal(k1, k2)  # the same k set per crystal slot at every call
     model.output.k_path = ((0.0, 0.0, 0.0), (0.5, 0.0, 0.0))
     want = t_kp.k_vecs_for_graph(tg, 3, model.output.k_path)
     np.testing.assert_array_equal(_np(tr._band_kwargs(tg)["k_vecs"]), want)
@@ -533,6 +533,37 @@ def test_trainer_band_kwargs_and_step(tmp_path, model_pair):
     assert np.isfinite(val) and np.isfinite(agg["mae_band_energy"])
     model.output.calculate_band_energy = False
     assert tr._band_kwargs(tg) == {}
+
+
+def test_band_k_points_match_the_jax_trainer(tmp_path, model_pair):
+    """Without a k_path both trainers draw the random k set from a fresh
+    seeded generator at every call: two calls of each give the same k set,
+    bit for bit as float32, in training and validation alike; with a k_path
+    both follow it."""
+    from hamgnn_tpu.train.trainer import Trainer as JTrainer
+
+    cfg_t, crystals, jg, tg, *_rest = model_pair
+    t_model = t_cli.build_model(cfg_t)
+    t_tr = Trainer(t_model, losses=LOSSES, metrics=[], lr=1e-3,
+                   train_dir=str(tmp_path / "t"), device="cpu")
+    j_model = j_build(j_load_config(None, overrides=BAND_CFG))
+    j_tr = JTrainer(j_model, losses=LOSSES, metrics=[], lr=1e-3, train_dir=str(tmp_path / "j"))
+    ks = [np.asarray(j_tr._band_kwargs(jg)["k_vecs"]) for _ in range(2)]
+    ks += [_np(t_tr._band_kwargs(tg)["k_vecs"]) for _ in range(2)]
+    assert all(k.dtype == np.float32 and k.shape == (2, 3, 3) for k in ks)
+    for k in ks[1:]:
+        np.testing.assert_array_equal(k, ks[0])
+    path = [[0.0, 0.0, 0.0], [0.5, 0.0, 0.0], [0.5, 0.5, 0.0]]
+    cfg_path = json.loads(json.dumps(BAND_CFG))
+    cfg_path["output_nets"]["HamGNN_out"]["k_path"] = path
+    j_tr.model = j_build(j_load_config(None, overrides=cfg_path))
+    t_tr.model = t_cli.build_model(load_config(None, overrides=cfg_path))
+    want = t_kp.k_vecs_for_graph(tg, 3, path)
+    np.testing.assert_array_equal(want, j_kp.k_vecs_for_graph(jg, 3, path))
+    assert not np.array_equal(want, ks[0])
+    for _ in range(2):
+        np.testing.assert_array_equal(np.asarray(j_tr._band_kwargs(jg)["k_vecs"]), want)
+        np.testing.assert_array_equal(_np(t_tr._band_kwargs(tg)["k_vecs"]), want)
 
 
 def test_cli_fit_then_test_with_band_loss(tmp_path, capsys):

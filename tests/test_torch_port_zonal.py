@@ -11,10 +11,16 @@ inputs whose edge directions include +z, -z and near -z.  f32 on both sides.
   (the tolerance of tests/test_zonal_tp.py);
 * the plain backward against ``jax.grad`` through the Pallas kernels in
   interpret mode: dx, dw, d(flat_w) within 1e-4 * max|ref|;
-* the CUDA kernels' host schedule (``ZonalKernelSpec``), run through numpy
-  emulations of the kernels' loop nests, against the plain core and its
-  backward: small plans, a plan that repeats an output irrep, the bench
-  plans (E = 6) and a table with two-term columns;
+* the CUDA kernels' host schedule (``ZonalKernelSpec``: entries, stages,
+  work items, edge splits), run through numpy emulations of the kernels'
+  loop nests (B3's items over the stages' |m3| segments, B4's edge pass and
+  its weight pass over (item, edge split) with the fixed-order reduce, the
+  Wcat-stage products in emulated 3xTF32), against the plain core and its
+  backward: small plans (atol/rtol 2e-5), a plan that repeats an output
+  irrep, the bench plans (E = 6) and the wide plan 128x0e+2x1o+57x4e (1e-4 *
+  max|ref|), and a table with two-term columns; the tables build every
+  nonzero term once and no zero term (6,404 records at the node plan, 480
+  at the pair plan), and the work items and splits cover their ranges once;
 * the engine switch ``HAMGNN_TP_ENGINE`` of ``PackedTPPlan.__call__``; engine
   against engine (zonal against lab frame) max|d| <= 2e-5 * max|ref|;
 * the whole small model under ``zonal`` against the JAX model under
@@ -56,6 +62,7 @@ from hamgnn_tpu_torch.e3.wigner import wigner_D
 from hamgnn_tpu_torch.interfaces.jax_params import load_flax_params
 from hamgnn_tpu_torch.models.model import compute_losses as t_losses
 from hamgnn_tpu_torch.models.model import init_weights
+from test_torch_port_tp import tf32_product
 
 FEAT = "8x0e+4x0o+6x1o+4x1e+4x2e+2x2o+2x3o+2x3e+2x4e"
 SH = "0e + 1o + 2e + 3o + 4e"
@@ -66,6 +73,8 @@ BENCH_FEAT = "64x0e+32x0o+24x1o+12x1e+12x2e+6x2o+4x3o+4x3e+2x4e"
 BENCH_IN = {"pair": "96x0e",
             "node": repr(Irreps([(2 * m, ir) for m, ir in Irreps(BENCH_FEAT)])),
             "edge": BENCH_FEAT}
+# a plan whose output chunks take several work items of both kernels
+WIDE_IN, WIDE_OUT = "16x0e+4x1o+2x2e", "128x0e+2x1o+57x4e"
 # (irreps_in, irreps_sh, target, out); the last repeats an output irrep, so
 # dw crosses output chunks
 SMALL = {
@@ -297,56 +306,123 @@ def test_core_backward_is_the_gradient_of_the_core():
 # the kernels' host schedule, through numpy emulations of their loop nests
 # ----------------------------------------------------------------------
 
-def emulate_forward(spec, x, w, wcat):
-    """numpy model of zonal_tp_fwd.cu: per output chunk and m3 the BLK
-    columns c1 * x[xo1] + c2 * x[xo2] (* w[wc]) and their product with the
-    chunk's Wcat block, written to out[e, b + v*d3 + m3]."""
-    out = np.zeros((x.shape[0], spec.d_out))
-    for (b, d3, V, wofs, fan_in, rec_ofs, col_ofs) in spec.grp:
-        B = wcat[wofs : wofs + fan_in * V].reshape(fan_in, V)
-        wc = spec.wcol[col_ofs : col_ofs + fan_in]
-        for m3 in range(d3):
-            rec = slice(rec_ofs + m3 * fan_in, rec_ofs + (m3 + 1) * fan_in)
-            A = (x[:, spec.zsrc[rec, 0]] * spec.zcoef[rec, 0]
-                 + x[:, spec.zsrc[rec, 1]] * spec.zcoef[rec, 1])
-            if w is not None:
-                A = A * w[:, wc]
-            out[:, b + np.arange(V) * d3 + m3] = A @ B
+def _stage_rows(spec, x, w, si):
+    """A stage's BLK operand, as the kernels build it: per entry its +|m3|
+    and -|m3| records c * x_rot[e, xo] * w[e, wc] (E, n) each."""
+    k, e0, n, *_r = spec.stages[si]
+    ei, ec = spec.ent_i[e0 : e0 + n], spec.ent_c[e0 : e0 + n]
+    wc = spec.wcol[spec.zgrp[k][5] + ei[:, 2]]
+    ws = w[:, wc] if w is not None else np.ones((x.shape[0], n), np.float32)
+    return [(x[:, ei[:, s]] * ec[:, s] * ws).astype(np.float32) for s in (0, 1)], ws
+
+
+def _went(spec, wcat_flat):
+    """Wcat in entry order, as ``build_went`` gathers it."""
+    return (wcat_flat[spec.went_idx] * spec.went_scale).astype(np.float32)
+
+
+def emulate_forward(spec, x, w, flat_w):
+    """numpy model of zonal_tp_fwd.cu: per work item (a chunk's n8 tiles of
+    V) and stage of its chunk, per |m3| segment the (+|m3|, -|m3|) BLK rows
+    times the segment's Wcat rows in 3xTF32, each 64-entry part of K summed
+    apart and added into fp32 accumulators per (|m3|, n8) tile; then
+    out_rot[e, b + v*d3 + L +- a]."""
+    E = x.shape[0]
+    went = _went(spec, flat_w)
+    out = np.zeros((E, spec.d_out), np.float32)
+    for k, t0, n8 in spec.fitems:
+        b, d3, V, st0, st1 = (int(v) for v in spec.zgrp[k][:5])
+        L = (d3 - 1) // 2
+        vs = np.arange(8 * t0, min(V, 8 * (t0 + n8)))
+        acc = np.zeros((L + 1, 2, E, len(vs)), np.float32)
+        for si in range(st0, st1):
+            _k, e0, n, seg_ofs, n_seg, *_r, went0 = spec.stages[si][:10]
+            A, _ws = _stage_rows(spec, x, w, si)
+            B = went[went0 : went0 + n * V].reshape(n, V)[:, vs]
+            for (a, s0, ns) in spec.segs[seg_ofs : seg_ofs + n_seg]:
+                for q0 in range(s0, s0 + ns, 64):
+                    q = slice(q0, min(s0 + ns, q0 + 64))
+                    for s in (0, 1):
+                        acc[a, s] += tf32_product(A[s][:, q], B[q], 3)
+        for a in range(L + 1):
+            for s in ((0, 1) if a else (0,)):
+                out[:, b + vs * d3 + L + (a if s == 0 else -a)] = acc[a, s]
     return out
 
 
-def emulate_backward(spec, x, w, wcat, gy):
-    """numpy model of zonal_tp_bwd.cu: per output chunk and slab of columns
-    the mids, dBLK = G @ Wcat^T, the dWcat partial, dw, dmid = dBLK * w, and
-    dx per x group from the slab tables; d(flat_w) scattered through the
-    Wcat index."""
+def emulate_backward(spec, x, w, flat_w, gy, resident=396):
+    """numpy model of zonal_tp_bwd.cu's two passes and reduce.
+
+    Edge pass, per chunk and stage: dBLK = G Wcat^T in 3xTF32 per |m3|
+    segment (rows L + a and L - a), per entry P = dBLK+ mid+ + dBLK- mid- and
+    dmid = dBLK * w; dw per column group (stored, or added where an earlier
+    chunk wrote that column); dx_rot per x group, summed per tile in shared
+    memory.  Weight pass: per work item (a segment's <= 64 entries and 32 V
+    columns) and edge split, per 16-edge step the +|m3| and -|m3| rows' BLK^T
+    G in 3xTF32, each added into its own fp32 accumulator, the two summed
+    at the end into the split's part of its partial row.  Reduce: per Wcat
+    element the splits in order, each over the element's entries."""
     E = x.shape[0]
-    ks = tp_kernel.BWD_SLAB_COLS
-    dx, dw = np.zeros((E, spec.d_in)), np.zeros((E, spec.n_ch))
-    dwcat = np.zeros(len(wcat))
-    for k, (b, d3, V, wofs, fan_in, rec_ofs, col_ofs) in enumerate(spec.grp):
-        G = np.stack([gy[:, b + np.arange(V) * d3 + m3] for m3 in range(d3)], axis=1)
-        B = wcat[wofs : wofs + fan_in * V].reshape(fan_in, V)
-        for si, c0 in enumerate(range(0, fan_in, ks)):
-            cs = np.arange(c0, min(c0 + ks, fan_in))
-            A = np.zeros((E, d3, ks))
-            for m3 in range(d3):
-                rec = rec_ofs + m3 * fan_in + cs
-                A[:, m3, : len(cs)] = (x[:, spec.zsrc[rec, 0]] * spec.zcoef[rec, 0]
-                                       + x[:, spec.zsrc[rec, 1]] * spec.zcoef[rec, 1])
-            wc = spec.wcol[col_ofs + cs]
-            ws = np.zeros((E, ks))
-            ws[:, : len(cs)] = w[:, wc] if w is not None else 1.0
-            D = np.zeros((E, d3, ks))
-            D[:, :, : len(cs)] = np.einsum("emv,cv->emc", G, B[cs])
-            dwcat[wofs + c0 * V : wofs + (c0 + len(cs)) * V] += np.einsum(
-                "emc,ec,emv->cv", A, ws, G)[: len(cs)].reshape(-1)
-            np.add.at(dw, (slice(None), wc), (D * A).sum(1)[:, : len(cs)])
-            D = (D * ws[:, None, :]).reshape(E, d3 * ks)
-            xg_ofs, n_xg = spec.slabs[spec.slab_base[k] + si]
-            for (xo, lo, n) in spec.xgrp[xg_ofs : xg_ofs + n_xg]:
-                dx[:, xo] += D[:, spec.lst[lo : lo + n]] @ spec.lcoef[lo : lo + n]
-    dflat = np.zeros(len(wcat))
+    TE = zonal_kernel.WCAT_TILE_EDGES
+    cap = zonal_kernel.STAGE_ENTRIES
+    went = _went(spec, flat_w)
+    dx = np.zeros((E, spec.d_in), np.float32)
+    dw = np.zeros((E, spec.n_ch), np.float32)
+    for (b, d3, V, st0, st1, col, _fan_in) in spec.zgrp:
+        L = (d3 - 1) // 2
+        G = [gy[:, b + np.arange(V) * d3 + m3] for m3 in range(d3)]
+        for si in range(st0, st1):
+            _k, e0, n, seg_ofs, n_seg, cg_ofs, n_cg, xg_ofs, n_xg, went0 = spec.stages[si][:10]
+            ei, ec = spec.ent_i[e0 : e0 + n], spec.ent_c[e0 : e0 + n]
+            B = went[went0 : went0 + n * V].reshape(n, V)
+            D = np.zeros((2, E, n), np.float32)
+            for (a, s0, ns) in spec.segs[seg_ofs : seg_ofs + n_seg]:
+                q = slice(s0, s0 + ns)
+                for s, m3 in ((0, L + a), (1, L - a)):
+                    D[s][:, q] = tf32_product(G[m3], B[q].T, 3)
+            mid = [x[:, ei[:, s]] * ec[:, s] for s in (0, 1)]
+            ws = w[:, spec.wcol[col + ei[:, 2]]] if w is not None else np.ones((E, n), np.float32)
+            P = D[0] * mid[0] + D[1] * mid[1]
+            dmid = np.concatenate([D[0] * ws, D[1] * ws], axis=1)
+            for (wc, add, lo, cnt) in spec.cgrp[cg_ofs : cg_ofs + n_cg]:
+                acc = np.zeros(E, np.float32)
+                for kk in spec.clst[lo : lo + cnt]:
+                    acc += P[:, kk]
+                dw[:, wc] = dw[:, wc] + acc if add else acc
+            for (xo, lo, cnt) in spec.xgrp[xg_ofs : xg_ofs + n_xg]:
+                codes = spec.xlst[lo : lo + cnt]
+                cols = (codes // cap) * n + codes % cap
+                dx[:, xo] += dmid[:, cols] @ spec.xcoef[lo : lo + cnt]
+
+    n_split = spec.wcat_splits(E, resident)
+    n_tiles = -(-E // TE)
+    per = -(-n_tiles // n_split)
+    part = np.full((n_split, len(spec.went_idx)), np.nan, np.float32)
+    for (si, q0, nq, v0) in spec.witems:
+        k, e0, n, *_r, went0 = spec.stages[si][:10]
+        b, d3, V = (int(v) for v in spec.zgrp[k][:3])
+        L = (d3 - 1) // 2
+        a = int(spec.ent_i[e0 + q0, 3])
+        vs = np.arange(v0, min(V, v0 + 8 * tp_kernel.WCAT_ITEM_N8))
+        q = slice(e0 + q0, e0 + q0 + nq)
+        ei, ec = spec.ent_i[q], spec.ent_c[q]
+        wc = spec.wcol[spec.zgrp[k][5] + ei[:, 2]]
+        for p in range(n_split):
+            acc = np.zeros((2, nq, len(vs)), np.float32)
+            for tile in range(p * per, min(n_tiles, (p + 1) * per)):
+                rows = slice(tile * TE, min(E, (tile + 1) * TE))
+                ws = w[rows][:, wc] if w is not None else 1.0
+                for s, m3 in ((0, L + a), (1, L - a)):
+                    blk = x[rows][:, ei[:, s]] * ec[:, s] * ws
+                    acc[s] += tf32_product(blk.T, gy[rows][:, b + vs * d3 + m3], 3)
+            at = went0 + (q0 + np.arange(nq))[:, None] * V + vs[None, :]
+            part[p, at] = acc[0] + acc[1]
+    dwcat = np.zeros(len(spec.wcat_idx), np.float32)
+    for p in range(n_split):
+        for i in range(len(dwcat)):
+            dwcat[i] += part[p, spec.red_lst[spec.red_ofs[i] : spec.red_ofs[i + 1]]].sum()
+    assert not np.isnan(dwcat).any()
+    dflat = np.zeros(len(dwcat), np.float32)
     dflat[spec.wcat_idx] = dwcat * spec.wcat_scale
     return dx, (dw if w is not None else None), dflat
 
@@ -362,10 +438,9 @@ def _core_inputs(plan, seed, E):
 def _check_schedule(plan, spec, with_w, E, tol):
     x, w, fw, gy = _core_inputs(plan, 2, E)
     w = w if with_w else None
-    wcat = spec.build_wcat(_t(fw)).numpy()
     ref = zonal_tp.plain_zonal_core(plan, _t(x), _t(w), _t(fw)).numpy()
-    np.testing.assert_allclose(emulate_forward(spec, x, w, wcat), ref, **tol(ref))
-    got = emulate_backward(spec, x, w, wcat, gy)
+    np.testing.assert_allclose(emulate_forward(spec, x, w, fw), ref, **tol(ref))
+    got = emulate_backward(spec, x, w, fw, gy)
     refs = zonal_tp.plain_zonal_core_backward(plan, _t(x), _t(w), _t(fw), _t(gy))
     for name, a, b in zip(("dx", "dw", "dflat_w"), got, refs):
         if b is None:
@@ -382,53 +457,167 @@ def test_kernel_schedule_matches_plain_core(name, with_w):
                     lambda ref: dict(atol=2e-5, rtol=2e-5))
 
 
-@pytest.mark.parametrize("name", sorted(BENCH_IN))
+@pytest.mark.parametrize("name", sorted(BENCH_IN) + ["wide_out"])
 def test_kernel_schedule_bench_width(name):
-    plan = _plan((BENCH_IN[name], SH, BENCH_FEAT))
+    case = (WIDE_IN, "0e+1o+2e", WIDE_OUT) if name == "wide_out" else (BENCH_IN[name], SH,
+                                                                        BENCH_FEAT)
+    plan = _plan(case)
     spec = zonal_kernel.get_zonal_kernel_spec(plan)
-    _check_schedule(plan, spec, True, 6,
+    _check_schedule(plan, spec, True, 6 if name != "wide_out" else 21,
                     lambda ref: dict(atol=1e-4 * np.abs(ref).max(), rtol=0))
+    if name == "wide_out":
+        return
     # every column of the bench plans has at most one term
     assert not np.any(spec.zcoef[:, 1])
-    # the launches fit the kernels' limits: the forward's 16-edge tile
-    # (zonal_tp_fwd.cu) and two blocks of the backward's 16-edge tile
-    # (zonal_tp_bwd.cu) within an H100 SM's shared memory, <= 32 rows/thread
-    ks = tp_kernel.BWD_SLAB_COLS
-    assert 4 * (spec.d3_max * 16 * (ks + 4) + ks * spec.v_max) <= 232_448
-    bwd = 4 * (16 * spec.gmax + 16 * ks + ks * (spec.v_max | 1)
-               + 2 * spec.d3_max * 16 * (ks + 4))
-    assert 2 * bwd <= 233_472
-    for (_b, d3, V, *_r) in spec.grp:
-        assert -(-d3 * 16 // (512 // V)) <= 32
+    # the launches fit the kernels' layouts (zonal_tp_fwd.cu, zonal_tp_bwd.cu;
+    # their sizes and blocks per SM are checked on the card): two blocks of
+    # each kernel and pass share an H100 SM's 228 KB
+    TE, cap = zonal_kernel.ZONAL_TILE_EDGES, zonal_kernel.STAGE_ENTRIES
+    x_rows = TE * (spec.d_in | 1)
+    fwd = 4 * (x_rows + 2 * TE * (cap + 4))
+    x_rows = TE * (-(-spec.d_in // 8) * 8 + 4)  # the edge pass's row stride
+    edge = 4 * (2 * x_rows + spec.gmax * TE + 3 * TE * (cap + 4) + 2 * 6 * cap
+                + spec.tgrp_words)
+    WTE = zonal_kernel.WCAT_TILE_EDGES
+    wcat = 4 * (2 * (2 * WTE * 40 + 2 * WTE * 72 + WTE * 72) + 3 * 64 + 2048)
+    for nbytes in (fwd, edge, wcat):
+        assert 2 * (nbytes + 1024) <= 233_472, nbytes
+    assert spec.fwd_tiles <= zonal_kernel.FWD_ITEM_TILES
+    assert spec.v_max <= 64 and len(spec.fitems) == len(spec.zgrp)
 
 
 def test_two_term_columns():
     """The table format carries two terms per column.  No plan produces a
     second one (``test_zonal_coupling_has_one_term_per_column``), so split
     each term of a real table in two, c x[xo] = 0.25 c x[xo] + 0.75 c x[xo],
-    rebuild the slab tables, and hold the emulations to the plain core."""
+    rebuild the entry tables (a term becomes an entry of its own), and hold
+    the emulations to the plain core."""
     plan = _plan(SMALL["mixed"])
     spec = zonal_kernel.ZonalKernelSpec(plan)
     spec.zsrc[:, 1] = spec.zsrc[:, 0]
     spec.zcoef[:, 1] = 0.75 * spec.zcoef[:, 0]
     spec.zcoef[:, 0] *= 0.25
-    before = len(spec.lst)
-    spec._build_slabs()
-    assert len(spec.lst) == 2 * before
+    before = int(spec.xgrp[:, 2].sum())
+    spec._build_stages()
+    assert int(spec.xgrp[:, 2].sum()) == 2 * before
     _check_schedule(plan, spec, True, 13, lambda ref: dict(atol=2e-5, rtol=2e-5))
 
 
-@pytest.mark.parametrize("name", sorted(SMALL) + sorted(BENCH_IN))
+def _terms(spec):
+    """The (record, x offset, coefficient) terms the entry tables build,
+    one per (entry, sign) with a nonzero coefficient."""
+    terms = []
+    for (k, e0, n, *_r) in spec.stages:
+        _b, d3, _V, _w, fan_in, rec, _col = spec.grp[k]
+        L = (d3 - 1) // 2
+        for j in range(e0, e0 + n):
+            xp, xm, _wc, a = spec.ent_i[j]
+            for s, (xo, cf) in enumerate(((xp, spec.ent_c[j, 0]), (xm, spec.ent_c[j, 1]))):
+                if cf != 0.0:
+                    m3 = L + a if s == 0 else L - a
+                    terms.append((int(rec + m3 * fan_in + spec.ent_col[j]), int(xo), float(cf)))
+    return terms
+
+
+@pytest.mark.parametrize("name", sorted(SMALL) + sorted(BENCH_IN) + ["wide_out"])
 def test_x_groups_cover_every_term_once(name):
-    case = SMALL[name] if name in SMALL else (BENCH_IN[name], SH, BENCH_FEAT)
+    """The entry tables build every nonzero term of ``zcoef`` once and no
+    zero term (at the bench plans 6,404 records at node, 3,202 at edge, 480
+    at pair); each stage's x groups list its terms once, one x offset a
+    group; its column groups list its real entries once; a column's entries
+    lie in one stage; the reduce lists every went element of a real entry
+    once."""
+    case = SMALL.get(name) or ((WIDE_IN, "0e+1o+2e", WIDE_OUT) if name == "wide_out"
+                               else (BENCH_IN[name], SH, BENCH_FEAT))
     spec = zonal_kernel.get_zonal_kernel_spec(_plan(case))
-    assert len(spec.lst) == np.count_nonzero(spec.zcoef)
-    assert int(spec.xgrp[:, 2].sum()) == len(spec.lst)
+    want = sorted((int(r), int(spec.zsrc[r, t]), float(spec.zcoef[r, t]))
+                  for r, t in zip(*np.nonzero(spec.zcoef)))
+    assert sorted(_terms(spec)) == want
+    if name in BENCH_IN:
+        assert spec.records_built() == len(want) == {"node": 6404, "edge": 3202,
+                                                     "pair": 480}[name]
+        assert spec.records_built() == sum(n for n, _V in spec._live())
+    assert int(spec.xgrp[:, 2].sum()) == len(want)
     assert np.array_equal(np.sort(spec.wcat_idx), np.arange(spec.plan.linear_numel))
-    # within a slab no two groups share an x offset (one thread owns it)
-    for (xg_ofs, n_xg) in spec.slabs:
+    real = spec.ent_col >= 0
+    assert np.all(spec.ent_c[~real] == 0)
+    cap = zonal_kernel.STAGE_ENTRIES
+    col_stage, n_went = {}, 0
+    for si, (k, e0, n, seg_ofs, n_seg, cg_ofs, n_cg, xg_ofs, n_xg, _w0, cl_ofs, n_cl, xl_ofs,
+             n_xl) in enumerate(spec.stages):
+        assert 0 < n <= cap and n % 8 == 0
+        # a stage's members are contiguous, bounded and start on a 16-byte
+        # boundary (the edge pass copies them into shared memory in 16-byte
+        # pieces)
+        assert n_cl <= n and n_xl <= 2 * n and n_cg <= n and n_xg <= 2 * n
+        assert cl_ofs % 4 == 0 and xl_ofs % 4 == 0 and (3 * xg_ofs) % 4 == 0 and e0 % 2 == 0
+        assert cl_ofs + n_cl + 4 <= len(spec.clst) and xl_ofs + n_xl + 4 <= len(spec.xlst)
+        cg, xg = spec.cgrp[cg_ofs : cg_ofs + n_cg], spec.xgrp[xg_ofs : xg_ofs + n_xg]
+        assert n_cg == 0 or (cg[0, 2] == cl_ofs and cg[:, 3].sum() == n_cl)
+        assert n_xg == 0 or (xg[0, 1] == xl_ofs and xg[:, 2].sum() == n_xl)
+        segs = spec.segs[seg_ofs : seg_ofs + n_seg]
+        assert segs[0][1] == 0 and all(s[1] + s[2] == t[1] for s, t in zip(segs, segs[1:]))
+        assert segs[-1][1] + segs[-1][2] == n and (segs[:, 2] % 8 == 0).all()
+        for (a, s0, ns) in segs:
+            assert (spec.ent_i[e0 + s0 : e0 + s0 + ns, 3] == a).all()
         xo = spec.xgrp[xg_ofs : xg_ofs + n_xg, 0]
         assert len(set(xo.tolist())) == n_xg
+        members = np.concatenate([spec.clst[lo : lo + c] for (_wc, _add, lo, c)
+                                  in spec.cgrp[cg_ofs : cg_ofs + n_cg]] or [[]])
+        assert sorted(members.tolist()) == np.nonzero(real[e0 : e0 + n])[0].tolist()
+        for j in np.nonzero(real[e0 : e0 + n])[0]:
+            assert col_stage.setdefault((int(k), int(spec.ent_col[e0 + j])), si) == si
+        n_went += int(real[e0 : e0 + n].sum()) * int(spec.zgrp[k][2])
+    assert len(set(spec.red_lst.tolist())) == len(spec.red_lst) == n_went
+
+
+@pytest.mark.parametrize("name", sorted(BENCH_IN) + ["wide_out"])
+def test_zonal_items_and_splits(name):
+    """B3's work items cover every (|m3|, n8) output tile of every chunk
+    once, each at most FWD_ITEM_N8 n8 tiles and FWD_ITEM_TILES tiles; the
+    weight pass's items cover every entry of every stage segment once for
+    every 32 V columns, at most 64 entries of one |m3| each, heaviest first;
+    its edge splits give each the tiles of WCAT_WAVES waves where the edges
+    allow, and no split is without a tile.  The wide plan (128x0e, 57x4e) takes several items of
+    both kinds per chunk."""
+    case = ((WIDE_IN, "0e+1o+2e", WIDE_OUT) if name == "wide_out"
+            else (BENCH_IN[name], SH, BENCH_FEAT))
+    spec = zonal_kernel.get_zonal_kernel_spec(_plan(case))
+    seen = set()
+    for k, t0, n8 in spec.fitems:
+        d3, V = int(spec.zgrp[k][1]), int(spec.zgrp[k][2])
+        na = (d3 + 1) // 2
+        assert 1 <= n8 <= zonal_kernel.FWD_ITEM_N8 and na * n8 <= zonal_kernel.FWD_ITEM_TILES
+        for t in range(t0, t0 + n8):
+            for a in range(na):
+                assert (k, a, t) not in seen
+                seen.add((k, a, t))
+    assert seen == {(k, a, t) for k, (_b, d3, V, *_r) in enumerate(spec.zgrp)
+                    for a in range((d3 + 1) // 2) for t in range(-(-V // 8))}
+    vb = 8 * tp_kernel.WCAT_ITEM_N8
+    want = sorted((si, s0 + q, v0) for si, (k, _e0, _n, so, ns, *_r) in enumerate(spec.stages)
+                  for (_a, s0, n) in spec.segs[so : so + ns]
+                  for q in range(0, n, zonal_kernel.WCAT_ITEM_ENTRIES)
+                  for v0 in range(0, int(spec.zgrp[k][2]), vb))
+    assert sorted((int(si), int(q0), int(v0)) for si, q0, _n, v0 in spec.witems) == want
+    for si, q0, nq, _v0 in spec.witems:
+        e0 = spec.stages[si][1]
+        assert 0 < nq <= zonal_kernel.WCAT_ITEM_ENTRIES
+        assert len(set(spec.ent_i[e0 + q0 : e0 + q0 + nq, 3].tolist())) == 1
+    cost = [nq * min(int(spec.zgrp[spec.stages[si][0]][2]) - v0, vb)
+            for si, _q, nq, v0 in spec.witems]
+    assert cost == sorted(cost, reverse=True)
+    if name == "wide_out":
+        assert len(spec.fitems) > len(spec.zgrp) and spec.v_max > vb
+    for E, resident in ((19_968, 396), (19_968, 132), (333, 396), (5, 396)):
+        n_tiles = -(-E // zonal_kernel.WCAT_TILE_EDGES)
+        p = spec.wcat_splits(E, resident)
+        assert 1 <= p <= n_tiles
+        per = -(-n_tiles // p)
+        assert p == -(-n_tiles // per)  # the last split has a tile
+        # the tiles a split takes for WCAT_WAVES waves of resident blocks
+        wanted = -(-tp_kernel.WCAT_WAVES * resident // len(spec.witems))
+        assert per == -(-n_tiles // min(n_tiles, wanted))
 
 
 def test_flops_and_bytes_count():
