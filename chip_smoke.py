@@ -53,12 +53,15 @@ Phases (any failure exits non-zero, before the result lines are printed):
      (``metrics.jsonl``, ``best.pt``, predictions) and ``stage: test`` from
      its ``best.pt``;
   6. the probes: hold every probe kernel of ``tools_dev`` (``op_probe``,
-     ``op_probe2``, ``throughput_probe``) against its plain version at its
-     full size (E = 19,968, slab 4,800; fp32 within 1e-4, the bf16 sweep 2e-2,
-     the tf32 product 2e-3, all * max|plain|), ``k_acc`` bit-identical on a
-     repeat, and time kernel, plain version and library call; then run the
-     three entry points on the card with every count at 0 before: each probe
-     kernel must have launched, and no kernel of the model;
+     ``op_probe2``, ``throughput_probe``) against its plain version (fp32
+     within 1e-4, the bf16 sweep 2e-2, the tf32 product 2e-3, all *
+     max|plain|): P1/P2 at the TPU probes' 128 rows (``k_acc`` 512), at the
+     bench rows (E = 19,968) and at 1,001 rows, P3 at its full size (E =
+     19,968, slab 4,800); ``k_acc`` bit-identical on a repeat; time kernel,
+     plain version and library call at each timed size, and fail where a
+     kernel reads above 1.05 of its bound; then run the three entry points on
+     the card with every count at 0 before: each probe kernel must have
+     launched, and no kernel of the model;
   7. the band path: ``HamGNNModel`` at the bench width with
      ``calculate_band_energy`` (6 k-points, a window of 2 x 8 bands) on a batch
      of 4 synthetic 16-atom crystals (H(k), S(k) of 1,216 x 1,216, complex64):
@@ -99,7 +102,8 @@ TOL = 1e-4        # max|kernel - plain| <= TOL * max|plain|, fp32
 DFLAT_TOL = 1e-5
 ENGINE_TOL = 2e-5  # zonal engine vs lab-frame engine: two rotations' rounding too
 GRAD_TOL = 1e-3   # model gradients, kernel path vs plain-TP path, per tensor
-E_BENCH = 19_968  # bench.py crystal: 19,672 edges padded to a multiple of 512
+SHARE_MAX = 1.05  # a probe's bound / time: above it the bound or the timing is wrong
+E_BENCH = None  # the bench rows (probe.BENCH_ROWS, 19,968 edges); set in main
 BENCH_CFG = {
     "representation_nets": {"HamGNN_pre": {
         "irreps_node_features": "64x0e+32x0o+24x1o+12x1e+12x2e+6x2o+4x3o+4x3e+2x4e",
@@ -921,9 +925,12 @@ def phase_cli_fit(tp_kernel, eng, cfg, rows):
 
 
 def phase_probes(tp_kernel, dev):
-    """Every probe kernel against its plain version at its full size, with
-    times; then the three entry points on the card, which must launch every
-    probe kernel and no kernel of the model."""
+    """Every probe kernel against its plain version: P1/P2 at each of their
+    sizes (128 rows, ``k_acc`` 512; the bench rows; 1,001 rows), P3 at its
+    full size, with times, library times, bounds and the share of the bound
+    reached at each timed size (above ``SHARE_MAX`` fails: no kernel beats
+    its true bound); then the three entry points on the card, which must
+    launch every probe kernel and no kernel of the model."""
     import numpy as np
     import torch
 
@@ -934,25 +941,40 @@ def phase_probes(tp_kernel, dev):
     for mod in modules:
         rng = np.random.default_rng(23)
         for name, p in mod.PROBES.items():
-            tensors = p.inputs(rng, dev)
-            row = probe.check(p, tensors)
-            out = row.pop("out")
-            if not row["ok"]:
-                fail(f"probe {name}: max|d| {row['max_abs_err']:.3e} > {p.tol} * "
-                     f"{row['max_abs_ref']:.3e} (shape {row['shape']})")
-            if name == "k_acc" and not torch.equal(out, p(*tensors)):
-                fail("probe k_acc differs between two launches")
-            del out
-            row.update(probe.measure(p, tensors, n=8, warmup=2))
-            row.update(source=f"hamgnn_tpu_torch/csrc/{p.source}.cu", replaces=p.replaces,
-                       rows=p.rows, tol=p.tol)
-            rows[f"probe_{name}"] = row
-            lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
-            print(f"[probe] {name:11s} rows={p.rows} max|d|={row['max_abs_err']:.3e} (max|ref| "
-                  f"{row['max_abs_ref']:.3e}, limit {p.tol:g}) kernel {row['ms']:.4f} ms plain "
-                  f"{row['plain_ms']:.4f} ms library {lib} bound {row['bound_ms']:.5f} ms "
-                  f"({row['bound_by']})", flush=True)
-            del tensors
+            at_rows, err = {}, 0.0
+            for n in p.checked_rows:
+                tensors = p.inputs(rng, dev, n)
+                row = probe.check(p, tensors)
+                out = row.pop("out")
+                if not row["ok"]:
+                    fail(f"probe {name} at {n} rows: max|d| {row['max_abs_err']:.3e} > "
+                         f"{p.tol} * {row['max_abs_ref']:.3e} (shape {row['shape']})")
+                if name == "k_acc" and not torch.equal(out, p(*tensors)):
+                    fail(f"probe k_acc differs between two launches at {n} rows")
+                del out
+                err = max(err, row["max_abs_err"])
+                if n in p.timed_rows:
+                    m = probe.measure(p, tensors, n=8, warmup=2)
+                    if m["share"] > SHARE_MAX:
+                        fail(f"probe {name} at {n} rows: {m['ms']:.5f} ms is "
+                             f"{m['share']:.2f} of its bound {m['bound_ms']:.5f} ms")
+                    at_rows[n] = {**m, "max_abs_err": row["max_abs_err"]}
+                    lib = "none" if m["library_ms"] is None else f"{m['library_ms']:.4f} ms"
+                    print(f"[probe] {name:11s} rows={n} max|d|={row['max_abs_err']:.3e} "
+                          f"(max|ref| {row['max_abs_ref']:.3e}, limit {p.tol:g}) kernel "
+                          f"{m['ms']:.4f} ms plain {m['plain_ms']:.4f} ms library {lib} bound "
+                          f"{m['bound_ms']:.5f} ms ({m['bound_by']}, {100 * m['share']:.1f}%)",
+                          flush=True)
+                else:
+                    print(f"[probe] {name:11s} rows={n} max|d|={row['max_abs_err']:.3e} "
+                          f"(max|ref| {row['max_abs_ref']:.3e}, limit {p.tol:g}) checked",
+                          flush=True)
+                del tensors
+            # the headline numbers: the largest timed size
+            rows[f"probe_{name}"] = {
+                **at_rows[p.timed_rows[-1]], "max_abs_err": err, "tol": p.tol,
+                "source": f"hamgnn_tpu_torch/csrc/{p.source}.cu", "replaces": p.replaces,
+                "checked_rows": list(p.checked_rows), "at_rows": at_rows}
         torch.cuda.empty_cache()
 
     # path 1: the entry points as a user calls them, on the card by default
@@ -1195,8 +1217,10 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
+    global E_BENCH
     try:
         from hamgnn_tpu_torch.e3 import tp_kernel
+        from hamgnn_tpu_torch.tools_dev.probe import BENCH_ROWS as E_BENCH
     except ImportError as exc:
         fail(f"cannot import the port next to this script: {exc}")
     os.environ.pop("HAMGNN_TP_ENGINE", None)  # each phase names its engine
@@ -1259,7 +1283,10 @@ def main():
             "name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
             "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"], "rows": r["rows"]})
+        if len(r["at_rows"]) > 1:  # P1/P2: the smaller size too
+            kernels[-1]["at_rows"] = {n: {k: m[k] for k in ("ms", "library_ms", "bound_ms")}
+                                      for n, m in r["at_rows"].items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 Counterpart of ``tools_dev/mosaic_probe.py``: its ten Pallas closures
 (``k_repeat`` ... ``k_slice_dot``; TE=128, K=16, MUL=64) as ``__global__``
 functions of ``csrc/probe_ops.cu``, each held against its plain PyTorch
-version (``plain_<name>`` below):
+version (``plain_<name>`` below) at 128 rows, at the bench rows (19,968) and
+at 1,001:
 
     python -m hamgnn_tpu_torch.tools_dev.op_probe [--device cpu] [--seed N]
 
@@ -80,7 +81,7 @@ PROBES = {p.name: p for p in [
     _rowwise("k_repeat", 37, "tile x4 along the columns, (TE,K) -> (TE,4K)",
              [(None, K)], 4 * K, plain_k_repeat, 0, library=lambda a: a.repeat(1, 4)),
     _rowwise("k_squeeze", 48, "view (TE,K,MUL), middle index 3 -> (TE,MUL)",
-             [(None, KM)], MUL, plain_k_squeeze, 0,
+             [(None, KM)], MUL, plain_k_squeeze, 0, reads=[range(3 * MUL, 4 * MUL)],
              library=lambda x: x[:, 3 * MUL : 4 * MUL].contiguous()),
     _rowwise("k_merge128", 56, "view (TE,8,128), +1, merge -> (TE,1024)",
              [(None, 1024)], 1024, plain_k_merge128, 1024, library=lambda x: x + 1.0),
@@ -93,17 +94,18 @@ PROBES = {p.name: p for p in [
              [(None, KM)], K, plain_k_lred, KM,
              library=lambda x: torch.sum(x.view(-1, K, MUL), dim=2)),
     _rowwise("k_atadd", 86, "zeros, add x[:, :128] into columns 64..191",
-             [(None, KM)], KM, plain_k_atadd, 128,
+             [(None, KM)], KM, plain_k_atadd, 128, reads=[range(128)],
              library=lambda x: F.pad(x[:, :128], (64, KM - 64 - 128))),
     _rowwise("k_gather", 94, "columns 0, K, 2K, ... -> (TE,MUL)",
-             [(None, KM)], MUL, plain_k_gather, 0,
+             [(None, KM)], MUL, plain_k_gather, 0, reads=[range(0, KM, K)],
              library=lambda x: x[:, ::K].contiguous()),
     _rowwise("k_dot", 101, "(TE,MUL) @ (MUL,24)",
              [(None, MUL), (MUL, NV)], NV, plain_k_dot, 2 * MUL * NV,
              library=torch.matmul),
-    # no library call: a sum of two slices and then a product are two calls
     _rowwise("k_slice_dot", 110, "view (TE,K,MUL), middle 2 + 3, @ (MUL,24)",
-             [(None, KM), (MUL, NV)], NV, plain_k_slice_dot, MUL + 2 * MUL * NV),
+             [(None, KM), (MUL, NV)], NV, plain_k_slice_dot, MUL + 2 * MUL * NV,
+             reads=[range(2 * MUL, 4 * MUL), None],
+             library=lambda x, w: torch.einsum("rkm,mn->rn", x.view(-1, K, MUL)[:, 2:4], w)),
 ]}
 
 

@@ -4,7 +4,8 @@ Counterpart of ``tools_dev/mosaic_probe2.py``: its Pallas closures
 (``k_tile`` ... ``k_dot_t``; TE=128, K=25, MUL=48) and the gridded ``k_acc``
 ((512,48) in, (64,32) out, four grid steps on one output block) as
 ``__global__`` functions of ``csrc/probe_ops.cu``, each held against its
-plain PyTorch version (``plain_<name>`` below):
+plain PyTorch version (``plain_<name>`` below) at the closures' size, at the
+bench rows (19,968; ``k_acc`` 156 tiles) and, row-wise, at 1,001:
 
     python -m hamgnn_tpu_torch.tools_dev.op_probe2 [--device cpu] [--seed N]
 
@@ -19,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from .probe import Probe, main_checks, rowwise, words
+from .probe import BENCH_ROWS, Probe, main_checks, rowwise, words
 
 TE, K, MUL, NV = 128, 25, 48, 24
 KM = K * MUL
@@ -94,13 +95,14 @@ PROBES = {p.name: p for p in [
              [(None, K)], KM, plain_k_bc_merge, 0,
              library=lambda a: a.repeat_interleave(MUL, dim=1)),
     _rowwise("k_rep_slice", 76, "columns 3..9 tiled x5 -> (TE,35)",
-             [(None, K)], 35, plain_k_rep_slice, 0,
+             [(None, K)], 35, plain_k_rep_slice, 0, reads=[range(3, 3 + 7)],
              library=lambda a: a[:, 3 : 3 + 7].repeat(1, 5)),
     _rowwise("k_concat", 83, f"{K} column blocks, block i scaled by i, side by side",
              [(None, KM)], KM, plain_k_concat, KM,
              library=lambda x: torch.mul(x, _block_scales(x.device))),
     _rowwise("k_dot_odd", 91, "(TE,120 at column 7) @ (120,24)",
              [(None, KM), (120, NV)], NV, plain_k_dot_odd, 2 * 120 * NV,
+             reads=[range(7, 7 + 120), None],
              library=lambda x, w: torch.matmul(x[:, 7 : 7 + 120], w)),
     Probe(name="k_dot_t", source="probe_ops", replaces=f"{_SRC}:100",
           what="(TE,MUL)^T @ (TE,24) -> (MUL,24), the dWcat op", rows=TE,
@@ -116,7 +118,8 @@ PROBES = {p.name: p for p in [
           out_shape=lambda rows: (64, 32), plain=plain_k_acc,
           work=lambda rows: (2 * rows * MUL * NV + (rows // TE) * MUL * NV,
                              4 * words((rows, MUL), (64, 32))),
-          row_quantum=TE, scratch=lambda rows: (rows // TE, MUL * NV)),
+          row_quantum=TE, scratch=lambda rows: (rows // TE, MUL * NV),
+          bench_rows=BENCH_ROWS),
 ]}
 
 

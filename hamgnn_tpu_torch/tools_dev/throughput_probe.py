@@ -38,9 +38,10 @@ from typing import Optional
 import torch
 
 from .. import resolve_device
-from .probe import H100_TF32_FLOPS, Probe, describe_device, measure, run_checks, words
+from .probe import (BENCH_ROWS, H100_TF32_FLOPS, Probe, describe_device, measure,
+                    run_checks, words)
 
-E = 19968
+E = BENCH_ROWS
 S, D1, MUL, K = 25, 5, 24, 40
 KM = K * MUL
 W = D1 * KM

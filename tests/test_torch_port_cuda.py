@@ -18,8 +18,9 @@ zonal engine (two rotations around the kernels) is held to the lab-frame
 plain version within 2e-5 * max|ref| (outputs) and 1e-4 * max|ref|
 (gradients).  Every probe kernel (``tools_dev``) is held to its plain version
 within its stated limit (fp32 1e-4, bf16 2e-2, tf32 operands 2e-3, all *
-max|plain|) at its own size, the throughput probes at E = 256; ``k_acc``
-repeats bit for bit.
+max|plain|) at its own size, the throughput probes at E = 256, the P1/P2
+probes also at the bench rows (19,968) and at 1,001 rows; ``k_acc`` repeats
+bit for bit.
 """
 
 import numpy as np
@@ -324,6 +325,48 @@ def test_cuda_probe_matches_plain(name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted({**op_probe.PROBES, **op_probe2.PROBES}))
+def test_cuda_op_probe_matches_plain_at_every_size(name):
+    """P1/P2 at 128 rows (k_acc 512), at the bench rows and at the odd count,
+    whose grids end in part-filled blocks; k_acc repeats bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p = PROBES[name]
+    rng = np.random.default_rng(14)
+    for rows in p.checked_rows:
+        tensors = p.inputs(rng, "cuda", rows)
+        row = probe.check(p, tensors)
+        assert row["ok"], (rows, row)
+        if name == "k_acc":
+            assert torch.equal(row["out"], p(*tensors)), rows
+        if name in ("k_dot", "k_slice_dot", "k_dot_odd") and rows == p.bench_rows:
+            # a few rows take one output a thread, bench rows 2 x 8 a thread:
+            # the same sums in the same order
+            few = [tensors[0][:p.rows].contiguous(), *tensors[1:]]
+            assert torch.equal(p(*few), row["out"][:p.rows])
+    # no kernel uses inputs or writes outputs past its rows: a row-wise kernel
+    # on the first rows of larger buffers, NaN after the input rows, gives the
+    # plain result and leaves the guard after its output alone
+    if p.odd_rows:
+        n = p.odd_rows
+        tensors = []
+        for t, grown in zip(p.inputs(rng, "cuda", n), p.shapes(n + 64)):
+            if grown[0] == n + 64:  # a row input, not a weight
+                buf = torch.full(grown, float("nan"), device="cuda")
+                buf[:n] = t
+                t = buf[:n]
+            tensors.append(t)
+        out = torch.full((n + 64, p.out_shape(1)[1]), 7.0, device="cuda")
+        want = p.plain(*tensors)
+        got = out[:n]
+        p.kernel.launch(*(t.data_ptr() for t in tensors), got.data_ptr(), n,
+                        torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= p.tol * float(want.abs().max())
+        assert bool((out[n:] == 7.0).all())
+
+
+@pytest.mark.cuda
 def test_cuda_probe_wrapper_refuses_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -340,3 +383,10 @@ def test_cuda_probe_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="at most 128"):
         PROBES["k_dot_t"](*PROBES["k_dot_t"].inputs(rng, "cuda", 256))
     assert p.kernel.launches == before
+    # the P1/P2 kernels read and write 16 bytes at a time
+    q = PROBES["k_merge64"]
+    (x,) = q.inputs(rng, "cuda", 9)
+    before = q.kernel.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        q(x.view(-1)[1:1 + 8 * 1024].view(8, 1024))
+    assert q.kernel.launches == before

@@ -224,6 +224,38 @@ def test_throughput_work_counts():
     assert b["p4c_ns256"][1] == "operations" and abs(b["p4c_ns256"][0] - 0.7324) < 1e-3
 
 
+def _op_work(name, n):
+    """(FLOPs, bytes) of a P1/P2 function at n rows: what it reads of each
+    input (a part of a row in 32-byte sectors) and its output written once."""
+    w = 64 * 24
+    return {
+        "k_repeat": (0, 4 * n * (16 + 64)),
+        "k_squeeze": (0, 4 * n * (64 + 64)),            # columns 192..255: 8 sectors
+        "k_merge128": (1024 * n, 4 * n * 2048),
+        "k_merge64": (1024 * n, 4 * n * 2048),
+        "k_outer": (2 * 16 * 64 * n, 4 * n * (16 + 64 + 64)),
+        "k_lred": (1024 * n, 4 * n * (1024 + 16)),
+        "k_atadd": (128 * n, 4 * n * (128 + 1024)),     # 1,152 floats a row, not 2,048
+        "k_gather": (0, 32 * 64 * n + 4 * 64 * n),      # a sector per value
+        "k_dot": (2 * w * n, 4 * (64 * n + w + 24 * n)),
+        "k_slice_dot": ((64 + 2 * w) * n, 4 * (128 * n + w + 24 * n)),
+        "k_tile": (0, 4 * n * (48 + 1200)),
+        "k_erep": (0, 4 * n * (25 + 1200)),
+        "k_split_sum": (1200 * n, 4 * n * (1200 + 48)),
+        "k_bc_merge": (0, 4 * n * (25 + 1200)),
+        # rows of 100 bytes: columns 3..9 of 8 rows lie in 14 sectors
+        "k_rep_slice": (0, 14 * 32 * n // 8 + 4 * 35 * n),
+        "k_concat": (1200 * n, 4 * n * 2400),
+        # columns 7..126 of a 4,800-byte row: sectors 0..15
+        "k_dot_odd": (2 * 120 * 24 * n, 16 * 32 * n + 4 * (120 * 24 + 24 * n)),
+        "k_dot_t": (2 * n * 48 * 24, 4 * (n * 48 + n * 24 + 48 * 24)),
+        "k_acc": (2 * n * 48 * 24 + n // 128 * 48 * 24, 4 * (n * 48 + 64 * 32)),
+    }[name]
+
+
+OP_PROBES = {**op_probe.PROBES, **op_probe2.PROBES}
+
+
 def test_op_probe_work_counts():
     p = op_probe.PROBES["k_dot"]
     assert p.work(128) == (128 * 2 * 64 * 24, 4 * (128 * 64 + 64 * 24 + 128 * 24))
@@ -231,14 +263,88 @@ def test_op_probe_work_counts():
     assert p.rows == 512 and p.scratch(512) == (4, 48 * 24)
     assert p.work(512) == (2 * 512 * 48 * 24 + 4 * 48 * 24, 4 * (512 * 48 + 64 * 32))
     assert all(q.bound_ms()[0] > 0 for q in ALL.values())
+    # every P1/P2 function at its own size and at the bench rows
+    for name, q in OP_PROBES.items():
+        for n in q.timed_rows:
+            assert q.work(n) == _op_work(name, n), (name, n)
+    # the corrected bounds at 19,968 rows (us, bytes at 3.35 TB/s)
+    b = {n: q.bound_ms(19968) for n, q in OP_PROBES.items() if q.bench_rows}
+    assert all(by == "bytes" for _, by in b.values())
+    for name, us in (("k_merge128", 48.8), ("k_merge64", 48.8), ("k_concat", 57.2),
+                     ("k_atadd", 27.5), ("k_tile", 29.8), ("k_erep", 29.2),
+                     ("k_bc_merge", 29.2), ("k_split_sum", 29.8), ("k_lred", 24.8),
+                     ("k_gather", 13.7)):
+        assert abs(b[name][0] * 1e3 - us) < 0.05, name
+
+
+def test_sector_bytes_counts_the_sectors_touched():
+    rng = np.random.default_rng(0)
+    for rows, width, cols in ((19968, 1024, range(0, 1024, 16)), (13, 25, range(3, 10)),
+                              (1000, 1200, range(7, 127)), (7, 3, (0, 2)),
+                              (9, 1024, tuple(sorted(rng.choice(1024, 40, replace=False))))):
+        addr = 4 * (np.arange(rows)[:, None] * width + np.asarray(cols)[None, :])
+        want = 32 * len(np.unique(np.concatenate([addr // 32, (addr + 3) // 32])))
+        assert probe.sector_bytes(rows, width, tuple(cols)) == want
+    # a whole row block is its bytes; one float a row of 64 floats is a sector
+    assert probe.sector_bytes(10, 64, tuple(range(64))) == 4 * 640
+    assert probe.sector_bytes(10, 64, (5,)) == 320
+
+
+def test_op_probes_run_at_two_sizes():
+    assert probe.BENCH_ROWS == 19968 and probe.ODD_ROWS % 8 and probe.ODD_ROWS % 128
+    for name, p in OP_PROBES.items():
+        if name == "k_dot_t":  # the closure is one tile
+            assert p.timed_rows == p.checked_rows == (128,) and p.max_rows == 128
+            continue
+        odd = () if name == "k_acc" else (probe.ODD_ROWS,)
+        assert p.timed_rows == (p.rows, 19968) and p.checked_rows == (p.rows, 19968, *odd)
+        for n in p.checked_rows:
+            shapes = p.shapes(n)
+            assert shapes[0][0] == n and all(len(s) == 2 for s in shapes)
+            assert p.out_shape(n) == ((64, 32) if name == "k_acc" else (n, p.out_shape(1)[1]))
+        t128, t_bench = (p.bound_ms(n)[0] for n in p.timed_rows)
+        assert 0 < t128 < t_bench
+    assert op_probe2.PROBES["k_acc"].scratch(19968) == (156, 48 * 24)
+
+
+@pytest.mark.parametrize("name", sorted(n for n, p in OP_PROBES.items() if p.odd_rows))
+def test_plain_matches_the_closure_at_odd_rows(name):
+    """The plain versions at a row count that is no multiple of 8 or 128."""
+    p = OP_PROBES[name]
+    tensors = p.inputs(np.random.default_rng(6), "cpu", p.odd_rows)
+    ref = np.asarray(JAX_FORMS[name](*[jnp.asarray(t.numpy()) for t in tensors]))
+    got = p.plain(*tensors).numpy()
+    assert got.shape == ref.shape == (p.odd_rows, p.out_shape(1)[1])
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * max(1.0, float(np.abs(ref).max())))
+
+
+def test_k_acc_plain_at_bench_rows_is_the_tile_order_sum():
+    p = op_probe2.PROBES["k_acc"]
+    (a,) = p.inputs(np.random.default_rng(7), "cpu", p.bench_rows)
+    got = p.plain(a).numpy()
+    # the sequential grid's order: 0 + P_0 + P_1 + ... in fp32, P_t in float64
+    x = a.numpy().astype(np.float64)
+    want = np.zeros((64, 32), np.float32)
+    for t in range(156):
+        at = x[t * 128:(t + 1) * 128]
+        want[3:51, :24] += (at.T @ at[:, :24]).astype(np.float32)
+    scale = float(np.abs(want).max())
+    assert np.abs(got - want).max() <= 1e-5 * scale
+    np.testing.assert_allclose(got, np.asarray(_k_acc(jnp.asarray(a.numpy()))),
+                               rtol=1e-5, atol=1e-5 * scale)
+    assert not got[:3].any() and not got[51:].any() and not got[:, 24:].any()
 
 
 @pytest.mark.parametrize("mod,n", [(op_probe, 10), (op_probe2, 9)])
 def test_probe_mains_run_on_cpu(mod, n, capsys):
     rows = mod.main(["--device", "cpu", "--seed", "1"])
     out = capsys.readouterr().out
-    assert len(rows) == n and all(r["ok"] for r in rows)
-    assert out.count(": OK ") == n and "FAIL" not in out
+    # each probe at each of its sizes: 128 (k_acc 512), 19,968 and 1,001 rows
+    assert len(mod.PROBES) == n
+    checks = sum(len(p.checked_rows) for p in mod.PROBES.values())
+    assert checks == {10: 30, 9: 24}[n]
+    assert len(rows) == checks and all(r["ok"] for r in rows)
+    assert out.count(": OK ") == checks and "FAIL" not in out
     assert "tile semantics (a|a|...): True" in out
     if mod is op_probe2:
         assert "a second launch is bit-identical: True" in out
@@ -404,6 +510,14 @@ SOURCES = {"probe_ops": {**op_probe.PROBES, **op_probe2.PROBES},
 def test_sources_hold_a_kernel_per_probe_and_no_library(src):
     text = (Path(tp_kernel.CSRC) / f"{src}.cu").read_text()
     n_global = len(re.findall(r"__global__", text))
+    if src == "probe_ops":
+        # written out or through the macro MAP_KERNEL_1, whose definition
+        # holds the one __global__ that names no kernel; one or more a probe
+        kernels = (set(re.findall(r"__global__\s+void\s+(\w+)\s*\(", text))
+                   | set(re.findall(r"^MAP_KERNEL_1\((\w+),", text, re.M))) - {"kernel"}
+        n_global = len(kernels)
+        for name in SOURCES[src]:
+            assert any(k.startswith(f"{name}_") for k in kernels), name
     # p4c_ns256 is the second instance of p4c's templated kernel
     n_instances = n_global + (src == "probe_throughput")
     assert n_instances >= len(SOURCES[src])
