@@ -57,7 +57,9 @@ Phases (any failure exits non-zero, before the result lines are printed):
      within 1e-4, the bf16 sweep 2e-2, the tf32 product 2e-3, all *
      max|plain|): P1/P2 at the TPU probes' 128 rows (``k_acc`` 512), at the
      bench rows (E = 19,968) and at 1,001 rows, P3 at its full size (E =
-     19,968, slab 4,800); ``k_acc`` bit-identical on a repeat; time kernel,
+     19,968, slab 4,800), ``p6`` and ``p7`` also at 1,088 rows; ``k_acc``,
+     ``p6`` and ``p7`` bit-identical on a repeat, ``p7``'s scratch as sized in
+     Python equal to the library's count; time kernel,
      plain version and library call at each timed size, and fail where a
      kernel reads above 1.05 of its bound; then run the three entry points on
      the card with every count at 0 before: each probe kernel must have
@@ -924,11 +926,17 @@ def phase_cli_fit(tp_kernel, eng, cfg, rows):
     return dict(fit_s=fit_s, launches=launches, records=records)
 
 
+# probes whose sums cross blocks and meet in a fixed-order second kernel, and
+# p6, whose warps share shared-memory buffers from item to item: a second
+# launch must repeat the first bit for bit
+REPEATS = ("k_acc", "p6", "p7")
+
+
 def phase_probes(tp_kernel, dev):
     """Every probe kernel against its plain version: P1/P2 at each of their
     sizes (128 rows, ``k_acc`` 512; the bench rows; 1,001 rows), P3 at its
-    full size, with times, library times, bounds and the share of the bound
-    reached at each timed size (above ``SHARE_MAX`` fails: no kernel beats
+    full size (``p6``, ``p7`` also at 1,088 rows), with times, library
+    times, bounds and the share of the bound reached at each timed size (above ``SHARE_MAX`` fails: no kernel beats
     its true bound); then the three entry points on the card, which must
     launch every probe kernel and no kernel of the model."""
     import numpy as np
@@ -937,6 +945,11 @@ def phase_probes(tp_kernel, dev):
     from hamgnn_tpu_torch.tools_dev import op_probe, op_probe2, probe, throughput_probe
 
     modules = (op_probe, op_probe2, throughput_probe)
+    # p7's scratch as Python sizes it holds what the kernel writes
+    for n in throughput_probe.PROBES["p7"].checked_rows:
+        have, want = throughput_probe.p7_scratch(n)[0], throughput_probe.p7_scratch_of_library(n)
+        if have != want:
+            fail(f"p7 scratch at {n} rows: {have} floats, the library counts {want}")
     rows = {}
     for mod in modules:
         rng = np.random.default_rng(23)
@@ -949,8 +962,8 @@ def phase_probes(tp_kernel, dev):
                 if not row["ok"]:
                     fail(f"probe {name} at {n} rows: max|d| {row['max_abs_err']:.3e} > "
                          f"{p.tol} * {row['max_abs_ref']:.3e} (shape {row['shape']})")
-                if name == "k_acc" and not torch.equal(out, p(*tensors)):
-                    fail(f"probe k_acc differs between two launches at {n} rows")
+                if name in REPEATS and not torch.equal(out, p(*tensors)):
+                    fail(f"probe {name} differs between two launches at {n} rows")
                 del out
                 err = max(err, row["max_abs_err"])
                 if n in p.timed_rows:

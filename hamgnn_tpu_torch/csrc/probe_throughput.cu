@@ -22,19 +22,30 @@
 // What bounds each on an H100 is in brackets.  The TPU versions re-read the
 // slab from VMEM on every sweep; here a thread keeps its elements in
 // registers across the sweeps, so p4/p4c move each byte once and are bound by
-// device memory.  The products stage their operands in shared memory and
-// accumulate register tiles of 8 x 4 (p1, p6, p7) or 5 x 4 x 4 (p3) per
-// thread; p7 and p7_tf32 load the next stage with cp.async while they compute
-// on the current one (depth 64 and two stages were the best of a sweep over
-// depths 16-128 and 2-6 stages, all within 15% wherever three blocks fit an SM).
+// device memory.  p1 and p3 stage their operands in shared memory and
+// accumulate register tiles of 8 x 4 (p1) or 5 x 4 x 4 (p3) per thread;
+// p7_tf32 loads the next stage with cp.async while it computes on the
+// current one (depth 64, two stages).
+//
+// p6 is bound by the store stream (383 MB written at E = 19,968): persistent
+// blocks, two an SM, each keep a 192-column panel of Crep in shared memory,
+// already split for 3xTF32 mma.sync, and walk edge tiles, so that the product
+// leaves the CUDA cores and one tile's coalesced streaming stores drain while
+// the next tile computes.  p7 is bound by its FFMAs: 128 x 64 tiles with
+// 8 x 8 register tiles a thread (16 shared loads of 16 bytes feed 256 FFMA),
+// the tiles' depth chunks split evenly over 396 blocks, three an SM ("stream-K"),
+// so that all 132 SMs carry the same work, and a second kernel that adds each
+// tile's partial sums in a fixed order (bit-identical on a repeat).
 // No library call, no atomics.  They take E as a multiple of 64.
 //
-// C interface: probe_<name>(inputs..., out, E, stream) returns the
-// cudaError_t of the launch.
+// C interface: probe_<name>(inputs..., out[, scratch], E, stream) returns the
+// cudaError_t of the launch; p7 alone takes scratch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "packed_tp_mma.cuh"
 
 namespace {
 
@@ -270,43 +281,7 @@ __global__ void p5_kernel(const float* __restrict__ x, float* __restrict__ out, 
   }
 }
 
-// ---- p6: sh @ Crep alone ---------------------------------------------------
-
-// grid (E / BM, W / BN), 192 threads, thread tile 8 x 4
-__global__ void __launch_bounds__(192)
-p6_kernel(const float* __restrict__ sh, const float* __restrict__ crep,
-          float* __restrict__ out) {
-  __shared__ __align__(16) float sh_s[BM * S];
-  __shared__ __align__(16) float c_s[S * BN];
-  const int e0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  stage_rows(sh_s, sh, e0, S);
-  for (int t = threadIdx.x; t < S * BN; t += blockDim.x)
-    c_s[t] = crep[(size_t)(t / BN) * W + n0 + t % BN];
-  __syncthreads();
-  const int eg = threadIdx.x / 24, cg = threadIdx.x % 24;
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const float4 c4 = *reinterpret_cast<const float4*>(&c_s[s * BN + cg * 4]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float a = sh_s[(eg * 8 + j) * S + s];
-      acc[j][0] += a * c4.x;
-      acc[j][1] += a * c4.y;
-      acc[j][2] += a * c4.z;
-      acc[j][3] += a * c4.w;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    *reinterpret_cast<float4*>(&out[(size_t)(e0 + eg * 8 + j) * W + n0 + cg * 4]) =
-        make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
-}
-
-// ---- p7: (E, FAN) @ (FAN, V) -----------------------------------------------
+// ---- p7_tf32: (E, FAN) @ (FAN, V) on the tensor cores ----------------------
 
 constexpr int KC = 64;        // depth of one stage
 constexpr int AP = KC + 4;    // padded row of the A tile (16-byte multiple)
@@ -368,44 +343,6 @@ __device__ __forceinline__ void p7_pipeline(const float* __restrict__ a,
   }
 }
 
-// fp32 FFMA: grid E / BM, 128 threads, thread tile 8 x 4
-__global__ void __launch_bounds__(128)
-p7_kernel(const float* __restrict__ a, const float* __restrict__ b,
-          float* __restrict__ out) {
-  const int e0 = blockIdx.x * BM;
-  const int eg = threadIdx.x / 16, cg = threadIdx.x % 16;
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
-  p7_pipeline(a, b, e0, [&](const float* as, const float* bs) {
-#pragma unroll
-    for (int k = 0; k < KC; k += 4) {
-      float4 bv[4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        bv[kk] = *reinterpret_cast<const float4*>(&bs[(k + kk) * BP + cg * 4]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float4 av = *reinterpret_cast<const float4*>(&as[(eg * 8 + j) * AP + k]);
-        const float ak[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          acc[j][0] += ak[kk] * bv[kk].x;
-          acc[j][1] += ak[kk] * bv[kk].y;
-          acc[j][2] += ak[kk] * bv[kk].z;
-          acc[j][3] += ak[kk] * bv[kk].w;
-        }
-      }
-    }
-  });
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    *reinterpret_cast<float4*>(&out[(size_t)(e0 + eg * 8 + j) * V + cg * 4]) =
-        make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
-}
-
 // tensor cores: grid E / BM, 4 warps, warp w owns rows 16w..16w+15 and all V
 // columns as four m16n16k8 accumulators; operands rounded to tf32
 __global__ void __launch_bounds__(128)
@@ -440,6 +377,299 @@ p7_tf32_kernel(const float* __restrict__ a, const float* __restrict__ b,
                             wmma::mem_row_major);
 }
 
+// ---- p6: sh @ Crep alone ---------------------------------------------------
+//
+// Bound by the 383 MB it writes.  Persistent blocks, two an SM, walk work
+// items (panel, edge tile) in panel-major order, each block a contiguous run
+// of them, so that it keeps its panel of Crep (P6_PN columns) in shared memory
+// for all its tiles and loads one at most twice.  The product runs on the
+// tensor cores in 3xTF32 (mma.sync m16n8k8, packed_tp_mma.cuh): depth 0..23
+// as three k8 steps, depth 24, the last of S = 25, as one FFMA, so the short
+// sum keeps fp32 accuracy.  The panel is split into big and small TF32 halves
+// once, in B-fragment order (one 16-byte load a lane and k8 step); a warp
+// splits its A fragments once a tile.  The sh tile of the next item loads by
+// cp.async while this one computes, issued after the barrier at which every
+// warp has left the item that last read its buffer.  Each warp owns 16 rows
+// x 96 columns of a tile: its fragments go through its part of a staging
+// tile in shared memory (a row stride of 8 mod 32 floats: conflict-free float2 writes) to
+// 16-byte streaming stores (st.global.cs) of whole row segments, issued as
+// soon as the warp is done, without waiting for the block: the stores drain
+// while the other warps and the next tile compute (on an H100 this beat a
+// barrier after the products and stores by the whole block).
+
+constexpr int P6_BM = 64;               // edges per tile
+constexpr int P6_PN = 192;              // columns per panel: 24 n8 tiles
+constexpr int P6_PANELS = W / P6_PN;    // 25
+constexpr int P6_KT = 3;                // k8 steps on the tensor cores (depth 0..23)
+constexpr int P6_NT = 256;              // 8 warps: 4 row groups of 16 x 2 halves of the panel
+constexpr int P6_WN = P6_PN / 2;        // columns of a warp
+constexpr int P6_OS = P6_PN + 8;        // staging row stride
+constexpr int P6_BFRAG = (P6_PN / 8) * P6_KT * 32 * 4;  // split panel, uint32
+constexpr size_t P6_SMEM =
+    (size_t)(P6_BFRAG + P6_PN + 2 * P6_BM * S + P6_BM * P6_OS) * sizeof(float);
+static_assert(W % P6_PN == 0 && P6_KT * 8 + 1 == S, "p6 tiling");
+
+// panel pn of crep into shared memory: bf[((j * P6_KT + s) * 32 + lane) * 4 ..]
+// = big b0, big b1, small b0, small b1 of n8 tile j, k8 step s (b0 at depth
+// 8s + tig, b1 at 8s + tig + 4, column 8j + gid), and depth 24 as b24
+__device__ __forceinline__ void p6_load_panel(uint32_t* bf, float* b24,
+                                              const float* __restrict__ crep, int pn) {
+  const int n0 = pn * P6_PN;
+  for (int t = threadIdx.x; t < (P6_PN / 8) * P6_KT * 32; t += P6_NT) {
+    const int lane = t % 32, s = (t / 32) % P6_KT, j = t / (32 * P6_KT);
+    const int col = n0 + 8 * j + lane / 4, k = 8 * s + lane % 4;
+    const float b[2] = {crep[(size_t)k * W + col], crep[(size_t)(k + 4) * W + col]};
+    uint32_t big[2], small[2];
+    packed_tp::split_tf32(b, big, small);
+    *reinterpret_cast<uint4*>(&bf[4 * t]) = make_uint4(big[0], big[1], small[0], small[1]);
+  }
+  for (int c = threadIdx.x; c < P6_PN; c += P6_NT) b24[c] = crep[(size_t)(S - 1) * W + n0 + c];
+}
+
+// rows [e0, e0 + P6_BM) of sh: 6,400 contiguous bytes
+__device__ __forceinline__ void p6_issue_sh(float* dst, const float* __restrict__ sh, int e0) {
+  const float* src = sh + (size_t)e0 * S;
+  for (int q = threadIdx.x; q < P6_BM * S / 4; q += P6_NT) cp_async16(&dst[4 * q], &src[4 * q]);
+}
+
+__global__ void __launch_bounds__(P6_NT, 2)
+p6_kernel(const float* __restrict__ sh, const float* __restrict__ crep,
+          float* __restrict__ out, int n_tiles) {
+  extern __shared__ __align__(16) float smem[];
+  uint32_t* bf = reinterpret_cast<uint32_t*>(smem);
+  float* b24 = smem + P6_BFRAG;
+  float* sh_s = b24 + P6_PN;                 // two tiles of P6_BM x S
+  float* st = sh_s + 2 * P6_BM * S;          // P6_BM x P6_OS
+  const long long items = (long long)P6_PANELS * n_tiles;
+  const long long lo = items * blockIdx.x / gridDim.x;
+  const long long hi = items * (blockIdx.x + 1) / gridDim.x;
+  if (lo >= hi) return;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int r0 = 16 * (warp % 4), j0 = (P6_WN / 8) * (warp / 4);  // first n8 tile
+  int panel = -1;
+  p6_issue_sh(sh_s, sh, (int)(lo % n_tiles) * P6_BM);
+  cp_async_commit();
+  for (long long it = lo; it < hi; ++it) {
+    const int pn = (int)(it / n_tiles), e0 = (int)(it % n_tiles) * P6_BM;
+    const float* cur = sh_s + ((it - lo) & 1) * P6_BM * S;
+    // a new panel (the same test in every thread) waits until every warp is
+    // done with the old one
+    if (pn != panel) {
+      __syncthreads();
+      p6_load_panel(bf, b24, crep, pn);
+      panel = pn;
+    }
+    cp_async_wait<0>();
+    // this tile and the panel are in place, and every warp is done with the
+    // last item, so the other sh buffer is free for the next tile
+    __syncthreads();
+    if (it + 1 < hi)
+      p6_issue_sh(sh_s + ((it + 1 - lo) & 1) * P6_BM * S, sh, (int)((it + 1) % n_tiles) * P6_BM);
+    cp_async_commit();
+
+    // A fragments of rows r0.., split once for all the warp's n8 tiles
+    uint32_t abig[P6_KT][4], asmall[P6_KT][4];
+#pragma unroll
+    for (int s = 0; s < P6_KT; ++s) {
+      const int k = 8 * s + tig;
+      const float a[4] = {cur[(r0 + gid) * S + k], cur[(r0 + gid + 8) * S + k],
+                          cur[(r0 + gid) * S + k + 4], cur[(r0 + gid + 8) * S + k + 4]};
+      packed_tp::split_tf32(a, abig[s], asmall[s]);
+    }
+    const float a24lo = cur[(r0 + gid) * S + S - 1], a24hi = cur[(r0 + gid + 8) * S + S - 1];
+#pragma unroll 4
+    for (int j = j0; j < j0 + P6_WN / 8; ++j) {
+      float hi_[4] = {0.f, 0.f, 0.f, 0.f}, lo_[4] = {0.f, 0.f, 0.f, 0.f},
+            lo2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int s = 0; s < P6_KT; ++s) {
+        const uint4 b = *reinterpret_cast<const uint4*>(&bf[((j * P6_KT + s) * 32 + lane) * 4]);
+        const uint32_t bb[2] = {b.x, b.y}, bs[2] = {b.z, b.w};
+        packed_tp::mma_tf32(lo_, asmall[s], bb);
+        packed_tp::mma_tf32(hi_, abig[s], bb);
+        packed_tp::mma_tf32(lo2, abig[s], bs);
+      }
+      const int c = 8 * j + 2 * tig;
+      const float2 b = *reinterpret_cast<const float2*>(&b24[c]);
+      float v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = (lo_[q] + lo2[q]) + hi_[q];
+      v[0] = fmaf(a24lo, b.x, v[0]);
+      v[1] = fmaf(a24lo, b.y, v[1]);
+      v[2] = fmaf(a24hi, b.x, v[2]);
+      v[3] = fmaf(a24hi, b.y, v[3]);
+      *reinterpret_cast<float2*>(&st[(r0 + gid) * P6_OS + c]) = make_float2(v[0], v[1]);
+      *reinterpret_cast<float2*>(&st[(r0 + gid + 8) * P6_OS + c]) = make_float2(v[2], v[3]);
+    }
+    __syncwarp();
+
+    // the warp stores its own 16 x P6_WN block as whole row segments, 16
+    // bytes a lane and store, with no wait for the other warps; no other
+    // warp touches this part of the staging tile
+    const int c0 = 8 * j0;
+    float* dst = out + (size_t)(e0 + r0) * W + pn * P6_PN + c0;
+#pragma unroll
+    for (int i = 0; i < 16 * P6_WN / 4 / 32; ++i) {
+      const int q = lane + 32 * i, r = q / (P6_WN / 4), c = 4 * (q % (P6_WN / 4));
+      __stcs(reinterpret_cast<float4*>(&dst[(size_t)r * W + c]),
+             *reinterpret_cast<const float4*>(&st[(r0 + r) * P6_OS + c0 + c]));
+    }
+  }
+}
+
+// ---- p7: (E, FAN) @ (FAN, V) in fp32 FFMA ------------------------------------
+//
+// Bound by its FFMAs.  Tiles of P7_BM rows x V columns, thread tile 8 x 8
+// (rows ty + 16 j, columns 4 tx.. and 32 + 4 tx..), so that 16 loads of
+// 16 bytes from shared memory feed 256 FFMA.  The work is spread evenly over
+// P7_BLOCKS blocks (three an SM on 132 SMs, up to 168 registers a thread and
+// no spills; fewer blocks below 396 chunks) by splitting the chunks of depth
+// P7_KC of all tiles, in tile-major order, into equal contiguous runs (a
+// "stream-K" split): a run covers the end of one tile, whole tiles, the
+// start of another, and each such segment's partial sums go to scratch slot
+// block + tile.  A second kernel adds each tile's segments in block order,
+// so the result is bit-identical from run to run.  A two-stage cp.async
+// ring runs across segments; rows past E are zero-filled and not stored.
+
+constexpr int P7_BM = 128;                  // rows of a tile
+constexpr int P7_KC = 32;                   // depth of a chunk
+constexpr int P7_STAGES = 2;
+constexpr int P7_AP = P7_KC + 4;            // padded A row: four rows of a warp in distinct banks
+constexpr int P7_NT = 128;
+constexpr int P7_BLOCKS = 396;              // the runs: three blocks an SM on 132 SMs
+constexpr int P7_CHUNKS = FAN / P7_KC;      // chunks a tile
+constexpr int P7_STAGE = P7_BM * P7_AP + P7_KC * V;
+constexpr size_t P7_RING_SMEM = (size_t)P7_STAGES * P7_STAGE * sizeof(float);
+constexpr int P7_RED_NT = 256;
+
+// chunks of E rows, and the runs they are split into: P7_BLOCKS, or one a
+// chunk where there are fewer, so that no run is empty
+__host__ __device__ __forceinline__ long long p7_chunks(int E) {
+  return (long long)((E + P7_BM - 1) / P7_BM) * P7_CHUNKS;
+}
+__host__ __device__ __forceinline__ int p7_runs(long long chunks) {
+  return chunks < P7_BLOCKS ? (int)chunks : P7_BLOCKS;
+}
+
+// the run that holds chunk c (the last b with chunks * b / runs <= c)
+__host__ __device__ __forceinline__ int p7_block_of(long long c, long long chunks) {
+  const int runs = p7_runs(chunks);
+  return (int)(((c + 1) * runs - 1) / chunks);
+}
+
+// chunk c (tile c / P7_CHUNKS, depth (c % P7_CHUNKS) * P7_KC) into one stage
+__device__ __forceinline__ void p7_issue(float* stage, const float* __restrict__ a,
+                                         const float* __restrict__ b, long long c, int E) {
+  const int row0 = (int)(c / P7_CHUNKS) * P7_BM, k0 = (int)(c % P7_CHUNKS) * P7_KC;
+  float* as = stage;
+  float* bs = stage + P7_BM * P7_AP;
+  for (int t = threadIdx.x; t < P7_BM * (P7_KC / 4); t += P7_NT) {
+    const int r = t / (P7_KC / 4), kq = 4 * (t % (P7_KC / 4));
+    const bool valid = row0 + r < E;
+    packed_tp::cp_async16(&as[r * P7_AP + kq],
+                          &a[(size_t)(valid ? row0 + r : 0) * FAN + k0 + kq], valid);
+  }
+  for (int t = threadIdx.x; t < P7_KC * (V / 4); t += P7_NT)
+    cp_async16(&bs[4 * t], &b[(size_t)k0 * V + 4 * t]);
+}
+
+__global__ void __launch_bounds__(P7_NT, 3)
+p7_kernel(const float* __restrict__ a, const float* __restrict__ b,
+          float* __restrict__ part, int E) {
+  // the reduce may launch now; it waits for this grid to end before it reads
+  asm volatile("griddepcontrol.launch_dependents;");
+  extern __shared__ __align__(16) float ring[];
+  const long long chunks = p7_chunks(E);
+  const long long lo = chunks * blockIdx.x / gridDim.x;
+  const long long hi = chunks * (blockIdx.x + 1) / gridDim.x;
+  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
+  float acc[8][8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[j][q] = 0.f;
+  for (int st = 0; st < P7_STAGES - 1; ++st) {
+    if (lo + st < hi) p7_issue(ring + st * P7_STAGE, a, b, lo + st, E);
+    cp_async_commit();
+  }
+  for (long long c = lo; c < hi; ++c) {
+    cp_async_wait<P7_STAGES - 2>();
+    // also frees the stage computed last step, which is refilled below
+    __syncthreads();
+    const long long nxt = c + P7_STAGES - 1;
+    if (nxt < hi) p7_issue(ring + ((nxt - lo) % P7_STAGES) * P7_STAGE, a, b, nxt, E);
+    cp_async_commit();
+    const float* as = ring + ((c - lo) % P7_STAGES) * P7_STAGE;
+    const float* bs = as + P7_BM * P7_AP;
+#pragma unroll
+    for (int k = 0; k < P7_KC; k += 4) {
+      float4 av[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        av[j] = *reinterpret_cast<const float4*>(&as[(ty + 16 * j) * P7_AP + k]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 b0 = *reinterpret_cast<const float4*>(&bs[(k + kk) * V + 4 * tx]);
+        const float4 b1 = *reinterpret_cast<const float4*>(&bs[(k + kk) * V + 32 + 4 * tx]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float x = kk == 0 ? av[j].x : kk == 1 ? av[j].y : kk == 2 ? av[j].z : av[j].w;
+          acc[j][0] = fmaf(x, b0.x, acc[j][0]);
+          acc[j][1] = fmaf(x, b0.y, acc[j][1]);
+          acc[j][2] = fmaf(x, b0.z, acc[j][2]);
+          acc[j][3] = fmaf(x, b0.w, acc[j][3]);
+          acc[j][4] = fmaf(x, b1.x, acc[j][4]);
+          acc[j][5] = fmaf(x, b1.y, acc[j][5]);
+          acc[j][6] = fmaf(x, b1.z, acc[j][6]);
+          acc[j][7] = fmaf(x, b1.w, acc[j][7]);
+        }
+      }
+    }
+    // the segment ends with its tile or with the run: its partial sums to
+    // slot block + tile
+    if ((c + 1) % P7_CHUNKS == 0 || c + 1 == hi) {
+      float* dst = part + ((size_t)blockIdx.x + (size_t)(c / P7_CHUNKS)) * P7_BM * V;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float* row = dst + (ty + 16 * j) * V;
+        *reinterpret_cast<float4*>(&row[4 * tx]) =
+            make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+        *reinterpret_cast<float4*>(&row[32 + 4 * tx]) =
+            make_float4(acc[j][4], acc[j][5], acc[j][6], acc[j][7]);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc[j][q] = 0.f;
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// out row r = the segments of tile r / P7_BM added in block order; four
+// columns a thread.  griddepcontrol.wait returns once p7_kernel has ended
+// and its writes are visible; `part` is written while this kernel starts,
+// so it is read through the coherent path, not the read-only one.
+__global__ void __launch_bounds__(P7_RED_NT)
+p7_reduce_kernel(const float* part, float* __restrict__ out, int E) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const long long q = (long long)blockIdx.x * P7_RED_NT + threadIdx.x;
+  if (q >= (long long)E * (V / 4)) return;
+  const int r = (int)(q / (V / 4)), c = 4 * (int)(q % (V / 4)), t = r / P7_BM;
+  const long long chunks = p7_chunks(E);
+  const int b_lo = p7_block_of((long long)t * P7_CHUNKS, chunks);
+  const int b_hi = p7_block_of((long long)(t + 1) * P7_CHUNKS - 1, chunks);
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int blk = b_lo; blk <= b_hi; ++blk) {
+    const float4 p = *reinterpret_cast<const float4*>(
+        &part[(((size_t)blk + t) * P7_BM + r % P7_BM) * V + c]);
+    s.x += p.x;
+    s.y += p.y;
+    s.z += p.z;
+    s.w += p.w;
+  }
+  *reinterpret_cast<float4*>(&out[(size_t)r * V + c]) = s;
+}
+
 template <typename Kern>
 cudaError_t launch_p7(Kern kern, const float* a, const float* b, float* out, int E,
                       cudaStream_t st) {
@@ -462,11 +692,26 @@ cudaError_t launch_p13(Kern kern, int threads, const float* x, const float* sh,
   return cudaGetLastError();
 }
 
-inline int sweep_blocks(void) {
+inline int sm_count(void) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+inline int sweep_blocks(void) {
+  const int sms = sm_count();
   return (sms > 0 ? sms : 132) * 8;
+}
+
+// blocks of nt threads of `kernel` resident on one SM with `smem` bytes of
+// shared memory, the carveout set to the most shared memory (-1: refused)
+template <typename Kern>
+int resident_per_sm(Kern kernel, int nt, size_t smem) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           (int)cudaSharedmemCarveoutMaxShared) != cudaSuccess)
+    return -1;
+  return packed_tp::resident_per_sm((const void*)kernel, nt, smem);
 }
 
 }  // namespace
@@ -527,15 +772,50 @@ int probe_p5(const float* x, float* out, int E, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// blocks of p6 resident on one SM (two by design; -1: the size is refused)
+int probe_p6_resident_per_sm(void) { return resident_per_sm(p6_kernel, P6_NT, P6_SMEM); }
+
 int probe_p6(const float* sh, const float* crep, float* out, int E, void* stream) {
   if (E <= 0 || E % BM != 0) return (int)cudaErrorInvalidValue;
-  p6_kernel<<<dim3(E / BM, W / BN), 192, 0, (cudaStream_t)stream>>>(sh, crep, out);
+  static int blocks = 0;
+  if (blocks <= 0) blocks = probe_p6_resident_per_sm() * sm_count();
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  p6_kernel<<<blocks, P6_NT, P6_SMEM, (cudaStream_t)stream>>>(sh, crep, out, E / P6_BM);
   return (int)cudaGetLastError();
 }
 
-int probe_p7(const float* a, const float* b, float* out, int E, void* stream) {
+// blocks of p7 resident on one SM (three by design, so that its P7_BLOCKS
+// runs are all in flight at once on 132 SMs)
+int probe_p7_resident_per_sm(void) { return resident_per_sm(p7_kernel, P7_NT, P7_RING_SMEM); }
+
+// floats of p7's scratch at E rows: (P7_BLOCKS + ceil(E / P7_BM)) * P7_BM * V,
+// the segments' partial sums (slot block + tile)
+long long probe_p7_scratch_floats(int E) {
+  return ((long long)P7_BLOCKS + (E + P7_BM - 1) / P7_BM) * P7_BM * V;
+}
+
+// scratch: probe_p7_scratch_floats(E) floats
+int probe_p7(const float* a, const float* b, float* out, float* part, int E, void* stream) {
   if (E <= 0 || E % BM != 0) return (int)cudaErrorInvalidValue;
-  return (int)launch_p7(p7_kernel, a, b, out, E, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  static int ready = 0;
+  if (!ready) ready = probe_p7_resident_per_sm() > 0 ? 1 : -1;
+  if (ready < 0) return (int)cudaErrorInvalidConfiguration;
+  p7_kernel<<<p7_runs(p7_chunks(E)), P7_NT, P7_RING_SMEM, st>>>(a, b, part, E);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute dependent[1];
+  dependent[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  dependent[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(((long long)E * (V / 4) + P7_RED_NT - 1) / P7_RED_NT));
+  cfg.blockDim = dim3(P7_RED_NT);
+  cfg.stream = st;
+  cfg.attrs = dependent;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, p7_reduce_kernel, (const float*)part, out, E);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 int probe_p7_tf32(const float* a, const float* b, float* out, int E, void* stream) {

@@ -32,6 +32,7 @@ and the run exits non-zero.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import sys
 from typing import Optional
 
@@ -49,6 +50,9 @@ NS = 8
 NS_DEEP = 256
 FAN, V = 2048, 64
 _SRC = "tools_dev/vpu_probe.py"
+# p6 and p7 are also checked at 17 tiles of 64 rows, a count that no split
+# of their work divides evenly
+ODD_TILES = 17 * 64
 
 
 def _tiled(x, i):
@@ -107,6 +111,36 @@ def plain_p7(a, b):
     return a @ b
 
 
+def _lib_p13(x, sh, crep):
+    """p1 and p3 as one call: sum over i of (sh @ Crep_i) * (x_i tiled)."""
+    return torch.einsum("es,sikm,eim->ekm", sh, crep.view(S, D1, K, MUL),
+                        x.view(-1, D1, MUL)).reshape(-1, KM)
+
+
+# p7's split (csrc/probe_throughput.cu): tiles of P7_BM rows, each cut into
+# chunks of depth P7_KC; the chunks of all tiles, tile-major, go in equal
+# contiguous runs to at most P7_BLOCKS blocks, and a run's part of a tile
+# keeps its partial sums in scratch slot block + tile
+P7_BM, P7_KC, P7_BLOCKS = 128, 32, 396
+
+
+def p7_scratch(rows):
+    """Scratch of p7: a P7_BM x V slot of partial sums per block and tile.
+    It must hold what the library counts (``p7_scratch_of_library``), or the
+    kernel writes past its end: the card test and ``chip_smoke.py`` hold
+    the two together."""
+    return ((P7_BLOCKS + -(-rows // P7_BM)) * P7_BM * V,)
+
+
+def p7_scratch_of_library(rows):
+    """Floats of p7's scratch as ``csrc/probe_throughput.cu`` counts them
+    (``probe_p7_scratch_floats``, from its own constants); builds the
+    library, so it needs nvcc."""
+    fn = PROBES["p7"].kernel.library().probe_p7_scratch_floats
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return int(fn(rows))
+
+
 def _lib_p4c(a, b, ns=NS):
     acc = a
     for _ in range(ns):
@@ -132,12 +166,10 @@ _p7_shapes = lambda n: [(n, FAN), (FAN, V)]  # noqa: E731
 _p7_bytes = lambda n: 4 * words((n, FAN), (FAN, V), (n, V))  # noqa: E731
 
 PROBES = {p.name: p for p in [
-    # p1, p3: no library call (a product, a tiling, a multiply and a sum over
-    # column blocks are four calls at the least)
     _probe("p1", 73, "per i: dot + tile + multiply + add", _x_sh_crep, KM, plain_p1,
-           _p13_work, row_quantum=64),
+           _p13_work, library=_lib_p13, row_quantum=64),
     _probe("p3", 104, "one wide dot + multiply + tree sum", _x_sh_crep, KM, plain_p3,
-           _p13_work, row_quantum=64),
+           _p13_work, library=_lib_p13, row_quantum=64),
     _probe("p4", 136, f"fp32 multiply x{NS} sweeps of the slab", _slabs, W, plain_p4,
            lambda n: (NS * n * W, 4 * 3 * n * W), library=plain_p4),
     # tolerance: bf16 keeps 8 bits; the kernel and the plain version round
@@ -155,10 +187,10 @@ PROBES = {p.name: p for p in [
            library=lambda x: x.view(-1, D1, MUL).repeat(1, 1, K).view(-1, W)),
     _probe("p6", 215, "sh @ Crep, full width", lambda n: [(n, S), (S, W)], W, plain_p6,
            lambda n: (2 * S * W * n, 4 * words((n, S), (S, W), (n, W))),
-           library=torch.matmul, row_quantum=64),
+           library=torch.matmul, row_quantum=64, odd_rows=ODD_TILES),
     _probe("p7", 238, "(E,2048) @ (2048,64), fp32 FFMA", _p7_shapes, V, plain_p7,
            lambda n: (2 * FAN * V * n, _p7_bytes(n)), library=torch.matmul,
-           row_quantum=64),
+           row_quantum=64, scratch=p7_scratch, odd_rows=ODD_TILES),
     # tolerance: tf32 operands keep 11 bits (relative rounding 2^-11 = 4.9e-4
     # per product); over a depth of 2048 the error stays near 2e-4 of
     # max|ref|, and 2e-3 leaves a margin of ten

@@ -19,8 +19,9 @@ plain version within 2e-5 * max|ref| (outputs) and 1e-4 * max|ref|
 (gradients).  Every probe kernel (``tools_dev``) is held to its plain version
 within its stated limit (fp32 1e-4, bf16 2e-2, tf32 operands 2e-3, all *
 max|plain|) at its own size, the throughput probes at E = 256, the P1/P2
-probes also at the bench rows (19,968) and at 1,001 rows; ``k_acc`` repeats
-bit for bit.
+probes also at the bench rows (19,968) and at 1,001 rows, ``p6`` and ``p7``
+also at 19,968 and 1,088 rows; ``k_acc``, ``p6`` and ``p7`` repeat bit
+for bit.
 """
 
 import numpy as np
@@ -344,26 +345,78 @@ def test_cuda_op_probe_matches_plain_at_every_size(name):
             # the same sums in the same order
             few = [tensors[0][:p.rows].contiguous(), *tensors[1:]]
             assert torch.equal(p(*few), row["out"][:p.rows])
-    # no kernel uses inputs or writes outputs past its rows: a row-wise kernel
-    # on the first rows of larger buffers, NaN after the input rows, gives the
-    # plain result and leaves the guard after its output alone
     if p.odd_rows:
-        n = p.odd_rows
-        tensors = []
-        for t, grown in zip(p.inputs(rng, "cuda", n), p.shapes(n + 64)):
-            if grown[0] == n + 64:  # a row input, not a weight
-                buf = torch.full(grown, float("nan"), device="cuda")
-                buf[:n] = t
-                t = buf[:n]
-            tensors.append(t)
-        out = torch.full((n + 64, p.out_shape(1)[1]), 7.0, device="cuda")
-        want = p.plain(*tensors)
-        got = out[:n]
-        p.kernel.launch(*(t.data_ptr() for t in tensors), got.data_ptr(), n,
-                        torch.cuda.current_stream().cuda_stream)
-        torch.cuda.synchronize()
-        assert float((got - want).abs().max()) <= p.tol * float(want.abs().max())
-        assert bool((out[n:] == 7.0).all())
+        _check_guard_rows(p, rng)
+
+
+def _check_guard_rows(p, rng):
+    """No kernel uses inputs or writes outputs past its rows: a row-wise
+    kernel on the first rows of larger buffers, NaN after the input rows,
+    gives the plain result and leaves the guard after its output alone."""
+    n = p.odd_rows
+    tensors = []
+    for t, grown in zip(p.inputs(rng, "cuda", n), p.shapes(n + 64)):
+        if grown[0] == n + 64:  # a row input, not a weight
+            buf = torch.full(grown, float("nan"), device="cuda")
+            buf[:n] = t
+            t = buf[:n]
+        tensors.append(t)
+    out = torch.full((n + 64, p.out_shape(1)[1]), 7.0, device="cuda")
+    scratch = [] if p.scratch is None else [
+        torch.full(p.scratch(n), float("nan"), device="cuda")]
+    want = p.plain(*tensors)
+    got = out[:n]
+    p.kernel.launch(*(t.data_ptr() for t in tensors), got.data_ptr(),
+                    *(t.data_ptr() for t in scratch), n,
+                    torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= p.tol * float(want.abs().max())
+    assert bool((out[n:] == 7.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["p6", "p7"])
+def test_cuda_throughput_product_matches_plain_at_every_size(name):
+    """p6 and p7 at E = 19,968 and at 17 tiles of 64 rows, which no split of
+    their work divides evenly (p7's last tile of 128 rows is half past E);
+    each repeats bit for bit; rows past E are neither read nor written."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p = PROBES[name]
+    rng = np.random.default_rng(15)
+    for rows in p.checked_rows:
+        tensors = p.inputs(rng, "cuda", rows)
+        row = probe.check(p, tensors)
+        assert row["ok"], (rows, row)
+        # p7 adds its blocks' sums in a second kernel, and p6's warps share
+        # buffers from item to item: both repeat bit for bit
+        for _ in range(3):
+            assert torch.equal(row["out"], p(*tensors)), rows
+    _check_guard_rows(p, rng)
+
+
+@pytest.mark.cuda
+def test_cuda_throughput_products_fit_their_blocks_per_sm():
+    """p6 runs two persistent blocks an SM, p7 three, so that its 396 runs
+    are all in flight at once on the H100's 132 SMs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lib = PROBES["p6"].kernel.library()
+    assert lib.probe_p6_resident_per_sm() >= 2
+    assert lib.probe_p7_resident_per_sm() >= 3
+
+
+@pytest.mark.cuda
+def test_cuda_throughput_p7_scratch_is_the_librarys():
+    """p7's scratch as ``throughput_probe.p7_scratch`` sizes it equals the
+    library's count from its own constants, at sizes below, at and above
+    P7_BLOCKS chunks: a split changed in the .cu file alone fails here, not
+    by writing past the scratch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tp = throughput_probe
+    for rows in (64, 128, 256, 1088, 19_968, 65_536):
+        assert tp.p7_scratch(rows)[0] == tp.p7_scratch_of_library(rows), rows
 
 
 @pytest.mark.cuda

@@ -350,6 +350,66 @@ def test_probe_mains_run_on_cpu(mod, n, capsys):
         assert "a second launch is bit-identical: True" in out
 
 
+def _p7_segments(rows):
+    """p7's split as csrc/probe_throughput.cu walks it: the chunks of all
+    tiles, tile-major, in equal contiguous runs, one a block (P7_BLOCKS, or
+    one a chunk where there are fewer); (block, tile, first chunk, end chunk)
+    for each run's part of a tile, chunks counted within the tile."""
+    tp = throughput_probe
+    per_tile = tp.FAN // tp.P7_KC
+    chunks = -(-rows // tp.P7_BM) * per_tile
+    runs = min(tp.P7_BLOCKS, chunks)
+    segs = []
+    for blk in range(runs):
+        c, hi = chunks * blk // runs, chunks * (blk + 1) // runs
+        while c < hi:
+            t = c // per_tile
+            end = min(hi, (t + 1) * per_tile)
+            segs.append((blk, t, c - t * per_tile, end - t * per_tile))
+            c = end
+    return segs
+
+
+@pytest.mark.parametrize("rows", [64, 256, throughput_probe.ODD_TILES, throughput_probe.E])
+def test_p7_split_covers_every_term_once(rows):
+    """p7's split: every (row, column, depth) term of the product lies in
+    exactly one segment (a segment spans all V columns and rows past E are
+    never stored), segments use distinct scratch slots inside the scratch,
+    and the reduce's block arithmetic (``p7_block_of``) finds exactly each
+    tile's segments."""
+    tp = throughput_probe
+    per_tile = tp.FAN // tp.P7_KC
+    segs = _p7_segments(rows)
+    tiles = -(-rows // tp.P7_BM)
+    depth = np.zeros((tiles, tp.FAN), dtype=np.int64)
+    for _, t, c0, c1 in segs:
+        assert 0 <= c0 < c1 <= per_tile
+        depth[t, c0 * tp.P7_KC:c1 * tp.P7_KC] += 1
+    assert (depth == 1).all()
+    slots = [blk + t for blk, t, _, _ in segs]
+    assert len(set(slots)) == len(slots)
+    assert max(slots) < tp.p7_scratch(rows)[0] // (tp.P7_BM * tp.V)
+    chunks = tiles * per_tile
+    runs = min(tp.P7_BLOCKS, chunks)
+    block_of = lambda c: ((c + 1) * runs - 1) // chunks  # noqa: E731
+    for t in range(tiles):
+        first, last = block_of(t * per_tile), block_of((t + 1) * per_tile - 1)
+        assert [blk for blk, tt, _, _ in segs if tt == t] == list(range(first, last + 1))
+    # the runs are even: no block holds more than one chunk beyond another
+    per_block = np.bincount([blk for blk, _, _, _ in segs],
+                            weights=[c1 - c0 for _, _, c0, c1 in segs])
+    assert len(per_block) == runs and per_block.min() >= 1
+    assert per_block.max() - per_block.min() <= 1
+
+
+def test_p6_p7_are_checked_at_odd_tiles():
+    for name in ("p6", "p7"):
+        p = throughput_probe.PROBES[name]
+        assert p.checked_rows == (throughput_probe.E, 1088) and p.timed_rows == (throughput_probe.E,)
+        assert 1088 % p.row_quantum == 0 and 1088 % 128 and 1088 // 64 == 17
+    assert throughput_probe.PROBES["p7"].scratch(19_968) == ((396 + 156) * 128 * 64,)
+
+
 def test_throughput_main_runs_on_cpu(capsys):
     rows = throughput_probe.main(["--device", "cpu", "--edges", "64"])
     out = capsys.readouterr().out
