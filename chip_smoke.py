@@ -57,10 +57,12 @@ Phases (any failure exits non-zero, before the result lines are printed):
      within 1e-4, the bf16 sweep 2e-2, the tf32 product 2e-3, all *
      max|plain|): P1/P2 at the TPU probes' 128 rows (``k_acc`` 512), at the
      bench rows (E = 19,968) and at 1,001 rows, P3 at its full size (E =
-     19,968, slab 4,800), ``p6`` and ``p7`` also at 1,088 rows; ``k_acc``,
-     ``p6`` and ``p7`` bit-identical on a repeat, ``p7``'s scratch as sized in
-     Python equal to the library's count; time kernel,
-     plain version and library call at each timed size, and fail where a
+     19,968, slab 4,800), ``p1``, ``p6``, ``p7`` and ``p7_tf32`` also at
+     1,088 rows; ``k_acc``, ``p1``, ``p6``, ``p7`` and ``p7_tf32``
+     bit-identical on a repeat, ``p7``'s scratch as sized in Python equal to
+     the library's count; time kernel, plain version and library call at each
+     timed size (``p7_tf32``'s a ``torch.matmul`` with TF32 allowed for that
+     call alone, printed beside the full-fp32 one), and fail where a
      kernel reads above 1.05 of its bound; then run the three entry points on
      the card with every count at 0 before: each probe kernel must have
      launched, and no kernel of the model;
@@ -926,16 +928,17 @@ def phase_cli_fit(tp_kernel, eng, cfg, rows):
     return dict(fit_s=fit_s, launches=launches, records=records)
 
 
-# probes whose sums cross blocks and meet in a fixed-order second kernel, and
-# p6, whose warps share shared-memory buffers from item to item: a second
-# launch must repeat the first bit for bit
-REPEATS = ("k_acc", "p6", "p7")
+# probes whose sums cross blocks and meet in a fixed-order second kernel, p1
+# and p6, whose warps share shared-memory buffers from item to item, and
+# p7_tf32, whose stages are reused through mbarriers: a second launch must
+# repeat the first bit for bit
+REPEATS = ("k_acc", "p1", "p6", "p7", "p7_tf32")
 
 
 def phase_probes(tp_kernel, dev):
     """Every probe kernel against its plain version: P1/P2 at each of their
     sizes (128 rows, ``k_acc`` 512; the bench rows; 1,001 rows), P3 at its
-    full size (``p6``, ``p7`` also at 1,088 rows), with times, library
+    full size (``p1``, ``p6``, ``p7``, ``p7_tf32`` also at 1,088 rows), with times, library
     times, bounds and the share of the bound reached at each timed size (above ``SHARE_MAX`` fails: no kernel beats
     its true bound); then the three entry points on the card, which must
     launch every probe kernel and no kernel of the model."""
@@ -943,6 +946,7 @@ def phase_probes(tp_kernel, dev):
     import torch
 
     from hamgnn_tpu_torch.tools_dev import op_probe, op_probe2, probe, throughput_probe
+    from hamgnn_tpu_torch.utils.profiling import device_time_ms
 
     modules = (op_probe, op_probe2, throughput_probe)
     # p7's scratch as Python sizes it holds what the kernel writes
@@ -978,6 +982,13 @@ def phase_probes(tp_kernel, dev):
                           f"{m['ms']:.4f} ms plain {m['plain_ms']:.4f} ms library {lib} bound "
                           f"{m['bound_ms']:.5f} ms ({m['bound_by']}, {100 * m['share']:.1f}%)",
                           flush=True)
+                    if name == "p7_tf32":
+                        fp32_ms = device_time_ms(torch.matmul, tensors, n=8, warmup=2)
+                        if torch.backends.cuda.matmul.allow_tf32:
+                            fail("p7_tf32's library call left TF32 on for the process")
+                        print(f"[probe] p7_tf32 library call (torch.matmul, TF32 for that call "
+                              f"alone) {m['library_ms']:.4f} ms; full-fp32 torch.matmul "
+                              f"{fp32_ms:.4f} ms", flush=True)
                 else:
                     print(f"[probe] {name:11s} rows={n} max|d|={row['max_abs_err']:.3e} "
                           f"(max|ref| {row['max_abs_ref']:.3e}, limit {p.tol:g}) checked",

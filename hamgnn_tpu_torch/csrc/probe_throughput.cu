@@ -17,33 +17,36 @@
 //   p5  the tiling of x alone                                         (bytes)
 //   p6  sh @ Crep alone, written out                                  (bytes)
 //   p7  (E,2048) @ (2048,64) in fp32 FFMA, and p7_tf32 the same on the
-//       tensor cores (wmma m16n16k8, tf32 operands, fp32 accumulate)   (ops / bytes)
+//       tensor cores (mma.sync m16n8k8, tf32 operands, fp32 accumulate) (ops / bytes)
 //
 // What bounds each on an H100 is in brackets.  The TPU versions re-read the
 // slab from VMEM on every sweep; here a thread keeps its elements in
 // registers across the sweeps, so p4/p4c move each byte once and are bound by
-// device memory.  p1 and p3 stage their operands in shared memory and
-// accumulate register tiles of 8 x 4 (p1) or 5 x 4 x 4 (p3) per thread;
-// p7_tf32 loads the next stage with cp.async while it computes on the
-// current one (depth 64, two stages).
+// device memory.  p3 stages its operands in shared memory and accumulates
+// register tiles of 5 x 4 x 4 per thread.
 //
-// p6 is bound by the store stream (383 MB written at E = 19,968): persistent
-// blocks, two an SM, each keep a 192-column panel of Crep in shared memory,
-// already split for 3xTF32 mma.sync, and walk edge tiles, so that the product
-// leaves the CUDA cores and one tile's coalesced streaming stores drain while
-// the next tile computes.  p7 is bound by its FFMAs: 128 x 64 tiles with
+// p1, p6 and p7_tf32 are persistent: a fixed number of blocks, each with its
+// own even share of the work.  p6 (bound by the 383 MB it writes at E =
+// 19,968) and p1 (bound by its products) keep a panel of Crep in shared
+// memory, already split for 3xTF32 mma.sync, and walk edge tiles, p6 two
+// blocks an SM with 192 columns of one D1 block, p1 two an SM with 96 columns
+// of all five, its sum over i in registers; the stores of a tile drain while
+// the next one computes.  p7 is bound by its FFMAs: 128 x 64 tiles with
 // 8 x 8 register tiles a thread (16 shared loads of 16 bytes feed 256 FFMA),
 // the tiles' depth chunks split evenly over 396 blocks, three an SM ("stream-K"),
 // so that all 132 SMs carry the same work, and a second kernel that adds each
-// tile's partial sums in a fixed order (bit-identical on a repeat).
+// tile's partial sums in a fixed order (bit-identical on a repeat).  p7_tf32
+// is bound by reading A: one block an SM streams its share of the rows
+// through a five-stage ring of TMA copies on mbarriers, a loader warp and a
+// converter warp (B rounded to TF32 once a stage) feeding four consumer warps.
 // No library call, no atomics.  They take E as a multiple of 64.
 //
 // C interface: probe_<name>(inputs..., out[, scratch], E, stream) returns the
 // cudaError_t of the launch; p7 alone takes scratch.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include "packed_tp_mma.cuh"
 
@@ -58,9 +61,9 @@ constexpr int NS_DEEP = 256;  // sweeps of p4c_ns256
 constexpr int FAN = 2048, V = 64;
 
 constexpr int BM = 64;  // edges per block of the products
-constexpr int BN = 96;  // columns per block of p1, p3, p6: 4 * MUL
+constexpr int BN = 96;  // columns per block of p3: 4 * MUL
 
-// ---- staging ---------------------------------------------------------------
+// ---- p3's staging -----------------------------------------------------------
 
 // rows [e0, e0 + BM) of g (E x width) into s, row-major
 __device__ __forceinline__ void stage_rows(float* s, const float* __restrict__ g,
@@ -84,62 +87,6 @@ __device__ __forceinline__ void stage_crep(float* s, const float* __restrict__ c
     const int c = t % BN, sr = (t / BN) % S, i = t / (BN * S);
     s[t] = crep[(size_t)sr * W + i * KM + n0 + c];
   }
-}
-
-// ---- p1: per i, dot + tile + multiply + add --------------------------------
-
-// grid (E / BM, KM / BN), 192 threads: thread (eg, cg) owns edges eg*8..+7
-// and columns cg*4..+3 of the block's tile
-__global__ void __launch_bounds__(192)
-p1_kernel(const float* __restrict__ x, const float* __restrict__ sh,
-          const float* __restrict__ crep, float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  float* sh_s = smem;               // S x BM (transposed)
-  float* x_s = sh_s + BM * S;       // BM x XW
-  float* c_s = x_s + BM * XW;       // D1 x S x BN
-  const int e0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  stage_sh_t(sh_s, sh, e0);
-  stage_rows(x_s, x, e0, XW);
-  stage_crep(c_s, crep, n0);
-  __syncthreads();
-  const int eg = threadIdx.x / 24, cg = threadIdx.x % 24;
-  const int xm = (cg * 4) % MUL;  // n0 is a multiple of MUL
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < D1; ++i) {
-    float wv[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) wv[j][q] = 0.f;
-#pragma unroll 5
-    for (int s = 0; s < S; ++s) {
-      const float4 c4 = *reinterpret_cast<const float4*>(&c_s[(i * S + s) * BN + cg * 4]);
-      const float4 a0 = *reinterpret_cast<const float4*>(&sh_s[s * BM + eg * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&sh_s[s * BM + eg * 8 + 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        wv[j][0] += a[j] * c4.x;
-        wv[j][1] += a[j] * c4.y;
-        wv[j][2] += a[j] * c4.z;
-        wv[j][3] += a[j] * c4.w;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float4 b4 = *reinterpret_cast<const float4*>(
-          &x_s[(eg * 8 + j) * XW + i * MUL + xm]);
-      const float b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        acc[j][q] = (i == 0) ? wv[j][q] * b[q] : acc[j][q] + wv[j][q] * b[q];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    *reinterpret_cast<float4*>(&out[(size_t)(e0 + eg * 8 + j) * KM + n0 + cg * 4]) =
-        make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
 }
 
 // ---- p3: one wide product, one multiply, tree sum --------------------------
@@ -281,14 +228,7 @@ __global__ void p5_kernel(const float* __restrict__ x, float* __restrict__ out, 
   }
 }
 
-// ---- p7_tf32: (E, FAN) @ (FAN, V) on the tensor cores ----------------------
-
-constexpr int KC = 64;        // depth of one stage
-constexpr int AP = KC + 4;    // padded row of the A tile (16-byte multiple)
-constexpr int BP = V + 4;     // padded row of the B tile
-constexpr int STAGES = 2;     // stages in the cp.async ring: one loads while one computes
-constexpr int STAGE_FLOATS = BM * AP + KC * BP;
-constexpr size_t P7_SMEM = (size_t)STAGES * STAGE_FLOATS * sizeof(float);
+// ---- cp.async and the mbarrier ring ----------------------------------------
 
 __device__ __forceinline__ void cp_async16(float* smem_dst, const float* gmem_src) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
@@ -300,81 +240,271 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// start the copies of one stage: A rows e0.. x depth k0.. into as (BM x AP),
-// B depth k0.. into bs (KC x BP); 16 bytes per copy, no registers in between
-__device__ __forceinline__ void issue_p7(float* as, float* bs,
-                                         const float* __restrict__ a,
-                                         const float* __restrict__ b, int e0, int k0) {
-  for (int t = threadIdx.x; t < BM * (KC / 4); t += blockDim.x) {
-    const int r = t / (KC / 4), kq = (t % (KC / 4)) * 4;
-    cp_async16(&as[r * AP + kq], &a[(size_t)(e0 + r) * FAN + k0 + kq]);
-  }
-  for (int t = threadIdx.x; t < KC * (V / 4); t += blockDim.x) {
-    const int k = t / (V / 4), nq = (t % (V / 4)) * 4;
-    cp_async16(&bs[k * BP + nq], &b[(size_t)(k0 + k) * V + nq]);
-  }
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// one arrival that also adds `bytes` to the transfers the phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from global into
+// shared memory by the copy engine, counted on `bar` when they have landed
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
-// The ring: STAGES - 1 stages are in flight while compute(as, bs) works on
-// one.  The barrier at the top of step `it` also frees the stage computed
-// at it - 1, which is the one the step then refills.
-template <typename Compute>
-__device__ __forceinline__ void p7_pipeline(const float* __restrict__ a,
-                                            const float* __restrict__ b, int e0,
-                                            Compute compute) {
-  extern __shared__ __align__(32) float ring[];
-  constexpr int NK = FAN / KC;
-  for (int st = 0; st < STAGES - 1; ++st) {
-    float* dst = ring + st * STAGE_FLOATS;
-    issue_p7(dst, dst + BM * AP, a, b, e0, st * KC);
-    cp_async_commit();
-  }
-  for (int it = 0; it < NK; ++it) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nxt = it + STAGES - 1;
-    if (nxt < NK) {
-      float* dst = ring + (nxt % STAGES) * STAGE_FLOATS;
-      issue_p7(dst, dst + BM * AP, a, b, e0, nxt * KC);
+// box (x, y) of a 2D tensor map (x the inner coordinate) into shared memory by
+// the copy engine, counted on `bar` when it has landed
+__device__ __forceinline__ void tensor_load_2d(void* dst, const CUtensorMap* map, int x, int y,
+                                               uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---- p7_tf32: (E, FAN) @ (FAN, V) on the tensor cores ----------------------
+//
+// Bound by reading A once (E x 2,048 fp32: 164 MB at E = 19,968); its 5.2
+// GFLOP take the tensor cores a fifth of that time.  So it is a stream: one
+// persistent block an SM takes an even contiguous share of the rows (151 or
+// 152 at E = 19,968; T7_TM a pass at most, so that B, which every row needs
+// whole, is read once a pass: 69 MB from L2 in all, against 164 MB for
+// 64-row tiles) and walks their depth in chunks of T7_KC through a ring of
+// T7_STAGES stages, with three kinds of warps and no block-wide barrier in
+// the loop:
+//   - a loader warp refills a stage as soon as its consumers free it, with
+//     two copies that complete on the stage's "full" mbarrier: one TMA box
+//     of the share's rows x 32 depths of A (a tensor map made at launch, its
+//     box as tall as the largest share, 128-byte swizzle) and one bulk copy
+//     of B's 32 x 64 chunk.  The copy engine's cost goes by the request: on
+//     an H100 boxes of 32 rows (five a chunk) took 0.079 ms, of 8 rows 0.113,
+//     a bulk copy a row 0.34;
+//   - a converter warp rounds each chunk of B to TF32 once, in mma.sync
+//     fragment order, as soon as it lands, and says so on "bfull" (done by
+//     the loader, it held the refills back: 0.071 ms against 0.066);
+//   - T7_CW consumer warps, one an SM sub-partition, own m16 tiles q, q + 4,
+//     q + 8 of a pass (32 fp32 accumulators a tile and lane), round their A
+//     fragments, run mma.sync m16n8k8 and free the stage on "empty".
+// The A stream alone (no B, no products) takes 0.057 ms of the 0.066.
+//
+// The depth of a 32-deep chunk is permuted so that a lane reads its A
+// fragments with 16-byte loads: virtual k = tig (and tig + 4) of step s is
+// depth 8 tig + s (and 8 tig + 4 + s), so lane (gid, tig) holds depths
+// 8 tig .. 8 tig + 7 of its rows, the 16-byte pieces 2 tig and 2 tig + 1 of
+// a 128-byte row, which the swizzle puts at pieces (2 tig) ^ gid and
+// (2 tig + 1) ^ gid: distinct banks.  B's fragments follow the same depth
+// map; the converter's lanes take their n8-tile pairs and column halves in a
+// rotated order so that its loads, too, hit distinct banks.  Each output is
+// summed by one lane in depth order: bit-identical on a repeat.  Rows past
+// a block's share are read with it (at most 7, or beyond E zero-filled) but
+// never written.
+
+constexpr int T7_KC = 32;                        // depth of a chunk: one permuted block
+constexpr int T7_STAGES = 5;
+constexpr int T7_CW = 4;                         // consumer warps, one an SM sub-partition
+constexpr int T7_TM = 160;                       // rows of a pass: ten m16 tiles
+constexpr int T7_MT = 3;                         // m16 tiles of a consumer warp at most
+constexpr int T7_NT = 32 * (T7_CW + 2);          // and the loader and converter warps
+constexpr int T7_NKC = FAN / T7_KC;              // chunks a pass
+constexpr int T7_A_FLOATS = T7_TM * T7_KC;       // rows of 128 bytes, swizzled
+constexpr int T7_B_FLOATS = T7_KC * V;           // raw, then in fragment order
+constexpr int T7_STAGE_FLOATS = T7_A_FLOATS + 2 * T7_B_FLOATS;
+constexpr size_t T7_SMEM = (size_t)T7_STAGES * T7_STAGE_FLOATS * sizeof(float) + 1024 +
+                           3 * T7_STAGES * sizeof(uint64_t);
+static_assert(T7_KC == 32 && V == 64, "p7_tf32: one permuted 32-deep block a chunk, 8 n8 tiles");
+static_assert(T7_TM / 16 <= T7_CW * T7_MT, "p7_tf32: every m16 tile of a pass has a warp");
+static_assert((T7_STAGE_FLOATS * 4) % 1024 == 0, "p7_tf32: every stage's box on a 1,024-byte boundary");
+
+// loader: start the copies of chunk c (pass c / T7_NKC) into a stage
+__device__ __forceinline__ void t7_issue(float* stage, uint64_t* full, const CUtensorMap* amap,
+                                         int box_rows, const float* __restrict__ b, int lo,
+                                         int c) {
+  const int row0 = lo + (c / T7_NKC) * T7_TM, k0 = (c % T7_NKC) * T7_KC;
+  mbar_arrive_expect_tx(full, (unsigned)(box_rows * T7_KC + T7_B_FLOATS) * 4u);
+  tensor_load_2d(stage, amap, k0, row0, full);
+  bulk_load(stage + T7_A_FLOATS, b + (size_t)k0 * V, T7_B_FLOATS * 4, full);
+}
+
+// converter: B's chunk (raw, rows of 64) rounded to TF32 into fragment order:
+// frag[((s * 4 + np) * 32 + lane) * 4 ..] = b0, b1 of n8 tile 2 np, then of
+// 2 np + 1, for step s (b0 at depth 8 tig + s, b1 at +4).  Lane (gid, tig)
+// takes pair np = (n + tig) % 4 at turn n, and lanes with tig >= 2 read the
+// second column half first: the four lanes of a gid read four banks apart.
+__device__ __forceinline__ void t7_convert(const float* raw, uint32_t* frag, int lane) {
+  const int gid = lane / 4, tig = lane % 4, swap = tig >> 1;
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int np = (n + tig) & 3;
+      const float* r = raw + (8 * tig + s) * V + 16 * np + gid;  // depth 8 tig + s
+      const float* first = r + 8 * swap;
+      const float* second = r + 8 * (1 - swap);
+      const uint32_t x0 = __float_as_uint(packed_tp::tf32_round(first[0]));
+      const uint32_t x1 = __float_as_uint(packed_tp::tf32_round(first[4 * V]));
+      const uint32_t y0 = __float_as_uint(packed_tp::tf32_round(second[0]));
+      const uint32_t y1 = __float_as_uint(packed_tp::tf32_round(second[4 * V]));
+      *reinterpret_cast<uint4*>(&frag[((s * 4 + np) * 32 + lane) * 4]) =
+          swap ? make_uint4(y0, y1, x0, x1) : make_uint4(x0, x1, y0, y1);
     }
-    cp_async_commit();
-    const float* as = ring + (it % STAGES) * STAGE_FLOATS;
-    compute(as, as + BM * AP);
-  }
 }
 
-// tensor cores: grid E / BM, 4 warps, warp w owns rows 16w..16w+15 and all V
-// columns as four m16n16k8 accumulators; operands rounded to tf32
-__global__ void __launch_bounds__(128)
-p7_tf32_kernel(const float* __restrict__ a, const float* __restrict__ b,
-               float* __restrict__ out) {
-  using namespace nvcuda;
-  const int e0 = blockIdx.x * BM;
-  const int warp = threadIdx.x / 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 8, float> acc[V / 16];
+__global__ void __launch_bounds__(T7_NT, 1)
+p7_tf32_kernel(const __grid_constant__ CUtensorMap amap, const float* __restrict__ b,
+               float* __restrict__ out, int E, int box_rows) {
+  extern __shared__ __align__(16) float t7_ring[];
+  // the swizzled boxes land on 1,024-byte boundaries
+  float* ring = t7_ring + ((1024 - (smem_addr(t7_ring) & 1023)) & 1023) / 4;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T7_STAGES * T7_STAGE_FLOATS);
+  uint64_t* bfull = full + T7_STAGES;  // B converted (32 converter lanes)
+  uint64_t* empty = bfull + T7_STAGES; // stage free again (T7_CW consumer warps)
+  // this block's rows: an even contiguous share of E
+  const int lo = (int)((long long)E * blockIdx.x / gridDim.x);
+  const int hi = (int)((long long)E * (blockIdx.x + 1) / gridDim.x);
+  if (lo >= hi) return;
+  const int chunks = (hi - lo + T7_TM - 1) / T7_TM * T7_NKC;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T7_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&bfull[s], 32);
+      mbar_init(&empty[s], T7_CW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == T7_CW) {
+    // loader: refill each stage once its consumers are done with it
+    if (lane == 0)
+      for (int c = 0; c < chunks; ++c) {
+        const int st = c % T7_STAGES;
+        if (c >= T7_STAGES) mbar_wait(&empty[st], (c / T7_STAGES - 1) & 1);
+        t7_issue(ring + st * T7_STAGE_FLOATS, &full[st], &amap, box_rows, b, lo, c);
+      }
+    return;
+  }
+  if (warp == T7_CW + 1) {
+    // converter: B of each chunk into fragment order as soon as it lands
+    for (int c = 0; c < chunks; ++c) {
+      const int st = c % T7_STAGES;
+      float* stage = ring + st * T7_STAGE_FLOATS;
+      mbar_wait(&full[st], (c / T7_STAGES) & 1);
+      t7_convert(stage + T7_A_FLOATS, reinterpret_cast<uint32_t*>(stage + T7_A_FLOATS + T7_B_FLOATS),
+                 lane);
+      mbar_arrive(&bfull[st]);
+    }
+    return;
+  }
+
+  // consumers: warp w owns m16 tiles q, q + 4, q + 8 (below T7_TM / 16) of
+  // each pass, q = (w + 2) % 4, so that the two warps with three tiles share
+  // no SM sub-partition with the loader or the converter
+  const int gid = lane / 4, tig = lane % 4, q0 = (warp + 2) % 4;
+  float acc[T7_MT][8][4];
 #pragma unroll
-  for (int n = 0; n < V / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-  p7_pipeline(a, b, e0, [&](const float* as, const float* bs) {
+  for (int mt = 0; mt < T7_MT; ++mt)
 #pragma unroll
-    for (int k = 0; k < KC; k += 8) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32, wmma::row_major> af;
-      wmma::load_matrix_sync(af, &as[warp * 16 * AP + k], AP);
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int t = 0; t < af.num_elements; ++t) af.x[t] = wmma::__float_to_tf32(af.x[t]);
+      for (int r = 0; r < 4; ++r) acc[mt][n][r] = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    const int st = c % T7_STAGES, par = (c / T7_STAGES) & 1;
+    const int row0 = lo + (c / T7_NKC) * T7_TM, rows = min(T7_TM, hi - row0);
+    const float* as = ring + st * T7_STAGE_FLOATS;
+    const uint32_t* frag = reinterpret_cast<const uint32_t*>(as + T7_A_FLOATS + T7_B_FLOATS);
+    mbar_wait(&full[st], par);
+    mbar_wait(&bfull[st], par);
+    // tile q0 + 4 mt holds rows of this pass (the same in every lane)
+    bool live[T7_MT];
+    uint32_t af[T7_MT][2][8];  // [tile][row gid / gid + 8][depth 8 tig + d]
 #pragma unroll
-      for (int n = 0; n < V / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 8, wmma::precision::tf32, wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, &bs[k * BP + n * 16], BP);
+    for (int mt = 0; mt < T7_MT; ++mt) {
+      const int tile = q0 + 4 * mt;
+      live[mt] = tile < T7_TM / 16 && 16 * tile < rows;
+      if (live[mt])
 #pragma unroll
-        for (int t = 0; t < bf.num_elements; ++t) bf.x[t] = wmma::__float_to_tf32(bf.x[t]);
-        wmma::mma_sync(acc[n], af, bf, acc[n]);
+        for (int h = 0; h < 2; ++h) {
+          const float* src = as + (16 * tile + 8 * h + gid) * T7_KC;
+          const float4 v0 = *reinterpret_cast<const float4*>(src + 4 * ((2 * tig) ^ gid));
+          const float4 v1 = *reinterpret_cast<const float4*>(src + 4 * ((2 * tig + 1) ^ gid));
+          const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+          for (int d = 0; d < 8; ++d) af[mt][h][d] = __float_as_uint(packed_tp::tf32_round(v[d]));
+        }
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        const uint4 w = *reinterpret_cast<const uint4*>(&frag[((s * 4 + np) * 32 + lane) * 4]);
+        const uint32_t b0[2] = {w.x, w.y}, b1[2] = {w.z, w.w};
+#pragma unroll
+        for (int mt = 0; mt < T7_MT; ++mt)
+          if (live[mt]) {
+            const uint32_t af4[4] = {af[mt][0][s], af[mt][1][s], af[mt][0][s + 4], af[mt][1][s + 4]};
+            packed_tp::mma_tf32(acc[mt][2 * np], af4, b0);
+            packed_tp::mma_tf32(acc[mt][2 * np + 1], af4, b1);
+          }
       }
     }
-  });
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+    if (c % T7_NKC == T7_NKC - 1) {
+      // the pass is done: its rows out, the sums cleared
 #pragma unroll
-  for (int n = 0; n < V / 16; ++n)
-    wmma::store_matrix_sync(&out[(size_t)(e0 + warp * 16) * V + n * 16], acc[n], V,
-                            wmma::mem_row_major);
+      for (int mt = 0; mt < T7_MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * (q0 + 4 * mt) + 8 * h + gid;
+          if (live[mt] && r < rows) {
+            float* dst = out + (size_t)(row0 + r) * V + 2 * tig;
+#pragma unroll
+            for (int n = 0; n < 8; ++n)
+              *reinterpret_cast<float2*>(&dst[8 * n]) =
+                  make_float2(acc[mt][n][2 * h], acc[mt][n][2 * h + 1]);
+          }
+        }
+#pragma unroll
+      for (int mt = 0; mt < T7_MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[mt][n][r] = 0.f;
+    }
+  }
 }
 
 // ---- p6: sh @ Crep alone ---------------------------------------------------
@@ -409,21 +539,22 @@ constexpr size_t P6_SMEM =
     (size_t)(P6_BFRAG + P6_PN + 2 * P6_BM * S + P6_BM * P6_OS) * sizeof(float);
 static_assert(W % P6_PN == 0 && P6_KT * 8 + 1 == S, "p6 tiling");
 
-// panel pn of crep into shared memory: bf[((j * P6_KT + s) * 32 + lane) * 4 ..]
-// = big b0, big b1, small b0, small b1 of n8 tile j, k8 step s (b0 at depth
-// 8s + tig, b1 at 8s + tig + 4, column 8j + gid), and depth 24 as b24
-__device__ __forceinline__ void p6_load_panel(uint32_t* bf, float* b24,
-                                              const float* __restrict__ crep, int pn) {
-  const int n0 = pn * P6_PN;
-  for (int t = threadIdx.x; t < (P6_PN / 8) * P6_KT * 32; t += P6_NT) {
+// NJ n8 tiles of crep from column col0 into shared memory, split for 3xTF32:
+// bf[((j * P6_KT + s) * 32 + lane) * 4 ..] = big b0, big b1, small b0, small b1
+// of n8 tile j, k8 step s (b0 at depth 8s + tig, b1 at 8s + tig + 4, column
+// col0 + 8j + gid), and depth 24 as b24[0 .. 8 NJ)
+template <int NJ>
+__device__ __forceinline__ void load_split_panel(uint32_t* bf, float* b24,
+                                                 const float* __restrict__ crep, int col0) {
+  for (int t = threadIdx.x; t < NJ * P6_KT * 32; t += blockDim.x) {
     const int lane = t % 32, s = (t / 32) % P6_KT, j = t / (32 * P6_KT);
-    const int col = n0 + 8 * j + lane / 4, k = 8 * s + lane % 4;
+    const int col = col0 + 8 * j + lane / 4, k = 8 * s + lane % 4;
     const float b[2] = {crep[(size_t)k * W + col], crep[(size_t)(k + 4) * W + col]};
     uint32_t big[2], small[2];
     packed_tp::split_tf32(b, big, small);
     *reinterpret_cast<uint4*>(&bf[4 * t]) = make_uint4(big[0], big[1], small[0], small[1]);
   }
-  for (int c = threadIdx.x; c < P6_PN; c += P6_NT) b24[c] = crep[(size_t)(S - 1) * W + n0 + c];
+  for (int c = threadIdx.x; c < 8 * NJ; c += blockDim.x) b24[c] = crep[(size_t)(S - 1) * W + col0 + c];
 }
 
 // rows [e0, e0 + P6_BM) of sh: 6,400 contiguous bytes
@@ -457,7 +588,7 @@ p6_kernel(const float* __restrict__ sh, const float* __restrict__ crep,
     // done with the old one
     if (pn != panel) {
       __syncthreads();
-      p6_load_panel(bf, b24, crep, pn);
+      load_split_panel<P6_PN / 8>(bf, b24, crep, pn * P6_PN);
       panel = pn;
     }
     cp_async_wait<0>();
@@ -514,6 +645,140 @@ p6_kernel(const float* __restrict__ sh, const float* __restrict__ crep,
       const int q = lane + 32 * i, r = q / (P6_WN / 4), c = 4 * (q % (P6_WN / 4));
       __stcs(reinterpret_cast<float4*>(&dst[(size_t)r * W + c]),
              *reinterpret_cast<const float4*>(&st[(r0 + r) * P6_OS + c0 + c]));
+    }
+  }
+}
+
+// ---- p1: per i, dot + tile + multiply + add --------------------------------
+//
+// Bound by its products: 4.96 GFLOP at E = 19,968 (counted in fp32), 77 MB
+// written.  Laid out as p6: persistent blocks, two an SM, walk items (panel,
+// 64-edge tile) in panel-major order, each block a contiguous run of them,
+// and keep the panel for all its tiles.  A panel is P1_PN output columns
+// with their columns of all D1 = 5 blocks of Crep (5 x 96), split once into
+// 3xTF32 halves in B-fragment order; the sh tile of the next item loads by
+// cp.async while this one computes.  Each warp owns 16 rows x 48 columns (6
+// n8 tiles): per i it forms W_i's fragments (depth 0..23 in 3xTF32
+// mma.sync, depth 24 by one FFMA), multiplies each by its x value (column c
+// takes x[e, i * 24 + c mod 24]: a 48-column half starts on a multiple of
+// 24, so n8 tile q of the warp takes the three pairs 8 (q mod 3) + 2 tig, +1
+// of its two rows, read from global memory one i ahead) and adds over i in
+// the closure's order (W_0 x_0, then + W_i x_i).  The sums stay in
+// registers and leave as 8-byte streaming stores, whole 32-byte sectors.
+
+constexpr int P1_PN = 4 * MUL;               // output columns of a panel: 96
+constexpr int P1_PANELS = KM / P1_PN;        // 10
+constexpr int P1_NJ = P1_PN / 8;             // n8 tiles of a panel
+constexpr int P1_WJ = P1_NJ / 2;             // n8 tiles of a warp
+constexpr int P1_BFRAG = D1 * P1_NJ * P6_KT * 32 * 4;
+constexpr size_t P1_SMEM = (size_t)(P1_BFRAG + D1 * P1_PN + 2 * P6_BM * S) * sizeof(float);
+static_assert(KM % P1_PN == 0 && (P1_WJ * 8) % MUL == 0, "p1: a warp's columns start on a multiple of MUL");
+
+__global__ void __launch_bounds__(P6_NT, 2)
+p1_kernel(const float* __restrict__ x, const float* __restrict__ sh,
+          const float* __restrict__ crep, float* __restrict__ out, int n_tiles) {
+  extern __shared__ __align__(16) float smem[];
+  uint32_t* bf = reinterpret_cast<uint32_t*>(smem);  // [i][j][s][lane][4]
+  float* b24 = smem + P1_BFRAG;                      // [i][P1_PN]
+  float* sh_s = b24 + D1 * P1_PN;                    // two tiles of P6_BM x S
+  const long long items = (long long)P1_PANELS * n_tiles;
+  const long long lo = items * blockIdx.x / gridDim.x;
+  const long long hi = items * (blockIdx.x + 1) / gridDim.x;
+  if (lo >= hi) return;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int r0 = 16 * (warp % 4), j0 = P1_WJ * (warp / 4);
+  int panel = -1;
+  p6_issue_sh(sh_s, sh, (int)(lo % n_tiles) * P6_BM);
+  cp_async_commit();
+  for (long long it = lo; it < hi; ++it) {
+    const int pn = (int)(it / n_tiles), e0 = (int)(it % n_tiles) * P6_BM;
+    const float* cur = sh_s + ((it - lo) & 1) * P6_BM * S;
+    if (pn != panel) {
+      // every warp is done with the old panel
+      __syncthreads();
+#pragma unroll 1
+      for (int i = 0; i < D1; ++i)
+        load_split_panel<P1_NJ>(bf + i * P1_NJ * P6_KT * 32 * 4, b24 + i * P1_PN, crep,
+                                i * KM + pn * P1_PN);
+      panel = pn;
+    }
+    cp_async_wait<0>();
+    // this tile and the panel are in place, and every warp is done with the
+    // last item, so the other sh buffer is free for the next tile
+    __syncthreads();
+    if (it + 1 < hi)
+      p6_issue_sh(sh_s + ((it + 1 - lo) & 1) * P6_BM * S, sh, (int)((it + 1) % n_tiles) * P6_BM);
+    cp_async_commit();
+
+    uint32_t abig[P6_KT][4], asmall[P6_KT][4];
+#pragma unroll
+    for (int s = 0; s < P6_KT; ++s) {
+      const int k = 8 * s + tig;
+      const float a[4] = {cur[(r0 + gid) * S + k], cur[(r0 + gid + 8) * S + k],
+                          cur[(r0 + gid) * S + k + 4], cur[(r0 + gid + 8) * S + k + 4]};
+      packed_tp::split_tf32(a, abig[s], asmall[s]);
+    }
+    const float a24lo = cur[(r0 + gid) * S + S - 1], a24hi = cur[(r0 + gid + 8) * S + S - 1];
+    // x of rows gid and gid + 8, columns 8 c + 2 tig, +1 of block i, c < 3
+    const float* xrow = x + (size_t)(e0 + r0 + gid) * XW + 2 * tig;
+    float2 xv[3][2], xn[3][2];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      xv[c][0] = __ldg(reinterpret_cast<const float2*>(xrow + 8 * c));
+      xv[c][1] = __ldg(reinterpret_cast<const float2*>(xrow + 8 * XW + 8 * c));
+    }
+    float acc[P1_WJ][4];
+#pragma unroll
+    for (int i = 0; i < D1; ++i) {
+      if (i + 1 < D1) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          xn[c][0] = __ldg(reinterpret_cast<const float2*>(xrow + (i + 1) * MUL + 8 * c));
+          xn[c][1] = __ldg(reinterpret_cast<const float2*>(xrow + 8 * XW + (i + 1) * MUL + 8 * c));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < P1_WJ; ++q) {
+        const int j = j0 + q;
+        float hi_[4] = {0.f, 0.f, 0.f, 0.f}, lo_[4] = {0.f, 0.f, 0.f, 0.f},
+              lo2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int s = 0; s < P6_KT; ++s) {
+          const uint4 b = *reinterpret_cast<const uint4*>(
+              &bf[(((i * P1_NJ + j) * P6_KT + s) * 32 + lane) * 4]);
+          const uint32_t bb[2] = {b.x, b.y}, bs[2] = {b.z, b.w};
+          packed_tp::mma_tf32(lo_, asmall[s], bb);
+          packed_tp::mma_tf32(hi_, abig[s], bb);
+          packed_tp::mma_tf32(lo2, abig[s], bs);
+        }
+        const float2 b = *reinterpret_cast<const float2*>(&b24[i * P1_PN + 8 * j + 2 * tig]);
+        float v[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) v[r] = (lo_[r] + lo2[r]) + hi_[r];
+        v[0] = fmaf(a24lo, b.x, v[0]);
+        v[1] = fmaf(a24lo, b.y, v[1]);
+        v[2] = fmaf(a24hi, b.x, v[2]);
+        v[3] = fmaf(a24hi, b.y, v[3]);
+        const float2 xa = xv[q % 3][0], xb = xv[q % 3][1];
+        const float xq[4] = {xa.x, xa.y, xb.x, xb.y};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[q][r] = i == 0 ? v[r] * xq[r] : fmaf(v[r], xq[r], acc[q][r]);
+      }
+      if (i + 1 < D1) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          xv[c][0] = xn[c][0];
+          xv[c][1] = xn[c][1];
+        }
+      }
+    }
+    float* dst = out + (size_t)(e0 + r0 + gid) * KM + pn * P1_PN + 2 * tig;
+#pragma unroll
+    for (int q = 0; q < P1_WJ; ++q) {
+      __stcs(reinterpret_cast<float2*>(dst + 8 * (j0 + q)), make_float2(acc[q][0], acc[q][1]));
+      __stcs(reinterpret_cast<float2*>(dst + 8 * KM + 8 * (j0 + q)),
+             make_float2(acc[q][2], acc[q][3]));
     }
   }
 }
@@ -670,16 +935,6 @@ p7_reduce_kernel(const float* part, float* __restrict__ out, int E) {
   *reinterpret_cast<float4*>(&out[(size_t)r * V + c]) = s;
 }
 
-template <typename Kern>
-cudaError_t launch_p7(Kern kern, const float* a, const float* b, float* out, int E,
-                      cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P7_SMEM);
-  if (err != cudaSuccess) return err;
-  kern<<<E / BM, 128, P7_SMEM, st>>>(a, b, out);
-  return cudaGetLastError();
-}
-
 constexpr size_t P13_SMEM = (size_t)(BM * S + BM * XW + D1 * S * BN) * sizeof(float);
 
 template <typename Kern>
@@ -690,6 +945,23 @@ cudaError_t launch_p13(Kern kern, int threads, const float* x, const float* sh,
   if (err != cudaSuccess) return err;
   kern<<<dim3(E / BM, KM / BN), threads, P13_SMEM, st>>>(x, sh, crep, out);
   return cudaGetLastError();
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime, so that
+// the library is not linked against libcuda (null where it is missing)
+inline EncodeTiled encode_tiled(void) {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+          cudaSuccess ||
+      found != cudaDriverEntryPointSuccess)
+    return nullptr;
+  return (EncodeTiled)fn;
 }
 
 inline int sm_count(void) {
@@ -721,10 +993,17 @@ extern "C" {
 // the row multiple the products take E in
 int probe_throughput_edge_quantum(void) { return BM; }
 
+// blocks of p1 resident on one SM (two by design; -1: the size is refused)
+int probe_p1_resident_per_sm(void) { return resident_per_sm(p1_kernel, P6_NT, P1_SMEM); }
+
 int probe_p1(const float* x, const float* sh, const float* crep, float* out,
              int E, void* stream) {
   if (E <= 0 || E % BM != 0) return (int)cudaErrorInvalidValue;
-  return (int)launch_p13(p1_kernel, 192, x, sh, crep, out, E, (cudaStream_t)stream);
+  static int blocks = 0;
+  if (blocks <= 0) blocks = probe_p1_resident_per_sm() * sm_count();
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  p1_kernel<<<blocks, P6_NT, P1_SMEM, (cudaStream_t)stream>>>(x, sh, crep, out, E / P6_BM);
+  return (int)cudaGetLastError();
 }
 
 int probe_p3(const float* x, const float* sh, const float* crep, float* out,
@@ -818,9 +1097,35 @@ int probe_p7(const float* a, const float* b, float* out, float* part, int E, voi
   return (int)cudaGetLastError();
 }
 
+// blocks of p7_tf32 resident on one SM (one by design: its ring takes most
+// of the shared memory)
+int probe_p7_tf32_resident_per_sm(void) {
+  return resident_per_sm(p7_tf32_kernel, T7_NT, T7_SMEM);
+}
+
 int probe_p7_tf32(const float* a, const float* b, float* out, int E, void* stream) {
   if (E <= 0 || E % BM != 0) return (int)cudaErrorInvalidValue;
-  return (int)launch_p7(p7_tf32_kernel, a, b, out, E, (cudaStream_t)stream);
+  static int blocks = 0;
+  if (blocks <= 0) blocks = probe_p7_tf32_resident_per_sm() > 0 ? sm_count() : -1;
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  static EncodeTiled encode = nullptr;
+  if (!encode) encode = encode_tiled();
+  if (!encode) return (int)cudaErrorNotSupported;
+  // one box a chunk: the largest share of rows (at most a pass), rounded up
+  // to the eight rows of a swizzle pattern
+  const int share = (E + blocks - 1) / blocks;
+  const int box_rows = (min(share, T7_TM) + 7) / 8 * 8;
+  CUtensorMap amap;
+  const cuuint64_t dims[2] = {(cuuint64_t)FAN, (cuuint64_t)E};
+  const cuuint64_t strides[1] = {(cuuint64_t)FAN * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)T7_KC, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  if (encode(&amap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, (void*)a, dims, strides, box,
+             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  p7_tf32_kernel<<<blocks, T7_NT, T7_SMEM, (cudaStream_t)stream>>>(amap, b, out, E, box_rows);
+  return (int)cudaGetLastError();
 }
 
 const char* probe_throughput_error_string(int code) {

@@ -20,12 +20,19 @@ its plain PyTorch version (``plain_<name>`` below) and timed alone:
   p7 / p7_tf32: the Wcat-stage product in fp32 FFMA / on the tensor cores
       with tf32 operands and fp32 accumulation
 
+``p1``, ``p6`` and ``p7_tf32`` run persistent blocks that each keep their
+share of the work (``p1``/``p6`` a 3xTF32-split panel of Crep over edge
+tiles, ``p7_tf32`` an even share of the rows streamed through a ring of
+bulk copies); ``p7`` splits its tiles' depth evenly over its blocks and adds
+the parts in a second kernel.
+
 Per probe it prints the time (median of 8 after 2 warm-up runs, CUDA events
 on the card), the achieved rate, the bound max(FLOPs / peak, bytes / 3.35
 TB/s) on an H100 (peak: 67 TFLOP/s fp32 outside the tensor cores, also taken
 for the bf16 sweeps, which no tensor core runs; 495 TFLOP/s for tf32), the
 plain version's time and, where one PyTorch call computes the same function,
-that call's.  A probe that disagrees with its plain version prints ``FAIL``
+that call's (for ``p7_tf32`` ``torch.matmul`` with TF32 allowed for that call
+alone, so that it is cuBLAS's TF32 product).  A probe that disagrees with its plain version prints ``FAIL``
 and the run exits non-zero.
 """
 
@@ -50,8 +57,8 @@ NS = 8
 NS_DEEP = 256
 FAN, V = 2048, 64
 _SRC = "tools_dev/vpu_probe.py"
-# p6 and p7 are also checked at 17 tiles of 64 rows, a count that no split
-# of their work divides evenly
+# p1, p6, p7 and p7_tf32 are also checked at 17 tiles of 64 rows, a count
+# that no split of their work divides evenly
 ODD_TILES = 17 * 64
 
 
@@ -141,6 +148,22 @@ def p7_scratch_of_library(rows):
     return int(fn(rows))
 
 
+def _lib_p7_tf32(a, b):
+    """p7_tf32's yardstick: ``torch.matmul`` with TF32 operands allowed for
+    this call alone (``fp32_precision``, or ``allow_tf32`` on an older
+    PyTorch), the setting put back as it was, also when the product raises:
+    the process keeps full fp32 products everywhere else."""
+    m = torch.backends.cuda.matmul
+    name, value = ("fp32_precision", "tf32") if hasattr(m, "fp32_precision") \
+        else ("allow_tf32", True)
+    prev = getattr(m, name)
+    setattr(m, name, value)
+    try:
+        return torch.matmul(a, b)
+    finally:
+        setattr(m, name, prev)
+
+
 def _lib_p4c(a, b, ns=NS):
     acc = a
     for _ in range(ns):
@@ -167,7 +190,7 @@ _p7_bytes = lambda n: 4 * words((n, FAN), (FAN, V), (n, V))  # noqa: E731
 
 PROBES = {p.name: p for p in [
     _probe("p1", 73, "per i: dot + tile + multiply + add", _x_sh_crep, KM, plain_p1,
-           _p13_work, library=_lib_p13, row_quantum=64),
+           _p13_work, library=_lib_p13, row_quantum=64, odd_rows=ODD_TILES),
     _probe("p3", 104, "one wide dot + multiply + tree sum", _x_sh_crep, KM, plain_p3,
            _p13_work, library=_lib_p13, row_quantum=64),
     _probe("p4", 136, f"fp32 multiply x{NS} sweeps of the slab", _slabs, W, plain_p4,
@@ -196,7 +219,8 @@ PROBES = {p.name: p for p in [
     # max|ref|, and 2e-3 leaves a margin of ten
     _probe("p7_tf32", 238, "(E,2048) @ (2048,64), tensor cores, tf32 operands",
            _p7_shapes, V, plain_p7, lambda n: (2 * FAN * V * n, _p7_bytes(n)),
-           library=torch.matmul, row_quantum=64, tol=2e-3, peak_flops=H100_TF32_FLOPS),
+           library=_lib_p7_tf32, row_quantum=64, tol=2e-3, peak_flops=H100_TF32_FLOPS,
+           odd_rows=ODD_TILES),
 ]}
 
 

@@ -19,9 +19,10 @@ plain version within 2e-5 * max|ref| (outputs) and 1e-4 * max|ref|
 (gradients).  Every probe kernel (``tools_dev``) is held to its plain version
 within its stated limit (fp32 1e-4, bf16 2e-2, tf32 operands 2e-3, all *
 max|plain|) at its own size, the throughput probes at E = 256, the P1/P2
-probes also at the bench rows (19,968) and at 1,001 rows, ``p6`` and ``p7``
-also at 19,968 and 1,088 rows; ``k_acc``, ``p6`` and ``p7`` repeat bit
-for bit.
+probes also at the bench rows (19,968) and at 1,001 rows, ``p1``, ``p6``,
+``p7`` and ``p7_tf32`` also at 19,968 and 1,088 rows; ``k_acc``, ``p1``,
+``p6``, ``p7`` and ``p7_tf32`` repeat bit for bit.  ``p7_tf32``'s library
+call, a TF32 ``torch.matmul``, is within the same 2e-3 of the plain product.
 """
 
 import numpy as np
@@ -375,11 +376,12 @@ def _check_guard_rows(p, rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["p6", "p7"])
+@pytest.mark.parametrize("name", ["p1", "p6", "p7", "p7_tf32"])
 def test_cuda_throughput_product_matches_plain_at_every_size(name):
-    """p6 and p7 at E = 19,968 and at 17 tiles of 64 rows, which no split of
-    their work divides evenly (p7's last tile of 128 rows is half past E);
-    each repeats bit for bit; rows past E are neither read nor written."""
+    """p1, p6, p7 and p7_tf32 at E = 19,968 and at 17 tiles of 64 rows, which
+    no split of their work divides evenly (p7's last tile of 128 rows is half
+    past E, p7_tf32's shares of 8 or 9 rows end inside an m16 tile); each
+    repeats bit for bit; rows past E are neither read nor written."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     p = PROBES[name]
@@ -388,8 +390,9 @@ def test_cuda_throughput_product_matches_plain_at_every_size(name):
         tensors = p.inputs(rng, "cuda", rows)
         row = probe.check(p, tensors)
         assert row["ok"], (rows, row)
-        # p7 adds its blocks' sums in a second kernel, and p6's warps share
-        # buffers from item to item: both repeat bit for bit
+        # p7 adds its blocks' sums in a second kernel, p1's and p6's warps
+        # share buffers from item to item, p7_tf32's stages are reused
+        # through mbarriers: each repeats bit for bit
         for _ in range(3):
             assert torch.equal(row["out"], p(*tensors)), rows
     _check_guard_rows(p, rng)
@@ -397,13 +400,48 @@ def test_cuda_throughput_product_matches_plain_at_every_size(name):
 
 @pytest.mark.cuda
 def test_cuda_throughput_products_fit_their_blocks_per_sm():
-    """p6 runs two persistent blocks an SM, p7 three, so that its 396 runs
-    are all in flight at once on the H100's 132 SMs."""
+    """p1 and p6 run two persistent blocks an SM, p7 three, so that its 396
+    runs are all in flight at once on the H100's 132 SMs, and p7_tf32 one,
+    its ring taking most of the shared memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     lib = PROBES["p6"].kernel.library()
+    assert lib.probe_p1_resident_per_sm() >= 2
     assert lib.probe_p6_resident_per_sm() >= 2
     assert lib.probe_p7_resident_per_sm() >= 3
+    assert lib.probe_p7_tf32_resident_per_sm() >= 1
+
+
+@pytest.mark.cuda
+def test_cuda_p7_tf32_takes_shares_of_two_passes():
+    """At 26,432 rows a block's share is 200 or 201 rows, more than one pass
+    of 160: two passes of chunks through the same ring, the second of 40 or
+    41 rows in a box of 160 (the rows past the share are read, not
+    written); bit for bit on a repeat."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p = PROBES["p7_tf32"]
+    a, b = p.inputs(np.random.default_rng(17), "cuda", 26_432)
+    row = probe.check(p, (a, b))
+    assert row["ok"], row
+    assert torch.equal(row["out"], p(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_p7_tf32_library_is_a_tf32_product():
+    """p7_tf32's yardstick is cuBLAS's TF32 product: within p7_tf32's 2e-3
+    of the plain product, not the full fp32 product, and the process's own
+    setting (full fp32) is the same after it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    p = PROBES["p7_tf32"]
+    a, b = p.inputs(np.random.default_rng(16), "cuda", 1088)
+    ref = a @ b
+    got = p.library(a, b)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= p.tol * float(ref.abs().max())
+    assert not torch.equal(got, ref)
+    assert torch.equal(a @ b, ref)
 
 
 @pytest.mark.cuda

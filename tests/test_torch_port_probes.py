@@ -402,8 +402,323 @@ def test_p7_split_covers_every_term_once(rows):
     assert per_block.max() - per_block.min() <= 1
 
 
+def _mma_m16n8k8(acc, a, b):
+    """mma.sync m16n8k8 on per-lane fragments, as the PTX ISA lays them out
+    (gid = lane // 4, tig = lane % 4): a[lane] = A[gid, tig], A[gid + 8, tig],
+    A[gid, tig + 4], A[gid + 8, tig + 4]; b[lane] = B[tig, gid], B[tig + 4,
+    gid]; acc[lane] = C[gid, 2 tig], C[gid, 2 tig + 1], C[gid + 8, 2 tig],
+    C[gid + 8, 2 tig + 1].  Arrays of 32 lanes; float64, no rounding: this
+    checks index maps, not arithmetic."""
+    lane = np.arange(32)
+    gid, tig = lane // 4, lane % 4
+    A = np.zeros((16, 8))
+    B = np.zeros((8, 8))
+    A[gid, tig], A[gid + 8, tig], A[gid, tig + 4], A[gid + 8, tig + 4] = a.T
+    B[tig, gid], B[tig + 4, gid] = b.T
+    C = A @ B
+    return acc + np.stack([C[gid, 2 * tig], C[gid, 2 * tig + 1],
+                           C[gid + 8, 2 * tig], C[gid + 8, 2 * tig + 1]], axis=1)
+
+
+# p7_tf32's layout, as csrc/probe_throughput.cu sets it
+T7 = dict(KC=32, STAGES=5, CW=4, MT=3)
+T7_TM = 160
+_CU = Path(tp_kernel.CSRC) / "probe_throughput.cu"
+
+
+def test_p7_tf32_layout_is_the_sources():
+    text = _CU.read_text()
+    for line in ("constexpr int T7_KC = 32;", "constexpr int T7_STAGES = 5;",
+                 "constexpr int T7_CW = 4;", "constexpr int T7_TM = 160;",
+                 "constexpr int T7_MT = 3;", "q0 = (warp + 2) % 4;",
+                 "const int box_rows = (min(share, T7_TM) + 7) / 8 * 8;",
+                 "CU_TENSOR_MAP_SWIZZLE_128B", "constexpr int P1_PN = 4 * MUL;",
+                 "constexpr int P6_BM = 64;", "p1_kernel<<<blocks, P6_NT, P1_SMEM"):
+        assert line in text, line
+
+
+def _t7_box_rows(rows, blocks=132):
+    return (min(-(-rows // blocks), T7_TM) + 7) // 8 * 8
+
+
+def _t7_pass(a, b, box_rows):
+    """One pass of a p7_tf32 block over rows a (at most box_rows) and depth
+    b.shape[0] (a multiple of T7_KC), through the kernel's index maps: the
+    TMA box of 128-byte rows with the 128-byte swizzle (16-byte piece j of
+    row r at j ^ (r % 8)), rows past the share filled with garbage, B's
+    chunk dense, the converter's rotated turns into fragment order, the
+    consumers' m16 tiles (warp w: q, q + 4, q + 8 with q = (w + 2) % 4), their
+    permuted 16-byte A loads and their stores."""
+    rows, depth = a.shape[0], b.shape[0]
+    lane = np.arange(32)
+    gid, tig = lane // 4, lane % 4
+    acc = np.zeros((T7["CW"], T7["MT"], 8, 32, 4))
+
+    def tiles(w_):
+        q0 = (w_ + 2) % 4
+        return [(mt, q0 + 4 * mt) for mt in range(T7["MT"])
+                if q0 + 4 * mt < T7_TM // 16 and 16 * (q0 + 4 * mt) < rows]
+    for k0 in range(0, depth, T7["KC"]):
+        stage = np.full(T7_TM * 32, np.nan)
+        box = np.full((box_rows, 32), 1e30)  # another block's rows, or zeros past E
+        box[:rows] = a[:, k0:k0 + T7["KC"]]
+        for r in range(box_rows):
+            for j in range(8):
+                stage[r * 32 + 4 * (j ^ (r % 8)):r * 32 + 4 * (j ^ (r % 8)) + 4] = \
+                    box[r, 4 * j:4 * j + 4]
+        raw = b[k0:k0 + T7["KC"]].ravel()
+        frag = np.full(T7["KC"] * 64, np.nan)
+        swap = tig >> 1
+        for s in range(4):
+            for n in range(4):
+                np_ = (n + tig) & 3
+                r = (8 * tig + s) * 64 + 16 * np_ + gid
+                first, second = r + 8 * swap, r + 8 * (1 - swap)
+                x0, x1, y0, y1 = raw[first], raw[first + 4 * 64], raw[second], raw[second + 4 * 64]
+                w = np.where(swap[:, None] == 1, np.stack([y0, y1, x0, x1], axis=1),
+                             np.stack([x0, x1, y0, y1], axis=1))
+                idx = ((s * 4 + np_) * 32 + lane) * 4
+                for q in range(4):
+                    frag[idx + q] = w[:, q]
+        for w_ in range(T7["CW"]):
+            af = np.zeros((T7["MT"], 2, 8, 32))
+            for mt, tile in tiles(w_):
+                for h in range(2):
+                    src = (16 * tile + 8 * h + gid) * 32
+                    for d in range(8):
+                        piece = (2 * tig + d // 4) ^ gid
+                        af[mt, h, d] = stage[src + 4 * piece + d % 4]
+            for s in range(4):
+                for np_ in range(4):
+                    idx = ((s * 4 + np_) * 32 + lane) * 4
+                    b0 = np.stack([frag[idx], frag[idx + 1]], axis=1)
+                    b1 = np.stack([frag[idx + 2], frag[idx + 3]], axis=1)
+                    for mt, _ in tiles(w_):
+                        a4 = np.stack([af[mt, 0, s], af[mt, 1, s], af[mt, 0, s + 4],
+                                       af[mt, 1, s + 4]], axis=1)
+                        acc[w_, mt, 2 * np_] = _mma_m16n8k8(acc[w_, mt, 2 * np_], a4, b0)
+                        acc[w_, mt, 2 * np_ + 1] = _mma_m16n8k8(acc[w_, mt, 2 * np_ + 1], a4, b1)
+    out = np.full((rows, 64), np.nan)
+    for w_ in range(T7["CW"]):
+        for mt, tile in tiles(w_):
+            for h in range(2):
+                r = 16 * tile + 8 * h + gid
+                keep = r < rows
+                for n in range(8):
+                    for q in range(2):
+                        out[r[keep], 8 * n + 2 * tig[keep] + q] = acc[w_, mt, n, keep, 2 * h + q]
+    return out
+
+
+@pytest.mark.parametrize("rows", [152, 151, 33, 8])
+def test_p7_tf32_fragment_maps_give_the_product(rows):
+    """The kernel's layouts and fragment maps compute A @ B over two chunks,
+    for a block's share at E = 19,968 (152 or 151 rows, the box 152 tall), one
+    that leaves most m16 tiles empty (33) and one inside an m16 tile (8, as at
+    1,088 rows, the box 16 tall); rows past the share never reach the
+    result."""
+    rng = np.random.default_rng(7)
+    a = rng.normal(size=(rows, 2 * T7["KC"]))
+    b = rng.normal(size=(2 * T7["KC"], 64))
+    box_rows = {152: _t7_box_rows(19_968), 151: _t7_box_rows(19_968), 33: 40,
+                8: _t7_box_rows(1088)}[rows]
+    np.testing.assert_allclose(_t7_pass(a, b, box_rows), a @ b, rtol=1e-12, atol=1e-12)
+
+
+def test_p7_tf32_converter_and_a_loads_hit_distinct_banks():
+    """Each shared-memory load instruction of p7_tf32's converter (a float,
+    32 lanes) and of its consumers (16 bytes, eight lanes a phase) touches
+    each bank once."""
+    lane = np.arange(32)
+    gid, tig = lane // 4, lane % 4
+    swap = tig >> 1
+    for s in range(4):
+        for n in range(4):
+            np_ = (n + tig) & 3
+            r = (8 * tig + s) * 64 + 16 * np_ + gid
+            for addr in (r + 8 * swap, r + 8 * swap + 4 * 64, r + 8 * (1 - swap),
+                         r + 8 * (1 - swap) + 4 * 64):
+                assert len(set(addr % 32)) == 32
+    for half in range(2):
+        piece = (2 * tig + half) ^ gid  # rows gid of an eight-row group
+        unit = gid * 8 + piece          # 16-byte units, rows of 128 bytes
+        for phase in range(4):
+            sel = slice(8 * phase, 8 * phase + 8)
+            assert len(set(unit[sel] % 8)) == 8
+
+
+@pytest.mark.parametrize("rows", [64, throughput_probe.ODD_TILES, throughput_probe.E, 65_536])
+def test_p7_tf32_shares_cover_every_term_once(rows):
+    """p7_tf32's schedule: block b of G (one an SM) takes rows
+    [E b / G, E (b + 1) / G), in passes of at most T7_TM rows, each the whole
+    depth in chunks of T7_KC: every (row, depth) term once, no two shares
+    more than one row apart, every pass inside one box (at most T7_TM rows,
+    a multiple of 8), and what a chunk's mbarrier expects fits its count."""
+    G, fan, nkc = 132, throughput_probe.FAN, throughput_probe.FAN // T7["KC"]
+    box_rows = _t7_box_rows(rows, G)
+    assert box_rows % 8 == 0 and box_rows <= T7_TM
+    assert (box_rows * T7["KC"] + T7["KC"] * 64) * 4 < 2 ** 20
+    seen = np.zeros(rows, dtype=np.int64)
+    sizes = []
+    for blk in range(G):
+        lo, hi = rows * blk // G, rows * (blk + 1) // G
+        sizes.append(hi - lo)
+        if lo >= hi:
+            continue
+        chunks = -(-(hi - lo) // T7_TM) * nkc
+        depth = np.zeros((hi - lo, fan), dtype=np.int64)
+        for c in range(chunks):
+            row0, k0 = lo + (c // nkc) * T7_TM, (c % nkc) * T7["KC"]
+            n = min(T7_TM, hi - row0)
+            assert 0 < n <= box_rows
+            depth[row0 - lo:row0 - lo + n, k0:k0 + T7["KC"]] += 1
+        assert (depth == 1).all()
+        seen[lo:hi] += 1
+    assert (seen == 1).all() and max(sizes) - min(sizes) <= 1
+    if rows == throughput_probe.E:
+        assert box_rows == 152 and set(sizes) == {151, 152}
+
+
+# p1's layout: items (panel of 96 output columns, tile of 64 edges),
+# panel-major, in even contiguous runs; warp w owns rows 16 (w % 4) .. of a
+# tile and n8 tiles 6 (w // 4) .. 6 (w // 4) + 5 of a panel
+P1_PN, P1_PANELS, P1_WJ = 96, 10, 6
+
+
+def _p1_items(rows, blocks):
+    n_tiles = rows // 64
+    items = P1_PANELS * n_tiles
+    return [[(it // n_tiles, it % n_tiles) for it in range(items * b // blocks,
+                                                           items * (b + 1) // blocks)]
+            for b in range(blocks)]
+
+
+@pytest.mark.parametrize("rows", [64, throughput_probe.ODD_TILES, throughput_probe.E])
+def test_p1_items_cover_every_term_once(rows):
+    """p1's schedule at two blocks an SM: every (row, column) of the output
+    in exactly one item and one warp's fragments (the D1 x S depth terms of
+    each are ``test_p1_fragment_maps_give_the_closure``'s); runs no more than
+    one item apart; at the bench rows a block loads at most two panels."""
+    blocks = 2 * 132
+    runs = _p1_items(rows, blocks)
+    lens = [len(r) for r in runs]
+    assert max(lens) - min(lens) <= 1
+    owner = np.zeros((rows, throughput_probe.KM), dtype=np.int64)
+    lane = np.arange(32)
+    gid, tig = lane // 4, lane % 4
+    for run in runs:
+        if rows == throughput_probe.E:
+            assert len({pn for pn, _ in run}) <= 2
+        for pn, tile in run:
+            for w in range(8):
+                r0, j0 = 16 * (w % 4), P1_WJ * (w // 4)
+                for q in range(P1_WJ):
+                    col = pn * P1_PN + 8 * (j0 + q) + 2 * tig
+                    for r in (64 * tile + r0 + gid, 64 * tile + r0 + gid + 8):
+                        owner[r, col] += 1
+                        owner[r, col + 1] += 1
+    assert (owner == 1).all()
+
+
+def test_p1_fragment_maps_give_the_closure():
+    """One p1 item through the kernel's index maps (the panel's fragment
+    order for all five blocks of Crep, the sh fragments, depth 24 apart, and
+    x by its class q mod 3 of each warp's n8 tiles) equals plain_p1 on that
+    tile and panel, for each panel."""
+    tp = throughput_probe
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(64, tp.D1 * tp.MUL))
+    sh = rng.normal(size=(64, tp.S))
+    crep = rng.normal(size=(tp.S, tp.W))
+    want = tp.plain_p1(*(torch.as_tensor(v) for v in (x, sh, crep))).numpy()
+    lane = np.arange(32)
+    gid, tig = lane // 4, lane % 4
+    for pn in range(P1_PANELS):
+        got = np.full((64, P1_PN), np.nan)
+        # load_split_panel for each i: bf[i][j][s][lane] = (b0, b1), b24[i][c]
+        bf = np.zeros((tp.D1, 2 * P1_WJ, 3, 32, 2))
+        b24 = np.zeros((tp.D1, P1_PN))
+        for i in range(tp.D1):
+            col0 = i * tp.KM + pn * P1_PN
+            for j in range(2 * P1_WJ):
+                for s in range(3):
+                    col, k = col0 + 8 * j + gid, 8 * s + tig
+                    bf[i, j, s, :, 0], bf[i, j, s, :, 1] = crep[k, col], crep[k + 4, col]
+            b24[i] = crep[tp.S - 1, col0:col0 + P1_PN]
+        for w in range(8):
+            r0, j0 = 16 * (w % 4), P1_WJ * (w // 4)
+            af = [np.stack([sh[r0 + gid, 8 * s + tig], sh[r0 + gid + 8, 8 * s + tig],
+                            sh[r0 + gid, 8 * s + tig + 4], sh[r0 + gid + 8, 8 * s + tig + 4]],
+                           axis=1) for s in range(3)]
+            acc = np.zeros((P1_WJ, 32, 4))
+            for i in range(tp.D1):
+                # class c: columns 8 c + 2 tig, +1 of block i, rows gid and gid + 8
+                xv = [np.stack([x[r0 + gid + 8 * h, i * tp.MUL + 8 * c + 2 * tig + u]
+                                for h in range(2) for u in range(2)], axis=1)
+                      for c in range(3)]
+                for q in range(P1_WJ):
+                    j = j0 + q
+                    v = np.zeros((32, 4))
+                    for s in range(3):
+                        v = _mma_m16n8k8(v, af[s], bf[i, j, s])
+                    b = np.stack([b24[i, 8 * j + 2 * tig], b24[i, 8 * j + 2 * tig + 1]], axis=1)
+                    v[:, 0] += sh[r0 + gid, tp.S - 1] * b[:, 0]
+                    v[:, 1] += sh[r0 + gid, tp.S - 1] * b[:, 1]
+                    v[:, 2] += sh[r0 + gid + 8, tp.S - 1] * b[:, 0]
+                    v[:, 3] += sh[r0 + gid + 8, tp.S - 1] * b[:, 1]
+                    xq = xv[q % 3]
+                    acc[q] = v * xq if i == 0 else acc[q] + v * xq
+            for q in range(P1_WJ):
+                c = 8 * (j0 + q) + 2 * tig
+                got[r0 + gid, c], got[r0 + gid, c + 1] = acc[q, :, 0], acc[q, :, 1]
+                got[r0 + gid + 8, c], got[r0 + gid + 8, c + 1] = acc[q, :, 2], acc[q, :, 3]
+        np.testing.assert_allclose(got, want[:, pn * P1_PN:(pn + 1) * P1_PN],
+                                   rtol=1e-10, atol=1e-10)
+
+
+def test_p7_tf32_library_allows_tf32_for_its_call_only(monkeypatch):
+    """p7_tf32's yardstick runs torch.matmul with TF32 allowed, and leaves
+    the precision setting as it found it, whatever that was, also when the
+    product raises; on the CPU it is the plain product."""
+    m = torch.backends.cuda.matmul
+    name = "fp32_precision" if hasattr(m, "fp32_precision") else "allow_tf32"
+    lib = throughput_probe.PROBES["p7_tf32"].library
+    a, b = (torch.as_tensor(np.random.default_rng(9).normal(size=s).astype(np.float32))
+            for s in ((64, 2048), (2048, 64)))
+    start = getattr(m, name)
+    seen = []
+    real = torch.matmul
+
+    def spy(x, y):
+        seen.append(getattr(m, name))
+        return real(x, y)
+
+    try:
+        for setting in (("ieee", "none") if name == "fp32_precision" else (False,)):
+            setattr(m, name, setting)
+            before = getattr(m, name)
+            got = lib(a, b)
+            assert float((got - a @ b).abs().max()) <= 1e-5 * float((a @ b).abs().max())
+            assert getattr(m, name) == before
+            monkeypatch.setattr(torch, "matmul", spy)
+            lib(a, b)
+            assert seen[-1] in ("tf32", True) and getattr(m, name) == before
+
+            def boom(x, y):
+                seen.append(getattr(m, name))
+                raise RuntimeError("product failed")
+
+            monkeypatch.setattr(torch, "matmul", boom)
+            with pytest.raises(RuntimeError, match="product failed"):
+                lib(a, b)
+            assert seen[-1] in ("tf32", True) and getattr(m, name) == before
+            monkeypatch.setattr(torch, "matmul", real)
+    finally:
+        setattr(m, name, start)
+
+
 def test_p6_p7_are_checked_at_odd_tiles():
-    for name in ("p6", "p7"):
+    for name in ("p1", "p6", "p7", "p7_tf32"):
         p = throughput_probe.PROBES[name]
         assert p.checked_rows == (throughput_probe.E, 1088) and p.timed_rows == (throughput_probe.E,)
         assert 1088 % p.row_quantum == 0 and 1088 % 128 and 1088 // 64 == 17
@@ -590,7 +905,9 @@ def test_sources_hold_a_kernel_per_probe_and_no_library(src):
     assert not re.search(r"#include\s*[<\"](cublas|cutlass|cute|cudnn|torch|ATen)", text, re.I)
     assert not re.search(r"cublas\w*\s*\(|cutlass::", text)
     if src == "probe_throughput":
-        assert "wmma::precision::tf32" in text and "__nv_bfloat162" in text
+        # p7_tf32: TF32 mma.sync fed by the copy engine (a TMA box a chunk)
+        assert "packed_tp::mma_tf32" in text and "cp.async.bulk.tensor.2d" in text
+        assert "__nv_bfloat162" in text
         assert "p4c_kernel<NS><<<" in text and "p4c_kernel<NS_DEEP><<<" in text
 
 
