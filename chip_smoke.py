@@ -40,29 +40,37 @@ Phases (any failure exits non-zero, before the result lines are printed):
      chiprun_out/profile_forward.txt and profile_forward_zonal.txt;
   4. drive the training path under both engines (the ``bench.py`` step:
      masked MAE x 27.211 on ``hamiltonian``, amsgrad at lr 1e-3, no gradient
-     checkpointing) through ``train.trainer.Trainer``: one step must launch
-     B1 and B2 (default) or B3 and B4 (``zonal``) 13 times each and no other
-     kernel; the parameter gradients must agree with the same model's through
-     the plain TP, per tensor within 1e-3 * max|ref|; 5 steps are timed
-     (edges/s, median) and a torch.profiler pass writes device time by
-     kernel per step to chiprun_out/profile_train_step.txt and
-     profile_train_step_zonal.txt;
+     checkpointing) through ``train.trainer.Trainer`` with ``capture=False``:
+     one eager step must launch B1 and B2 (default) or B3 and B4 (``zonal``)
+     13 times each and no other kernel; the parameter gradients must agree
+     with the same model's through the plain TP, per tensor within 1e-3 *
+     max|ref|; then the step and the eval step as the trainer runs them by
+     default, captured as CUDA graphs (``train/captured.py``), against the
+     eager ones from the same weights (``phase_captured``: losses, gradients,
+     two shape keys, a NaN batch, a halved learning rate, the eval step's
+     predictions, and one replay's launches counted in a profiler trace, 13
+     of each of the engine's device kernels); both forms of the step and of
+     the eval step are timed in turns (wall, median of 5, edges/s, peak
+     memory) and torch.profiler passes write device time by kernel to
+     chiprun_out/profile_{train_step,eval}[_captured][_zonal].txt;
   5. run the CLI end to end under both engines: ``stage: test`` on a few
      small crystals (``prediction_hamiltonian.npy`` /
      ``target_hamiltonian.npy``), then ``stage: fit`` for two epochs
      (``metrics.jsonl``, ``best.pt``, predictions) and ``stage: test`` from
-     its ``best.pt``;
+     its ``best.pt``, each step replayed from a graph captured per batch
+     shape (the launch counts there are of the warm-ups and captures);
   6. the probes: hold every probe kernel of ``tools_dev`` (``op_probe``,
      ``op_probe2``, ``throughput_probe``) against its plain version (fp32
      within 1e-4, the bf16 sweep 2e-2, the tf32 product 2e-3, all *
      max|plain|): P1/P2 at the TPU probes' 128 rows (``k_acc`` 512), at the
      bench rows (E = 19,968) and at 1,001 rows, P3 at its full size (E =
-     19,968, slab 4,800), ``p1``, ``p6``, ``p7`` and ``p7_tf32`` also at
-     1,088 rows; ``k_acc``, ``p1``, ``p6``, ``p7`` and ``p7_tf32``
-     bit-identical on a repeat, ``p7``'s scratch as sized in Python equal to
-     the library's count; time kernel, plain version and library call at each
-     timed size (``p7_tf32``'s a ``torch.matmul`` with TF32 allowed for that
-     call alone, printed beside the full-fp32 one), and fail where a
+     19,968, slab 4,800), ``p1``, ``p3``, ``p6``, ``p7`` and ``p7_tf32``
+     also at 1,088 rows; ``k_acc``, ``p1``, ``p3``, ``p6``, ``p7`` and
+     ``p7_tf32`` bit-identical on a repeat, ``p7``'s scratch as sized in
+     Python equal to the library's count; time kernel, plain version and
+     library call at each timed size (``p7_tf32``'s a ``torch.matmul`` with
+     TF32 allowed for that call alone, printed beside the full-fp32 one),
+     and fail where a
      kernel reads above 1.05 of its bound; then run the three entry points on
      the card with every count at 0 before: each probe kernel must have
      launched, and no kernel of the model;
@@ -72,7 +80,8 @@ Phases (any failure exits non-zero, before the result lines are printed):
      a forward with finite outputs whose ``band_energy_ref`` agrees with a
      float64 ``scipy.linalg.eigh`` of the same H(k), S(k) on the host within
      5e-4; one ``Trainer.train_step`` with the bench loss plus ``band_energy``
-     at 0.27211 (13 B1 and 13 B2 launches, finite loss and gradients); timed
+     at 0.27211 (13 B1 and 13 B2 launches, finite loss and gradients; a head
+     with bands stays eager: it reads counts on the host); timed
      steps and, by torch.profiler, the share of Cholesky and ``eigh``
      (chiprun_out/profile_band_step.txt); then the CLI: ``stage: fit`` two
      epochs with the band loss, ``stage: test`` from its ``best.pt`` and
@@ -683,9 +692,9 @@ def bench_graph(dev):
 
 
 def phase_train(tp_kernel, dev, card, eng):
-    """The bench.py train step through the port's Trainer, under engine
-    ``eng``."""
-    import numpy as np
+    """The bench.py train step through the port's Trainer, eager
+    (``capture=False``), under engine ``eng``: its launches, and its
+    gradients against the plain-TP model's."""
     import torch
 
     from hamgnn_tpu_torch.cli import build_model
@@ -699,7 +708,7 @@ def phase_train(tp_kernel, dev, card, eng):
         fail("the bench training phase runs without gradient checkpointing")
     WORK.mkdir(parents=True, exist_ok=True)
     tr = Trainer(model, losses=BENCH_LOSSES, metrics=[], lr=1e-3,
-                 train_dir=str(WORK / f"train_{eng}"), device=dev)
+                 train_dir=str(WORK / f"train_{eng}"), device=dev, capture=False)
     layers = BENCH_CFG["representation_nets"]["HamGNN_pre"]["num_layers"]
     expect = {k: 4 * layers + 1 for k in ENGINES[eng]}
 
@@ -734,30 +743,191 @@ def phase_train(tp_kernel, dev, card, eng):
             worst = (err / scale, name)
     del g_kernel, g_plain
 
-    with engine(eng):
-        losses = [float(tr.train_step(graph)[0])]
-        times = []
-        for _ in range(5):
-            times.append(_host_time(lambda: tr.train_step(graph)))
-        step_ms = 1e3 * float(np.median(times))
-        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-        device_ms = profile_train_step(
-            tr, graph, "profile_train_step.txt" if eng == "auto"
-            else f"profile_train_step_{eng}.txt")
-    print(f"[train] engine {eng}: step {step_ms:.3f} ms (median of 5: "
-          + ", ".join(f"{1e3 * t:.3f}" for t in times)
-          + f") = {n_edges / (step_ms * 1e-3):.1f} edges/s ({n_edges} edges, "
-          f"{graph.num_edges} padded), launches per step {launches}, loss "
-          f"{float(loss):.6f} -> {losses[-1]:.6f}, worst gradient kernel vs plain "
-          f"{worst[0]:.3e} of max|ref| ({worst[1]}), peak memory {peak_gb:.2f} GB, "
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"[train] engine {eng}: eager step ({n_edges} edges, {graph.num_edges} padded), "
+          f"launches per step {launches}, loss {float(loss):.6f}, worst gradient kernel vs "
+          f"plain {worst[0]:.3e} of max|ref| ({worst[1]}), peak memory {peak_gb:.2f} GB, "
           f"card {card}", flush=True)
     del tr, model
     torch.cuda.empty_cache()
-    return dict(step_ms=step_ms, step_times_ms=[1e3 * t for t in times],
-                edges_per_s=n_edges / (step_ms * 1e-3), n_edges=n_edges,
-                padded_edges=graph.num_edges, launches=launches,
-                worst_grad_rel_err=list(worst), peak_gb=peak_gb,
-                loss_first=float(loss), device_ms_by_kernel=device_ms)
+    return dict(n_edges=n_edges, padded_edges=graph.num_edges, launches=launches,
+                worst_grad_rel_err=list(worst), peak_gb=peak_gb, loss_first=float(loss))
+
+
+def phase_captured(tp_kernel, dev, card, eng):
+    """The training step and the eval step captured as CUDA graphs
+    (``train/captured.py``) against the eager ones, under engine ``eng``, at
+    the bench width: two trainers on the same weights (``capture=False`` and
+    the default), the bench crystal and a 256-atom one (a second shape key).
+    Checks: the first step's loss within 1e-6 relative, its gradient per
+    parameter tensor within 1e-5 * max|ref| (``segment_sum`` adds with
+    atomics: no bit identity), the step counts equal; five steps alternating
+    the two shapes, losses within 1e-4; a NaN batch dropped by the replay
+    with the state unchanged; after the learning rate halves, the next
+    replay's loss within 1e-6 and its update's norm within 1e-3 of the eager
+    step's; the eval step's loss within 1e-6 and predictions within 1e-5 *
+    max|ref|; one replay of the step launches each of the engine's device
+    kernels 13 times (a profiler trace) and moves no host counter.  Then both
+    forms of the step and of the eval step are timed in turns (wall, median
+    of 5; device time by kernel over 3, by torch.profiler; peak memory;
+    edges/s)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.data.graph import pad_and_batch
+    from hamgnn_tpu_torch.data.synthetic import bench_crystal
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.train.config import load_config
+    from hamgnn_tpu_torch.train.trainer import Trainer
+    from hamgnn_tpu_torch.utils.profiling import device_launches
+
+    graph, n_edges = bench_graph(dev)
+    small = bench_crystal(n_atoms=256)
+    e_small = int(small["edge_index"].shape[1])
+    graph2 = pad_and_batch([small], node_bucket=256, edge_bucket=-(-e_small // 512) * 512,
+                           device=dev)
+    layers = BENCH_CFG["representation_nets"]["HamGNN_pre"]["num_layers"]
+    suffix = "" if eng == "auto" else f"_{eng}"
+    WORK.mkdir(parents=True, exist_ok=True)
+    trs = {}
+    peaks = {}
+    with engine(eng):
+        for form, capture in (("captured", None), ("eager", False)):
+            model = init_weights(build_model(load_config(None, overrides=BENCH_CFG)), 0)
+            trs[form] = Trainer(model, losses=BENCH_LOSSES, metrics=BENCH_LOSSES, lr=1e-3,
+                                train_dir=str(WORK / f"{form}_{eng}"), device=dev,
+                                capture=capture)
+        eager, cap = trs["eager"], trs["captured"]
+        if eager.captured is not None or cap.captured is None:
+            fail(f"capture=False must run eagerly, and the default capture on the card ({eng})")
+        state = lambda tr: [tr.flat, *tr.opt.state_dict().values()]  # noqa: E731
+
+        def copy_state(dst, src):
+            with torch.no_grad():
+                for a, b in zip(state(dst), state(src)):
+                    a.copy_(b)
+
+        # the first step of each (the captured one: warm-up, capture, replay)
+        for form in ("captured", "eager"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            loss = trs[form].train_step(graph)[0]
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            peaks[form] = torch.cuda.max_memory_allocated(dev) / 1e9
+            if form == "captured":
+                capture_s, lb = first_s, float(loss)
+            else:
+                la = float(loss)
+        if not abs(lb - la) <= 1e-6 * abs(la):
+            fail(f"captured step loss {lb!r} vs eager {la!r} ({eng}): above 1e-6 relative")
+        ofs, worst = 0, 0.0
+        for name, p in eager.model.named_parameters():
+            a, b = eager.grad[ofs:ofs + p.numel()], cap.grad[ofs:ofs + p.numel()]
+            ofs += p.numel()
+            err, scale = rel_err(b, a)
+            if not err <= 1e-5 * scale:
+                fail(f"captured step gradient {name} ({eng}): max|d| {err:.3e} > "
+                     f"1e-5 * {scale:.3e}")
+            worst = max(worst, err / scale if scale else 0.0)
+        if int(eager.opt.count) != int(cap.opt.count):
+            fail(f"step counts {int(eager.opt.count)} (eager) and {int(cap.opt.count)} "
+                 f"(captured) differ ({eng})")
+
+        # five steps alternating two shape keys
+        alt = []
+        for g in (graph2, graph, graph2, graph, graph2):
+            la, lb = float(eager.train_step(g)[0]), float(cap.train_step(g)[0])
+            alt.append((la, lb))
+            if not abs(lb - la) <= 1e-4 * abs(la):
+                fail(f"alternating shapes ({eng}): captured loss {lb!r} vs eager {la!r}")
+        if cap.captured.captures != 2:
+            fail(f"{cap.captured.captures} training graphs captured for two shape keys ({eng})")
+
+        # a NaN batch is dropped by the replay
+        before = [t.clone() for t in state(cap)]
+        bad = dataclasses.replace(graph, Hon=torch.full_like(graph.Hon, float("nan")))
+        loss, logs = cap.train_step(bad)
+        if bool(torch.isfinite(loss)) or float(logs["nonfinite_step"]) != 1.0 or not all(
+                torch.equal(a, b) for a, b in zip(state(cap), before)):
+            fail(f"the replay did not drop a NaN batch with the state unchanged ({eng})")
+        del before, bad
+
+        # the learning rate halves: the next replay at the new rate
+        copy_state(eager, cap)
+        for tr in (eager, cap):
+            tr.sched.lr = tr.sched.lr / 2
+        start = cap.flat.clone()
+        la, lb = float(eager.train_step(graph)[0]), float(cap.train_step(graph)[0])
+        ratio = float((cap.flat - start).norm() / (eager.flat - start).norm())
+        if not (abs(lb - la) <= 1e-6 * abs(la) and abs(ratio - 1.0) <= 1e-3):
+            fail(f"after the learning rate halved ({eng}): loss {lb!r} vs {la!r}, update "
+                 f"norm ratio {ratio!r}")
+        del start
+
+        # one replay's launches, from a profiler trace
+        names = [n for k in ENGINES[eng] for n in tp_kernel.KERNELS[k].device_kernels]
+        host = {n: k.launches for n, k in tp_kernel.KERNELS.items()}
+        replay_launches = device_launches(lambda: cap.train_step(graph), names)
+        if replay_launches != {n: 4 * layers + 1 for n in names} or host != {
+                n: k.launches for n, k in tp_kernel.KERNELS.items()}:
+            fail(f"one replay of the step ({eng}) launched {replay_launches}, expected "
+                 f"{4 * layers + 1} of each, and moved the host counters")
+
+        # the eval step from the same state
+        copy_state(eager, cap)
+        ta, _l, _m, pa = eager.eval_step(graph)
+        tb, _l, _m, pb = cap.eval_step(graph)
+        eval_err = {k: rel_err(pb[k], pa[k]) for k in ("hamiltonian_on", "hamiltonian_off")}
+        if not abs(float(tb) - float(ta)) <= 1e-6 * abs(float(ta)) or not all(
+                e <= 1e-5 * sc for e, sc in eval_err.values()):
+            fail(f"captured eval ({eng}): loss {float(tb)!r} vs {float(ta)!r}, predictions "
+                 f"{eval_err}")
+        del pa, pb
+        eval_launches = device_launches(lambda: cap.eval_step(graph), names)
+
+        # timed in turns
+        times = {k: [] for k in ("eager", "captured", "eager_eval", "captured_eval")}
+        for _ in range(5):
+            for form in ("eager", "captured"):
+                times[form].append(_host_time(lambda: trs[form].train_step(graph)))
+                times[f"{form}_eval"].append(_host_time(lambda: trs[form].eval_step(graph)))
+        device = {}
+        for form in ("eager", "captured"):
+            tag = "" if form == "eager" else "_captured"
+            device[form] = profile_train_step(trs[form], graph,
+                                              f"profile_train_step{tag}{suffix}.txt")
+            device[f"{form}_eval"] = profile_eval(trs[form], graph,
+                                                  f"profile_eval{tag}{suffix}.txt")
+    result = {}
+    for key, ts in times.items():
+        ms = 1e3 * float(np.median(ts))
+        result[key] = dict(ms=ms, times_ms=[1e3 * t for t in ts],
+                           edges_per_s=n_edges / (ms * 1e-3),
+                           device_ms=device[key]["__all__"],
+                           device_ms_by_kernel=device[key])
+        print(f"[captured] engine {eng}: {key.replace('_', ' ')} step {ms:.3f} ms (median of "
+              f"5: " + ", ".join(f"{1e3 * t:.3f}" for t in ts) + f") = "
+              f"{n_edges / (ms * 1e-3):.1f} edges/s, device kernels "
+              f"{device[key]['__all__']:.3f} ms, card {card}", flush=True)
+    print(f"[captured] engine {eng}: first captured step (warm-up, capture, replay) "
+          f"{capture_s:.2f} s; peak memory of the first step: captured {peaks['captured']:.2f} "
+          f"GB, eager {peaks['eager']:.2f} GB; captured vs eager: first loss {lb!r} vs "
+          f"{la!r}, worst gradient {worst:.3e} of max|ref|, alternating shapes "
+          f"{[round(b / a - 1, 9) for a, b in alt]}, NaN batch dropped, halved rate "
+          f"update norm ratio {ratio:.6f}, eval predictions {eval_err}; one replay launched "
+          f"{replay_launches} (eval {eval_launches})", flush=True)
+    del trs, eager, cap
+    torch.cuda.empty_cache()
+    return dict(timings=result, capture_s=capture_s, peak_gb=peaks, worst_grad_rel_err=worst,
+                alternating_losses=alt, lr_halved_update_norm_ratio=ratio,
+                eval_errors={k: list(v) for k, v in eval_err.items()},
+                replay_launches=replay_launches, eval_replay_launches=eval_launches,
+                n_edges=n_edges, second_shape_edges=e_small)
 
 
 def profile_train_step(tr, graph, fname):
@@ -801,6 +971,21 @@ def _write_profile(prof, wall, n, fname, unit):
           + "; ".join(f"{key[:40]} {ms:.3f} ms" for ms, cnt, key in rows[:5]), flush=True)
     return {"__all__": total, "__wall__": wall * 1e3,
             **{key[:80]: ms for ms, cnt, key in rows[:15]}}
+
+
+def profile_eval(tr, graph, fname):
+    """Device time by kernel name over 3 eval steps (forward, losses,
+    metrics), written to chiprun_out/<fname>."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tr.eval_step(graph)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 3
+    return _write_profile(prof, wall, 3, fname, "eval step")
 
 
 def profile_forward(model, graph, fname):
@@ -928,17 +1113,17 @@ def phase_cli_fit(tp_kernel, eng, cfg, rows):
     return dict(fit_s=fit_s, launches=launches, records=records)
 
 
-# probes whose sums cross blocks and meet in a fixed-order second kernel, p1
-# and p6, whose warps share shared-memory buffers from item to item, and
+# probes whose sums cross blocks and meet in a fixed-order second kernel, p1,
+# p3 and p6, whose warps share shared-memory buffers from item to item, and
 # p7_tf32, whose stages are reused through mbarriers: a second launch must
 # repeat the first bit for bit
-REPEATS = ("k_acc", "p1", "p6", "p7", "p7_tf32")
+REPEATS = ("k_acc", "p1", "p3", "p6", "p7", "p7_tf32")
 
 
 def phase_probes(tp_kernel, dev):
     """Every probe kernel against its plain version: P1/P2 at each of their
     sizes (128 rows, ``k_acc`` 512; the bench rows; 1,001 rows), P3 at its
-    full size (``p1``, ``p6``, ``p7``, ``p7_tf32`` also at 1,088 rows), with times, library
+    full size (``p1``, ``p3``, ``p6``, ``p7``, ``p7_tf32`` also at 1,088 rows), with times, library
     times, bounds and the share of the bound reached at each timed size (above ``SHARE_MAX`` fails: no kernel beats
     its true bound); then the three entry points on the card, which must
     launch every probe kernel and no kernel of the model."""
@@ -1263,6 +1448,7 @@ def main():
     zonal_engine = phase_zonal_engine(tp_kernel, dev)
     model = phase_model(tp_kernel, dev, card)
     train = {eng: phase_train(tp_kernel, dev, card, eng) for eng in ENGINES}
+    captured = {eng: phase_captured(tp_kernel, dev, card, eng) for eng in ENGINES}
     fit = {}
     for eng in ENGINES:
         cfg, n_rows = phase_cli(tp_kernel, eng)
@@ -1273,7 +1459,8 @@ def main():
     band_fit = phase_band_cli(tp_kernel)
 
     report = {"card": card, "kernel_rows": rows, "wide": wide, "zonal_engine": zonal_engine,
-              "model": model, "train": train, "fit": fit, "probes": probes,
+              "model": model, "train": train, "captured": captured, "fit": fit,
+              "probes": probes,
               "band": band, "band_fit": band_fit}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

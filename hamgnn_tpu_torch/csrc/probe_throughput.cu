@@ -22,16 +22,16 @@
 // What bounds each on an H100 is in brackets.  The TPU versions re-read the
 // slab from VMEM on every sweep; here a thread keeps its elements in
 // registers across the sweeps, so p4/p4c move each byte once and are bound by
-// device memory.  p3 stages its operands in shared memory and accumulates
-// register tiles of 5 x 4 x 4 per thread.
+// device memory.
 //
-// p1, p6 and p7_tf32 are persistent: a fixed number of blocks, each with its
-// own even share of the work.  p6 (bound by the 383 MB it writes at E =
-// 19,968) and p1 (bound by its products) keep a panel of Crep in shared
+// p1, p3, p6 and p7_tf32 are persistent: a fixed number of blocks, each with
+// its own even share of the work.  p6 (bound by the 383 MB it writes at E =
+// 19,968), p1 and p3 (bound by their products) keep a panel of Crep in shared
 // memory, already split for 3xTF32 mma.sync, and walk edge tiles, p6 two
-// blocks an SM with 192 columns of one D1 block, p1 two an SM with 96 columns
-// of all five, its sum over i in registers; the stores of a tile drain while
-// the next one computes.  p7 is bound by its FFMAs: 128 x 64 tiles with
+// blocks an SM with 192 columns of one D1 block, p1 and p3 (one template, the
+// summing order a compile-time parameter) two an SM with 96 columns of all
+// five, the sum over i in registers; the stores of a tile drain while the
+// next one computes.  p7 is bound by its FFMAs: 128 x 64 tiles with
 // 8 x 8 register tiles a thread (16 shared loads of 16 bytes feed 256 FFMA),
 // the tiles' depth chunks split evenly over 396 blocks, three an SM ("stream-K"),
 // so that all 132 SMs carry the same work, and a second kernel that adds each
@@ -60,97 +60,7 @@ constexpr int NS = 8;         // sweeps
 constexpr int NS_DEEP = 256;  // sweeps of p4c_ns256
 constexpr int FAN = 2048, V = 64;
 
-constexpr int BM = 64;  // edges per block of the products
-constexpr int BN = 96;  // columns per block of p3: 4 * MUL
-
-// ---- p3's staging -----------------------------------------------------------
-
-// rows [e0, e0 + BM) of g (E x width) into s, row-major
-__device__ __forceinline__ void stage_rows(float* s, const float* __restrict__ g,
-                                           int e0, int width) {
-  const float* src = g + (size_t)e0 * width;
-  for (int i = threadIdx.x; i < BM * width; i += blockDim.x) s[i] = src[i];
-}
-
-// rows [e0, e0 + BM) of sh (E x S) into s transposed, [s][BM], so that a
-// thread reads the components of its 4 or 8 edges with 16-byte loads
-__device__ __forceinline__ void stage_sh_t(float* s, const float* __restrict__ sh,
-                                           int e0) {
-  const float* src = sh + (size_t)e0 * S;
-  for (int i = threadIdx.x; i < BM * S; i += blockDim.x) s[i] = src[(i % BM) * S + i / BM];
-}
-
-// columns [n0, n0 + BN) of the D1 blocks of crep (S x W) into s as [i][s][BN]
-__device__ __forceinline__ void stage_crep(float* s, const float* __restrict__ crep,
-                                           int n0) {
-  for (int t = threadIdx.x; t < D1 * S * BN; t += blockDim.x) {
-    const int c = t % BN, sr = (t / BN) % S, i = t / (BN * S);
-    s[t] = crep[(size_t)sr * W + i * KM + n0 + c];
-  }
-}
-
-// ---- p3: one wide product, one multiply, tree sum --------------------------
-
-// grid as p1, 384 threads: thread (eg, cg) owns edges eg*4..+3 and columns
-// cg*4..+3 of all D1 blocks
-__global__ void __launch_bounds__(384)
-p3_kernel(const float* __restrict__ x, const float* __restrict__ sh,
-          const float* __restrict__ crep, float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  float* sh_s = smem;
-  float* x_s = sh_s + BM * S;
-  float* c_s = x_s + BM * XW;
-  const int e0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  stage_sh_t(sh_s, sh, e0);
-  stage_rows(x_s, x, e0, XW);
-  stage_crep(c_s, crep, n0);
-  __syncthreads();
-  const int eg = threadIdx.x / 24, cg = threadIdx.x % 24;
-  const int xm = (cg * 4) % MUL;
-  float wv[D1][4][4];
-#pragma unroll
-  for (int i = 0; i < D1; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) wv[i][j][q] = 0.f;
-#pragma unroll 5
-  for (int s = 0; s < S; ++s) {
-    const float4 a4 = *reinterpret_cast<const float4*>(&sh_s[s * BM + eg * 4]);
-    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-    for (int i = 0; i < D1; ++i) {
-      const float4 c4 = *reinterpret_cast<const float4*>(&c_s[(i * S + s) * BN + cg * 4]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wv[i][j][0] += a[j] * c4.x;
-        wv[i][j][1] += a[j] * c4.y;
-        wv[i][j][2] += a[j] * c4.z;
-        wv[i][j][3] += a[j] * c4.w;
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float p[D1][4];
-#pragma unroll
-    for (int i = 0; i < D1; ++i) {
-      const float4 b4 = *reinterpret_cast<const float4*>(
-          &x_s[(eg * 4 + j) * XW + i * MUL + xm]);
-      p[i][0] = wv[i][j][0] * b4.x;
-      p[i][1] = wv[i][j][1] * b4.y;
-      p[i][2] = wv[i][j][2] * b4.z;
-      p[i][3] = wv[i][j][3] * b4.w;
-    }
-    float r[4];
-    // the halving tree of the original over D1 = 5 blocks
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      r[q] = ((p[0][q] + p[2][q]) + (p[1][q] + p[3][q])) + p[4][q];
-    *reinterpret_cast<float4*>(&out[(size_t)(e0 + eg * 4 + j) * KM + n0 + cg * 4]) =
-        make_float4(r[0], r[1], r[2], r[3]);
-  }
-}
+constexpr int BM = 64;  // the row multiple the products take E in
 
 // ---- p4, p4b, p4c: sweeps over the slab ------------------------------------
 
@@ -649,45 +559,98 @@ p6_kernel(const float* __restrict__ sh, const float* __restrict__ crep,
   }
 }
 
-// ---- p1: per i, dot + tile + multiply + add --------------------------------
+// ---- p1 and p3: per i, dot + tile + multiply, summed over i ----------------
 //
-// Bound by its products: 4.96 GFLOP at E = 19,968 (counted in fp32), 77 MB
-// written.  Laid out as p6: persistent blocks, two an SM, walk items (panel,
-// 64-edge tile) in panel-major order, each block a contiguous run of them,
-// and keep the panel for all its tiles.  A panel is P1_PN output columns
-// with their columns of all D1 = 5 blocks of Crep (5 x 96), split once into
-// 3xTF32 halves in B-fragment order; the sh tile of the next item loads by
-// cp.async while this one computes.  Each warp owns 16 rows x 48 columns (6
-// n8 tiles): per i it forms W_i's fragments (depth 0..23 in 3xTF32
-// mma.sync, depth 24 by one FFMA), multiplies each by its x value (column c
-// takes x[e, i * 24 + c mod 24]: a 48-column half starts on a multiple of
-// 24, so n8 tile q of the warp takes the three pairs 8 (q mod 3) + 2 tig, +1
-// of its two rows, read from global memory one i ahead) and adds over i in
-// the closure's order (W_0 x_0, then + W_i x_i).  The sums stay in
-// registers and leave as 8-byte streaming stores, whole 32-byte sectors.
+// Bound by their products: 4.96 GFLOP at E = 19,968 (counted in fp32), 77 MB
+// written.  The two compute one function, out = sum over i of W_i x_i with
+// W_i = sh @ Crep_i and x_i tiled, in two summing orders: p1 adds block by
+// block (W_0 x_0, then + W_i x_i, one rounding a term), p3 rounds each
+// product p_i = W_i x_i and adds them in its closure's halving tree,
+// ((p0 + p2) + (p1 + p3)) + p4.  One template serves both, the order a
+// compile-time parameter.  Laid out as p6: persistent blocks walk items
+// (panel, 64-edge tile) in panel-major order, each block a contiguous run of
+// them, and keep the panel for all its tiles.  A panel is PN output columns
+// with their columns of all D1 = 5 blocks of Crep, split once into 3xTF32
+// halves in B-fragment order; the sh tile of the next item loads by cp.async
+// while this one computes.  Each warp owns 16 rows x 8 WJ columns (WJ n8
+// tiles): per block i it forms W_i's fragments (depth 0..23 in 3xTF32
+// mma.sync, depth 24 by one FFMA) and multiplies each by its x value (column
+// c takes x[e, i * 24 + c mod 24]: a warp's columns start on a multiple of
+// 24, so n8 tile q takes the three pairs 8 (q mod 3) + 2 tig, +1 of its two
+// rows, read from global memory).  p3 walks the tree as four steps over the
+// tiles, blocks 0, 2, then 1 and 3 together (their sum p1 + p3 lives only
+// inside one tile's step), then 4, so that it keeps one set of sums, as p1
+// does.  The sums stay in registers and leave as 8-byte streaming stores,
+// whole 32-byte sectors.
 
-constexpr int P1_PN = 4 * MUL;               // output columns of a panel: 96
-constexpr int P1_PANELS = KM / P1_PN;        // 10
-constexpr int P1_NJ = P1_PN / 8;             // n8 tiles of a panel
-constexpr int P1_WJ = P1_NJ / 2;             // n8 tiles of a warp
-constexpr int P1_BFRAG = D1 * P1_NJ * P6_KT * 32 * 4;
-constexpr size_t P1_SMEM = (size_t)(P1_BFRAG + D1 * P1_PN + 2 * P6_BM * S) * sizeof(float);
-static_assert(KM % P1_PN == 0 && (P1_WJ * 8) % MUL == 0, "p1: a warp's columns start on a multiple of MUL");
+template <int WJ>
+struct P13Layout {
+  static constexpr int NJ = 2 * WJ;                   // n8 tiles of a panel
+  static constexpr int PN = 8 * NJ;                   // output columns of a panel
+  static constexpr int PANELS = KM / PN;
+  static constexpr int BFRAG = D1 * NJ * P6_KT * 32 * 4;
+  static constexpr size_t SMEM = (size_t)(BFRAG + D1 * PN + 2 * P6_BM * S) * sizeof(float);
+  static_assert(KM % PN == 0 && (8 * WJ) % MUL == 0,
+                "p1/p3: a warp's columns start on a multiple of MUL");
+};
 
-__global__ void __launch_bounds__(P6_NT, 2)
-p1_kernel(const float* __restrict__ x, const float* __restrict__ sh,
-          const float* __restrict__ crep, float* __restrict__ out, int n_tiles) {
+// p1: 6 n8 tiles a warp, two blocks an SM (128 registers)
+constexpr int P1_WJ = 6, P1_MINB = 2;
+// p3: the same; a second set of sums is never live (see above)
+constexpr int P3_WJ = 6, P3_MINB = 2;
+
+// W_i's fragment of n8 tile j (rows gid, gid + 8, columns 2 tig, +1):
+// depth 0..23 in 3xTF32 mma.sync from the split panel bfi of block i, depth
+// 24 by FFMA from b24i
+template <int NJ>
+__device__ __forceinline__ void p13_wfrag(float (&v)[4], const uint32_t* bfi, const float* b24i,
+                                          int j, int lane, const uint32_t (&abig)[P6_KT][4],
+                                          const uint32_t (&asmall)[P6_KT][4], float a24lo,
+                                          float a24hi) {
+  float hi_[4] = {0.f, 0.f, 0.f, 0.f}, lo_[4] = {0.f, 0.f, 0.f, 0.f},
+        lo2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int s = 0; s < P6_KT; ++s) {
+    const uint4 b = *reinterpret_cast<const uint4*>(&bfi[((j * P6_KT + s) * 32 + lane) * 4]);
+    const uint32_t bb[2] = {b.x, b.y}, bs[2] = {b.z, b.w};
+    packed_tp::mma_tf32(lo_, asmall[s], bb);
+    packed_tp::mma_tf32(hi_, abig[s], bb);
+    packed_tp::mma_tf32(lo2, abig[s], bs);
+  }
+  const float2 b = *reinterpret_cast<const float2*>(&b24i[8 * j + 2 * (lane % 4)]);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) v[r] = (lo_[r] + lo2[r]) + hi_[r];
+  v[0] = fmaf(a24lo, b.x, v[0]);
+  v[1] = fmaf(a24lo, b.y, v[1]);
+  v[2] = fmaf(a24hi, b.x, v[2]);
+  v[3] = fmaf(a24hi, b.y, v[3]);
+}
+
+// x of rows gid and gid + 8, columns 8 c + 2 tig, +1 of block i, c < 3
+__device__ __forceinline__ void p13_xload(float2 (&xv)[3][2], const float* xrow, int i) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    xv[c][0] = __ldg(reinterpret_cast<const float2*>(xrow + i * MUL + 8 * c));
+    xv[c][1] = __ldg(reinterpret_cast<const float2*>(xrow + 8 * XW + i * MUL + 8 * c));
+  }
+}
+
+template <bool TREE, int WJ, int MINB>
+__global__ void __launch_bounds__(P6_NT, MINB)
+p13_kernel(const float* __restrict__ x, const float* __restrict__ sh,
+           const float* __restrict__ crep, float* __restrict__ out, int n_tiles) {
+  using L = P13Layout<WJ>;
   extern __shared__ __align__(16) float smem[];
   uint32_t* bf = reinterpret_cast<uint32_t*>(smem);  // [i][j][s][lane][4]
-  float* b24 = smem + P1_BFRAG;                      // [i][P1_PN]
-  float* sh_s = b24 + D1 * P1_PN;                    // two tiles of P6_BM x S
-  const long long items = (long long)P1_PANELS * n_tiles;
+  float* b24 = smem + L::BFRAG;                      // [i][PN]
+  float* sh_s = b24 + D1 * L::PN;                    // two tiles of P6_BM x S
+  const long long items = (long long)L::PANELS * n_tiles;
   const long long lo = items * blockIdx.x / gridDim.x;
   const long long hi = items * (blockIdx.x + 1) / gridDim.x;
   if (lo >= hi) return;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int gid = lane / 4, tig = lane % 4;
-  const int r0 = 16 * (warp % 4), j0 = P1_WJ * (warp / 4);
+  const int r0 = 16 * (warp % 4), j0 = WJ * (warp / 4);
   int panel = -1;
   p6_issue_sh(sh_s, sh, (int)(lo % n_tiles) * P6_BM);
   cp_async_commit();
@@ -699,8 +662,8 @@ p1_kernel(const float* __restrict__ x, const float* __restrict__ sh,
       __syncthreads();
 #pragma unroll 1
       for (int i = 0; i < D1; ++i)
-        load_split_panel<P1_NJ>(bf + i * P1_NJ * P6_KT * 32 * 4, b24 + i * P1_PN, crep,
-                                i * KM + pn * P1_PN);
+        load_split_panel<L::NJ>(bf + i * L::NJ * P6_KT * 32 * 4, b24 + i * L::PN, crep,
+                                i * KM + pn * L::PN);
       panel = pn;
     }
     cp_async_wait<0>();
@@ -720,68 +683,61 @@ p1_kernel(const float* __restrict__ x, const float* __restrict__ sh,
       packed_tp::split_tf32(a, abig[s], asmall[s]);
     }
     const float a24lo = cur[(r0 + gid) * S + S - 1], a24hi = cur[(r0 + gid + 8) * S + S - 1];
-    // x of rows gid and gid + 8, columns 8 c + 2 tig, +1 of block i, c < 3
     const float* xrow = x + (size_t)(e0 + r0 + gid) * XW + 2 * tig;
-    float2 xv[3][2], xn[3][2];
+    float acc[WJ][4];
+    // p1: one block a step, in order; p3: blocks 0, 2, then 1 and 3, then 4
+    constexpr int STEPS = TREE ? D1 - 1 : D1;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      xv[c][0] = __ldg(reinterpret_cast<const float2*>(xrow + 8 * c));
-      xv[c][1] = __ldg(reinterpret_cast<const float2*>(xrow + 8 * XW + 8 * c));
-    }
-    float acc[P1_WJ][4];
+    for (int step = 0; step < STEPS; ++step) {
+      const int i = !TREE ? step : step == 0 ? 0 : step == 1 ? 2 : step == 2 ? 1 : 4;
+      const bool pair = TREE && step == 2;  // blocks 1 and 3
+      float2 xv[3][2], xw[3][2];
+      p13_xload(xv, xrow, i);
+      if (pair) p13_xload(xw, xrow, 3);
 #pragma unroll
-    for (int i = 0; i < D1; ++i) {
-      if (i + 1 < D1) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          xn[c][0] = __ldg(reinterpret_cast<const float2*>(xrow + (i + 1) * MUL + 8 * c));
-          xn[c][1] = __ldg(reinterpret_cast<const float2*>(xrow + 8 * XW + (i + 1) * MUL + 8 * c));
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < P1_WJ; ++q) {
+      for (int q = 0; q < WJ; ++q) {
         const int j = j0 + q;
-        float hi_[4] = {0.f, 0.f, 0.f, 0.f}, lo_[4] = {0.f, 0.f, 0.f, 0.f},
-              lo2[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int s = 0; s < P6_KT; ++s) {
-          const uint4 b = *reinterpret_cast<const uint4*>(
-              &bf[(((i * P1_NJ + j) * P6_KT + s) * 32 + lane) * 4]);
-          const uint32_t bb[2] = {b.x, b.y}, bs[2] = {b.z, b.w};
-          packed_tp::mma_tf32(lo_, asmall[s], bb);
-          packed_tp::mma_tf32(hi_, abig[s], bb);
-          packed_tp::mma_tf32(lo2, abig[s], bs);
-        }
-        const float2 b = *reinterpret_cast<const float2*>(&b24[i * P1_PN + 8 * j + 2 * tig]);
         float v[4];
+        p13_wfrag<L::NJ>(v, bf + i * L::NJ * P6_KT * 32 * 4, b24 + i * L::PN, j, lane, abig,
+                         asmall, a24lo, a24hi);
+        const float xq[4] = {xv[q % 3][0].x, xv[q % 3][0].y, xv[q % 3][1].x, xv[q % 3][1].y};
+        if (!TREE) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) v[r] = (lo_[r] + lo2[r]) + hi_[r];
-        v[0] = fmaf(a24lo, b.x, v[0]);
-        v[1] = fmaf(a24lo, b.y, v[1]);
-        v[2] = fmaf(a24hi, b.x, v[2]);
-        v[3] = fmaf(a24hi, b.y, v[3]);
-        const float2 xa = xv[q % 3][0], xb = xv[q % 3][1];
-        const float xq[4] = {xa.x, xa.y, xb.x, xb.y};
+          for (int r = 0; r < 4; ++r)
+            acc[q][r] = step == 0 ? v[r] * xq[r] : fmaf(v[r], xq[r], acc[q][r]);
+        } else {
+          // each product rounded, then the tree's sums (no contraction)
+          float p[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc[q][r] = i == 0 ? v[r] * xq[r] : fmaf(v[r], xq[r], acc[q][r]);
-      }
-      if (i + 1 < D1) {
+          for (int r = 0; r < 4; ++r) p[r] = __fmul_rn(v[r], xq[r]);
+          if (pair) {
+            float w3[4];
+            p13_wfrag<L::NJ>(w3, bf + 3 * L::NJ * P6_KT * 32 * 4, b24 + 3 * L::PN, j, lane,
+                             abig, asmall, a24lo, a24hi);
+            const float xq3[4] = {xw[q % 3][0].x, xw[q % 3][0].y, xw[q % 3][1].x,
+                                  xw[q % 3][1].y};
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          xv[c][0] = xn[c][0];
-          xv[c][1] = xn[c][1];
+            for (int r = 0; r < 4; ++r) p[r] = __fadd_rn(p[r], __fmul_rn(w3[r], xq3[r]));
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[q][r] = step == 0 ? p[r] : __fadd_rn(acc[q][r], p[r]);
         }
       }
     }
-    float* dst = out + (size_t)(e0 + r0 + gid) * KM + pn * P1_PN + 2 * tig;
+    float* dst = out + (size_t)(e0 + r0 + gid) * KM + pn * L::PN + 2 * tig;
 #pragma unroll
-    for (int q = 0; q < P1_WJ; ++q) {
+    for (int q = 0; q < WJ; ++q) {
       __stcs(reinterpret_cast<float2*>(dst + 8 * (j0 + q)), make_float2(acc[q][0], acc[q][1]));
       __stcs(reinterpret_cast<float2*>(dst + 8 * KM + 8 * (j0 + q)),
              make_float2(acc[q][2], acc[q][3]));
     }
   }
 }
+
+#define P1_KERNEL p13_kernel<false, P1_WJ, P1_MINB>
+#define P3_KERNEL p13_kernel<true, P3_WJ, P3_MINB>
+constexpr size_t P1_SMEM = P13Layout<P1_WJ>::SMEM;
+constexpr size_t P3_SMEM = P13Layout<P3_WJ>::SMEM;
 
 // ---- p7: (E, FAN) @ (FAN, V) in fp32 FFMA ------------------------------------
 //
@@ -935,18 +891,6 @@ p7_reduce_kernel(const float* part, float* __restrict__ out, int E) {
   *reinterpret_cast<float4*>(&out[(size_t)r * V + c]) = s;
 }
 
-constexpr size_t P13_SMEM = (size_t)(BM * S + BM * XW + D1 * S * BN) * sizeof(float);
-
-template <typename Kern>
-cudaError_t launch_p13(Kern kern, int threads, const float* x, const float* sh,
-                       const float* crep, float* out, int E, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P13_SMEM);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3(E / BM, KM / BN), threads, P13_SMEM, st>>>(x, sh, crep, out);
-  return cudaGetLastError();
-}
-
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -993,8 +937,9 @@ extern "C" {
 // the row multiple the products take E in
 int probe_throughput_edge_quantum(void) { return BM; }
 
-// blocks of p1 resident on one SM (two by design; -1: the size is refused)
-int probe_p1_resident_per_sm(void) { return resident_per_sm(p1_kernel, P6_NT, P1_SMEM); }
+// blocks of p1 / p3 resident on one SM (two by design; -1: the size is refused)
+int probe_p1_resident_per_sm(void) { return resident_per_sm(P1_KERNEL, P6_NT, P1_SMEM); }
+int probe_p3_resident_per_sm(void) { return resident_per_sm(P3_KERNEL, P6_NT, P3_SMEM); }
 
 int probe_p1(const float* x, const float* sh, const float* crep, float* out,
              int E, void* stream) {
@@ -1002,14 +947,18 @@ int probe_p1(const float* x, const float* sh, const float* crep, float* out,
   static int blocks = 0;
   if (blocks <= 0) blocks = probe_p1_resident_per_sm() * sm_count();
   if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
-  p1_kernel<<<blocks, P6_NT, P1_SMEM, (cudaStream_t)stream>>>(x, sh, crep, out, E / P6_BM);
+  P1_KERNEL<<<blocks, P6_NT, P1_SMEM, (cudaStream_t)stream>>>(x, sh, crep, out, E / P6_BM);
   return (int)cudaGetLastError();
 }
 
 int probe_p3(const float* x, const float* sh, const float* crep, float* out,
              int E, void* stream) {
   if (E <= 0 || E % BM != 0) return (int)cudaErrorInvalidValue;
-  return (int)launch_p13(p3_kernel, 384, x, sh, crep, out, E, (cudaStream_t)stream);
+  static int blocks = 0;
+  if (blocks <= 0) blocks = probe_p3_resident_per_sm() * sm_count();
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
+  P3_KERNEL<<<blocks, P6_NT, P3_SMEM, (cudaStream_t)stream>>>(x, sh, crep, out, E / P6_BM);
+  return (int)cudaGetLastError();
 }
 
 int probe_p4(const float* a, const float* b, float* out, int E, void* stream) {

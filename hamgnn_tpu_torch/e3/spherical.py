@@ -14,6 +14,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils.constants import device_constant
 from .wigner import wigner_3j
 
 
@@ -42,7 +43,7 @@ def spherical_harmonics(ls: Sequence[int], vectors: torch.Tensor,
     if normalize:
         n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
         v = v / torch.clamp(n, min=eps)
-    q = v[..., [1, 2, 0]]
+    q = torch.cat([v[..., 1:], v[..., :1]], dim=-1)  # (y, z, x)
     ys = {0: torch.ones(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device)}
     if lmax >= 1:
         y1 = np.sqrt(3.0) * q
@@ -50,7 +51,8 @@ def spherical_harmonics(ls: Sequence[int], vectors: torch.Tensor,
         y_prev = y1
         for l in range(2, lmax + 1):
             C, scale = _recursion_constants(lmax)[l - 2]
-            Ct = torch.as_tensor(scale * C, dtype=v.dtype, device=v.device)
+            Ct = device_constant(("sh_recursion", lmax, l), lambda: scale * C, v.dtype,
+                                 v.device)
             y_prev = torch.einsum("...i,...j,ijk->...k", y_prev, y1, Ct)
             ys[l] = y_prev
     return torch.cat([ys[l] for l in ls], dim=-1)

@@ -146,13 +146,17 @@ class CudaKernel:
     ``csrc/<source>.cu`` that holds the kernel (default: ``name``); kernels
     of one source share its library.  ``launches`` rises by one each time
     ``launch`` starts the kernel and nowhere else, so a run can show that
-    its path went through the kernel.
+    its path went through the kernel; a CUDA graph replays launches without
+    passing here, so a replay is counted from a profiler trace by the names
+    of the ``__global__`` functions a launch runs, ``device_kernels``.
     """
 
     _libraries: dict = {}  # source -> loaded library, shared by its kernels
 
-    def __init__(self, name: str, symbols: dict, source: Optional[str] = None):
+    def __init__(self, name: str, symbols: dict, source: Optional[str] = None,
+                 device_kernels: tuple = ()):
         self.name = name
+        self.device_kernels = device_kernels
         self.source = source or name
         self.symbols = {name: symbols[name],
                         f"{self.source}_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -192,7 +196,7 @@ PACKED_TP_FWD = CudaKernel("packed_tp_fwd", {
     "packed_tp_fwd_max_pairs": ([], _I),
     "packed_tp_fwd_item_n8": ([], _I),
     "packed_tp_fwd_resident_blocks": ([ctypes.c_size_t], _I),
-})
+}, device_kernels=("packed_tp_fwd_kernel",))
 
 # the backward's C entries share one argument list: packed_tp_bwd runs the
 # edge pass, the weight pass and the reduce; packed_tp_bwd_edge and
@@ -209,7 +213,8 @@ PACKED_TP_BWD = CudaKernel("packed_tp_bwd", {
     "packed_tp_bwd_tile_edges": ([], _I),
     "packed_tp_bwd_item_n8": ([], _I),
     "packed_tp_bwd_resident_blocks": ([_I, ctypes.c_size_t], _I),
-})
+}, device_kernels=("packed_tp_bwd_edge_kernel", "packed_tp_bwd_wcat_kernel",
+                   "packed_tp_bwd_reduce"))
 
 # the zonal engine's kernels (wrappers and host tables in zonal_kernel.py);
 # as for B2, zonal_tp_bwd runs both passes and the reduce, and the passes'
@@ -222,7 +227,7 @@ ZONAL_TP_FWD = CudaKernel("zonal_tp_fwd", {
     "zonal_tp_fwd_item_tiles": ([], _I),
     "zonal_tp_fwd_item_n8": ([], _I),
     "zonal_tp_fwd_resident_blocks": ([ctypes.c_size_t], _I),
-})
+}, device_kernels=("zonal_tp_fwd_kernel",))
 
 _ZBWD_ARGS = [_P] * 23 + [_I] * 12 + [_P]
 ZONAL_TP_BWD = CudaKernel("zonal_tp_bwd", {
@@ -236,7 +241,8 @@ ZONAL_TP_BWD = CudaKernel("zonal_tp_bwd", {
     "zonal_tp_bwd_item_n8": ([], _I),
     "zonal_tp_bwd_wcat_tile_edges": ([], _I),
     "zonal_tp_bwd_resident_blocks": ([_I, ctypes.c_size_t], _I),
-})
+}, device_kernels=("zonal_tp_bwd_edge_kernel", "zonal_tp_bwd_wcat_kernel",
+                   "zonal_tp_bwd_reduce"))
 
 # every kernel of the port, by name (chip_smoke.py resets and reads the counts)
 KERNELS = {"packed_tp_fwd": PACKED_TP_FWD, "packed_tp_bwd": PACKED_TP_BWD,

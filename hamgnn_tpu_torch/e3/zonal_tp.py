@@ -35,6 +35,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..utils.constants import device_constant
 from .packed_tp import PackedTPPlan, get_plan
 from .wigner import PERM_YZX, wigner_3j
 
@@ -64,7 +65,8 @@ def align_to_z(r_hat: torch.Tensor) -> torch.Tensor:
 
     R_pos = rodrigues(z, 1.0)     # r -> +z, conditioned for z >= 0
     R_neg = rodrigues(-z, -1.0)   # r -> -z, conditioned for z < 0
-    flip = r_hat.new_tensor([1.0, -1.0, -1.0])  # pi about x: -z -> z
+    flip = device_constant("flip_x", lambda: [1.0, -1.0, -1.0], r_hat.dtype,
+                           r_hat.device)  # pi about x: -z -> z
     return torch.where((z >= 0.0)[:, None, None], R_pos, flip[None, :, None] * R_neg)
 
 
@@ -77,11 +79,12 @@ def batched_wigner_D(max_l: int, R: torch.Tensor) -> List[torch.Tensor]:
     """[D_0 .. D_max_l], D_l (E, 2l+1, 2l+1): real Wigner-D matrices in the
     yzx real-SH basis, by the CG recursion of ``wigner.wigner_D``."""
     E = R.shape[0]
-    P = R.new_tensor(PERM_YZX)
+    P = device_constant("perm_yzx", lambda: PERM_YZX, R.dtype, R.device)
     D1 = torch.einsum("ij,ejk,lk->eil", P, R, P)
     Ds = [R.new_ones((E, 1, 1)), D1]
     for l in range(2, max_l + 1):
-        W = R.new_tensor(_recursion_matrix(l))
+        W = device_constant(("wigner_recursion", l), lambda: _recursion_matrix(l), R.dtype,
+                            R.device)
         n = (2 * l - 1) * 3
         big = torch.einsum("eab,ecd->eacbd", Ds[l - 1], D1).reshape(E, n, n)
         Ds.append((2.0 * l + 1.0) * torch.einsum("ma,emn,nb->eab", W, big, W))

@@ -20,9 +20,10 @@ its plain PyTorch version (``plain_<name>`` below) and timed alone:
   p7 / p7_tf32: the Wcat-stage product in fp32 FFMA / on the tensor cores
       with tf32 operands and fp32 accumulation
 
-``p1``, ``p6`` and ``p7_tf32`` run persistent blocks that each keep their
-share of the work (``p1``/``p6`` a 3xTF32-split panel of Crep over edge
-tiles, ``p7_tf32`` an even share of the rows streamed through a ring of
+``p1``, ``p3``, ``p6`` and ``p7_tf32`` run persistent blocks that each keep
+their share of the work (``p1``/``p3``/``p6`` a 3xTF32-split panel of Crep
+over edge tiles, ``p1`` and ``p3`` one kernel template in two summing
+orders, ``p7_tf32`` an even share of the rows streamed through a ring of
 bulk copies); ``p7`` splits its tiles' depth evenly over its blocks and adds
 the parts in a second kernel.
 
@@ -57,8 +58,8 @@ NS = 8
 NS_DEEP = 256
 FAN, V = 2048, 64
 _SRC = "tools_dev/vpu_probe.py"
-# p1, p6, p7 and p7_tf32 are also checked at 17 tiles of 64 rows, a count
-# that no split of their work divides evenly
+# p1, p3, p6, p7 and p7_tf32 are also checked at 17 tiles of 64 rows, a
+# count that no split of their work divides evenly
 ODD_TILES = 17 * 64
 
 
@@ -192,7 +193,7 @@ PROBES = {p.name: p for p in [
     _probe("p1", 73, "per i: dot + tile + multiply + add", _x_sh_crep, KM, plain_p1,
            _p13_work, library=_lib_p13, row_quantum=64, odd_rows=ODD_TILES),
     _probe("p3", 104, "one wide dot + multiply + tree sum", _x_sh_crep, KM, plain_p3,
-           _p13_work, library=_lib_p13, row_quantum=64),
+           _p13_work, library=_lib_p13, row_quantum=64, odd_rows=ODD_TILES),
     _probe("p4", 136, f"fp32 multiply x{NS} sweeps of the slab", _slabs, W, plain_p4,
            lambda n: (NS * n * W, 4 * 3 * n * W), library=plain_p4),
     # tolerance: bf16 keeps 8 bits; the kernel and the plain version round

@@ -24,7 +24,7 @@ handful of elementwise launches over one vector, not hundreds of small ones.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -105,15 +105,22 @@ class Amsgrad:
         upd = -1.0 * (mu_hat / (torch.sqrt(nu_max) + self.eps))
         return upd, (count, mu, nu, nu_max)
 
-    def step(self, params: torch.Tensor, grad: torch.Tensor, lr: float,
-             loss: torch.Tensor = None) -> torch.Tensor:
+    def step(self, params: torch.Tensor, grad: torch.Tensor,
+             lr: Union[float, torch.Tensor], loss: torch.Tensor = None) -> torch.Tensor:
+        """``lr``: a float, or a 0-dim float32 tensor on the vector's device
+        (a captured step reads it at every replay; a float would be frozen
+        at capture)."""
         ok = torch.all(torch.isfinite(grad))
         if loss is not None:
             ok = ok & torch.isfinite(loss)
         g = torch.where(ok, grad, torch.zeros_like(grad))
         upd, new = self.update(g)
-        scale = torch.where(ok, torch.tensor(lr, dtype=torch.float32, device=ok.device),
-                            torch.zeros((), dtype=torch.float32, device=ok.device))
+        if not isinstance(lr, torch.Tensor):
+            lr = torch.tensor(lr, dtype=torch.float32, device=ok.device)
+        elif lr.shape != () or lr.dtype != torch.float32 or lr.device != ok.device:
+            raise ValueError(f"lr: a 0-dim float32 tensor on {ok.device}, got "
+                             f"{tuple(lr.shape)} {lr.dtype} on {lr.device}")
+        scale = torch.where(ok, lr, torch.zeros((), dtype=torch.float32, device=ok.device))
         with torch.no_grad():
             params.add_(upd * scale)
             for old, fresh in zip((self.count, self.mu, self.nu, self.nu_max), new):

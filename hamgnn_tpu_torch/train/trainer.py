@@ -3,6 +3,11 @@
 One train step is a forward, the masked loss, a backward (through the packed
 TP kernels on the card) and the flat-vector amsgrad update of
 ``train/optim.py``, with the JAX trainer's non-finite guard on the device.
+On the card the training and eval steps are captured as CUDA graphs, one per
+batch shape, and replayed (``train/captured.py``), as the JAX trainer jits
+one program per shape; on the CPU, with ``capture=False``, and for heads that
+compute bands (they read counts and draw k-points on the host) they run
+eagerly.
 Host-side ``PlateauScheduler`` (torch ReduceLROnPlateau semantics: factor
 lr_decay, threshold 1e-6, cooldown patience // 2, min_lr 1e-6) and
 ``EarlyStopping`` are the JAX classes.  ``fit`` writes ``metrics.jsonl``
@@ -24,6 +29,7 @@ import torch
 
 from .. import resolve_device
 from ..models.model import HamGNNModel, compute_losses, compute_metrics
+from .captured import CapturedSteps
 from .optim import Amsgrad, flatten_parameters
 
 
@@ -76,14 +82,20 @@ class EarlyStopping:
 
 class Trainer:
     """Single-device trainer.  The model's parameters become views of one
-    flat buffer on ``device`` (cuda unless the caller asks for the CPU)."""
+    flat buffer on ``device`` (cuda unless the caller asks for the CPU).
+
+    ``capture``: replay each step as a CUDA graph (default: on the card,
+    unless the head computes bands); False runs every step eagerly.  The
+    learning rate lives on the device as ``lr_t``, refilled from
+    ``sched.lr`` before a step whenever the scheduler has changed it."""
 
     def __init__(self, model: HamGNNModel, losses: List[Dict[str, Any]],
                  metrics: List[Dict[str, Any]], lr: float = 0.01,
                  lr_decay: float = 0.5, lr_patience: int = 5,
                  gradient_clip_val: float = 0.0, stop_patience: int = 30,
                  min_epochs: int = 100, max_epochs: int = 3000,
-                 train_dir: str = "./train_out", device=None):
+                 train_dir: str = "./train_out", device=None,
+                 capture: Optional[bool] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.losses = losses
@@ -96,6 +108,19 @@ class Trainer:
         self.train_dir = train_dir
         self.flat, self.grad = flatten_parameters(self.model)
         self.opt = Amsgrad(self.flat.numel(), self.device, gradient_clip_val)
+        self.lr_t = torch.tensor(lr, dtype=torch.float32, device=self.device)
+        self._lr_filled = lr
+        bands = bool(getattr(self.model.output, "calculate_band_energy", False))
+        if capture is None:
+            capture = self.device.type == "cuda" and not bands
+        elif capture and bands:
+            raise ValueError("a head with bands reads counts and draws k-points on the "
+                             "host: its steps cannot be captured")
+        elif capture and self.device.type != "cuda":
+            raise ValueError(f"a captured step needs the card, not {self.device}")
+        self.captured = CapturedSteps(
+            self.device, lambda g: self._step(g, self.lr_t), self._eval,
+            lambda: (self.flat, self.grad, *self.opt.state_dict().values())) if capture else None
         self.nonfinite_steps = 0  # of the last train_epoch
         os.makedirs(train_dir, exist_ok=True)
         self._log_path = os.path.join(train_dir, "metrics.jsonl")
@@ -116,18 +141,41 @@ class Trainer:
         k = k_vecs_for_graph(graph, out.num_k, out.k_path)
         return {"k_vecs": torch.as_tensor(k, device=self.device)}
 
-    def train_step(self, graph):
-        """One update on ``graph``; returns (loss, logs) as device scalars,
-        with ``logs["nonfinite_step"]`` 1.0 where the guard dropped it."""
-        self.model.train()
+    def _step(self, graph, lr):
         self.grad.zero_()
         preds = self.model(graph, **self._band_kwargs(graph))
         total, logs = compute_losses(preds, graph, self.losses)
         total.backward()
-        ok = self.opt.step(self.flat, self.grad, self.sched.lr, loss=total.detach())
+        ok = self.opt.step(self.flat, self.grad, lr, loss=total.detach())
         logs = {k: v.detach() for k, v in logs.items()}
         logs["nonfinite_step"] = 1.0 - ok.to(torch.float32)
         return total.detach(), logs
+
+    def _eval(self, graph):
+        preds = self.model(graph, **self._band_kwargs(graph))
+        total, logs = compute_losses(preds, graph, self.losses)
+        return total, logs, compute_metrics(preds, graph, self.metrics), preds
+
+    def train_step(self, graph):
+        """One update on ``graph``; returns (loss, logs) as device scalars,
+        with ``logs["nonfinite_step"]`` 1.0 where the guard dropped it."""
+        self.model.train()
+        if self.captured is None:
+            return self._step(graph, self.sched.lr)
+        if self._lr_filled != self.sched.lr:
+            self.lr_t.fill_(self.sched.lr)
+            self._lr_filled = self.sched.lr
+        return self.captured.train_step(graph)
+
+    def eval_step(self, graph):
+        """(loss, logs, metrics, predictions) of ``graph`` in inference mode.
+        Replayed, the predictions are the graph's outputs, valid until the
+        next eval step."""
+        self.model.eval()
+        with torch.inference_mode():
+            if self.captured is None:
+                return self._eval(graph)
+            return self.captured.eval_step(graph)
 
     # --- loops -----------------------------------------------------------
 
@@ -148,17 +196,13 @@ class Trainer:
 
     def eval_epoch(self, batches: Iterable, collect: bool = False):
         """(mean loss, mean logs and metrics[, [(graph, numpy predictions)]])."""
-        self.model.eval()
         losses, aggs, preds_all = [], [], []
-        with torch.inference_mode():
-            for g in batches:
-                preds = self.model(g, **self._band_kwargs(g))
-                total, logs = compute_losses(preds, g, self.losses)
-                mets = compute_metrics(preds, g, self.metrics)
-                losses.append(total)
-                aggs.append({**logs, **mets})
-                if collect:
-                    preds_all.append((g, {k: v.cpu().numpy() for k, v in preds.items()}))
+        for g in batches:
+            total, logs, mets, preds = self.eval_step(g)
+            losses.append(total)
+            aggs.append({**logs, **mets})
+            if collect:
+                preds_all.append((g, {k: v.cpu().numpy() for k, v in preds.items()}))
         agg: Dict[str, float] = {}
         if aggs:
             keys = list(aggs[0])

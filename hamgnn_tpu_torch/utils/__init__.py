@@ -1,1 +1,1 @@
-"""Timing helpers of the port."""
+"""Timing helpers and device constants of the port."""

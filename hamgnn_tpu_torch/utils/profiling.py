@@ -62,3 +62,22 @@ def device_time_ms(fn, args=(), n: int = 5, warmup: int = 2, device=None) -> flo
             fn(*args)
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def device_launches(fn, names) -> dict:
+    """Launches of device kernels whose names contain each of ``names``
+    during one ``fn()``, read from a ``torch.profiler`` trace: what a CUDA
+    graph's replay launched, which no host-side counter sees.  Fails where
+    the trace holds no device kernel at all (a profiler that cannot see the
+    card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("the profiler saw no device kernel: it cannot count launches here")
+    return {n: sum(ev.count for ev in kernels if n in ev.key) for n in names}

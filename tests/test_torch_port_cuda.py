@@ -19,11 +19,25 @@ plain version within 2e-5 * max|ref| (outputs) and 1e-4 * max|ref|
 (gradients).  Every probe kernel (``tools_dev``) is held to its plain version
 within its stated limit (fp32 1e-4, bf16 2e-2, tf32 operands 2e-3, all *
 max|plain|) at its own size, the throughput probes at E = 256, the P1/P2
-probes also at the bench rows (19,968) and at 1,001 rows, ``p1``, ``p6``,
-``p7`` and ``p7_tf32`` also at 19,968 and 1,088 rows; ``k_acc``, ``p1``,
-``p6``, ``p7`` and ``p7_tf32`` repeat bit for bit.  ``p7_tf32``'s library
+probes also at the bench rows (19,968) and at 1,001 rows, ``p1``, ``p3``,
+``p6``, ``p7`` and ``p7_tf32`` also at 19,968 and 1,088 rows; ``k_acc``,
+``p1``, ``p3``, ``p6``, ``p7`` and ``p7_tf32`` repeat bit for bit.  ``p7_tf32``'s library
 call, a TF32 ``torch.matmul``, is within the same 2e-3 of the plain product.
+
+The captured training step (``train/captured.py``) against the eager step
+from the same state, under both engines: the loss within 1e-6 relative, the
+gradient per parameter tensor within 1e-5 * max|ref| (no bit identity:
+``segment_sum`` adds with atomics), the step count equal; five steps
+alternating two batch shapes within 1e-4 of the eager losses; a NaN batch
+dropped by the replay with the state unchanged; after the learning rate
+halves, the next replay's loss within 1e-6 and its update's norm within
+1e-3 of the eager step's; the captured eval within 1e-6 (loss) and 1e-5 *
+max|ref| (predictions) of the eager one; a replay launches each of the
+engine's device kernels once per TP call, counted in a profiler trace; a
+capture that cannot be made raises.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -34,6 +48,8 @@ from hamgnn_tpu_torch.e3.irreps import Irreps
 from hamgnn_tpu_torch.e3.packed_tp import get_plan, plain_apply, plain_backward
 from hamgnn_tpu_torch.e3.spherical import spherical_harmonics
 from hamgnn_tpu_torch.tools_dev import op_probe, op_probe2, probe, throughput_probe
+from hamgnn_tpu_torch.train.captured import CapturedSteps, shape_key
+from hamgnn_tpu_torch.utils.profiling import device_launches
 
 PROBES = {**op_probe.PROBES, **op_probe2.PROBES, **throughput_probe.PROBES}
 
@@ -376,9 +392,9 @@ def _check_guard_rows(p, rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["p1", "p6", "p7", "p7_tf32"])
+@pytest.mark.parametrize("name", ["p1", "p3", "p6", "p7", "p7_tf32"])
 def test_cuda_throughput_product_matches_plain_at_every_size(name):
-    """p1, p6, p7 and p7_tf32 at E = 19,968 and at 17 tiles of 64 rows, which
+    """p1, p3, p6, p7 and p7_tf32 at E = 19,968 and at 17 tiles of 64 rows, which
     no split of their work divides evenly (p7's last tile of 128 rows is half
     past E, p7_tf32's shares of 8 or 9 rows end inside an m16 tile); each
     repeats bit for bit; rows past E are neither read nor written."""
@@ -390,7 +406,7 @@ def test_cuda_throughput_product_matches_plain_at_every_size(name):
         tensors = p.inputs(rng, "cuda", rows)
         row = probe.check(p, tensors)
         assert row["ok"], (rows, row)
-        # p7 adds its blocks' sums in a second kernel, p1's and p6's warps
+        # p7 adds its blocks' sums in a second kernel, p1's, p3's and p6's warps
         # share buffers from item to item, p7_tf32's stages are reused
         # through mbarriers: each repeats bit for bit
         for _ in range(3):
@@ -400,13 +416,14 @@ def test_cuda_throughput_product_matches_plain_at_every_size(name):
 
 @pytest.mark.cuda
 def test_cuda_throughput_products_fit_their_blocks_per_sm():
-    """p1 and p6 run two persistent blocks an SM, p7 three, so that its 396
+    """p1, p3 and p6 run two persistent blocks an SM, p7 three, so that its 396
     runs are all in flight at once on the H100's 132 SMs, and p7_tf32 one,
     its ring taking most of the shared memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     lib = PROBES["p6"].kernel.library()
     assert lib.probe_p1_resident_per_sm() >= 2
+    assert lib.probe_p3_resident_per_sm() >= 2
     assert lib.probe_p6_resident_per_sm() >= 2
     assert lib.probe_p7_resident_per_sm() >= 3
     assert lib.probe_p7_tf32_resident_per_sm() >= 1
@@ -481,3 +498,163 @@ def test_cuda_probe_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="16-byte aligned"):
         q(x.view(-1)[1:1 + 8 * 1024].view(8, 1024))
     assert q.kernel.launches == before
+
+
+# ---- the captured training and eval steps ----------------------------------
+
+SMALL_CFG = {
+    "representation_nets": {"HamGNN_pre": {
+        "irreps_node_features": "16x0e+8x1o+4x2e+2x3o", "irreps_edge_sh": BENCH_SH,
+        "num_layers": 2, "num_radial": 16, "cutoff": 5.0, "radial_MLP": [16],
+        "num_types": 16}},
+    "output_nets": {"HamGNN_out": {"nao_max": 14}},
+}
+HAM = [{"metric": "mae", "prediction": "hamiltonian", "target": "hamiltonian",
+        "loss_weight": 27.211}]
+ENGINE_KERNELS = {"auto": ("packed_tp_fwd", "packed_tp_bwd"),
+                  "zonal": ("zonal_tp_fwd", "zonal_tp_bwd")}
+
+
+def _step_batches():
+    """Two batches of two shapes on the card: 2 crystals of 8 atoms, 2 of 12."""
+    from hamgnn_tpu_torch.data.graph import pad_and_batch
+    from hamgnn_tpu_torch.data.synthetic import add_random_hamiltonian_targets, make_crystal
+
+    rng = np.random.default_rng(21)
+    out = []
+    for n_atoms in (8, 12):
+        cr = [add_random_hamiltonian_targets(
+            rng, make_crystal(rng, n_atoms=n_atoms, cell_size=6.0, cutoff=5.0), nao_max=14)
+            for _ in range(2)]
+        e = sum(c["edge_index"].shape[1] for c in cr)
+        out.append(pad_and_batch(cr, node_bucket=32, edge_bucket=-(-e // 256) * 256,
+                                 device="cuda"))
+    assert shape_key(out[0]) != shape_key(out[1])
+    return out
+
+
+def _step_trainers(tmp_path):
+    """An eager and a capturing trainer on the same weights."""
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.train.config import load_config
+    from hamgnn_tpu_torch.train.trainer import Trainer
+
+    return [Trainer(init_weights(build_model(load_config(None, overrides=SMALL_CFG)), 0),
+                    losses=HAM, metrics=HAM, lr=1e-3, train_dir=str(tmp_path / str(capture)),
+                    device="cuda", capture=capture) for capture in (False, True)]
+
+
+def _state(tr):
+    return [tr.flat, *tr.opt.state_dict().values()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["auto", "zonal"])
+def test_cuda_captured_step_matches_eager(tmp_path, monkeypatch, engine):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if engine != "auto":
+        monkeypatch.setenv("HAMGNN_TP_ENGINE", engine)
+    g1, g2 = _step_batches()
+    eager, cap = _step_trainers(tmp_path)
+    assert eager.captured is None and cap.captured is not None
+    la, _ = eager.train_step(g1)
+    lb, logs = cap.train_step(g1)
+    torch.cuda.synchronize()
+    assert abs(float(lb) - float(la)) <= 1e-6 * abs(float(la))
+    assert float(logs["nonfinite_step"]) == 0.0
+    ofs = 0
+    for name, p in eager.model.named_parameters():
+        a, b = eager.grad[ofs:ofs + p.numel()], cap.grad[ofs:ofs + p.numel()]
+        ofs += p.numel()
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max()), name
+    assert int(eager.opt.count) == int(cap.opt.count) == 1
+
+    # five steps alternating two shapes: one graph per shape key
+    for g in (g2, g1, g2, g1, g2):
+        la, lb = float(eager.train_step(g)[0]), float(cap.train_step(g)[0])
+        assert abs(lb - la) <= 1e-4 * abs(la)
+    assert cap.captured.captures == 2
+    assert set(cap.captured.train_graphs) == {shape_key(g1), shape_key(g2)}
+
+    # the eval step from the same state
+    with torch.no_grad():
+        for a, b in zip(_state(eager), _state(cap)):
+            a.copy_(b)
+    for g in (g1, g2):
+        ta, _la, ma, pa = eager.eval_step(g)
+        tb, _lb, mb, pb = cap.eval_step(g)
+        assert abs(float(tb) - float(ta)) <= 1e-6 * abs(float(ta))
+        assert set(ma) == set(mb) and set(pa) == set(pb)
+        for key in ("hamiltonian_on", "hamiltonian_off"):
+            assert float((pa[key] - pb[key]).abs().max()) <= 1e-5 * float(pa[key].abs().max())
+    assert cap.captured.captures == 4
+
+    # a NaN batch: the replay drops the step and leaves the state as it was
+    before = [t.clone() for t in _state(cap)]
+    bad = dataclasses.replace(g1, Hon=torch.full_like(g1.Hon, float("nan")))
+    loss, logs = cap.train_step(bad)
+    assert not bool(torch.isfinite(loss)) and float(logs["nonfinite_step"]) == 1.0
+    for a, b in zip(_state(cap), before):
+        assert torch.equal(a, b)
+
+    # the learning rate halves: the next replay steps at the new rate
+    with torch.no_grad():
+        for a, b in zip(_state(eager), _state(cap)):
+            a.copy_(b)
+    for tr in (eager, cap):
+        tr.sched.lr = tr.sched.lr / 2
+    start = cap.flat.clone()
+    la, lb = float(eager.train_step(g1)[0]), float(cap.train_step(g1)[0])
+    assert abs(lb - la) <= 1e-6 * abs(la)
+    assert float(cap.lr_t) == np.float32(5e-4)
+    ua, ub = eager.flat - start, cap.flat - start
+    assert abs(float(ub.norm() / ua.norm()) - 1.0) <= 1e-3
+    assert int(eager.opt.count) == int(cap.opt.count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["auto", "zonal"])
+def test_cuda_replay_launches_each_kernel_once_per_call(tmp_path, monkeypatch, engine):
+    """A replay runs the captured launches: each device kernel of the
+    engine once per TP call (4 * 2 layers + 1), counted by name in a
+    profiler trace; the host-side counters do not move."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if engine != "auto":
+        monkeypatch.setenv("HAMGNN_TP_ENGINE", engine)
+    g1, _g2 = _step_batches()
+    _eager, cap = _step_trainers(tmp_path)
+    cap.train_step(g1)
+    names = [n for k in ENGINE_KERNELS[engine] for n in tp_kernel.KERNELS[k].device_kernels]
+    host = {n: k.launches for n, k in tp_kernel.KERNELS.items()}
+    got = device_launches(lambda: cap.train_step(g1), names)
+    assert got == {n: 9 for n in names}
+    assert {n: k.launches for n, k in tp_kernel.KERNELS.items()} == host
+    fwd = tp_kernel.KERNELS[ENGINE_KERNELS[engine][0]].device_kernels
+    cap.eval_step(g1)
+    assert device_launches(lambda: cap.eval_step(g1), names) == {
+        n: 9 if n in fwd else 0 for n in names}
+
+
+@pytest.mark.cuda
+def test_cuda_capture_that_fails_raises():
+    """A step that reads a device value on the host cannot be captured: the
+    capture raises, with no eager step in its place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g1, _g2 = _step_batches()
+    flat = torch.zeros(4, device="cuda")
+    ran = []
+
+    def body(g):
+        ran.append(1)
+        return flat.add_(float(g.pos.sum())), {}
+
+    steps = CapturedSteps("cuda", body, body, lambda: (flat,))
+    with pytest.raises(RuntimeError):
+        steps.train_step(g1)
+    torch.cuda.synchronize()
+    assert steps.captures == 0 and not steps.train_graphs and len(ran) == 2
+    assert float(flat.abs().max()) == 0.0  # the warm-up's update was put back

@@ -432,8 +432,11 @@ def test_p7_tf32_layout_is_the_sources():
                  "constexpr int T7_CW = 4;", "constexpr int T7_TM = 160;",
                  "constexpr int T7_MT = 3;", "q0 = (warp + 2) % 4;",
                  "const int box_rows = (min(share, T7_TM) + 7) / 8 * 8;",
-                 "CU_TENSOR_MAP_SWIZZLE_128B", "constexpr int P1_PN = 4 * MUL;",
-                 "constexpr int P6_BM = 64;", "p1_kernel<<<blocks, P6_NT, P1_SMEM"):
+                 "CU_TENSOR_MAP_SWIZZLE_128B", "static constexpr int PN = 8 * NJ;",
+                 "constexpr int P6_BM = 64;", "P1_KERNEL<<<blocks, P6_NT, P1_SMEM",
+                 "P3_KERNEL<<<blocks, P6_NT, P3_SMEM",
+                 "step == 0 ? 0 : step == 1 ? 2 : step == 2 ? 1 : 4",
+                 "const bool pair = TREE && step == 2;  // blocks 1 and 3"):
         assert line in text, line
 
 
@@ -579,28 +582,38 @@ def test_p7_tf32_shares_cover_every_term_once(rows):
         assert box_rows == 152 and set(sizes) == {151, 152}
 
 
-# p1's layout: items (panel of 96 output columns, tile of 64 edges),
-# panel-major, in even contiguous runs; warp w owns rows 16 (w % 4) .. of a
-# tile and n8 tiles 6 (w // 4) .. 6 (w // 4) + 5 of a panel
-P1_PN, P1_PANELS, P1_WJ = 96, 10, 6
+# p1's and p3's layout (one kernel template): items (panel of 16 WJ output
+# columns, tile of 64 edges), panel-major, in even contiguous runs; warp w
+# owns rows 16 (w % 4) .. of a tile and n8 tiles WJ (w // 4) .. of a panel.
+# The steps of the sum over the D1 blocks: p1 one block a step, p3 its
+# closure's tree ((p0 + p2) + (p1 + p3)) + p4 as blocks 0, 2, then 1 and 3
+# together, then 4.
+P13_STEPS = {"p1": [(0,), (1,), (2,), (3,), (4,)], "p3": [(0,), (2,), (1, 3), (4,)]}
 
 
-def _p1_items(rows, blocks):
+def _p13_layout(name):
+    """(WJ, blocks an SM) of p1 or p3 as csrc/probe_throughput.cu sets them."""
+    m = re.search(rf"constexpr int {name.upper()}_WJ = (\d+), {name.upper()}_MINB = (\d+);",
+                  _CU.read_text())
+    return int(m.group(1)), int(m.group(2))
+
+
+def _p13_items(rows, blocks, pn):
     n_tiles = rows // 64
-    items = P1_PANELS * n_tiles
+    items = (throughput_probe.KM // pn) * n_tiles
     return [[(it // n_tiles, it % n_tiles) for it in range(items * b // blocks,
                                                            items * (b + 1) // blocks)]
             for b in range(blocks)]
 
 
-@pytest.mark.parametrize("rows", [64, throughput_probe.ODD_TILES, throughput_probe.E])
-def test_p1_items_cover_every_term_once(rows):
-    """p1's schedule at two blocks an SM: every (row, column) of the output
-    in exactly one item and one warp's fragments (the D1 x S depth terms of
-    each are ``test_p1_fragment_maps_give_the_closure``'s); runs no more than
-    one item apart; at the bench rows a block loads at most two panels."""
-    blocks = 2 * 132
-    runs = _p1_items(rows, blocks)
+def _check_p13_items(name, rows):
+    """Every (row, column) of the output in exactly one item and one warp's
+    fragments (the D1 x S depth terms of each are the fragment test's); runs
+    no more than one item apart; at the bench rows a block loads at most two
+    panels."""
+    wj, per_sm = _p13_layout(name)
+    pn = 16 * wj
+    runs = _p13_items(rows, per_sm * 132, pn)
     lens = [len(r) for r in runs]
     assert max(lens) - min(lens) <= 1
     owner = np.zeros((rows, throughput_probe.KM), dtype=np.int64)
@@ -608,72 +621,129 @@ def test_p1_items_cover_every_term_once(rows):
     gid, tig = lane // 4, lane % 4
     for run in runs:
         if rows == throughput_probe.E:
-            assert len({pn for pn, _ in run}) <= 2
-        for pn, tile in run:
+            assert len({pn_ for pn_, _ in run}) <= 2
+        for pn_, tile in run:
             for w in range(8):
-                r0, j0 = 16 * (w % 4), P1_WJ * (w // 4)
-                for q in range(P1_WJ):
-                    col = pn * P1_PN + 8 * (j0 + q) + 2 * tig
+                r0, j0 = 16 * (w % 4), wj * (w // 4)
+                for q in range(wj):
+                    col = pn_ * pn + 8 * (j0 + q) + 2 * tig
                     for r in (64 * tile + r0 + gid, 64 * tile + r0 + gid + 8):
                         owner[r, col] += 1
                         owner[r, col + 1] += 1
     assert (owner == 1).all()
 
 
-def test_p1_fragment_maps_give_the_closure():
-    """One p1 item through the kernel's index maps (the panel's fragment
-    order for all five blocks of Crep, the sh fragments, depth 24 apart, and
-    x by its class q mod 3 of each warp's n8 tiles) equals plain_p1 on that
-    tile and panel, for each panel."""
+@pytest.mark.parametrize("rows", [64, throughput_probe.ODD_TILES, throughput_probe.E])
+def test_p1_items_cover_every_term_once(rows):
+    """p1's schedule at its blocks an SM (``_check_p13_items``)."""
+    _check_p13_items("p1", rows)
+
+
+@pytest.mark.parametrize("rows", [64, throughput_probe.ODD_TILES, throughput_probe.E])
+def test_p3_items_cover_every_term_once(rows):
+    """p3's schedule at its blocks an SM (``_check_p13_items``)."""
+    _check_p13_items("p3", rows)
+
+
+def _p13_tile(name, x, sh, crep):
+    """One 64-edge tile of p1 or p3 through the kernel's index maps, every
+    panel: the panel's fragment order for all five blocks of Crep, the sh
+    fragments, depth 24 apart, x by its class q mod 3 of each warp's n8
+    tiles, and the steps of the sum (float64: maps, not rounding)."""
     tp = throughput_probe
-    rng = np.random.default_rng(8)
-    x = rng.normal(size=(64, tp.D1 * tp.MUL))
-    sh = rng.normal(size=(64, tp.S))
-    crep = rng.normal(size=(tp.S, tp.W))
-    want = tp.plain_p1(*(torch.as_tensor(v) for v in (x, sh, crep))).numpy()
+    wj, _per_sm = _p13_layout(name)
+    pn, nj = 16 * wj, 2 * wj
     lane = np.arange(32)
     gid, tig = lane // 4, lane % 4
-    for pn in range(P1_PANELS):
-        got = np.full((64, P1_PN), np.nan)
+    got = np.full((64, tp.KM), np.nan)
+    for pn_ in range(tp.KM // pn):
         # load_split_panel for each i: bf[i][j][s][lane] = (b0, b1), b24[i][c]
-        bf = np.zeros((tp.D1, 2 * P1_WJ, 3, 32, 2))
-        b24 = np.zeros((tp.D1, P1_PN))
+        bf = np.zeros((tp.D1, nj, 3, 32, 2))
+        b24 = np.zeros((tp.D1, pn))
         for i in range(tp.D1):
-            col0 = i * tp.KM + pn * P1_PN
-            for j in range(2 * P1_WJ):
+            col0 = i * tp.KM + pn_ * pn
+            for j in range(nj):
                 for s in range(3):
                     col, k = col0 + 8 * j + gid, 8 * s + tig
                     bf[i, j, s, :, 0], bf[i, j, s, :, 1] = crep[k, col], crep[k + 4, col]
-            b24[i] = crep[tp.S - 1, col0:col0 + P1_PN]
+            b24[i] = crep[tp.S - 1, col0:col0 + pn]
         for w in range(8):
-            r0, j0 = 16 * (w % 4), P1_WJ * (w // 4)
+            r0, j0 = 16 * (w % 4), wj * (w // 4)
             af = [np.stack([sh[r0 + gid, 8 * s + tig], sh[r0 + gid + 8, 8 * s + tig],
                             sh[r0 + gid, 8 * s + tig + 4], sh[r0 + gid + 8, 8 * s + tig + 4]],
                            axis=1) for s in range(3)]
-            acc = np.zeros((P1_WJ, 32, 4))
-            for i in range(tp.D1):
-                # class c: columns 8 c + 2 tig, +1 of block i, rows gid and gid + 8
-                xv = [np.stack([x[r0 + gid + 8 * h, i * tp.MUL + 8 * c + 2 * tig + u]
-                                for h in range(2) for u in range(2)], axis=1)
-                      for c in range(3)]
-                for q in range(P1_WJ):
+            acc = np.zeros((wj, 32, 4))
+            for step, blocks in enumerate(P13_STEPS[name]):
+                for q in range(wj):
                     j = j0 + q
-                    v = np.zeros((32, 4))
-                    for s in range(3):
-                        v = _mma_m16n8k8(v, af[s], bf[i, j, s])
-                    b = np.stack([b24[i, 8 * j + 2 * tig], b24[i, 8 * j + 2 * tig + 1]], axis=1)
-                    v[:, 0] += sh[r0 + gid, tp.S - 1] * b[:, 0]
-                    v[:, 1] += sh[r0 + gid, tp.S - 1] * b[:, 1]
-                    v[:, 2] += sh[r0 + gid + 8, tp.S - 1] * b[:, 0]
-                    v[:, 3] += sh[r0 + gid + 8, tp.S - 1] * b[:, 1]
-                    xq = xv[q % 3]
-                    acc[q] = v * xq if i == 0 else acc[q] + v * xq
-            for q in range(P1_WJ):
-                c = 8 * (j0 + q) + 2 * tig
+                    term = np.zeros((32, 4))
+                    for i in blocks:
+                        # class c: columns 8 c + 2 tig, +1 of block i, rows gid and gid + 8
+                        xq = np.stack([x[r0 + gid + 8 * h, i * tp.MUL + 8 * (q % 3) + 2 * tig + u]
+                                       for h in range(2) for u in range(2)], axis=1)
+                        v = np.zeros((32, 4))
+                        for s in range(3):
+                            v = _mma_m16n8k8(v, af[s], bf[i, j, s])
+                        b = np.stack([b24[i, 8 * j + 2 * tig], b24[i, 8 * j + 2 * tig + 1]],
+                                     axis=1)
+                        v[:, 0] += sh[r0 + gid, tp.S - 1] * b[:, 0]
+                        v[:, 1] += sh[r0 + gid, tp.S - 1] * b[:, 1]
+                        v[:, 2] += sh[r0 + gid + 8, tp.S - 1] * b[:, 0]
+                        v[:, 3] += sh[r0 + gid + 8, tp.S - 1] * b[:, 1]
+                        term += v * xq
+                    acc[q] = term if step == 0 else acc[q] + term
+            for q in range(wj):
+                c = pn_ * pn + 8 * (j0 + q) + 2 * tig
                 got[r0 + gid, c], got[r0 + gid, c + 1] = acc[q, :, 0], acc[q, :, 1]
                 got[r0 + gid + 8, c], got[r0 + gid + 8, c + 1] = acc[q, :, 2], acc[q, :, 3]
-        np.testing.assert_allclose(got, want[:, pn * P1_PN:(pn + 1) * P1_PN],
-                                   rtol=1e-10, atol=1e-10)
+    return got
+
+
+def _p13_inputs(seed):
+    tp = throughput_probe
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(64, tp.D1 * tp.MUL)), rng.normal(size=(64, tp.S)),
+            rng.normal(size=(tp.S, tp.W)))
+
+
+def test_p1_fragment_maps_give_the_closure():
+    """One p1 tile through the kernel's index maps (``_p13_tile``) equals
+    plain_p1 on that tile, for each panel."""
+    x, sh, crep = _p13_inputs(8)
+    want = throughput_probe.plain_p1(*(torch.as_tensor(v) for v in (x, sh, crep))).numpy()
+    np.testing.assert_allclose(_p13_tile("p1", x, sh, crep), want, rtol=1e-10, atol=1e-10)
+
+
+def test_p3_fragment_maps_give_the_closure():
+    """One p3 tile through the kernel's index maps and its steps
+    (``_p13_tile``) equals plain_p3 on that tile, for each panel: every
+    block enters the sum once."""
+    x, sh, crep = _p13_inputs(9)
+    want = throughput_probe.plain_p3(*(torch.as_tensor(v) for v in (x, sh, crep))).numpy()
+    np.testing.assert_allclose(_p13_tile("p3", x, sh, crep), want, rtol=1e-10, atol=1e-10)
+
+
+def test_p3_steps_round_as_the_tree():
+    """p3's steps in float32, each product rounded and each sum rounded
+    once (blocks 0, 2, then 1 + 3 added to the sum, then 4), give plain_p3's
+    halving tree bit for bit on the same products; p1's running sum does
+    not."""
+    tp = throughput_probe
+    rng = np.random.default_rng(10)
+    x, sh, crep = (torch.as_tensor(rng.normal(size=s_).astype(np.float32))
+                   for s_ in ((256, tp.D1 * tp.MUL), (256, tp.S), (tp.S, tp.W)))
+    prod = (sh @ crep) * torch.cat([tp._tiled(x, i) for i in range(tp.D1)], dim=1)
+    p = [prod[:, i * tp.KM:(i + 1) * tp.KM] for i in range(tp.D1)]
+    acc = None
+    for blocks in P13_STEPS["p3"]:
+        term = p[blocks[0]] if len(blocks) == 1 else p[blocks[0]] + p[blocks[1]]
+        acc = term if acc is None else acc + term
+    tree = tp.plain_p3(x, sh, crep)
+    assert torch.equal(acc, tree)
+    running = p[0]
+    for i in range(1, tp.D1):
+        running = running + p[i]
+    assert not torch.equal(running, tree)
 
 
 def test_p7_tf32_library_allows_tf32_for_its_call_only(monkeypatch):
@@ -718,7 +788,7 @@ def test_p7_tf32_library_allows_tf32_for_its_call_only(monkeypatch):
 
 
 def test_p6_p7_are_checked_at_odd_tiles():
-    for name in ("p1", "p6", "p7", "p7_tf32"):
+    for name in ("p1", "p3", "p6", "p7", "p7_tf32"):
         p = throughput_probe.PROBES[name]
         assert p.checked_rows == (throughput_probe.E, 1088) and p.timed_rows == (throughput_probe.E,)
         assert 1088 % p.row_quantum == 0 and 1088 % 128 and 1088 // 64 == 17
@@ -750,6 +820,21 @@ def test_probes_default_to_the_card():
     for mod in (op_probe, op_probe2, throughput_probe):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mod.main([])
+
+
+def test_compare_probes_needs_the_card_and_a_known_probe(capsys):
+    """The comparison tool times kernels only: without a card it stops
+    before building anything, and it takes only the probes' names."""
+    from hamgnn_tpu_torch.tools_dev import compare_probes
+
+    assert set(compare_probes.ALL) == set(ALL)
+    with pytest.raises(SystemExit):
+        compare_probes.main(["p9"])
+    assert "invalid choice" in capsys.readouterr().err
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the tool would build and time")
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        compare_probes.main(["p3", "--against", "build/parent"])
 
 
 def test_device_time_ms_on_cpu():
@@ -893,8 +978,9 @@ def test_sources_hold_a_kernel_per_probe_and_no_library(src):
         n_global = len(kernels)
         for name in SOURCES[src]:
             assert any(k.startswith(f"{name}_") for k in kernels), name
-    # p4c_ns256 is the second instance of p4c's templated kernel
-    n_instances = n_global + (src == "probe_throughput")
+    # p4c_ns256 and p3 are second instances of templated kernels (p4c's, and
+    # p1's in another summing order)
+    n_instances = n_global + 2 * (src == "probe_throughput")
     assert n_instances >= len(SOURCES[src])
     for name, p in SOURCES[src].items():
         assert re.search(rf"\bprobe_{name}\b", text) or f"ROWWISE_1({name}," in text \

@@ -608,3 +608,16 @@ def test_build_rebuilds_when_a_shared_header_changes(tmp_path):
         assert tp_kernel.is_stale(lib, src), f.name
         os.utime(f, (1_000, 1_000))
     assert not tp_kernel.is_stale(lib, src)
+
+
+def test_device_kernel_names_are_the_sources():
+    """Each model kernel names the ``__global__`` functions its C entry
+    launches (a replayed CUDA graph is counted by them in a profiler trace),
+    and each is defined in the kernel's own source."""
+    for name, k in tp_kernel.KERNELS.items():
+        text = (tp_kernel.CSRC / f"{k.source}.cu").read_text()
+        defined = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                                 text))
+        launched = set(re.findall(r"(\w+)(?:<\w+>)?<<<", text))
+        assert k.device_kernels and set(k.device_kernels) == launched, name
+        assert set(k.device_kernels) <= defined, (name, defined)

@@ -15,11 +15,20 @@
   lr is 1e-3 here);
 * the non-finite guard, a checkpoint round trip, and ``stage: fit`` through
   the CLI on the CPU (metrics.jsonl, best.pt, predictions, warm start and
-  resume, then ``stage: test`` from best.pt).
+  resume, then ``stage: test`` from best.pt);
+* what the captured step (``train/captured.py``) rests on, on the CPU: the
+  learning rate as a device tensor (bit for bit the float form), the shape
+  key (JAX's ``_shape_key``), static buffers that round-trip a batch, a
+  step that builds nothing from host data and never waits for the device
+  after its first run (under both engines), and the trainers that stay
+  eager (CPU, band heads).  The captures themselves run on the card
+  (``tests/test_torch_port_cuda.py``).
 """
 
+import dataclasses
 import json
 import os
+import traceback
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +37,7 @@ import optax
 import pytest
 import torch
 import yaml
+from torch.utils._python_dispatch import TorchDispatchMode
 from flax.traverse_util import flatten_dict
 from util_fixtures import add_random_hamiltonian_targets, make_crystal
 
@@ -39,6 +49,7 @@ from hamgnn_tpu_torch import cli as t_cli
 from hamgnn_tpu_torch.data.dataset import GraphDataModule as TDataModule
 from hamgnn_tpu_torch.data.dataset import reference_split, save_graph_npz
 from hamgnn_tpu_torch.interfaces.jax_params import load_flax_params
+from hamgnn_tpu_torch.train import captured
 from hamgnn_tpu_torch.train import trainer as t_trainer
 from hamgnn_tpu_torch.train.config import load_config
 from hamgnn_tpu_torch.train.optim import Amsgrad, flatten_parameters
@@ -270,6 +281,173 @@ def test_checkpoint_round_trip(tmp_path):
     assert float(la) == float(lb)
     for x, y in zip(_state(a), _state(b)):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# what the captured step rests on
+# ---------------------------------------------------------------------------
+
+def test_amsgrad_takes_a_device_learning_rate():
+    """``Amsgrad.step`` with the learning rate as a 0-dim float32 tensor
+    equals the float form bit for bit, the dropped step included; any other
+    tensor is refused."""
+    rng = np.random.default_rng(4)
+    flat = {form: torch.as_tensor(rng.normal(size=64).astype(np.float32))
+            for form in ("float", "tensor")}
+    flat["tensor"] = flat["float"].clone()
+    opts = {form: Amsgrad(64, "cpu", 1.0) for form in flat}
+    lr_t = torch.tensor(0.0, dtype=torch.float32)
+    for lr in (1e-3, 1e-3, 3.7e-4, 1e-3):
+        g = torch.as_tensor(rng.normal(size=64).astype(np.float32))
+        lr_t.fill_(lr)
+        ok_f = opts["float"].step(flat["float"], g, lr)
+        ok_t = opts["tensor"].step(flat["tensor"], g, lr_t)
+        assert bool(ok_f) and bool(ok_t)
+        assert torch.equal(flat["float"], flat["tensor"])
+        for a, b in zip(opts["float"].state_dict().values(), opts["tensor"].state_dict().values()):
+            assert torch.equal(a, b)
+    bad = torch.full((64,), float("nan"))
+    assert not bool(opts["tensor"].step(flat["tensor"], bad, lr_t))
+    assert torch.equal(flat["float"], flat["tensor"])
+    for wrong in (torch.tensor([1e-3]), torch.tensor(1e-3, dtype=torch.float64)):
+        with pytest.raises(ValueError, match="0-dim float32"):
+            opts["tensor"].step(flat["tensor"], bad, wrong)
+
+
+def test_shape_key_is_the_jax_trainers():
+    """One captured graph per (nodes, edges, graphs), as the JAX trainer
+    caches one program per ``_shape_key``, on the same batches."""
+    crystals = _crystals(5, seed=11)
+    jd = JDataModule(crystals, batch_size=2)
+    td = TDataModule(crystals, batch_size=2, device="cpu")
+    keys = []
+    for a, b in zip(jd.train_batches(np.random.default_rng(1)),
+                    td.train_batches(np.random.default_rng(1))):
+        keys.append(captured.shape_key(b))
+        assert keys[-1] == j_trainer.Trainer._shape_key(None, a)
+        assert all(isinstance(v, int) for v in keys[-1])
+    assert len(keys) == 2
+
+
+def test_static_buffers_round_trip_a_batch():
+    """``static_graph`` holds its own copy of every tensor field (the fields
+    that are None stay None); ``copy_into`` moves another batch of the same
+    shapes into it whole, and refuses one of other shapes or fields."""
+    td = TDataModule(_crystals(4, seed=12), batch_size=1, train_ratio=1.0, val_ratio=0.0,
+                     test_ratio=0.0, edge_quantum=512, node_quantum=16, device="cpu")
+    batches = list(td.train_batches(np.random.default_rng(2)))
+    same = [g for g in batches if captured.shape_key(g) == captured.shape_key(batches[0])]
+    assert len(same) >= 2
+    first, second = same[0], same[1]
+    static = captured.static_graph(first)
+    fields = captured.tensor_fields(first)
+    assert set(captured.tensor_fields(static)) == set(fields) and "Hon" in fields
+    assert static.spin_vec is None and first.spin_vec is None
+    for name, t in fields.items():
+        s_ = getattr(static, name)
+        assert torch.equal(s_, t) and s_.data_ptr() != t.data_ptr() and s_.is_contiguous()
+    ptrs = {n: t.data_ptr() for n, t in captured.tensor_fields(static).items()}
+    captured.copy_into(static, second)
+    for name, t in captured.tensor_fields(second).items():
+        assert torch.equal(getattr(static, name), t)
+        assert getattr(static, name).data_ptr() == ptrs[name]
+    other = [g for g in batches if captured.shape_key(g) != captured.shape_key(first)]
+    wider = other[0] if other else dataclasses.replace(first, z=torch.cat([first.z, first.z]))
+    with pytest.raises(ValueError, match="other fields"):
+        captured.copy_into(static, wider)
+    with pytest.raises(ValueError, match="other fields"):
+        captured.copy_into(static, dataclasses.replace(second, Hon=None))
+
+
+def test_cpu_trainer_does_not_capture(tmp_path):
+    tr = _port_trainer(tmp_path, "cpu")
+    assert tr.captured is None and tr.lr_t.device.type == "cpu"
+    tm = t_cli.build_model(load_config(None, overrides=BASE))
+    with pytest.raises(ValueError, match="needs the card"):
+        t_trainer.Trainer(tm, losses=LOSSES, metrics=METRICS, train_dir=str(tmp_path / "c"),
+                          device="cpu", capture=True)
+
+
+def test_band_trainer_stays_eager(tmp_path):
+    """A head that computes bands reads counts and draws k-points on the
+    host: its trainer never captures, and asking for it raises."""
+    cfg = _merge(BASE, {"output_nets": {"HamGNN_out": {
+        "calculate_band_energy": True, "num_k": 2, "band_num_control": 4}}})
+    tm = t_cli.build_model(load_config(None, overrides=cfg))
+    assert tm.output.calculate_band_energy
+    tr = t_trainer.Trainer(tm, losses=LOSSES, metrics=[], train_dir=str(tmp_path / "b"),
+                           device="cpu")
+    assert tr.captured is None
+    with pytest.raises(ValueError, match="band"):
+        t_trainer.Trainer(tm, losses=LOSSES, metrics=[], train_dir=str(tmp_path / "b2"),
+                          device="cpu", capture=True)
+
+
+class _HostTraffic(TorchDispatchMode):
+    """Records, by the port's source line, every op of a step that builds a
+    tensor from host data (``lift_fresh``: ``torch.tensor``, a list index) or
+    waits for the device (a scalar read, ``nonzero``, a boolean index,
+    ``unique``): none of them can be captured in a CUDA graph."""
+
+    SYNCS = (torch.ops.aten._local_scalar_dense.default, torch.ops.aten.nonzero.default,
+             torch.ops.aten.masked_select.default)
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        bool_index = func is torch.ops.aten.index.Tensor and any(
+            i is not None and i.dtype == torch.bool for i in args[1])
+        if func is torch.ops.aten.lift_fresh.default or func in self.SYNCS or bool_index \
+                or "unique" in func.name():
+            self.seen.append((func.name(), _port_line()))
+        return func(*args, **(kwargs or {}))
+
+
+def _port_line():
+    frames = [f for f in traceback.extract_stack() if "hamgnn_tpu_torch" in f.filename]
+    return f"{frames[-1].filename.split('hamgnn_tpu_torch')[-1]}:{frames[-1].lineno}" \
+        if frames else "?"
+
+
+@pytest.mark.parametrize("engine", ["auto", "zonal"])
+def test_steps_take_nothing_from_the_host_after_warm_up(tmp_path, monkeypatch, engine):
+    """After a first training and eval step (the warm-up of a capture),
+    neither step builds a tensor from host data (``torch.tensor``,
+    ``as_tensor``, ``from_numpy``, a list index) nor reads a device value on
+    the host: what a CUDA graph can capture.  SH up to l = 4, both
+    engines."""
+    if engine != "auto":
+        monkeypatch.setenv("HAMGNN_TP_ENGINE", engine)
+    cfg = _merge(BASE, {"representation_nets": {"HamGNN_pre": {
+        "irreps_edge_sh": "0e+1o+2e+3o+4e"}}})
+    tm = t_cli.build_model(load_config(None, overrides=cfg))
+    from hamgnn_tpu_torch.models.model import init_weights
+
+    init_weights(tm, 0)
+    tr = t_trainer.Trainer(tm, losses=LOSSES, metrics=METRICS, lr=1e-3,
+                           train_dir=str(tmp_path / engine), device="cpu")
+    td = TDataModule(_crystals(2, seed=13), batch_size=2, train_ratio=1.0, val_ratio=0.0,
+                     test_ratio=0.0, device="cpu")
+    g = next(iter(td.train_batches(np.random.default_rng(0))))
+
+    def steps():  # the bodies a capture records: the step at the device rate, the eval
+        tr._step(g, tr.lr_t)
+        with torch.inference_mode():
+            tr._eval(g)
+
+    steps()
+    mode = _HostTraffic()
+    calls = []
+    for name in ("tensor", "as_tensor", "from_numpy"):
+        real = getattr(torch, name)
+        monkeypatch.setattr(torch, name, lambda *a, _real=real, _n=name, **k: (
+            calls.append((_n, _port_line())), _real(*a, **k))[1])
+    with mode:
+        steps()
+    monkeypatch.undo()
+    assert calls == [] and mode.seen == []
 
 
 # ---------------------------------------------------------------------------
