@@ -86,7 +86,30 @@ Phases (any failure exits non-zero, before the result lines are printed):
      (chiprun_out/profile_band_step.txt); then the CLI: ``stage: fit`` two
      epochs with the band loss, ``stage: test`` from its ``best.pt`` and
      ``tools.band_cal`` on the prediction;
-  8. print one JSON line describing each kernel, then the result line
+  8. the SOC slice (``phase_soc``): ``examples/sk_soc/config.yaml``'s model
+     (2 layers, features up to ``4x4e+2x4o``, nao 14; the graph's 6 A cutoff
+     in place of the config's 9 A, random weights from seed 0) on the bench
+     crystal with SOC fields (spinor targets, ``Lon``/``Loff``): B1-B4 against
+     their plain versions at its plans (E = 19,968, the limits of phase 2);
+     the forward, so3 (the config's head) and su2, under both engines, 9
+     launches of the engine's forward kernel and no other, against the same
+     model through the plain TP within 1e-4 * max|ref|, the real part
+     Hermitian and the imaginary part anti-Hermitian through the inverse edge
+     within 1e-6 * max|ref| (su2 the whole spinor block, so3 its spin-diagonal
+     blocks); the training step on the config's losses (MAE x 27.211 on the
+     real and the imaginary rows; so3 under both engines, su2 under the
+     default one) eager (9 + 9 launches) and captured, loss
+     within 1e-6 relative and gradients within 1e-5 * max|ref| per tensor
+     (both under deterministic algorithms, where the two agree bit for bit),
+     timed in turns in the default mode with device time by torch.profiler
+     (chiprun_out/profile_soc_step_*.txt); the same step with gradient
+     checkpointing; the spinor band step (4 crystals x 16 atoms, 6 k, 2 x 8
+     bands, H(k) of the batch's 64 padded atoms x 28 orbitals): reference bands
+     within 5e-4 of a float64 host solve, one eager training step with the band
+     loss; the CLI: ``stage: fit`` two epochs, then ``stage: test`` from
+     ``<train_dir>/best``, whose predictions must differ from the untrained
+     model's;
+  9. print one JSON line describing each kernel, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 It needs one card, imports nothing of JAX or of the JAX package, writes only
@@ -216,30 +239,33 @@ def phase_build(tp_kernel):
     return card
 
 
-def bench_plans():
+def bench_plans(cfg=None):
+    """The TP plans of a model config (default the bench one): (name, plan,
+    radial weights present, launches per forward)."""
     from hamgnn_tpu_torch.e3.irreps import Irreps
     from hamgnn_tpu_torch.e3.packed_tp import get_plan
 
-    cfg = BENCH_CFG["representation_nets"]["HamGNN_pre"]
+    cfg = (cfg or BENCH_CFG)["representation_nets"]["HamGNN_pre"]
+    num_types = cfg.get("num_types", 96)
     feat = Irreps(cfg["irreps_node_features"])
     sh = Irreps(cfg["irreps_edge_sh"])
     comb = Irreps([(2 * m, ir) for m, ir in feat])
     mk = lambda xin: get_plan(repr(Irreps(xin)), repr(sh), repr(feat), repr(feat))  # noqa: E731
-    # (name, plan, radial weights present, launches per forward at 3 layers)
-    return [("pair", mk(f"{cfg['num_types']}x0e"), True, 1),
-            ("pair_lite", mk(f"{cfg['num_types']}x0e"), False, 0),
-            ("node", mk(comb), True, 6),
-            ("edge", mk(feat), True, 6)]
+    per_layer = 2 * cfg["num_layers"]
+    return [("pair", mk(f"{num_types}x0e"), True, 1),
+            ("pair_lite", mk(f"{num_types}x0e"), False, 0),
+            ("node", mk(comb), True, per_layer),
+            ("edge", mk(feat), True, per_layer)]
 
 
-def phase_kernels(tp_kernel, dev):
+def phase_kernels(tp_kernel, dev, cfg=None, width="bench"):
     import numpy as np
     import torch
 
     from hamgnn_tpu_torch.e3.packed_tp import plain_apply
 
     rows = []
-    for name, plan, has_w, per_fwd in bench_plans():
+    for name, plan, has_w, per_fwd in bench_plans(cfg):
         spec = tp_kernel.get_spec(plan)
         rng = np.random.default_rng(7)
         E = E_BENCH
@@ -266,7 +292,7 @@ def phase_kernels(tp_kernel, dev):
                          bound_ms=bound, bound_by=bound_by, gflop=flops / 1e9,
                          mbytes=nbytes / 1e6,
                          achieved_tflops=flops / (ms * 1e-3) / 1e12))
-        print(f"[kernel] packed_tp_fwd {name:9s} E={E} max|d|={err:.3e} "
+        print(f"[kernel] packed_tp_fwd {width} {name:9s} E={E} max|d|={err:.3e} "
               f"(max|ref| {scale:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
               f"bound {bound:.4f} ms ({bound_by})", flush=True)
         del x, sh, w, fw, ref, out
@@ -274,16 +300,16 @@ def phase_kernels(tp_kernel, dev):
     return rows
 
 
-def phase_bwd_kernels(tp_kernel, dev):
-    """B2 against ``plain_backward`` at the bench plans, a repeat
-    bit-identical, CUDA-event times and bounds."""
+def phase_bwd_kernels(tp_kernel, dev, cfg=None, width="bench"):
+    """B2 against ``plain_backward`` at the plans of ``cfg`` (default the
+    bench ones), a repeat bit-identical, CUDA-event times and bounds."""
     import numpy as np
     import torch
 
     from hamgnn_tpu_torch.e3.packed_tp import plain_backward
 
     rows = []
-    for name, plan, has_w, per_step in bench_plans():
+    for name, plan, has_w, per_step in bench_plans(cfg):
         if not has_w:  # lite mode is not on the bench training path
             continue
         spec = tp_kernel.get_spec(plan)
@@ -328,7 +354,7 @@ def phase_bwd_kernels(tp_kernel, dev):
                          ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                          gflop=flops / 1e9, mbytes=nbytes / 1e6,
                          achieved_tflops=flops / (ms * 1e-3) / 1e12, **passes))
-        print(f"[kernel] packed_tp_bwd {name:9s} E={E} "
+        print(f"[kernel] packed_tp_bwd {width} {name:9s} E={E} "
               + ", ".join(f"{k} max|d|={e:.3e} (max|ref| {s_:.3e})" for k, (e, s_) in errs.items())
               + f"; bit-identical repeat; kernel {ms:.4f} ms (edge pass {passes['edge_ms']:.4f}, "
               f"weight pass + reduce {passes['wcat_ms']:.4f}) plain {plain_ms:.4f} ms "
@@ -460,15 +486,15 @@ def zonal_inputs(plan, has_w, seed, dev, with_gout=False):
     return x, sh, x_rot, w, fw, gy
 
 
-def phase_zonal_kernels(dev):
-    """B3 against ``plain_zonal_core`` at the bench plans, CUDA-event times
-    and bounds."""
+def phase_zonal_kernels(dev, cfg=None, width="bench"):
+    """B3 against ``plain_zonal_core`` at the plans of ``cfg`` (default the
+    bench ones), CUDA-event times and bounds."""
     import torch
 
     from hamgnn_tpu_torch.e3 import zonal_kernel, zonal_tp
 
     rows = []
-    for name, plan, has_w, per_fwd in bench_plans():
+    for name, plan, has_w, per_fwd in bench_plans(cfg):
         spec = zonal_kernel.get_zonal_kernel_spec(plan)
         E = E_BENCH
         _x, _sh, x_rot, w, fw, _gy = zonal_inputs(plan, has_w, 17, dev)
@@ -489,7 +515,7 @@ def phase_zonal_kernels(dev):
                          mbytes=nbytes / 1e6,
                          achieved_tflops=flops / (ms * 1e-3) / 1e12,
                          achieved_gbytes_per_s=nbytes / (ms * 1e-3) / 1e9))
-        print(f"[kernel] zonal_tp_fwd  {name:9s} E={E} max|d|={err:.3e} "
+        print(f"[kernel] zonal_tp_fwd  {width} {name:9s} E={E} max|d|={err:.3e} "
               f"(max|ref| {scale:.3e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
               f"bound {bound:.4f} ms ({bound_by})", flush=True)
         del x_rot, w, fw, ref, out
@@ -497,15 +523,16 @@ def phase_zonal_kernels(dev):
     return rows
 
 
-def phase_zonal_bwd_kernels(dev):
-    """B4 against ``plain_zonal_core_backward`` at the bench plans, a repeat
-    bit-identical, CUDA-event times and bounds."""
+def phase_zonal_bwd_kernels(dev, cfg=None, width="bench"):
+    """B4 against ``plain_zonal_core_backward`` at the plans of ``cfg``
+    (default the bench ones), a repeat bit-identical, CUDA-event times and
+    bounds."""
     import torch
 
     from hamgnn_tpu_torch.e3 import tp_kernel, zonal_kernel, zonal_tp
 
     rows = []
-    for name, plan, has_w, per_step in bench_plans():
+    for name, plan, has_w, per_step in bench_plans(cfg):
         spec = zonal_kernel.get_zonal_kernel_spec(plan)
         E = E_BENCH
         _x, _sh, x_rot, w, fw, gy = zonal_inputs(plan, has_w, 18, dev, with_gout=True)
@@ -540,7 +567,7 @@ def phase_zonal_bwd_kernels(dev):
                          gflop=flops / 1e9, mbytes=nbytes / 1e6,
                          achieved_tflops=flops / (ms * 1e-3) / 1e12,
                          achieved_gbytes_per_s=nbytes / (ms * 1e-3) / 1e9, **passes))
-        print(f"[kernel] zonal_tp_bwd  {name:9s} E={E} "
+        print(f"[kernel] zonal_tp_bwd  {width} {name:9s} E={E} "
               + ", ".join(f"{k} max|d|={e:.3e} (max|ref| {s_:.3e})" for k, (e, s_) in errs.items())
               + f"; bit-identical repeat; kernel {ms:.4f} ms (edge pass {passes['edge_ms']:.4f}, "
               f"weight pass + reduce {passes['wcat_ms']:.4f}) plain {plain_ms:.4f} ms "
@@ -769,7 +796,7 @@ def phase_captured(tp_kernel, dev, card, eng):
     max|ref|; one replay of the step launches each of the engine's device
     kernels 13 times (a profiler trace) and moves no host counter.  Then both
     forms of the step and of the eval step are timed in turns (wall, median
-    of 5; device time by kernel over 3, by torch.profiler; peak memory;
+    of 5; device time by kernel of one step, by torch.profiler; peak memory;
     edges/s)."""
     import dataclasses
 
@@ -930,19 +957,19 @@ def phase_captured(tp_kernel, dev, card, eng):
                 n_edges=n_edges, second_shape_edges=e_small)
 
 
-def profile_train_step(tr, graph, fname):
-    """Device time by kernel name over 3 train steps, written to
-    chiprun_out/<fname>."""
+def profile_train_step(tr, graph, fname, steps=1):
+    """Device time by kernel name over ``steps`` train steps (one: a step's
+    device time repeats within 0.1%), written to chiprun_out/<fname>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(steps):
             tr.train_step(graph)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / 3
-    return _write_profile(prof, wall, 3, fname, "step")
+        wall = (time.perf_counter() - t0) / steps
+    return _write_profile(prof, wall, steps, fname, "step")
 
 
 def _write_profile(prof, wall, n, fname, unit):
@@ -974,22 +1001,21 @@ def _write_profile(prof, wall, n, fname, unit):
 
 
 def profile_eval(tr, graph, fname):
-    """Device time by kernel name over 3 eval steps (forward, losses,
+    """Device time by kernel name of one eval step (forward, losses,
     metrics), written to chiprun_out/<fname>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            tr.eval_step(graph)
+        tr.eval_step(graph)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / 3
-    return _write_profile(prof, wall, 3, fname, "eval step")
+        wall = time.perf_counter() - t0
+    return _write_profile(prof, wall, 1, fname, "eval step")
 
 
 def profile_forward(model, graph, fname):
-    """Device time by kernel name over 3 forwards (torch.profiler), written to
+    """Device time by kernel name of one forward (torch.profiler), written to
     chiprun_out/<fname>; returns {name: ms per forward} of the top kernels and
     the total under "__all__"."""
     import torch
@@ -998,11 +1024,10 @@ def profile_forward(model, graph, fname):
     with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
                                                      ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(3):
-            model(graph)
+        model(graph)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / 3
-    return _write_profile(prof, wall, 3, fname, "forward")
+        wall = time.perf_counter() - t0
+    return _write_profile(prof, wall, 1, fname, "forward")
 
 
 def _host_time(fn) -> float:
@@ -1306,17 +1331,16 @@ def phase_band(tp_kernel, dev, card):
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(2):
-            tr.train_step(graph)
+        tr.train_step(graph)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / 2
-    device_ms = _write_profile(prof, wall, 2, "profile_band_step.txt", "step")
+        wall = time.perf_counter() - t0
+    device_ms = _write_profile(prof, wall, 1, "profile_band_step.txt", "step")
     # host time inside the solver ops (they wait for the card), per step
     solver = {}
     for ev in prof.key_averages():
         if ev.key in ("aten::linalg_eigh", "aten::linalg_cholesky", "aten::linalg_cholesky_ex",
                       "aten::linalg_solve_triangular"):
-            solver[ev.key] = ev.cpu_time_total / 2e3
+            solver[ev.key] = ev.cpu_time_total / 1e3
     solver_ms = solver.get("aten::linalg_eigh", 0.0) + max(
         solver.get("aten::linalg_cholesky", 0.0), solver.get("aten::linalg_cholesky_ex", 0.0))
 
@@ -1420,6 +1444,499 @@ def phase_band_cli(tp_kernel):
     return dict(fit_s=fit_s, launches=launches, records=records, band_cal_gaps_ev=gaps)
 
 
+# the SOC slice: examples/sk_soc/config.yaml's model (2 layers, features up
+# to 4x4e+2x4o, nao 14, so3 head) on the bench crystal's graph, whose 6 A
+# cutoff replaces the config's 9 A (~3.4x the edges) so that the step stays
+# comparable with the bench step and inside the run's time limit
+SOC_CONFIG = ROOT / "examples" / "sk_soc" / "config.yaml"
+SOC_CUTOFF = 6.0
+SOC_NAO = 14
+
+
+def soc_config(basis="so3", **out):
+    """(model config, its losses) of ``examples/sk_soc/config.yaml`` with the
+    graph's cutoff, ``soc_basis`` set to ``basis`` and ``out`` over the
+    head's keys."""
+    import yaml
+
+    with open(SOC_CONFIG) as f:
+        src = yaml.safe_load(f)
+    cfg = {"representation_nets": src["representation_nets"],
+           "output_nets": src["output_nets"]}
+    cfg["representation_nets"]["HamGNN_pre"]["cutoff"] = SOC_CUTOFF
+    cfg["output_nets"]["HamGNN_out"].update(soc_basis=basis, **out)
+    return cfg, src["losses_metrics"]["losses"]
+
+
+def soc_crystals(rng, n, n_atoms, cell_size, cutoff):
+    from hamgnn_tpu_torch.data.synthetic import (add_random_hamiltonian_targets,
+                                                 add_random_soc_targets, make_crystal)
+
+    return [add_random_soc_targets(rng, add_random_hamiltonian_targets(
+        rng, make_crystal(rng, n_atoms=n_atoms, cell_size=cell_size, cutoff=cutoff),
+        nao_max=SOC_NAO), nao_max=SOC_NAO) for _ in range(n)]
+
+
+def soc_bench_graph(dev):
+    """The bench crystal (512 atoms, 6 A, 19,672 edges padded to 19,968) with
+    the SOC fields at nao 14."""
+    import numpy as np
+
+    from hamgnn_tpu_torch.data.graph import pad_and_batch
+    from hamgnn_tpu_torch.data.synthetic import add_random_soc_targets, bench_crystal
+
+    crystal = add_random_soc_targets(np.random.default_rng(1), bench_crystal(nao_max=SOC_NAO),
+                                     nao_max=SOC_NAO)
+    n_edges = int(crystal["edge_index"].shape[1])
+    graph = pad_and_batch([crystal], node_bucket=512,
+                          edge_bucket=((n_edges + 511) // 512) * 512, device=dev)
+    return graph, n_edges
+
+
+def soc_hermiticity(out, graph, basis) -> float:
+    """max over rows of |H(e) - H(inv e)^dagger| (the real part symmetric,
+    the imaginary part antisymmetric through the inverse edge; on site
+    through itself): the whole spinor block for su2, the spin-diagonal
+    blocks for so3, whose spin-coupling entries hold the antisymmetrised
+    ksi * L of the reference's convention."""
+    import torch
+
+    nao = SOC_NAO
+    worst = 0.0
+    for where, mate, mask in (("on", None, graph.node_mask), ("off", graph.inv_edge_idx,
+                                                              graph.edge_mask)):
+        for part, sign in (("real", 1.0), ("imag", -1.0)):
+            h = out[f"hamiltonian_{part}_{where}"].reshape(-1, 2 * nao, 2 * nao)
+            hm = h if mate is None else h[mate]
+            d = (h - sign * hm.mT)[mask]
+            if basis == "so3":
+                d = d.reshape(-1, 2, nao, 2, nao)
+                d = torch.stack([d[:, 0, :, 0, :], d[:, 1, :, 1, :]], 1)
+            worst = max(worst, float(d.abs().max()))
+    return worst
+
+
+def phase_soc_kernels(tp_kernel, dev):
+    """B1-B4 against their plain versions at the sk_soc plans (E = 19,968),
+    as phase 2 holds them at the bench plans."""
+    cfg, _losses = soc_config()
+    return {"packed_tp_fwd": phase_kernels(tp_kernel, dev, cfg, "sk_soc"),
+            "packed_tp_bwd": phase_bwd_kernels(tp_kernel, dev, cfg, "sk_soc"),
+            "zonal_tp_fwd": phase_zonal_kernels(dev, cfg, "sk_soc"),
+            "zonal_tp_bwd": phase_zonal_bwd_kernels(dev, cfg, "sk_soc")}
+
+
+def phase_soc_forward(tp_kernel, dev, card, graph, n_edges):
+    """The SOC model's forward, so3 and su2, under both engines: 9 launches
+    of the engine's forward kernel and no other, the outputs against the
+    same model through the plain TP, the Hermitian structure."""
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.train.config import load_config
+
+    keys = ("hamiltonian_real_on", "hamiltonian_real_off", "hamiltonian_imag_on",
+            "hamiltonian_imag_off")
+    result = {}
+    for basis in ("so3", "su2"):
+        cfg, _losses = soc_config(basis)
+        layers = cfg["representation_nets"]["HamGNN_pre"]["num_layers"]
+        model = init_weights(build_model(load_config(None, overrides=cfg)), 0).to(dev).eval()
+        with torch.inference_mode():
+            with engine("xla"):
+                ref = model(graph)
+                torch.cuda.synchronize()
+            for eng, (fwd, _bwd) in ENGINES.items():
+                with engine(eng):
+                    reset_launches(tp_kernel)
+                    out = model(graph)
+                    torch.cuda.synchronize()
+                    check_launches(tp_kernel, {fwd: 4 * layers + 1},
+                                   f"one SOC forward ({basis}, {eng})")
+                    times = [_host_time(lambda: model(graph)) for _ in range(3)]
+                errs = {}
+                for key in keys:
+                    if tuple(out[key].shape) != (graph.num_nodes if key.endswith("_on")
+                                                 else graph.num_edges, (2 * SOC_NAO) ** 2):
+                        fail(f"SOC {key} ({basis}, {eng}) has shape {tuple(out[key].shape)}")
+                    err, scale = rel_err(out[key], ref[key])
+                    errs[key] = (err, scale)
+                    if not math.isfinite(err) or err > TOL * scale:
+                        fail(f"SOC forward {key} ({basis}, {eng}) vs plain TP: max|d| "
+                             f"{err:.3e} > {TOL} * {scale:.3e}")
+                scale = max(s_ for _e, s_ in errs.values())
+                herm = soc_hermiticity(out, graph, basis)
+                if not herm <= 1e-6 * scale:
+                    fail(f"SOC forward ({basis}, {eng}): Hermitian structure off by {herm:.3e} "
+                         f"> 1e-6 * {scale:.3e}")
+                ms = 1e3 * float(np.median(times))
+                result[f"{basis}:{eng}"] = dict(
+                    forward_ms=ms, forward_times_ms=[1e3 * t for t in times],
+                    edges_per_s=n_edges / (ms * 1e-3), hermiticity=herm,
+                    errors={k: list(v) for k, v in errs.items()})
+                print(f"[soc] forward {basis} {eng}: {4 * layers + 1} {fwd} launches; vs plain "
+                      f"TP " + ", ".join(f"{k[12:]} {e:.3e} of {s_:.3e}"
+                                         for k, (e, s_) in errs.items())
+                      + f" (limit {TOL}); Hermitian to {herm:.3e}; forward {ms:.3f} ms (median "
+                      f"of 3) = {n_edges / (ms * 1e-3):.1f} edges/s, card {card}", flush=True)
+        del model, ref, out
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_soc_step(tp_kernel, dev, card, graph, n_edges, basis, eng, checkpointing):
+    """The SOC training step (the config's MAE x 27.211 on the real and the
+    imaginary rows, amsgrad at lr 1e-3) eager and captured from the same
+    weights under engine ``eng``.  First, with deterministic algorithms on
+    in both, the captured step against the eager one: loss within 1e-6
+    relative, gradients within 1e-5 * max|ref| per tensor: deterministic,
+    the two forms agree bit for bit, while in the default mode the atomic
+    sums of ``index_add_`` and of the gathers' backward add in another order
+    at every step, which moves tensors whose gradients are tiny (su2's, ~1e-6)
+    by more than 1e-5 of their size; that spread is reported.  Then, in the
+    default mode, a trainer of each form as the trainer runs: the eager
+    step's launches (9 forward, 9 backward; with
+    checkpointing the 8 TP calls of the layers run forward again), both forms
+    timed in turns (wall, median), device time by the profiler."""
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.train.config import load_config
+    from hamgnn_tpu_torch.train.trainer import Trainer
+
+    cfg, losses = soc_config(basis)
+    cfg["representation_nets"]["HamGNN_pre"]["use_gradient_checkpointing"] = checkpointing
+    layers = cfg["representation_nets"]["HamGNN_pre"]["num_layers"]
+    tag = f"{basis}_{eng}" + ("_ckpt" if checkpointing else "")
+    WORK.mkdir(parents=True, exist_ok=True)
+    fwd, bwd = ENGINES[eng]
+
+    def trainers(kind):
+        out = {}
+        for form, capture in (("eager", False), ("captured", None)):
+            model = init_weights(build_model(load_config(None, overrides=cfg)), 0)
+            if model.representation.use_gradient_checkpointing != checkpointing:
+                fail(f"SOC step ({tag}): checkpointing not {checkpointing}")
+            out[form] = Trainer(model, losses=losses, metrics=[], lr=1e-3,
+                                train_dir=str(WORK / f"soc_{kind}_{form}_{tag}"), device=dev,
+                                capture=capture)
+        if out["eager"].captured is not None or out["captured"].captured is None:
+            fail(f"SOC step ({tag}): the default trainer must capture, capture=False not")
+        return out
+
+    with engine(eng):
+        torch.use_deterministic_algorithms(True)
+        trs = trainers("det")
+        la, lb = (float(trs[form].train_step(graph)[0]) for form in ("eager", "captured"))
+        torch.cuda.synchronize()
+        torch.use_deterministic_algorithms(False)
+        eager, cap = trs["eager"], trs["captured"]
+        if not abs(lb - la) <= 1e-6 * abs(la):
+            fail(f"SOC captured step ({tag}) loss {lb!r} vs eager {la!r}: above 1e-6 relative")
+        ofs, worst = 0, 0.0
+        for name, p in eager.model.named_parameters():
+            a, b = eager.grad[ofs:ofs + p.numel()], cap.grad[ofs:ofs + p.numel()]
+            ofs += p.numel()
+            err, scale = rel_err(b, a)
+            if not err <= 1e-5 * scale:
+                fail(f"SOC captured step ({tag}) gradient {name}: max|d| {err:.3e} > "
+                     f"1e-5 * {scale:.3e}")
+            worst = max(worst, err / scale if scale else 0.0)
+        del trs, eager, cap
+        torch.cuda.empty_cache()
+
+        trs, peaks, firsts = trainers("default"), {}, {}
+        for form in ("eager", "captured"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_launches(tp_kernel)
+            t0 = time.perf_counter()
+            loss, logs = trs[form].train_step(graph)
+            torch.cuda.synchronize()
+            firsts[form] = (float(loss), time.perf_counter() - t0)
+            peaks[form] = torch.cuda.max_memory_allocated(dev) / 1e9
+            if form == "eager":
+                per = 4 * layers + 1
+                launches = check_launches(
+                    tp_kernel, {fwd: per + (4 * layers if checkpointing else 0), bwd: per},
+                    f"one eager SOC step ({tag})")
+            if not math.isfinite(float(loss)) or float(logs["nonfinite_step"]) != 0.0:
+                fail(f"SOC step ({tag}, {form}): loss {float(loss)}")
+        # the same comparison in the default mode, reported: its spread is the
+        # atomic sums', which two eager steps show as well
+        ofs, worst_default = 0, 0.0
+        for name, p in trs["eager"].model.named_parameters():
+            err, scale = rel_err(trs["captured"].grad[ofs:ofs + p.numel()],
+                                 trs["eager"].grad[ofs:ofs + p.numel()])
+            ofs += p.numel()
+            worst_default = max(worst_default, err / scale if scale else 0.0)
+        n_turns = 2 if checkpointing else 3
+        times = {"eager": [], "captured": []}
+        for _ in range(n_turns):
+            for form in ("eager", "captured"):
+                times[form].append(_host_time(lambda: trs[form].train_step(graph)))
+        device = {}
+        if not checkpointing:  # the replay's device time (the eager step's is the same)
+            device["captured"] = profile_train_step(
+                trs["captured"], graph, f"profile_soc_step_{tag}.txt")["__all__"]
+    result = dict(first_loss=[la, lb], worst_grad_rel_err=worst, peak_gb=peaks,
+                  first_step_s={k: v[1] for k, v in firsts.items()}, launches=launches,
+                  default_mode_first_loss=[firsts["eager"][0], firsts["captured"][0]],
+                  default_mode_worst_grad_rel_err=worst_default)
+    for form, ts in times.items():
+        ms = 1e3 * float(np.median(ts))
+        result[form] = dict(ms=ms, times_ms=[1e3 * t for t in ts],
+                            edges_per_s=n_edges / (ms * 1e-3), device_ms=device.get(form))
+    print(f"[soc] step {tag}: eager launches {launches}; deterministic, captured vs eager "
+          f"loss {lb!r} vs {la!r}, worst gradient {worst:.3e} of max|ref|; default mode: "
+          f"loss {firsts['captured'][0]!r} vs {firsts['eager'][0]!r}, worst gradient "
+          f"{worst_default:.3e} (atomic sums, not held to a limit); "
+          + "; ".join(f"{form} {r['ms']:.3f} ms (median of {n_turns}) = "
+                      f"{r['edges_per_s']:.1f} edges/s"
+                      + (f", device kernels {r['device_ms']:.3f} ms" if r["device_ms"] else "")
+                      for form, r in ((f, result[f]) for f in ("eager", "captured")))
+          + f"; first step: eager {firsts['eager'][1]:.2f} s, captured (warm-up, capture, "
+          f"replay) {firsts['captured'][1]:.2f} s; peak memory eager {peaks['eager']:.2f} GB, "
+          f"captured {peaks['captured']:.2f} GB; card {card}", flush=True)
+    del trs
+    torch.cuda.empty_cache()
+    return result
+
+
+def host_soc_bands(crystal, k_cart, basis, width):
+    """float64 spinor bands of one crystal's stored SOC Hamiltonian on the
+    host, in the head's window of ``2 * width`` around the valence count:
+    (nk, 2 * width)."""
+    import numpy as np
+    import scipy.linalg
+
+    from hamgnn_tpu_torch.tools.band_cal import _assemble_soc, assemble_k_matrices_numpy
+
+    nao = SOC_NAO
+    z = crystal["z"]
+    n = len(z)
+    ei, shift = crystal["edge_index"], crystal["nbr_shift"]
+    valid = np.concatenate([basis.orbital_mask_table[zi] > 0 for zi in z])
+    HK = sum(c * _assemble_soc(np.concatenate([crystal[on], crystal[off]]), n, ei, shift,
+                               k_cart, 2 * nao, valid)
+             for c, on, off in ((1.0, "Hon", "Hoff"), (1j, "iHon", "iHoff")))
+    S = assemble_k_matrices_numpy(np.concatenate([crystal["Son"], crystal["Soff"]]), n, ei,
+                                  shift, k_cart, nao, valid)
+    nv = S.shape[1]
+    SK = np.zeros((S.shape[0], 2 * nv, 2 * nv), complex)
+    SK[:, :nv, :nv] = S
+    SK[:, nv:, nv:] = S
+    occ = int(round(sum(basis.num_valence[int(zi)] for zi in z)))
+    start = min(max(occ - width, 0), max(2 * nv - 2 * width, 0))
+    return np.stack([scipy.linalg.eigh(0.5 * (h + h.conj().T), 0.5 * (s_ + s_.conj().T),
+                                       eigvals_only=True)[start : start + 2 * width]
+                     for h, s_ in zip(HK, SK)])
+
+
+def phase_soc_band(tp_kernel, dev, card):
+    """The SOC head's spinor band branch at the sk_soc width on the band
+    smoke's 4 crystals of 16 atoms (6 k, 2 x 8 bands), eager: shapes, the
+    reference bands against a float64 host solve within 5e-4, one training
+    step with the band loss (9 + 9 launches), its time and the share of
+    eigh and Cholesky."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.data.graph import pad_and_batch
+    from hamgnn_tpu_torch.models.basis import get_basis_set
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.physics.kpoints import k_vecs_for_graph
+    from hamgnn_tpu_torch.train.config import load_config
+    from hamgnn_tpu_torch.train.trainer import Trainer
+
+    width, nk = BAND_OUT["band_num_control"], BAND_OUT["num_k"]
+    crystals = soc_crystals(np.random.default_rng(5), 4, 16, 8.0, 5.0)
+    n_edges = sum(c["edge_index"].shape[1] for c in crystals)
+    graph = pad_and_batch(crystals, node_bucket=64,
+                          edge_bucket=((n_edges + 255) // 256) * 256, device=dev)
+    norb = graph.num_nodes * 2 * SOC_NAO
+    cfg, losses = soc_config("so3", **BAND_OUT)
+    layers = cfg["representation_nets"]["HamGNN_pre"]["num_layers"]
+    losses = losses + [{"metric": "mae", "prediction": "band_energy", "target": "band_energy",
+                        "loss_weight": 0.27211}]
+    model = init_weights(build_model(load_config(None, overrides=cfg)), 0)
+    WORK.mkdir(parents=True, exist_ok=True)
+    tr = Trainer(model, losses=losses, metrics=[], lr=1e-3, train_dir=str(WORK / "soc_band"),
+                 device=dev)
+    if tr.captured is not None:
+        fail("a SOC head with bands must run eagerly")
+
+    k_np = k_vecs_for_graph(graph, nk, None, rng=np.random.default_rng(6))
+    tr.model.eval()
+    with torch.inference_mode():
+        reset_launches(tp_kernel)
+        out = tr.model(graph, k_vecs=torch.as_tensor(k_np, device=dev))
+        torch.cuda.synchronize()
+        check_launches(tp_kernel, {"packed_tp_fwd": 4 * layers + 1}, "one SOC band forward")
+    shapes = {"band_energy": (4, nk, 2 * width), "band_energy_ref": (4, nk, 2 * width),
+              "band_gap": (4,), "wavefunction": (4, nk, 2 * width, norb)}
+    for key, shape in shapes.items():
+        if tuple(out[key].shape) != shape or not bool(torch.isfinite(out[key].abs()).all()):
+            fail(f"SOC band forward: {key} has shape {tuple(out[key].shape)}, expected "
+                 f"{shape}, finite")
+    basis = get_basis_set("openmx", SOC_NAO)
+    ref = out["band_energy_ref"].cpu().numpy()
+    worst = 0.0
+    for b, c in enumerate(crystals):
+        host = host_soc_bands(c, k_np[b].astype(np.float64), basis, width)
+        worst = max(worst, float(np.abs(ref[b] - host).max()))
+    if not worst <= BAND_TOL:
+        fail(f"SOC band_energy_ref vs the float64 host solve: max|d| {worst:.3e} > {BAND_TOL}")
+    del out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(tp_kernel)
+    loss, logs = tr.train_step(graph)
+    torch.cuda.synchronize()
+    launches = check_launches(tp_kernel, {k: 4 * layers + 1 for k in ENGINES["auto"]},
+                              "one SOC band train step")
+    if not math.isfinite(float(loss)) or float(logs["nonfinite_step"]) != 0.0 \
+            or not math.isfinite(float(logs["mae_band_energy"])):
+        fail(f"SOC band train step: loss {float(loss)}, logs {logs}")
+    if not bool(torch.isfinite(tr.grad).all()) or float(tr.grad.abs().max()) == 0.0:
+        fail("SOC band train step: gradients are not finite, or all zero")
+    times = [_host_time(lambda: tr.train_step(graph))]
+    step_ms = 1e3 * times[0]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(graph)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_ms = _write_profile(prof, wall, 1, "profile_soc_band_step.txt", "step")
+    solver = {}
+    for ev in prof.key_averages():
+        if ev.key in ("aten::linalg_eigh", "aten::linalg_cholesky", "aten::linalg_cholesky_ex",
+                      "aten::linalg_solve_triangular"):
+            solver[ev.key] = ev.cpu_time_total / 1e3
+    solver_ms = solver.get("aten::linalg_eigh", 0.0) + max(
+        solver.get("aten::linalg_cholesky", 0.0), solver.get("aten::linalg_cholesky_ex", 0.0))
+    print(f"[soc] band: 4 crystals x 16 atoms ({n_edges} edges, {graph.num_edges} padded), "
+          f"{nk} k, H(k) {norb} x {norb} complex64: band_energy_ref vs float64 host solve "
+          f"max|d| {worst:.3e} (limit {BAND_TOL}); train step {step_ms:.3f} ms (the second "
+          f"step), launches {launches}, loss {float(loss):.6f}, mae_band_energy "
+          f"{float(logs['mae_band_energy']):.6f}; profiler: wall {1e3 * wall:.3f} ms/step, "
+          f"device kernels {device_ms['__all__']:.3f} ms/step, host time inside eigh + Cholesky "
+          f"{solver_ms:.3f} ms/step = {solver_ms / (1e3 * wall):.1%} of the step ({solver}); "
+          f"peak memory {peak_gb:.2f} GB, card {card}", flush=True)
+    del tr, model
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, step_times_ms=[1e3 * t for t in times], launches=launches,
+                n_edges=n_edges, padded_edges=graph.num_edges, norb=norb, nk=nk,
+                ref_vs_host_max_abs_err=worst, profile_wall_ms=1e3 * wall,
+                device_ms_by_kernel=device_ms, solver_host_ms=solver,
+                solver_share_of_step=solver_ms / (1e3 * wall), peak_gb=peak_gb,
+                loss=float(loss))
+
+
+def phase_soc_cli(tp_kernel):
+    """``stage: fit`` of the so3 SOC model for two epochs on 3 SOC crystals,
+    then ``stage: test`` with ``checkpoint_path: <train_dir>/best`` (the
+    reference's name; the trainer writes best.pt), against ``stage: test``
+    with no checkpoint (the untrained model)."""
+    import numpy as np
+    import yaml
+
+    from hamgnn_tpu_torch import cli
+    from hamgnn_tpu_torch.data.dataset import save_graph_npz
+
+    work = WORK / "cli_soc"
+    work.mkdir(parents=True, exist_ok=True)
+    crystals = soc_crystals(np.random.default_rng(3), 3, 8, 6.0, 5.0)
+    save_graph_npz(str(work / "graph_data.npz"), crystals)
+    cfg, losses = soc_config("so3")
+    cfg["setup"] = {"stage": "fit"}
+    cfg["dataset_params"] = {"graph_data_path": str(work), "batch_size": 1,
+                             "train_ratio": 1 / 3, "val_ratio": 1 / 3, "test_ratio": 1 / 3}
+    cfg["optim_params"] = {"lr": 1e-3, "min_epochs": 0, "max_epochs": 2}
+    cfg["losses_metrics"] = {"losses": losses, "metrics": losses}
+    cfg["profiler_params"] = {"train_dir": str(work / "fit")}
+    with open(work / "fit.yaml", "w") as f:
+        yaml.safe_dump(cfg, f)
+    reset_launches(tp_kernel)
+    t0 = time.perf_counter()
+    cli.main(["--config", str(work / "fit.yaml")])
+    fit_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in all_kernels(tp_kernel).items() if k.launches}
+    if set(launches) != set(ENGINES["auto"]):
+        fail(f"the SOC fit run should launch {ENGINES['auto']} and no other: {launches}")
+    records = [json.loads(line) for line in open(work / "fit" / "metrics.jsonl")]
+    if [r["epoch"] for r in records] != [0, 1] or not all(
+            math.isfinite(r["train_loss"]) and math.isfinite(r["val_loss"]) for r in records):
+        fail(f"SOC fit metrics.jsonl: {records}")
+    if not (work / "fit" / "best.pt").exists():
+        fail("the SOC fit run wrote no best.pt")
+
+    rows = sum(c["z"].shape[0] + c["edge_index"].shape[1] for c in crystals)
+    preds = {}
+    for name, ckpt in (("best", str(work / "fit" / "best")), ("untrained", str(work / "none"))):
+        cfg["setup"] = {"stage": "test", "checkpoint_path": ckpt}
+        cfg["dataset_params"]["batch_size"] = 2
+        cfg["profiler_params"] = {"train_dir": str(work / f"test_{name}")}
+        with open(work / f"test_{name}.yaml", "w") as f:
+            yaml.safe_dump(cfg, f)
+        cli.main(["--config", str(work / f"test_{name}.yaml")])
+        for part in ("real", "imag"):
+            path = work / f"test_{name}" / f"prediction_hamiltonian_{part}.npy"
+            if not path.exists():
+                fail(f"SOC test run ({name}) wrote no {path.name}")
+            arr = np.load(path)
+            if arr.shape != (rows, (2 * SOC_NAO) ** 2) or not np.isfinite(arr).all():
+                fail(f"SOC test run ({name}): {path.name} shape {arr.shape}, expected "
+                     f"({rows}, {(2 * SOC_NAO) ** 2}), finite")
+            preds[name, part] = arr
+    moved = max(float(np.abs(preds["best", p] - preds["untrained", p]).max())
+                for p in ("real", "imag"))
+    if not moved > 0.0:
+        fail("stage test from <train_dir>/best predicts as the untrained model")
+    print(f"[soc] cli: stage fit 2 epochs in {fit_s:.1f} s, launches {launches}, train_loss "
+          f"{[round(r['train_loss'], 6) for r in records]}, val_loss "
+          f"{[round(r['val_loss'], 6) for r in records]}; stage test from <train_dir>/best: "
+          f"{rows} rows x {(2 * SOC_NAO) ** 2} real and imag written, max|d| {moved:.3e} from "
+          f"the untrained model's", flush=True)
+    return dict(fit_s=fit_s, launches=launches, records=records, best_vs_untrained=moved)
+
+
+def phase_soc(tp_kernel, dev, card):
+    """Phase 8: the SOC slice on the card (see the module docstring); each
+    part's seconds printed."""
+    seconds = {}
+
+    def part(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[soc] {name} done in {seconds[name]:.1f} s", flush=True)
+        return out
+
+    kernels = part("kernels", phase_soc_kernels, tp_kernel, dev)
+    graph, n_edges = part("graph", soc_bench_graph, dev)
+    forward = part("forward", phase_soc_forward, tp_kernel, dev, card, graph, n_edges)
+    # the step of the config's so3 head under both engines, su2's under the default one
+    steps = {f"{basis}:{eng}": part(f"step_{basis}_{eng}", phase_soc_step, tp_kernel, dev,
+                                    card, graph, n_edges, basis, eng, False)
+             for basis, eng in (("so3", "auto"), ("so3", "zonal"), ("su2", "auto"))}
+    ckpt = {eng: part(f"step_so3_{eng}_ckpt", phase_soc_step, tp_kernel, dev, card, graph,
+                      n_edges, "so3", eng, True)
+            for eng in ENGINES}
+    del graph
+    band = part("band", phase_soc_band, tp_kernel, dev, card)
+    cli_run = part("cli", phase_soc_cli, tp_kernel)
+    return dict(kernels=kernels, n_edges=n_edges, forward=forward, steps=steps,
+                checkpointed_steps=ckpt, band=band, cli=cli_run, seconds=seconds)
+
+
 def main():
     import torch
 
@@ -1439,29 +1956,42 @@ def main():
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}", flush=True)
 
-    card = phase_build(tp_kernel)
-    rows = {"packed_tp_fwd": phase_kernels(tp_kernel, dev),
-            "packed_tp_bwd": phase_bwd_kernels(tp_kernel, dev),
-            "zonal_tp_fwd": phase_zonal_kernels(dev),
-            "zonal_tp_bwd": phase_zonal_bwd_kernels(dev)}
-    wide = phase_wide_kernels(tp_kernel, dev)
-    zonal_engine = phase_zonal_engine(tp_kernel, dev)
-    model = phase_model(tp_kernel, dev, card)
-    train = {eng: phase_train(tp_kernel, dev, card, eng) for eng in ENGINES}
-    captured = {eng: phase_captured(tp_kernel, dev, card, eng) for eng in ENGINES}
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its seconds printed and kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[time] {name}: {seconds[name]:.1f} s", flush=True)
+        return out
+
+    card = timed("build", phase_build, tp_kernel)
+    rows = {"packed_tp_fwd": timed("b1", phase_kernels, tp_kernel, dev),
+            "packed_tp_bwd": timed("b2", phase_bwd_kernels, tp_kernel, dev),
+            "zonal_tp_fwd": timed("b3", phase_zonal_kernels, dev),
+            "zonal_tp_bwd": timed("b4", phase_zonal_bwd_kernels, dev)}
+    wide = timed("wide", phase_wide_kernels, tp_kernel, dev)
+    zonal_engine = timed("zonal_engine", phase_zonal_engine, tp_kernel, dev)
+    model = timed("model", phase_model, tp_kernel, dev, card)
+    train = {eng: timed(f"train_{eng}", phase_train, tp_kernel, dev, card, eng)
+             for eng in ENGINES}
+    captured = {eng: timed(f"captured_{eng}", phase_captured, tp_kernel, dev, card, eng)
+                for eng in ENGINES}
     fit = {}
     for eng in ENGINES:
-        cfg, n_rows = phase_cli(tp_kernel, eng)
-        fit[eng] = phase_cli_fit(tp_kernel, eng, cfg, n_rows)
+        cfg, n_rows = timed(f"cli_{eng}", phase_cli, tp_kernel, eng)
+        fit[eng] = timed(f"cli_fit_{eng}", phase_cli_fit, tp_kernel, eng, cfg, n_rows)
 
-    probes = phase_probes(tp_kernel, dev)
-    band = phase_band(tp_kernel, dev, card)
-    band_fit = phase_band_cli(tp_kernel)
+    probes = timed("probes", phase_probes, tp_kernel, dev)
+    band = timed("band", phase_band, tp_kernel, dev, card)
+    band_fit = timed("band_cli", phase_band_cli, tp_kernel)
+    soc = timed("soc", phase_soc, tp_kernel, dev, card)
 
     report = {"card": card, "kernel_rows": rows, "wide": wide, "zonal_engine": zonal_engine,
               "model": model, "train": train, "captured": captured, "fit": fit,
               "probes": probes,
-              "band": band, "band_fit": band_fit}
+              "band": band, "band_fit": band_fit, "soc": soc, "seconds": seconds}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -1488,6 +2018,11 @@ def main():
                                          ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "max_abs_err", "edge_ms", "wcat_ms") if k in r}
                              for r in rows[name]},
+                "sk_soc_per_plan": {r["plan"]: {k: r[k] for k in
+                                                ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "max_abs_err", "edge_ms", "wcat_ms") if k in r}
+                                    for r in soc["kernels"][name]},
+                "sk_soc_launches_per_step": soc["steps"][f"so3:{eng}"]["launches"][name],
             })
     for name, r in probes.items():
         kernels.append({

@@ -14,7 +14,12 @@ the dataset and the ConvE3 model, then
   of the flattened flax tree) and run the test batches;
 
 and save ``prediction_hamiltonian.npy`` / ``target_hamiltonian.npy`` in the
-reference's interleaved layout.  With ``output_nets.HamGNN_out.
+reference's interleaved layout (with the SOC head, ``output_nets.HamGNN_out.
+soc_switch``, ``prediction_hamiltonian_{real,imag}.npy`` and
+``target_hamiltonian_{real,imag}.npy``), and a prediction-against-target
+scatter plot.  A ``checkpoint_path`` ``<p>`` that does not exist reads
+``<p>.pt`` where that exists: the reference's trainer saves ``best``, this
+port's ``best.pt``.  With ``output_nets.HamGNN_out.
 calculate_band_energy`` the head also solves the bands (``num_k``,
 ``k_path``, ``band_num_control``, ``export_reciprocal_values``), so
 ``band_energy`` / ``band_gap`` can sit under ``losses_metrics``; they reach
@@ -36,6 +41,7 @@ from . import resolve_device
 from .models.model import HamGNNModel, init_weights
 from .models.output import HamGNNPlusPlusOut, concatenate_by_crystal
 from .models.representation import HamGNNConvE3
+from .models.soc import HamGNNSOCOut
 from .train.config import NS, config_to_dict, load_config
 from .train.trainer import Trainer, load_params
 
@@ -50,10 +56,8 @@ def build_model(config) -> HamGNNModel:
     for key, what in (("use_corr_prod", "CorrProductBlock"), ("use_kan", "KAN")):
         if pre.get(key, False):
             raise NotImplementedError(f"{what} is not ported yet (a later slice)")
-    for key, what in (("soc_switch", "the SOC head"),
-                      ("spin_constrained", "the magnetic head")):
-        if out.get(key, False):
-            raise NotImplementedError(f"{what} is not ported yet (a later slice)")
+    if out.get("spin_constrained", False):
+        raise NotImplementedError("the magnetic head is not ported yet (a later slice)")
     rep = HamGNNConvE3(
         num_types=pre.num_types,
         irreps_edge_sh=pre.irreps_edge_sh,
@@ -72,6 +76,27 @@ def build_model(config) -> HamGNNModel:
             pre.get("use_gradient_checkpointing", False)
             or config.setup.get("use_gradient_checkpointing", False)),
     )
+    if out.get("soc_switch", False):
+        ham_type = out.ham_type.lower()
+        bnc = out.get("band_num_control", 8)
+        head = HamGNNSOCOut(
+            irreps_in_node=pre.irreps_node_features,
+            irreps_in_edge=pre.irreps_node_features,
+            nao_max=out.nao_max,
+            ham_type=ham_type,
+            # the su2 codec is the only SOC basis outside openmx
+            soc_basis="su2" if ham_type != "openmx" else out.get("soc_basis", "so3"),
+            add_H0=out.add_H0,
+            add_H_nonsoc=out.get("add_H_nonsoc", False),
+            symmetrize=out.symmetrize,
+            zero_point_shift=out.get("zero_point_shift", True),
+            nonlinearity_type=out.get("nonlinearity_type", "gate"),
+            calculate_band_energy=out.get("calculate_band_energy", False),
+            num_k=out.get("num_k", 5),
+            band_num_control=bnc if isinstance(bnc, int) else 8,
+            k_path=_freeze_k_path(out.get("k_path", None)),
+        )
+        return HamGNNModel(rep, head)
     head = HamGNNPlusPlusOut(
         irreps_in_node=pre.irreps_node_features,
         irreps_in_edge=pre.irreps_node_features,
@@ -129,6 +154,49 @@ def _freeze_k_path(spec):
     return tuple(tuple(float(v) for v in node) for node in spec)
 
 
+def audit_config(config) -> None:
+    """Warn on each reference config knob that the port does not honour or
+    handles otherwise, rather than ignore it without a word (the
+    reference's ``audit_config``)."""
+    setup = config.setup
+    pre = config.representation_nets.HamGNN_pre
+    out = config.output_nets.HamGNN_out
+    ds = config.dataset_params
+
+    if int(setup.get("precision", 32)) == 64:
+        warnings.warn(
+            "setup.precision=64: the port computes in fp32 (its TP kernels in fp32, their "
+            "products as 3xTF32 on the tensor cores); proceeding in fp32.", stacklevel=2)
+    if pre.get("edge_sh_normalization", "component") != "component" or \
+            not pre.get("edge_sh_normalize", True):
+        warnings.warn(
+            "edge_sh_normalization: the port computes the reference default only "
+            "('component', normalized edge vectors); other settings are ignored.",
+            stacklevel=2)
+    if pre.get("build_internal_graph", False):
+        warnings.warn(
+            "build_internal_graph=true: the port uses the edges stored with the graphs "
+            "and builds none inside the forward.", stacklevel=2)
+    for key, why in [
+        ("include_triplet", "the port has no triplet export"),
+        ("return_forces", "the port has no force head"),
+        ("create_graph", "the port's trainer builds the autograd graph its step needs"),
+        ("get_nonzero_mask_tensor", "the heads always export their masks "
+         "(mask_on, mask_off)"),
+    ]:
+        if out.get(key, False):
+            warnings.warn(f"output_nets.{key}=true is not honoured: {why}.", stacklevel=2)
+    if not out.get("calculate_sparsity", True):
+        warnings.warn(
+            "calculate_sparsity=false is not honoured: the heads always compute the "
+            "sparsity ratio on the device and scale the Hamiltonian losses by it.",
+            stacklevel=2)
+    if ds.get("num_workers", 4) not in (0, 4) or ds.get("preload", 0):
+        warnings.warn(
+            "dataset_params.num_workers/preload are torch DataLoader knobs: the port "
+            "loads the npz graphs up front, without worker processes.", stacklevel=2)
+
+
 def prepare_dataset(config, device=None):
     """The config's npz graphs split into a ``GraphDataModule`` whose
     batches live on ``device`` (cuda unless the caller asks for the CPU)."""
@@ -178,12 +246,25 @@ def load_weights(model: HamGNNModel, path: str) -> None:
             model.load_state_dict(state, strict=True)
 
 
+def resolve_checkpoint(path: Optional[str]) -> Optional[str]:
+    """``path``, or ``path + ".pt"`` where ``path`` does not exist and that
+    does: the shipped two-stage configs name the reference's ``best``, the
+    port's trainer writes ``best.pt``.  A path missing in both forms is
+    returned as it is (and skipped, as in the reference)."""
+    if path and not os.path.exists(path) and os.path.exists(path + ".pt"):
+        return path + ".pt"
+    return path
+
+
 def _dump_resolved_config(config) -> None:
     import yaml
+
+    from .version import version_string
 
     out_dir = config.profiler_params.train_dir
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "config_resolved.yaml"), "w") as f:
+        f.write(f"# {version_string()}\n")
         yaml.safe_dump(config_to_dict(config), f, sort_keys=False)
 
 
@@ -198,6 +279,7 @@ def train_and_evaluate(config, device=None) -> dict:
             f"setup.parallel.mode {mode!r}: the port's training slice runs on "
             "one device; data parallel and the halo partition come later")
     dev = resolve_device(device)
+    audit_config(config)
     model = build_model(config)
     data = prepare_dataset(config, dev)
     _dump_resolved_config(config)
@@ -211,7 +293,7 @@ def train_and_evaluate(config, device=None) -> dict:
         gradient_clip_val=opt.gradient_clip_val, stop_patience=opt.stop_patience,
         min_epochs=opt.min_epochs, max_epochs=opt.max_epochs,
         train_dir=config.profiler_params.train_dir, device=dev)
-    ckpt = config.setup.checkpoint_path
+    ckpt = resolve_checkpoint(config.setup.checkpoint_path)
     if stage == "test":
         if ckpt and os.path.exists(ckpt):
             load_weights(model, ckpt)
@@ -230,18 +312,34 @@ def train_and_evaluate(config, device=None) -> dict:
 
 
 def _save_predictions(config, preds_all) -> None:
-    """prediction/target .npy in the reference's interleaved layout."""
+    """prediction/target .npy in the reference's interleaved layout: the SOC
+    head's real and imaginary spinor rows as two files each, else
+    ``hamiltonian``'s, with its scatter plot."""
+    from .utils.visualization import scatter_plot
+
     out_dir = config.profiler_params.train_dir
     os.makedirs(out_dir, exist_ok=True)
-    preds, targets = [], []
-    for g, p in preds_all:
-        preds.append(concatenate_by_crystal(g, p["hamiltonian_on"], p["hamiltonian_off"]))
-        targets.append(concatenate_by_crystal(g, g.Hon.cpu().numpy(), g.Hoff.cpu().numpy()))
-    if preds:
-        np.save(os.path.join(out_dir, "prediction_hamiltonian.npy"),
-                np.concatenate(preds, axis=0))
-        np.save(os.path.join(out_dir, "target_hamiltonian.npy"),
-                np.concatenate(targets, axis=0))
+
+    def save(name, rows):
+        arr = np.concatenate(rows, axis=0)
+        np.save(os.path.join(out_dir, name), arr)
+        return arr
+
+    if any("hamiltonian_real_on" in p for _, p in preds_all):
+        for part, (t_on, t_off) in (("real", ("Hon", "Hoff")), ("imag", ("iHon", "iHoff"))):
+            save(f"prediction_hamiltonian_{part}.npy", [concatenate_by_crystal(
+                g, p[f"hamiltonian_{part}_on"], p[f"hamiltonian_{part}_off"])
+                for g, p in preds_all])
+            save(f"target_hamiltonian_{part}.npy", [concatenate_by_crystal(
+                g, getattr(g, t_on).cpu().numpy(), getattr(g, t_off).cpu().numpy())
+                for g, _p in preds_all])
+        return
+    if preds_all:
+        pred = save("prediction_hamiltonian.npy", [concatenate_by_crystal(
+            g, p["hamiltonian_on"], p["hamiltonian_off"]) for g, p in preds_all])
+        target = save("target_hamiltonian.npy", [concatenate_by_crystal(
+            g, g.Hon.cpu().numpy(), g.Hoff.cpu().numpy()) for g, _p in preds_all])
+        scatter_plot(pred, target, os.path.join(out_dir, "hamiltonian_scatter.png"))
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -250,6 +348,9 @@ def main(argv: Optional[list] = None) -> None:
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
     args, _ = parser.parse_known_args(argv)
+    from .version import print_banner
+
+    print_banner()
     config = load_config(args.config)
     np.random.seed(666)
     train_and_evaluate(config, device=args.device)

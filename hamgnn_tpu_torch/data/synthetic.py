@@ -1,5 +1,5 @@
 """Synthetic crystals with random Hamiltonian targets, for smoke runs and
-benchmarks.
+benchmarks, and the fields of the SOC head (``add_random_soc_targets``).
 
 The same construction as ``tests/util_fixtures.py`` (``make_crystal``,
 ``add_random_hamiltonian_targets``), drawing the same numbers from the same
@@ -87,6 +87,106 @@ def add_random_hamiltonian_targets(rng, crystal, nao_max=14, herm=True,
         Hon0=np.zeros((n, nao2)), Hoff0=np.zeros((e, nao2)),
         Son=Son.reshape(n, nao2), Soff=Soff.reshape(e, nao2),
     )
+    return crystal
+
+
+def real_sh_L(l: int) -> np.ndarray:
+    """Angular-momentum matrices of shell l in the real spherical-harmonic
+    basis (m = -l..l), which are purely imaginary: (2l+1, 2l+1, 3), their
+    imaginary parts for (x, y, z)."""
+    d = 2 * l + 1
+    m = np.arange(-l, l + 1)
+    Lz = np.diag(m).astype(complex)
+    lp = np.zeros((d, d), complex)   # L+ |l, m> = sqrt(l(l+1) - m(m+1)) |l, m+1>
+    for i, mm in enumerate(m[:-1]):
+        lp[i + 1, i] = np.sqrt(l * (l + 1) - mm * (mm + 1))
+    lm = lp.conj().T
+    Lx = 0.5 * (lp + lm)
+    Ly = (lp - lm) / 2j
+    # complex -> real basis (rows: real index -l..l)
+    U = np.zeros((d, d), complex)
+    U[l, l] = 1.0
+    for mm in range(1, l + 1):
+        U[l + mm, l + mm] = (-1) ** mm / np.sqrt(2)
+        U[l + mm, l - mm] = 1 / np.sqrt(2)
+        U[l - mm, l + mm] = -1j * (-1) ** mm / np.sqrt(2)
+        U[l - mm, l - mm] = 1j / np.sqrt(2)
+    out = np.zeros((d, d, 3))
+    for k, Lc in enumerate((Lx, Ly, Lz)):
+        Lr = U @ Lc @ U.conj().T
+        if np.abs(Lr.real).max() >= 1e-12:
+            raise ArithmeticError(f"L of shell {l} is not imaginary in the real basis")
+        out[:, :, k] = Lr.imag
+    return out
+
+
+def angular_momentum_matrices(basis) -> np.ndarray:
+    """(nao, nao, 3) block-diagonal angular-momentum matrices of the basis'
+    shells, in its DFT orbital order."""
+    nao = basis.nao_max
+    L = np.zeros((nao, nao, 3))
+    o = 0
+    for _, ir in basis.orbital_irreps:
+        if ir.l > 0:
+            L[o : o + ir.dim, o : o + ir.dim] = real_sh_L(ir.l)
+        o += ir.dim
+    perm = basis.index_change
+    return L[np.ix_(perm, perm)] if perm is not None else L
+
+
+def add_random_soc_targets(rng, crystal, nao_max=14, ham_type="openmx", ksi_amp=0.05):
+    """Attach the SOC head's fields to a crystal of
+    ``add_random_hamiltonian_targets``: spinor targets ``Hon``/``iHon``
+    (n, (2 nao)^2) and ``Hoff``/``iHoff`` (e, (2 nao)^2) in the so3 form (its
+    spatial ``Hon``/``Hoff`` on both spin-diagonal blocks, block-constant
+    per-species ksi times L in the spin-coupling entries), zero H0 of the
+    same shapes, and ``Lon``/``Loff`` (rows, nao^2, 3), the shells' L
+    matrices on each species pair's valid orbitals.  ``Son``/``Soff`` stay
+    the spatial (rows, nao^2) overlap."""
+    basis = get_basis_set(ham_type, nao_max)
+    nao = nao_max
+    table = basis.orbital_mask_table
+    z = crystal["z"]
+    src, dst = crystal["edge_index"]
+    inv = crystal["inv_edge_idx"]
+    n, e = z.shape[0], src.shape[0]
+    on_mask = table[z][:, :, None] * table[z][:, None, :]
+    off_mask = table[z[src]][:, :, None] * table[z[dst]][:, None, :]
+    L = angular_momentum_matrices(basis)
+    Lon = L[None] * on_mask[..., None]
+    Loff = L[None] * off_mask[..., None]
+
+    bounds = np.cumsum([0] + [ir.dim for _, ir in basis.orbital_irreps])
+    slot = np.repeat(np.arange(len(bounds) - 1), np.diff(bounds))
+    if basis.index_change is not None:
+        slot = slot[basis.index_change]
+    ksi = {}
+    for zz in np.unique(z).tolist():
+        kb = ksi_amp * rng.uniform(0.4, 1.0, (len(bounds) - 1,) * 2)
+        ksi[zz] = 0.5 * (kb + kb.T)[slot[:, None], slot[None, :]]
+    ksi_on = np.stack([ksi[zz] for zz in z.tolist()])
+    ksi_off = 0.5 * (np.stack([ksi[zz] for zz in z[src].tolist()])
+                     + np.stack([ksi[zz] for zz in z[dst].tolist()]))
+
+    def assemble(hs, k, Lm, mate):
+        def anti(x):
+            return 0.5 * (x - mate(x).transpose(0, 2, 1))
+
+        kx, ky, kz = (anti(k * Lm[..., a]) for a in range(3))
+        hr = np.concatenate([np.concatenate([hs, ky], 2), np.concatenate([ky, hs], 2)], 1)
+        hi = np.concatenate([np.concatenate([kz, kx], 2), np.concatenate([-kx, -kz], 2)], 1)
+        return hr.reshape(hs.shape[0], -1), hi.reshape(hs.shape[0], -1)
+
+    hr_on, hi_on = assemble(crystal["Hon"].reshape(n, nao, nao), ksi_on, Lon, lambda x: x)
+    hr_off, hi_off = assemble(crystal["Hoff"].reshape(e, nao, nao), ksi_off, Loff,
+                              lambda x: x[inv])
+    crystal = dict(crystal)
+    big = (2 * nao) ** 2
+    crystal.update(
+        Hon=hr_on, Hoff=hr_off, iHon=hi_on, iHoff=hi_off,
+        Hon0=np.zeros((n, big)), Hoff0=np.zeros((e, big)),
+        iHon0=np.zeros((n, big)), iHoff0=np.zeros((e, big)),
+        Lon=Lon.reshape(n, nao * nao, 3), Loff=Loff.reshape(e, nao * nao, 3))
     return crystal
 
 

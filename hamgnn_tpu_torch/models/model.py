@@ -43,10 +43,13 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
 def _stack_pred_target(name: str, preds: Dict, graph: Graph):
     """Map a loss name to (pred rows, target rows, row mask)."""
     nm = name.lower()
-    if nm in ("hamiltonian", "overlap"):
-        key, t_on, t_off = (("hamiltonian", graph.Hon, graph.Hoff) if nm == "hamiltonian"
-                            else ("overlap", graph.Son, graph.Soff))
-        pred = torch.cat([preds[f"{key}_on"], preds[f"{key}_off"]], 0)
+    if nm in ("hamiltonian", "overlap", "hamiltonian_real", "hamiltonian_imag"):
+        # the SOC head's spinor rows: real against Hon/Hoff, imag against iHon/iHoff
+        t_on, t_off = {"hamiltonian": (graph.Hon, graph.Hoff),
+                       "overlap": (graph.Son, graph.Soff),
+                       "hamiltonian_real": (graph.Hon, graph.Hoff),
+                       "hamiltonian_imag": (graph.iHon, graph.iHoff)}[nm]
+        pred = torch.cat([preds[f"{nm}_on"], preds[f"{nm}_off"]], 0)
         target = torch.cat([t_on, t_off], 0)
         mask = torch.cat([graph.node_mask, graph.edge_mask], 0)[:, None]
         return (pred.reshape(pred.shape[0], -1), target.reshape(target.shape[0], -1),

@@ -131,7 +131,10 @@ class HamGNNConvE3(nn.Module):
         remat = self.use_gradient_checkpointing and torch.is_grad_enabled()
 
         def call(fn, *args):
-            return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+            # the model draws no random numbers: no RNG state to keep for the
+            # recompute, and none read or set inside a captured step
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False) \
+                if remat else fn(*args)
 
         for i in range(self.num_layers):
             conv = getattr(self, f"conv_{i}")

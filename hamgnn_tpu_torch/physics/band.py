@@ -1,6 +1,7 @@
 """Batched k-space Hamiltonian assembly and generalized eigensolve,
-counterpart of ``hamgnn_tpu/physics/band.py`` (its SOC variant waits for the
-SOC head).
+counterpart of ``hamgnn_tpu/physics/band.py``: the bands of the non-SOC head
+(``band_energies_batched``) and the spinor bands of the SOC head
+(``band_energies_soc_batched``).
 
 H(k) / S(k) of the whole batch are assembled with two scatter-adds over nodes
 and edges at static shapes, and the generalized eigenproblem is solved with
@@ -119,6 +120,58 @@ def _generalized_eigh(HK: torch.Tensor, SK: torch.Tensor):
     return eigvals, psi, A
 
 
+def _orbital_valid(graph: Graph, basis: BasisSetInfo, M: int, dtype,
+                   spins: int = 1) -> torch.Tensor:
+    """(B, M * spins * nao) 1/0: the orbitals of each crystal's local atoms
+    that its species have (``spins`` copies per atom, spin-major)."""
+    mask_table = torch.as_tensor(basis.orbital_mask_table, dtype=dtype, device=graph.z.device)
+    node_orb = (mask_table[graph.z] * graph.node_mask[:, None]).repeat(1, spins)
+    width = node_orb.shape[1]
+    _, local = _local_index(graph, M)
+    return torch.zeros((graph.num_graphs * M, width), dtype=dtype,
+                       device=graph.z.device).scatter_reduce(
+        0, (graph.batch * M + local)[:, None].expand(-1, width), node_orb,
+        reduce="amax").reshape(graph.num_graphs, M * width)
+
+
+def _pad_invalid(mat: torch.Tensor, orb_valid: torch.Tensor, diag: float) -> torch.Tensor:
+    """(B, nk, n, n) H(k) or S(k) with the rows and columns of invalid or
+    padded orbitals zeroed and ``diag`` on their diagonal."""
+    pair_valid = orb_valid[:, :, None] * orb_valid[:, None, :]
+    pad = torch.diag_embed(1.0 - orb_valid)[:, None]
+    return mat * pair_valid[:, None] + (diag * pad).to(mat.dtype)
+
+
+def _crystal_valence(graph: Graph, basis: BasisSetInfo, dtype) -> torch.Tensor:
+    """(B,) valence electrons of each crystal."""
+    table = torch.as_tensor(basis.num_valence_table, dtype=dtype, device=graph.z.device)
+    return torch.zeros(graph.num_graphs, dtype=dtype, device=graph.z.device).index_add_(
+        0, graph.batch, table[graph.z] * graph.node_mask)
+
+
+def _gap(eigvals: torch.Tensor, fill: torch.Tensor) -> torch.Tensor:
+    """(B,) lowest state from index ``fill`` over k minus highest below it."""
+    at = fill[:, None, None].expand(-1, eigvals.shape[1], 1)
+    return (torch.gather(eigvals, 2, at).amin(dim=1)
+            - torch.gather(eigvals, 2, at - 1).amax(dim=1))[:, 0]
+
+
+def _window(eigvals: torch.Tensor, psi: torch.Tensor, fill: torch.Tensor,
+            orb_valid: torch.Tensor, w: int):
+    """The static window of 2 w bands [fill - w, fill + w), kept inside the
+    physical spectrum: the upper clip is each crystal's valid-orbital count,
+    so the window never slides into the ``_PAD_ENERGY`` states.  Returns
+    (band (B, nk, 2w), wavefunction (B, nk, 2w, n))."""
+    nk, n = eigvals.shape[1], eigvals.shape[2]
+    n_valid = torch.sum(orb_valid, dim=1).long()
+    upper = torch.clamp(n_valid - 2 * w, 0, n - 2 * w)
+    start = torch.minimum(torch.clamp(fill - w, min=0), upper)
+    cols = start[:, None] + torch.arange(2 * w, device=eigvals.device)[None, :]
+    band = torch.gather(eigvals, 2, cols[:, None, :].expand(-1, nk, -1))
+    wfn = torch.gather(psi, 3, cols[:, None, None, :].expand(-1, nk, n, -1))
+    return band, wfn.transpose(-1, -2)
+
+
 def band_energies_batched(
     graph: Graph,
     h_on: torch.Tensor,
@@ -156,39 +209,19 @@ def band_energies_batched(
     """
     nao = basis.nao_max
     M = int(max_atoms) if max_atoms is not None else int(graph.num_nodes)
-    B = graph.num_graphs
     dtype = h_on.dtype
     dev = h_on.device
 
     HK = assemble_k_matrices(graph, h_on, h_off, k_vecs, nao, M)
     SK = assemble_k_matrices(graph, s_on, s_off, k_vecs, nao, M)
-
-    # validity mask per (crystal, local atom, orbital)
-    mask_table = torch.as_tensor(basis.orbital_mask_table, dtype=dtype, device=dev)
-    node_orb = mask_table[graph.z] * graph.node_mask[:, None]          # (N, nao)
-    _, local = _local_index(graph, M)
-    orb_valid = torch.zeros((B * M, nao), dtype=dtype, device=dev).scatter_reduce(
-        0, (graph.batch * M + local)[:, None].expand(-1, nao), node_orb, reduce="amax")
-    orb_valid = orb_valid.reshape(B, M * nao)
-
-    pair_valid = orb_valid[:, :, None] * orb_valid[:, None, :]
-    diag_pad = torch.diag_embed(1.0 - orb_valid)[:, None]               # (B, 1, Mnao, Mnao)
-    HK = HK * pair_valid[:, None] + (_PAD_ENERGY * diag_pad).to(HK.dtype)
-    SK = SK * pair_valid[:, None] + diag_pad.to(SK.dtype)
+    orb_valid = _orbital_valid(graph, basis, M, dtype)
+    HK = _pad_invalid(HK, orb_valid, _PAD_ENERGY)
+    SK = _pad_invalid(SK, orb_valid, 1.0)
 
     eigvals, psi, A = _generalized_eigh(HK, SK)
 
-    # half-filled index per crystal
-    valence_table = torch.as_tensor(basis.num_valence_table, dtype=dtype, device=dev)
-    val_per_node = valence_table[graph.z] * graph.node_mask
-    crystal_valence = torch.zeros(B, dtype=dtype, device=dev).index_add_(
-        0, graph.batch, val_per_node)
-    half = torch.ceil(crystal_valence / 2.0).long()                     # (B,)
-
-    nk = eigvals.shape[1]
-    at_half = half[:, None, None].expand(-1, nk, 1)
-    gap = (torch.gather(eigvals, 2, at_half).amin(dim=1)
-           - torch.gather(eigvals, 2, at_half - 1).amax(dim=1))[:, 0]
+    half = torch.ceil(_crystal_valence(graph, basis, dtype) / 2.0).long()  # half filling
+    gap = _gap(eigvals, half)
 
     if band_counts is not None:
         # dict mode: lowest `num_bands` bands, masked to per-crystal counts
@@ -198,25 +231,15 @@ def band_energies_batched(
         band_mask = (torch.arange(w, device=dev)[None, :] < band_counts[:, None])
         band_mask = band_mask.to(band.dtype)[:, None, :]                # (B, 1, w)
     else:
-        # static window [half - w, half + w), kept inside the PHYSICAL
-        # spectrum: the upper clip uses the per-crystal valid-orbital count,
-        # so the window never slides into the _PAD_ENERGY states
-        w = int(num_bands)
-        n_valid = torch.sum(orb_valid, dim=1).long()                    # (B,)
-        upper = torch.clamp(n_valid - 2 * w, 0, M * nao - 2 * w)
-        start = torch.minimum(torch.clamp(half - w, min=0), upper)
-        cols = start[:, None] + torch.arange(2 * w, device=dev)[None, :]  # (B, 2w)
-        band = torch.gather(eigvals, 2, cols[:, None, :].expand(-1, nk, -1))
-        wfn = torch.gather(psi, 3, cols[:, None, None, :].expand(-1, nk, M * nao, -1))
-        wfn = wfn.transpose(-1, -2)                                     # (B, nk, 2w, Mnao)
+        band, wfn = _window(eigvals, psi, half, orb_valid, int(num_bands))
         band_mask = None
     extras = []
     if band_mask is not None:
         extras.append(band_mask)
     if export_reciprocal:
         if sk_export_on is not None and sk_export_off is not None:
-            SK_exp = assemble_k_matrices(graph, sk_export_on, sk_export_off, k_vecs, nao, M)
-            SK_exp = SK_exp * pair_valid[:, None] + diag_pad.to(SK_exp.dtype)
+            SK_exp = _pad_invalid(assemble_k_matrices(graph, sk_export_on, sk_export_off,
+                                                      k_vecs, nao, M), orb_valid, 1.0)
         else:
             SK_exp = SK
         extras.extend([HK, SK_exp])
@@ -229,3 +252,50 @@ def band_energies_batched(
     if extras:
         return (band, wfn, gap, *extras)
     return band, wfn, gap
+
+
+def band_energies_soc_batched(
+    graph: Graph,
+    h_on_real: torch.Tensor,
+    h_on_imag: torch.Tensor,
+    h_off_real: torch.Tensor,
+    h_off_imag: torch.Tensor,
+    s_on: torch.Tensor,
+    s_off: torch.Tensor,
+    k_vecs: torch.Tensor,
+    basis: BasisSetInfo,
+    num_bands: int = 8,
+    max_atoms: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Spinor (2 nao) complex generalized bands, for the SOC head.
+
+    ``h_*_real`` / ``h_*_imag``: (rows, (2 nao)^2) spinor blocks; ``s_on`` /
+    ``s_off``: the (rows, nao^2) spatial overlap, put on both spin-diagonal
+    blocks.  H(k), S(k) are (B, nk, M * 2 nao, M * 2 nao) complex with ``M``
+    as in ``band_energies_batched``.  Spinor states are singly occupied, so
+    the filling index is the crystal's valence count itself, and the window
+    of ``2 * num_bands`` bands sits around it, inside the physical spectrum.
+
+    Returns (band_energy (B, nk, 2 * num_bands), wavefunction
+    (B, nk, 2 * num_bands, M * 2 nao), band_gap (B,)).
+    """
+    nao = basis.nao_max
+    nao2 = 2 * nao
+    M = int(max_atoms) if max_atoms is not None else int(graph.num_nodes)
+    dtype = h_on_real.dtype
+
+    def spin_diag(rows):
+        sb = rows.reshape(-1, nao, nao)
+        zero = torch.zeros_like(sb)
+        out = torch.cat([torch.cat([sb, zero], 2), torch.cat([zero, sb], 2)], 1)
+        return out.reshape(-1, nao2 * nao2)
+
+    HK = assemble_k_matrices(graph, torch.complex(h_on_real, h_on_imag),
+                             torch.complex(h_off_real, h_off_imag), k_vecs, nao2, M)
+    SK = assemble_k_matrices(graph, spin_diag(s_on), spin_diag(s_off), k_vecs, nao2, M)
+    orb_valid = _orbital_valid(graph, basis, M, dtype, spins=2)
+    eigvals, psi, _A = _generalized_eigh(_pad_invalid(HK, orb_valid, _PAD_ENERGY),
+                                         _pad_invalid(SK, orb_valid, 1.0))
+    occ = torch.round(_crystal_valence(graph, basis, dtype)).long()   # singly occupied
+    band, wfn = _window(eigvals, psi, occ, orb_valid, int(num_bands))
+    return band, wfn, _gap(eigvals, occ)

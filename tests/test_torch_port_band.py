@@ -598,9 +598,13 @@ def test_cli_fit_then_test_with_band_loss(tmp_path, capsys):
     assert "mae_band_energy" in capsys.readouterr().out
     pred = np.load(tmp_path / "out" / "prediction_hamiltonian.npy")
     assert np.isfinite(pred).all() and pred.shape[1] == 196
-    # the CLI writes the Hamiltonian files only: no band file of its own
-    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == [
-        "config_resolved.yaml", "prediction_hamiltonian.npy", "target_hamiltonian.npy"]
+    # the CLI writes the Hamiltonian files (and their scatter plot) only: no
+    # band file of its own
+    import importlib.util
+
+    plot = ["hamiltonian_scatter.png"] if importlib.util.find_spec("matplotlib") else []
+    assert sorted(p.name for p in (tmp_path / "out").iterdir()) == sorted([
+        "config_resolved.yaml", "prediction_hamiltonian.npy", "target_hamiltonian.npy", *plot])
 
 
 @pytest.mark.parametrize("bnc,want", [
@@ -646,9 +650,17 @@ def test_cli_band_control_warns_on_a_fraction():
 
 @pytest.mark.parametrize("key", ["soc_switch", "spin_constrained"])
 def test_cli_still_refuses_soc_and_spin(key):
-    cfg = load_config(None, overrides=_merge_out(BAND_CFG, {key: True}))
+    """The magnetic head, with and without its SOC switch, waits for a later
+    slice; the SOC head alone (``soc_switch`` without ``spin_constrained``)
+    is built, band branch included."""
+    cfg = load_config(None, overrides=_merge_out(BAND_CFG, {key: True,
+                                                            "spin_constrained": True}))
     with pytest.raises(NotImplementedError, match="later slice"):
         t_cli.build_model(cfg)
+    if key == "soc_switch":
+        head = t_cli.build_model(load_config(None, overrides=_merge_out(
+            BAND_CFG, {key: True}))).output
+        assert type(head).__name__ == "HamGNNSOCOut" and head.calculate_band_energy
 
 
 # ---------------------------------------------------------------------------

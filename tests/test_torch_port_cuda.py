@@ -34,7 +34,16 @@ halves, the next replay's loss within 1e-6 and its update's norm within
 1e-3 of the eager step's; the captured eval within 1e-6 (loss) and 1e-5 *
 max|ref| (predictions) of the eager one; a replay launches each of the
 engine's device kernels once per TP call, counted in a profiler trace; a
-capture that cannot be made raises.
+capture that cannot be made raises.  The same captured step with gradient
+checkpointing against the checkpointed eager step (loss 1e-6 relative,
+gradients 1e-5 * max|ref| per tensor).
+
+The SOC head at the ``sk_soc`` width (``examples/sk_soc/config.yaml``: 2
+layers, ``...+4x4e+2x4o``), su2 and so3, under both engines: the kernel model
+against the same model with the plain TP within 1e-4 * max|ref|, the real
+part Hermitian and the imaginary part anti-Hermitian through the inverse edge
+(su2), 9 forward launches; its captured step against the eager one at the
+limits above.
 """
 
 import dataclasses
@@ -658,3 +667,143 @@ def test_cuda_capture_that_fails_raises():
     torch.cuda.synchronize()
     assert steps.captures == 0 and not steps.train_graphs and len(ran) == 2
     assert float(flat.abs().max()) == 0.0  # the warm-up's update was put back
+
+
+def _trainer_pair(tmp_path, cfg, losses):
+    """An eager and a capturing trainer on the same weights of ``cfg``'s model."""
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.train.config import load_config
+    from hamgnn_tpu_torch.train.trainer import Trainer
+
+    return [Trainer(init_weights(build_model(load_config(None, overrides=cfg)), 0),
+                    losses=losses, metrics=losses, lr=1e-3,
+                    train_dir=str(tmp_path / str(capture)), device="cuda", capture=capture)
+            for capture in (False, True)]
+
+
+def _first_steps_agree(eager, cap, g):
+    """One step of each trainer from the same weights: loss within 1e-6
+    relative, gradient per parameter tensor within 1e-5 * max|ref|."""
+    la, _ = eager.train_step(g)
+    lb, logs = cap.train_step(g)
+    torch.cuda.synchronize()
+    assert abs(float(lb) - float(la)) <= 1e-6 * abs(float(la))
+    assert float(logs["nonfinite_step"]) == 0.0
+    ofs = 0
+    for name, p in eager.model.named_parameters():
+        a, b = eager.grad[ofs:ofs + p.numel()], cap.grad[ofs:ofs + p.numel()]
+        ofs += p.numel()
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max()), name
+    assert cap.captured.captures == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["auto", "zonal"])
+def test_cuda_captured_checkpointed_step_matches_eager(tmp_path, monkeypatch, engine):
+    """With ``use_gradient_checkpointing`` (``checkpoint(...,
+    preserve_rng_state=False)``: nothing reads or sets the RNG state inside
+    the capture) the captured step equals the checkpointed eager step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if engine != "auto":
+        monkeypatch.setenv("HAMGNN_TP_ENGINE", engine)
+    cfg = dict(SMALL_CFG, setup={"use_gradient_checkpointing": True})
+    g1, g2 = _step_batches()
+    eager, cap = _trainer_pair(tmp_path, cfg, HAM)
+    assert eager.model.representation.use_gradient_checkpointing
+    _first_steps_agree(eager, cap, g1)
+    for g in (g2, g1):
+        la, lb = float(eager.train_step(g)[0]), float(cap.train_step(g)[0])
+        assert abs(lb - la) <= 1e-4 * abs(la)
+
+
+SK_SOC_CFG = {
+    "representation_nets": {"HamGNN_pre": {
+        "irreps_node_features": "64x0e+16x0o+24x1o+12x1e+16x2e+8x2o+8x3o+6x3e+4x4e+2x4o",
+        "irreps_edge_sh": BENCH_SH, "num_layers": 2, "num_radial": 64, "cutoff": 5.0,
+        "radial_MLP": [64, 64], "num_types": 96}},
+    "output_nets": {"HamGNN_out": {"nao_max": 14, "soc_switch": True, "soc_basis": "so3",
+                                   "zero_point_shift": False}},
+}
+SOC_HAM = [{"metric": "mae", "prediction": p, "target": p, "loss_weight": 27.211}
+           for p in ("hamiltonian_real", "hamiltonian_imag")]
+
+
+def _soc_batch():
+    """2 SOC crystals of 8 atoms on the card."""
+    from hamgnn_tpu_torch.data.graph import pad_and_batch
+    from hamgnn_tpu_torch.data.synthetic import (add_random_hamiltonian_targets,
+                                                 add_random_soc_targets, make_crystal)
+
+    rng = np.random.default_rng(23)
+    cr = [add_random_soc_targets(rng, add_random_hamiltonian_targets(
+        rng, make_crystal(rng, n_atoms=8, cell_size=6.0, cutoff=5.0), nao_max=14))
+        for _ in range(2)]
+    e = sum(c["edge_index"].shape[1] for c in cr)
+    return pad_and_batch(cr, node_bucket=16, edge_bucket=-(-e // 256) * 256, device="cuda")
+
+
+def _soc_cfg(basis):
+    cfg = {k: dict(v) for k, v in SK_SOC_CFG.items()}
+    cfg["output_nets"] = {"HamGNN_out": dict(SK_SOC_CFG["output_nets"]["HamGNN_out"],
+                                             soc_basis=basis)}
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("basis", ["su2", "so3"])
+@pytest.mark.parametrize("engine", ["auto", "zonal"])
+def test_cuda_soc_forward_at_sk_soc_width(monkeypatch, engine, basis):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.train.config import load_config
+
+    g = _soc_batch()
+    model = init_weights(build_model(load_config(None, overrides=_soc_cfg(basis))), 0)
+    model = model.to("cuda").eval()
+    fwd = tp_kernel.KERNELS[ENGINE_KERNELS[engine][0]]
+    with torch.inference_mode():
+        monkeypatch.setenv("HAMGNN_TP_ENGINE", "xla")
+        ref = model(g)
+        monkeypatch.setenv("HAMGNN_TP_ENGINE", engine)
+        before = {n: k.launches for n, k in tp_kernel.KERNELS.items()}
+        out = model(g)
+        torch.cuda.synchronize()
+    launched = {n: k.launches - before[n] for n, k in tp_kernel.KERNELS.items()}
+    assert launched == {n: 9 if k is fwd else 0 for n, k in tp_kernel.KERNELS.items()}
+    for key in ("hamiltonian_real_on", "hamiltonian_real_off", "hamiltonian_imag_on",
+                "hamiltonian_imag_off"):
+        assert bool(torch.isfinite(out[key]).all()), key
+        scale = float(ref[key].abs().max())
+        assert float((out[key] - ref[key]).abs().max()) <= 1e-4 * scale, key
+    if basis == "su2":
+        big = 28
+        inv, mask = g.inv_edge_idx, g.edge_mask
+        for part, sign in (("real", 1.0), ("imag", -1.0)):
+            h = out[f"hamiltonian_{part}_off"].reshape(-1, big, big)
+            h0 = getattr(g, "Hoff0" if part == "real" else "iHoff0").reshape(-1, big, big)
+            d = (h - h0)[mask] - sign * (h - h0)[inv][mask].mT
+            assert float(d.abs().max()) <= 1e-6 * float(ref[f"hamiltonian_{part}_off"].abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("basis", ["su2", "so3"])
+def test_cuda_soc_captured_step_matches_eager(tmp_path, basis):
+    """The SOC step on the real and imaginary MAE at the sk_soc width,
+    replayed from a CUDA graph, against the eager step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = _soc_batch()
+    eager, cap = _trainer_pair(tmp_path, _soc_cfg(basis), SOC_HAM)
+    _first_steps_agree(eager, cap, g)
+    with torch.no_grad():
+        for a, b in zip(_state(eager), _state(cap)):
+            a.copy_(b)
+    ta, _l, _m, pa = eager.eval_step(g)
+    tb, _l, _m, pb = cap.eval_step(g)
+    assert abs(float(tb) - float(ta)) <= 1e-6 * abs(float(ta))
+    for key in ("hamiltonian_real_off", "hamiltonian_imag_off"):
+        assert float((pa[key] - pb[key]).abs().max()) <= 1e-5 * float(pa[key].abs().max())

@@ -7,7 +7,8 @@ tools included) and ``python -m hamgnn_tpu_torch.cli`` runs a ``stage: fit``
 config and then a ``stage: test`` config from its ``best.pt`` on the CPU,
 under the default engine and under ``HAMGNN_TP_ENGINE=zonal``; with a band
 loss in the config, followed by ``tools.band_cal`` on the prediction and the
-three probe entry points.  ``chip_smoke.py`` must fail, printing no result,
+three probe entry points; with the SOC head (so3), testing from the
+reference's ``<train_dir>/best`` name.  ``chip_smoke.py`` must fail, printing no result,
 where no GPU is available.
 """
 
@@ -38,12 +39,16 @@ mods = [m.name for m in pkgutil.walk_packages(hamgnn_tpu_torch.__path__, "hamgnn
 for name in mods:
     importlib.import_module(name)
 from hamgnn_tpu_torch.data.dataset import save_graph_npz
-from hamgnn_tpu_torch.data.synthetic import add_random_hamiltonian_targets, make_crystal
+from hamgnn_tpu_torch.data.synthetic import (add_random_hamiltonian_targets,
+                                             add_random_soc_targets, make_crystal)
 work = {work!r}
+soc = {soc!r}
 rng = np.random.default_rng(0)
-save_graph_npz(work + "/graph_data.npz",
-               [add_random_hamiltonian_targets(rng, make_crystal(rng, n_atoms=4, cutoff=4.0))
-                for _ in range(3)])
+crystals = [add_random_hamiltonian_targets(rng, make_crystal(rng, n_atoms=4, cutoff=4.0))
+            for _ in range(3)]
+if soc:
+    crystals = [add_random_soc_targets(rng, c) for c in crystals]
+save_graph_npz(work + "/graph_data.npz", crystals)
 cfg = {{
     "setup": {{"stage": "fit"}},
     "dataset_params": {{"graph_data_path": work, "batch_size": 1, "train_ratio": 1 / 3,
@@ -65,16 +70,26 @@ if band:
           "loss_weight": 27.211}},
         {{"metric": "mae", "prediction": "band_energy", "target": "band_energy",
           "loss_weight": 0.27211}}], "metrics": []}}
+if soc:
+    cfg["output_nets"]["HamGNN_out"].update(soc_switch=True, soc_basis="so3")
+    cfg["losses_metrics"] = {{"losses": [
+        {{"metric": "mae", "prediction": p, "target": p, "loss_weight": 27.211}}
+        for p in ("hamiltonian_real", "hamiltonian_imag")], "metrics": []}}
 for stage in ("fit", "test"):
     if stage == "test":
-        cfg["setup"] = {{"stage": "test", "checkpoint_path": work + "/fit/best.pt"}}
+        # a SOC run reads the reference's name for the best weights
+        cfg["setup"] = {{"stage": "test",
+                         "checkpoint_path": work + ("/fit/best" if soc else "/fit/best.pt")}}
         cfg["profiler_params"] = {{"train_dir": work + "/out"}}
     with open(work + "/config.yaml", "w") as f:
         yaml.safe_dump(cfg, f)
     sys.argv = ["hamgnn_tpu_torch.cli", "--config", work + "/config.yaml", "--device", "cpu"]
     runpy.run_module("hamgnn_tpu_torch.cli", run_name="__main__")
 assert open(work + "/fit/metrics.jsonl").read().count("train_loss") == 1
-pred = np.load(work + "/out/prediction_hamiltonian.npy")
+pred = np.load(work + ("/out/prediction_hamiltonian_real.npy" if soc
+                       else "/out/prediction_hamiltonian.npy"))
+if soc:
+    assert np.isfinite(np.load(work + "/out/prediction_hamiltonian_imag.npy")).all()
 if band:
     assert "val/mae_band_energy" in open(work + "/fit/metrics.jsonl").read()
     with open(work + "/band_cal.yaml", "w") as f:
@@ -98,10 +113,11 @@ print("MODULES", len(mods), "PRED", pred.shape, bool(np.isfinite(pred).all()))
 """
 
 
-def _run_script(tmp_path, engine, band=False):
+def _run_script(tmp_path, engine, band=False, soc=False):
     """Runs SCRIPT in a subprocess; returns (modules imported, Wigner-D
     frame builds, whether the predictions are finite)."""
-    code = SCRIPT.format(blocked=BLOCKED, root=str(ROOT), work=str(tmp_path), band=band)
+    code = SCRIPT.format(blocked=BLOCKED, root=str(ROOT), work=str(tmp_path), band=band,
+                         soc=soc)
     env = {k: v for k, v in os.environ.items() if k != "HAMGNN_TP_ENGINE"}
     if engine is not None:
         env["HAMGNN_TP_ENGINE"] = engine
@@ -136,6 +152,14 @@ def test_port_band_path_tools_and_probes_run_without_jax(tmp_path):
     """Fit and test with a band loss (``k_path: auto``), ``band_cal`` on the
     prediction and the probes' entry points, nothing of JAX importable."""
     n_mods, _builds, finite = _run_script(tmp_path, None, band=True)
+    assert n_mods >= 32
+    assert finite
+
+
+def test_port_soc_fit_and_test_run_without_jax(tmp_path):
+    """A SOC (so3) fit on the spinor targets, then ``stage: test`` from
+    ``<train_dir>/best``, nothing of JAX importable."""
+    n_mods, _builds, finite = _run_script(tmp_path, None, soc=True)
     assert n_mods >= 32
     assert finite
 
