@@ -109,7 +109,31 @@ Phases (any failure exits non-zero, before the result lines are printed):
      loss; the CLI: ``stage: fit`` two epochs, then ``stage: test`` from
      ``<train_dir>/best``, whose predictions must differ from the untrained
      model's;
-  9. print one JSON line describing each kernel, then the result line
+  9. the magnetic slice (``phase_magnetic``): ``examples/sk_collinear``,
+     ``sk_ncl`` and ``sk_spinsoc``'s model (3 layers at ``sk_soc``'s features,
+     nao 14, unit weights; the graph's 6 A cutoff in place of the configs' 9 A)
+     on the bench crystal with synthetic spin fields (seed 1, one atom in
+     eight below ``minMagneticMoment``), per branch under both engines (and
+     once with ``use_learned_weight`` under the default one): the forward
+     against the plain TP within 1e-4 * max|ref| with 13 launches of the
+     engine's forward kernel and no other, the non-collinear blocks Hermitian
+     through the inverse edge within 1e-6 * max|ref|, the training step eager
+     (13 + 13 launches) and captured under deterministic algorithms (loss
+     within 1e-6 relative, gradients within 1e-5 * max|ref| per tensor), both
+     timed in turns, one replay's device time by kernel and its launches by
+     device kernel name (13 of each), the first step's peak memory; the
+     collinear band step (4 crystals x 16 atoms, 6 k, 2 x 8 bands a spin
+     channel): each channel's reference bands within 5e-4 of a float64 host
+     solve, one training step with the band loss, the share of ``eigh`` and
+     Cholesky; then the shipped configs through the CLI, only the epoch counts
+     changed, in a scratch directory holding their relative paths:
+     sk_collinear fit, ``config_band_test.yaml`` from ``<train_dir>/best``,
+     ``tools.band_cal`` on ``band_cal.yaml`` (``band_spin{0,1}_*``), sk_ncl
+     and sk_spinsoc fit then test from ``<train_dir>/best``;
+ 10. the LMDB store (``phase_lmdb``): an npz of 6 crystals converted by
+     ``tools.npz_to_lmdb``, the store's batches on the card bit-identical to
+     the npz's in every split, ``examples/sk_lmdb/config.yaml`` 2 epochs on it;
+ 11. print one JSON line describing each kernel, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 It needs one card, imports nothing of JAX or of the JAX package, writes only
@@ -120,6 +144,7 @@ under ``build/`` in the checkout, and exits non-zero without a result when
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -963,7 +988,10 @@ def profile_train_step(tr, graph, fname, steps=1):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from hamgnn_tpu_torch.utils.profiling import PROFILER_LEAD_S
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_LEAD_S)  # no kernel of the step before the session's start
         t0 = time.perf_counter()
         for _ in range(steps):
             tr.train_step(graph)
@@ -1937,6 +1965,506 @@ def phase_soc(tp_kernel, dev, card):
                 checkpointed_steps=ckpt, band=band, cli=cli_run, seconds=seconds)
 
 
+# the magnetic slice: examples/sk_collinear, sk_ncl and sk_spinsoc's model
+# (3 layers, sk_soc's features, nao 14) on the bench crystal's graph, whose
+# 6 A cutoff replaces the configs' 9 A (~3.4x the edges), with synthetic spin
+# fields from seed 1 (the configs' datasets are made by a JAX tool)
+MAG_CONFIGS = {"collinear": ROOT / "examples" / "sk_collinear" / "config.yaml",
+               "noncollinear": ROOT / "examples" / "sk_ncl" / "config.yaml",
+               "spinsoc": ROOT / "examples" / "sk_spinsoc" / "config.yaml"}
+MAG_NAO = 14
+
+
+def mag_config(mode, **out):
+    """(model config, its losses) of the mode's shipped config with the
+    graph's cutoff and ``out`` over the head's keys; the collinear config
+    names no losses and takes the default MAE x 27.211 on ``hamiltonian``."""
+    import yaml
+
+    with open(MAG_CONFIGS[mode]) as f:
+        src = yaml.safe_load(f)
+    cfg = {"representation_nets": src["representation_nets"],
+           "output_nets": src["output_nets"]}
+    cfg["representation_nets"]["HamGNN_pre"]["cutoff"] = SOC_CUTOFF
+    cfg["output_nets"]["HamGNN_out"].update(out)
+    losses = src.get("losses_metrics", {}).get("losses", BENCH_LOSSES)
+    return cfg, losses
+
+
+def mag_crystals(rng, mode, n, n_atoms, cell_size, cutoff):
+    from hamgnn_tpu_torch.data.synthetic import (add_random_hamiltonian_targets,
+                                                 add_random_spin_targets, make_crystal)
+
+    return [add_random_spin_targets(rng, add_random_hamiltonian_targets(
+        rng, make_crystal(rng, n_atoms=n_atoms, cell_size=cell_size, cutoff=cutoff),
+        nao_max=MAG_NAO), mode, nao_max=MAG_NAO) for _ in range(n)]
+
+
+def mag_bench_graph(dev, mode):
+    """The bench crystal (512 atoms, 6 A, 19,672 edges padded to 19,968)
+    with the mode's spin fields at nao 14, seed 1."""
+    import numpy as np
+
+    from hamgnn_tpu_torch.data.graph import pad_and_batch
+    from hamgnn_tpu_torch.data.synthetic import add_random_spin_targets, bench_crystal
+
+    crystal = add_random_spin_targets(np.random.default_rng(1), bench_crystal(nao_max=MAG_NAO),
+                                      mode, nao_max=MAG_NAO)
+    n_edges = int(crystal["edge_index"].shape[1])
+    graph = pad_and_batch([crystal], node_bucket=512,
+                          edge_bucket=((n_edges + 511) // 512) * 512, device=dev)
+    return graph, n_edges
+
+
+def phase_mag_case(tp_kernel, dev, card, graph, n_edges, mode, eng, learned=False):
+    """One magnetic branch under engine ``eng`` at the configs' width: the
+    forward against the same model through the plain TP (13 launches of the
+    engine's forward kernel, within 1e-4 * max|ref|; non-collinear: the real
+    part Hermitian and the imaginary part anti-Hermitian through the inverse
+    edge within 1e-6 * max|ref|); the training step eager (13 + 13
+    launches) and captured from the same weights under deterministic
+    algorithms (loss within 1e-6 relative, gradients within 1e-5 * max|ref|
+    per tensor); then in the default mode both forms timed in turns (wall,
+    median of 3), one replay's device time by kernel and its launches by
+    device kernel name (13 of each of the engine's), and the first step's
+    peak memory."""
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.train.config import load_config
+    from hamgnn_tpu_torch.train.trainer import Trainer
+    from hamgnn_tpu_torch.utils.profiling import device_launches
+
+    cfg, losses = mag_config(mode, use_learned_weight=learned)
+    layers = cfg["representation_nets"]["HamGNN_pre"]["num_layers"]
+    per = 4 * layers + 1
+    tag = f"{mode}_{eng}" + ("_learned" if learned else "")
+    fwd, bwd = ENGINES[eng]
+    WORK.mkdir(parents=True, exist_ok=True)
+    # a trainer and its captured steps form a reference cycle: collect the
+    # earlier ones, so that the peak below is this case's
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    keys = ("hamiltonian_on", "hamiltonian_off") if mode == "collinear" else (
+        "hamiltonian_real_on", "hamiltonian_real_off", "hamiltonian_imag_on",
+        "hamiltonian_imag_off")
+    with engine(eng):
+        trs, peaks = {}, {}
+        for form, capture in (("eager", False), ("captured", None)):
+            model = init_weights(build_model(load_config(None, overrides=cfg)), 0)
+            trs[form] = Trainer(model, losses=losses, metrics=[], lr=1e-3,
+                                train_dir=str(WORK / f"mag_{form}_{tag}"), device=dev,
+                                capture=capture)
+        eager, cap = trs["eager"], trs["captured"]
+        if eager.captured is not None or cap.captured is None:
+            fail(f"magnetic step ({tag}): the default trainer must capture, capture=False not")
+
+        # the forward against the plain TP
+        model = eager.model.eval()
+        with torch.inference_mode():
+            with engine("xla"):
+                ref = model(graph)
+            reset_launches(tp_kernel)
+            out = model(graph)
+            torch.cuda.synchronize()
+            check_launches(tp_kernel, {fwd: per}, f"one magnetic forward ({tag})")
+        errs = {}
+        for key in keys:
+            err, scale = rel_err(out[key], ref[key])
+            errs[key] = (err, scale)
+            if not math.isfinite(err) or err > TOL * scale:
+                fail(f"magnetic forward {key} ({tag}) vs plain TP: max|d| {err:.3e} > "
+                     f"{TOL} * {scale:.3e}")
+        herm = None
+        if mode != "collinear":
+            scale = max(s_ for _e, s_ in errs.values())
+            herm = soc_hermiticity(out, graph, "su2")
+            if not herm <= 1e-6 * scale:
+                fail(f"magnetic forward ({tag}): Hermitian structure off by {herm:.3e} > "
+                     f"1e-6 * {scale:.3e}")
+        del ref, out
+
+        # captured against eager, deterministic
+        torch.use_deterministic_algorithms(True)
+        try:
+            for form in ("eager", "captured"):
+                # the first step's peak: the captured form's warm-up, capture
+                # and replay (a replay allocates nothing)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                reset_launches(tp_kernel)
+                loss, logs = trs[form].train_step(graph)
+                torch.cuda.synchronize()
+                peaks[form] = torch.cuda.max_memory_allocated(dev) / 1e9
+                if form == "eager":
+                    launches = check_launches(tp_kernel, {fwd: per, bwd: per},
+                                              f"one eager magnetic step ({tag})")
+                    la = float(loss)
+                else:
+                    lb = float(loss)
+                if not math.isfinite(float(loss)) or float(logs["nonfinite_step"]) != 0.0:
+                    fail(f"magnetic step ({tag}, {form}): loss {float(loss)}")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if not abs(lb - la) <= 1e-6 * abs(la):
+            fail(f"magnetic captured step ({tag}) loss {lb!r} vs eager {la!r}: above 1e-6 "
+                 "relative")
+        ofs, worst = 0, 0.0
+        for name, p in eager.model.named_parameters():
+            err, scale = rel_err(cap.grad[ofs:ofs + p.numel()], eager.grad[ofs:ofs + p.numel()])
+            ofs += p.numel()
+            if not err <= 1e-5 * scale:
+                fail(f"magnetic captured step ({tag}) gradient {name}: max|d| {err:.3e} > "
+                     f"1e-5 * {scale:.3e}")
+            worst = max(worst, err / scale if scale else 0.0)
+
+        # the default mode: both forms timed in turns, one replay profiled
+        times = {"eager": [], "captured": []}
+        for _ in range(3):
+            for form in ("eager", "captured"):
+                times[form].append(_host_time(lambda: trs[form].train_step(graph)))
+        names = [n for k in ENGINES[eng] for n in tp_kernel.KERNELS[k].device_kernels]
+        replay = device_launches(lambda: cap.train_step(graph), names)
+        if replay != {n: per for n in names}:
+            fail(f"one replay of the magnetic step ({tag}) launched {replay}, expected {per} "
+                 "of each")
+        device = profile_train_step(cap, graph, f"profile_mag_step_{tag}.txt")
+    result = dict(first_loss=[la, lb], worst_grad_rel_err=worst, peak_gb=peaks,
+                  held_before_gb=held_gb, launches=launches, replay_launches=replay,
+                  hermiticity=herm,
+                  errors={k: list(v) for k, v in errs.items()},
+                  device_ms=device["__all__"], device_ms_by_kernel=device)
+    for form, ts in times.items():
+        ms = 1e3 * float(np.median(ts))
+        result[form] = dict(ms=ms, times_ms=[1e3 * t for t in ts],
+                            edges_per_s=n_edges / (ms * 1e-3))
+    print(f"[magnetic] {tag}: forward vs plain TP " + ", ".join(
+        f"{k[12:]} {e:.3e} of {s_:.3e}" for k, (e, s_) in errs.items())
+        + (f", Hermitian to {herm:.3e}" if herm is not None else "")
+        + f"; eager launches {launches}; deterministic, captured vs eager loss {lb!r} vs "
+        f"{la!r}, worst gradient {worst:.3e} of max|ref|; eager {result['eager']['ms']:.3f} ms, "
+        f"captured {result['captured']['ms']:.3f} ms (median of 3) = "
+        f"{result['captured']['edges_per_s']:.1f} edges/s; one replay: device kernels "
+        f"{device['__all__']:.3f} ms, launches {replay}; peak memory eager "
+        f"{peaks['eager']:.2f} GB, captured {peaks['captured']:.2f} GB ({held_gb:.2f} GB "
+        f"held before the case); card {card}",
+        flush=True)
+    del trs, eager, cap, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_mag_band(tp_kernel, dev, card):
+    """The collinear head's band branch at the configs' width on 4 crystals
+    of 16 atoms (6 k, 2 x 8 bands per spin channel), eager: shapes, each
+    channel's reference bands against a float64 host solve within 5e-4, one
+    training step with the band loss (13 + 13 launches), its time and the
+    share of eigh and Cholesky."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.data.graph import pad_and_batch
+    from hamgnn_tpu_torch.models.basis import get_basis_set
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.physics.kpoints import k_vecs_for_graph
+    from hamgnn_tpu_torch.train.config import load_config
+    from hamgnn_tpu_torch.train.trainer import Trainer
+
+    width, nk = BAND_OUT["band_num_control"], BAND_OUT["num_k"]
+    crystals = mag_crystals(np.random.default_rng(5), "collinear", 4, 16, 8.0, 5.0)
+    n_edges = sum(c["edge_index"].shape[1] for c in crystals)
+    graph = pad_and_batch(crystals, node_bucket=64,
+                          edge_bucket=((n_edges + 255) // 256) * 256, device=dev)
+    norb = graph.num_nodes * MAG_NAO
+    cfg, losses = mag_config("collinear", **BAND_OUT)
+    layers = cfg["representation_nets"]["HamGNN_pre"]["num_layers"]
+    losses = losses + [{"metric": "mae", "prediction": "band_energy", "target": "band_energy",
+                        "loss_weight": 0.27211}]
+    model = init_weights(build_model(load_config(None, overrides=cfg)), 0)
+    WORK.mkdir(parents=True, exist_ok=True)
+    tr = Trainer(model, losses=losses, metrics=[], lr=1e-3, train_dir=str(WORK / "mag_band"),
+                 device=dev)
+    if tr.captured is not None:
+        fail("a magnetic head with bands must run eagerly")
+
+    k_np = k_vecs_for_graph(graph, nk, None, rng=np.random.default_rng(6))
+    tr.model.eval()
+    with torch.inference_mode():
+        reset_launches(tp_kernel)
+        out = tr.model(graph, k_vecs=torch.as_tensor(k_np, device=dev))
+        torch.cuda.synchronize()
+        check_launches(tp_kernel, {"packed_tp_fwd": 4 * layers + 1},
+                       "one collinear band forward")
+    shapes = {"band_energy": (8, nk, 2 * width), "band_energy_ref": (8, nk, 2 * width),
+              "band_energy_up": (4, nk, 2 * width), "band_gap": (8,),
+              "wavefunction": (8, nk, 2 * width, norb)}
+    for key, shape in shapes.items():
+        if tuple(out[key].shape) != shape or not bool(torch.isfinite(out[key].abs()).all()):
+            fail(f"collinear band forward: {key} has shape {tuple(out[key].shape)}, expected "
+                 f"{shape}, finite")
+    basis = get_basis_set("openmx", MAG_NAO)
+    ref = out["band_energy_ref"].cpu().numpy()
+    worst = 0.0
+    for ch in range(2):
+        for b, c in enumerate(crystals):
+            channel = dict(c, Hon=c["Hon"][:, ch], Hoff=c["Hoff"][:, ch])
+            host = host_bands(channel, k_np[b].astype(np.float64), basis, MAG_NAO, width)
+            worst = max(worst, float(np.abs(ref[4 * ch + b] - host).max()))
+    if not worst <= BAND_TOL:
+        fail(f"collinear band_energy_ref vs the float64 host solve: max|d| {worst:.3e} > "
+             f"{BAND_TOL}")
+    del out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(tp_kernel)
+    loss, logs = tr.train_step(graph)
+    torch.cuda.synchronize()
+    launches = check_launches(tp_kernel, {k: 4 * layers + 1 for k in ENGINES["auto"]},
+                              "one collinear band train step")
+    if not math.isfinite(float(loss)) or float(logs["nonfinite_step"]) != 0.0 \
+            or not math.isfinite(float(logs["mae_band_energy"])):
+        fail(f"collinear band train step: loss {float(loss)}, logs {logs}")
+    step_ms = 1e3 * _host_time(lambda: tr.train_step(graph))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.train_step(graph)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_ms = _write_profile(prof, wall, 1, "profile_mag_band_step.txt", "step")
+    solver = {ev.key: ev.cpu_time_total / 1e3 for ev in prof.key_averages()
+              if ev.key in ("aten::linalg_eigh", "aten::linalg_cholesky",
+                            "aten::linalg_cholesky_ex")}
+    solver_ms = solver.get("aten::linalg_eigh", 0.0) + max(
+        solver.get("aten::linalg_cholesky", 0.0), solver.get("aten::linalg_cholesky_ex", 0.0))
+    print(f"[magnetic] band: 4 crystals x 16 atoms ({n_edges} edges, {graph.num_edges} "
+          f"padded), {nk} k, 2 spin channels, H(k) {norb} x {norb} complex64: band_energy_ref "
+          f"vs float64 host solve max|d| {worst:.3e} (limit {BAND_TOL}); train step "
+          f"{step_ms:.3f} ms (the second step), launches {launches}, loss {float(loss):.6f}; "
+          f"profiler: wall {1e3 * wall:.3f} ms/step, device kernels "
+          f"{device_ms['__all__']:.3f} ms/step, host time inside eigh + Cholesky "
+          f"{solver_ms:.3f} ms/step = {solver_ms / (1e3 * wall):.1%} of the step ({solver}); "
+          f"peak memory {peak_gb:.2f} GB, card {card}", flush=True)
+    del tr, model
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, launches=launches, n_edges=n_edges, norb=norb, nk=nk,
+                ref_vs_host_max_abs_err=worst, profile_wall_ms=1e3 * wall,
+                device_ms_by_kernel=device_ms, solver_host_ms=solver,
+                solver_share_of_step=solver_ms / (1e3 * wall), peak_gb=peak_gb,
+                loss=float(loss))
+
+
+def _shipped(path, work, name, **over):
+    """The shipped config at ``path`` with ``over`` merged into its
+    sections, written to ``work/name``; returns the written path."""
+    import yaml
+
+    with open(path) as f:
+        cfg = yaml.safe_load(f)
+    for section, keys in over.items():
+        cfg.setdefault(section, {}).update(keys)
+    out = work / name
+    with open(out, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return str(out)
+
+
+def phase_mag_cli(tp_kernel):
+    """The shipped magnetic configs through the CLI, run in a scratch
+    directory that holds their relative paths (``./datasets/...``,
+    ``./train_out/...``), with only the epoch counts overridden: sk_collinear
+    ``config.yaml`` (``stage: fit``, 2 epochs), ``config_band_test.yaml``
+    (``stage: test`` from ``<train_dir>/best``), ``tools.band_cal`` on
+    ``band_cal.yaml`` (``band_spin{0,1}_*``); sk_ncl and sk_spinsoc
+    ``config.yaml``: fit 2 epochs, then ``stage: test`` from
+    ``<train_dir>/best`` (``prediction_hamiltonian_{real,imag}.npy``)."""
+    import numpy as np
+
+    from hamgnn_tpu_torch import cli
+    from hamgnn_tpu_torch.data.dataset import save_graph_npz
+    from hamgnn_tpu_torch.tools import band_cal
+
+    work = WORK / "cli_magnetic"
+    epochs = {"optim_params": {"min_epochs": 0, "max_epochs": 2}}
+    result = {}
+    rng = np.random.default_rng(7)
+    for mode, path in MAG_CONFIGS.items():
+        name = path.parent.name
+        # 5 crystals: 3 train, 1 validation, 1 test at the configs' ratios
+        crystals = mag_crystals(rng, mode, 5, 8, 6.0, 5.0)
+        (work / "datasets" / name).mkdir(parents=True, exist_ok=True)
+        save_graph_npz(str(work / "datasets" / name / "graph_data.npz"), crystals)
+        with contextlib.chdir(work):
+            reset_launches(tp_kernel)
+            t0 = time.perf_counter()
+            cli.main(["--config", _shipped(path, work, f"{name}_fit.yaml", **epochs)])
+            fit_s = time.perf_counter() - t0
+            launches = {n: k.launches for n, k in all_kernels(tp_kernel).items() if k.launches}
+            if set(launches) != set(ENGINES["auto"]):
+                fail(f"the {name} fit run should launch {ENGINES['auto']} and no other: "
+                     f"{launches}")
+            train_dir = work / "train_out" / name
+            records = [json.loads(line) for line in open(train_dir / "metrics.jsonl")]
+            if [r["epoch"] for r in records] != [0, 1] or not all(
+                    math.isfinite(r["train_loss"]) and math.isfinite(r["val_loss"])
+                    for r in records):
+                fail(f"{name} fit metrics.jsonl: {records}")
+            if mode == "collinear":
+                band_set = work / "datasets" / "sk_collinear_band"
+                band_set.mkdir(parents=True, exist_ok=True)
+                save_graph_npz(str(band_set / "graph_data.npz"), crystals[:2])
+                cli.main(["--config", str(path.parent / "config_band_test.yaml")])
+                pred_path = work / "train_out" / "sk_collinear_band_pred" / \
+                    "prediction_hamiltonian.npy"
+                band_cal.main(["--config", str(path.parent / "band_cal.yaml")])
+                gaps = []
+                for i in range(2):
+                    for spin in range(2):
+                        res = np.load(work / "train_out" / "sk_collinear" / "bands"
+                                      / f"band_spin{spin}_{i}.npz")
+                        if not np.isfinite(res["bands"]).all():
+                            fail(f"band_cal spin {spin} crystal {i}: bands not finite")
+                        gaps.append(float(res["gap"]))
+                pred = np.load(pred_path)
+                rows = sum(c["z"].shape[0] + c["edge_index"].shape[1] for c in crystals[:2])
+                if pred.shape != (rows, 2, MAG_NAO ** 2) or not np.isfinite(pred).all():
+                    fail(f"sk_collinear band test: prediction {pred.shape}, expected "
+                         f"({rows}, 2, {MAG_NAO ** 2}), finite")
+                result[mode] = dict(fit_s=fit_s, launches=launches, records=records,
+                                    band_cal_gaps_ev=gaps)
+                print(f"[magnetic] cli {name}: fit 2 epochs in {fit_s:.1f} s, launches "
+                      f"{launches}, val_loss {[round(r['val_loss'], 6) for r in records]}; "
+                      f"config_band_test from <train_dir>/best: {pred.shape}; band_cal "
+                      f"band_spin0/1 gaps {[round(g, 4) for g in gaps]} eV", flush=True)
+                continue
+            cli.main(["--config", _shipped(
+                path, work, f"{name}_test.yaml", **epochs,
+                setup={"stage": "test", "checkpoint_path": f"./train_out/{name}/best"},
+                profiler_params={"train_dir": f"./train_out/{name}_test"})])
+            shapes = {}
+            for part in ("real", "imag"):
+                arr = np.load(work / "train_out" / f"{name}_test"
+                              / f"prediction_hamiltonian_{part}.npy")
+                if arr.shape[1:] != ((2 * MAG_NAO) ** 2,) or not np.isfinite(arr).all():
+                    fail(f"{name} test: prediction_hamiltonian_{part} {arr.shape}, finite")
+                shapes[part] = arr.shape
+            result[mode] = dict(fit_s=fit_s, launches=launches, records=records,
+                                test_shapes=shapes)
+            print(f"[magnetic] cli {name}: fit 2 epochs in {fit_s:.1f} s, launches {launches}, "
+                  f"val_loss {[round(r['val_loss'], 6) for r in records]}; test from "
+                  f"<train_dir>/best: {shapes}", flush=True)
+    return result
+
+
+def phase_magnetic(tp_kernel, dev, card):
+    """Phase 9: the magnetic slice on the card (see the module docstring);
+    each part's seconds printed."""
+    import torch
+
+    seconds, steps = {}, {}
+
+    def part(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[magnetic] {name} done in {seconds[name]:.1f} s", flush=True)
+        return out
+
+    n_edges = None
+    for mode in MAG_CONFIGS:
+        graph, n_edges = part(f"graph_{mode}", mag_bench_graph, dev, mode)
+        for eng in ENGINES:
+            steps[f"{mode}:{eng}"] = part(f"{mode}_{eng}", phase_mag_case, tp_kernel, dev,
+                                          card, graph, n_edges, mode, eng)
+        if mode == "collinear":
+            steps["collinear:auto:learned"] = part(
+                "collinear_auto_learned", phase_mag_case, tp_kernel, dev, card, graph,
+                n_edges, mode, "auto", learned=True)
+        del graph
+        torch.cuda.empty_cache()
+    band = part("band", phase_mag_band, tp_kernel, dev, card)
+    cli_runs = part("cli", phase_mag_cli, tp_kernel)
+    return dict(n_edges=n_edges, steps=steps, band=band, cli=cli_runs, seconds=seconds)
+
+
+def phase_lmdb(tp_kernel, dev):
+    """Phase 10: an npz of 6 crystals converted to an lmdb-lite store by the
+    port's ``tools.npz_to_lmdb``; ``examples/sk_lmdb/config.yaml`` run for
+    2 epochs on it (in a scratch directory holding its relative path); the
+    store's batches on the card bit-identical to the npz's, in every split."""
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch import cli
+    from hamgnn_tpu_torch.data.dataset import (GraphDataModule, LmdbGraphStore,
+                                               load_graph_npz, save_graph_npz)
+    from hamgnn_tpu_torch.data.synthetic import add_random_hamiltonian_targets, make_crystal
+    from hamgnn_tpu_torch.train.captured import tensor_fields
+    from hamgnn_tpu_torch.tools.npz_to_lmdb import convert
+
+    work = WORK / "cli_lmdb"
+    data_dir = work / "datasets" / "sk_small"
+    data_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(8)
+    crystals = [add_random_hamiltonian_targets(
+        rng, make_crystal(rng, n_atoms=8, cell_size=6.0, cutoff=5.0), nao_max=14)
+        for _ in range(6)]
+    npz = str(data_dir / "graph_data.npz")
+    save_graph_npz(npz, crystals)
+    store_path = str(data_dir / "graph_data.lmdb")
+    if convert(npz, store_path) != len(crystals):
+        fail("npz_to_lmdb wrote another number of graphs")
+    dms = [GraphDataModule(g, batch_size=4, device=dev)
+           for g in (load_graph_npz(npz), LmdbGraphStore(store_path))]
+    if not isinstance(dms[1].graphs, LmdbGraphStore):
+        fail("the data module read the store into a list")
+    n_batches = 0
+    for split in ("train", "val", "test"):
+        its = [getattr(dm, f"{split}_batches")(*([np.random.default_rng(0)]
+                                                 if split == "train" else []))
+               for dm in dms]
+        for a, b in zip(*its, strict=True):
+            fa, fb = tensor_fields(a), tensor_fields(b)
+            if set(fa) != set(fb) or not all(torch.equal(fa[k], fb[k]) for k in fa):
+                fail(f"lmdb {split} batch differs from the npz batch")
+            n_batches += 1
+    config = ROOT / "examples" / "sk_lmdb" / "config.yaml"
+    with contextlib.chdir(work):
+        reset_launches(tp_kernel)
+        t0 = time.perf_counter()
+        cli.main(["--config", _shipped(config, work, "sk_lmdb_fit.yaml",
+                                       optim_params={"min_epochs": 0, "max_epochs": 2})])
+        fit_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in all_kernels(tp_kernel).items() if k.launches}
+    if set(launches) != set(ENGINES["auto"]):
+        fail(f"the sk_lmdb fit run should launch {ENGINES['auto']} and no other: {launches}")
+    records = [json.loads(line)
+               for line in open(work / "train_out" / "sk_lmdb" / "metrics.jsonl")]
+    if [r["epoch"] for r in records] != [0, 1] or not all(
+            math.isfinite(r["train_loss"]) and math.isfinite(r["val_loss"]) for r in records):
+        fail(f"sk_lmdb fit metrics.jsonl: {records}")
+    print(f"[lmdb] {len(crystals)} crystals to an lmdb-lite store; {n_batches} batches on the "
+          f"card bit-identical to the npz's; sk_lmdb fit 2 epochs in {fit_s:.1f} s, launches "
+          f"{launches}, val_loss {[round(r['val_loss'], 6) for r in records]}", flush=True)
+    return dict(n_batches=n_batches, fit_s=fit_s, launches=launches, records=records)
+
+
+def mag_launches(magnetic, eng, name, tp_kernel) -> int:
+    """A kernel's launches in one replay of the magnetic step (the profiler's
+    count of each of its device kernels), the same in every branch."""
+    counts = {r["replay_launches"][dk] for key, r in magnetic["steps"].items()
+              if key.split(":")[1] == eng for dk in tp_kernel.KERNELS[name].device_kernels}
+    if len(counts) != 1:
+        fail(f"{name}: the magnetic branches' replays launched it {counts} times")
+    return counts.pop()
+
+
 def main():
     import torch
 
@@ -1987,11 +2515,14 @@ def main():
     band = timed("band", phase_band, tp_kernel, dev, card)
     band_fit = timed("band_cli", phase_band_cli, tp_kernel)
     soc = timed("soc", phase_soc, tp_kernel, dev, card)
+    magnetic = timed("magnetic", phase_magnetic, tp_kernel, dev, card)
+    lmdb = timed("lmdb", phase_lmdb, tp_kernel, dev)
 
     report = {"card": card, "kernel_rows": rows, "wide": wide, "zonal_engine": zonal_engine,
               "model": model, "train": train, "captured": captured, "fit": fit,
               "probes": probes,
-              "band": band, "band_fit": band_fit, "soc": soc, "seconds": seconds}
+              "band": band, "band_fit": band_fit, "soc": soc, "magnetic": magnetic,
+              "lmdb": lmdb, "seconds": seconds}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -2023,6 +2554,7 @@ def main():
                                                  "max_abs_err", "edge_ms", "wcat_ms") if k in r}
                                     for r in soc["kernels"][name]},
                 "sk_soc_launches_per_step": soc["steps"][f"so3:{eng}"]["launches"][name],
+                "sk_magnetic_launches_per_step": mag_launches(magnetic, eng, name, tp_kernel),
             })
     for name, r in probes.items():
         kernels.append({

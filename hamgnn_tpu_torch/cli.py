@@ -15,9 +15,15 @@ the dataset and the ConvE3 model, then
 
 and save ``prediction_hamiltonian.npy`` / ``target_hamiltonian.npy`` in the
 reference's interleaved layout (with the SOC head, ``output_nets.HamGNN_out.
-soc_switch``, ``prediction_hamiltonian_{real,imag}.npy`` and
-``target_hamiltonian_{real,imag}.npy``), and a prediction-against-target
-scatter plot.  A ``checkpoint_path`` ``<p>`` that does not exist reads
+soc_switch``, or the non-collinear magnetic head,
+``prediction_hamiltonian_{real,imag}.npy`` and
+``target_hamiltonian_{real,imag}.npy``; the collinear magnetic head's rows are
+(rows, 2, nao^2)), and a prediction-against-target scatter plot.
+``output_nets.HamGNN_out.spin_constrained`` builds the magnetic head
+(``collinear_spin``, ``soc_switch``, ``use_learned_weight``,
+``minMagneticMoment``).  ``dataset_params.data_format: lmdb``, or ``auto``
+with a ``graph_data_path`` ending in ``.lmdb``, reads the graphs on demand
+from an LMDB store.  A ``checkpoint_path`` ``<p>`` that does not exist reads
 ``<p>.pt`` where that exists: the reference's trainer saves ``best``, this
 port's ``best.pt``.  With ``output_nets.HamGNN_out.
 calculate_band_energy`` the head also solves the bands (``num_k``,
@@ -42,6 +48,7 @@ from .models.model import HamGNNModel, init_weights
 from .models.output import HamGNNPlusPlusOut, concatenate_by_crystal
 from .models.representation import HamGNNConvE3
 from .models.soc import HamGNNSOCOut
+from .models.spin import HamGNNMagneticOut
 from .train.config import NS, config_to_dict, load_config
 from .train.trainer import Trainer, load_params
 
@@ -56,8 +63,6 @@ def build_model(config) -> HamGNNModel:
     for key, what in (("use_corr_prod", "CorrProductBlock"), ("use_kan", "KAN")):
         if pre.get(key, False):
             raise NotImplementedError(f"{what} is not ported yet (a later slice)")
-    if out.get("spin_constrained", False):
-        raise NotImplementedError("the magnetic head is not ported yet (a later slice)")
     rep = HamGNNConvE3(
         num_types=pre.num_types,
         irreps_edge_sh=pre.irreps_edge_sh,
@@ -76,9 +81,31 @@ def build_model(config) -> HamGNNModel:
             pre.get("use_gradient_checkpointing", False)
             or config.setup.get("use_gradient_checkpointing", False)),
     )
+    bnc = out.get("band_num_control", 8)
+    if not isinstance(bnc, int) or isinstance(bnc, bool):
+        bnc = 8  # the magnetic and SOC heads take an int window only
+    if out.get("spin_constrained", False):
+        head = HamGNNMagneticOut(
+            irreps_in_node=pre.irreps_node_features,
+            irreps_in_edge=pre.irreps_node_features,
+            nao_max=out.nao_max,
+            ham_type=out.ham_type.lower(),
+            soc_switch=out.get("soc_switch", False),
+            collinear_spin=out.get("collinear_spin", False),
+            use_learned_weight=out.get("use_learned_weight", True),
+            min_magnetic_moment=out.get("minMagneticMoment", 0.5),
+            add_H0=out.add_H0,
+            symmetrize=out.symmetrize,
+            nonlinearity_type=out.get("nonlinearity_type", "gate"),
+            calculate_band_energy=out.get("calculate_band_energy", False),
+            num_k=out.get("num_k", 5),
+            band_num_control=bnc,
+            k_path=_freeze_k_path(out.get("k_path", None)),
+            export_reciprocal_values=out.get("export_reciprocal_values", False),
+        )
+        return HamGNNModel(rep, head)
     if out.get("soc_switch", False):
         ham_type = out.ham_type.lower()
-        bnc = out.get("band_num_control", 8)
         head = HamGNNSOCOut(
             irreps_in_node=pre.irreps_node_features,
             irreps_in_edge=pre.irreps_node_features,
@@ -93,7 +120,7 @@ def build_model(config) -> HamGNNModel:
             nonlinearity_type=out.get("nonlinearity_type", "gate"),
             calculate_band_energy=out.get("calculate_band_energy", False),
             num_k=out.get("num_k", 5),
-            band_num_control=bnc if isinstance(bnc, int) else 8,
+            band_num_control=bnc,
             k_path=_freeze_k_path(out.get("k_path", None)),
         )
         return HamGNNModel(rep, head)
@@ -198,20 +225,25 @@ def audit_config(config) -> None:
 
 
 def prepare_dataset(config, device=None):
-    """The config's npz graphs split into a ``GraphDataModule`` whose
-    batches live on ``device`` (cuda unless the caller asks for the CPU)."""
-    from .data.dataset import GraphDataModule, load_graph_npz
+    """The config's graphs split into a ``GraphDataModule`` whose batches
+    live on ``device`` (cuda unless the caller asks for the CPU): an npz read
+    into memory, or an LMDB store (``data_format: lmdb``, or ``auto`` with a
+    ``.lmdb`` path) read on demand."""
+    from .data.dataset import GraphDataModule, LmdbGraphStore, load_graph_npz
     from .models.basis import get_basis_set, validate_elements_in_basis_def
 
     path = config.dataset_params.graph_data_path
     fmt = str(config.dataset_params.get("data_format", "auto")).lower()
-    if fmt == "lmdb" or path.lower().endswith(".lmdb"):
-        raise NotImplementedError("LMDB graph stores are not ported yet")
-    if not os.path.isfile(path):
-        path = os.path.join(path, "graph_data.npz")
-    graphs = load_graph_npz(path)
+    lmdb = fmt == "lmdb" or (fmt == "auto" and path.lower().endswith(".lmdb"))
+    if lmdb:
+        graphs = LmdbGraphStore(path)
+    else:
+        if not os.path.isfile(path):
+            path = os.path.join(path, "graph_data.npz")
+        graphs = load_graph_npz(path)
     out = config.output_nets.HamGNN_out
     basis = get_basis_set(out.ham_type.lower(), out.nao_max)
+    # one pass over the graphs (a store reads each once), keeping only z
     validate_elements_in_basis_def(
         np.unique(np.concatenate([np.asarray(g["z"]) for g in graphs])), basis)
     return GraphDataModule(

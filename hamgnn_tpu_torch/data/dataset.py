@@ -1,7 +1,9 @@
 """Dataset loading, splitting and bucketed batching, counterpart of
-``hamgnn_tpu/data/dataset.py`` (npz only: LMDB stores wait for a later slice).
+``hamgnn_tpu/data/dataset.py``.
 
   * ``graph_data.npz``: a pickled dict of PyG ``Data`` (read via the shim);
+  * an LMDB store (``graph_{i}`` records, the count in ``num_graphs``), read
+    on demand by ``LmdbGraphStore``, or its lmdb-lite directory form;
   * the seed-42 split of the reference (numpy RandomState shuffle, rounded
     ratios) and ``split_file`` save/load;
   * batches padded to quantised node/edge buckets, as in the reference, so
@@ -11,6 +13,7 @@
 from __future__ import annotations
 
 import os
+import pickle
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,6 +79,79 @@ def load_graph_npz(path: str) -> List[Dict[str, np.ndarray]]:
     return [_crystal_dict(graphs[k]) for k in keys]
 
 
+class LmdbGraphStore:
+    """Graphs read on demand from the reference's LMDB layout (a pickled
+    PyG ``Data`` under ``graph_{i}``, the count under ``num_graphs``), with a
+    small LRU cache: only the graphs a batch touches are in memory.
+
+    The lmdb-lite form, a directory with a ``num_graphs`` text file and one
+    ``graph_{i}.pkl`` per graph (what ``tools.npz_to_lmdb`` writes where the
+    ``lmdb`` module is missing), is read with no module.  A real LMDB file
+    needs ``lmdb``, and raises ``ImportError`` without it.  The pickles name
+    ``torch_geometric.data.data.Data``; the port's shim reads them."""
+
+    def __init__(self, path: str, cache_size: int = 64):
+        from ..interfaces.pyg_shim import install_shim
+
+        install_shim()
+        self.path = path
+        self._cache: Dict[int, Dict[str, np.ndarray]] = {}
+        self._cache_size = cache_size
+        self._env = None
+        count = os.path.join(path, "num_graphs")
+        if os.path.isdir(path) and os.path.exists(count):
+            with open(count) as f:
+                self._n = int(f.read().strip())
+        else:
+            try:
+                import lmdb
+            except ImportError as exc:
+                raise ImportError(
+                    f"{path} is not an lmdb-lite directory (no num_graphs file), and "
+                    "reading an LMDB file needs the lmdb module, which is not "
+                    "installed") from exc
+            self._env = lmdb.open(path, readonly=True, lock=False, readahead=False,
+                                  meminit=False)
+            with self._env.begin() as txn:
+                self._n = int(txn.get(b"num_graphs").decode())
+
+    def __len__(self) -> int:
+        return self._n
+
+    def _load(self, i: int):
+        if self._env is None:
+            with open(os.path.join(self.path, f"graph_{i}.pkl"), "rb") as f:
+                return pickle.load(f)
+        with self._env.begin() as txn:
+            return pickle.loads(txn.get(f"graph_{i}".encode()))
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(self._n))]
+        if i < 0:
+            i += self._n
+        if not 0 <= i < self._n:
+            raise IndexError(f"graph {i} of a store of {self._n}")
+        if i in self._cache:
+            return self._cache[i]
+        c = _crystal_dict(self._load(i))
+        if len(self._cache) >= self._cache_size:
+            self._cache.pop(next(iter(self._cache)))
+        self._cache[i] = c
+        return c
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        for i in range(self._n):
+            yield self[i]
+
+
+def load_graph_lmdb(path: str, indices: Optional[Sequence[int]] = None
+                    ) -> List[Dict[str, np.ndarray]]:
+    """The graphs of an LMDB (or lmdb-lite) store, read into memory."""
+    store = LmdbGraphStore(path, cache_size=1)
+    return [store[i] for i in (range(len(store)) if indices is None else indices)]
+
+
 def save_graph_npz(path: str, crystals: Sequence[Dict[str, np.ndarray]]) -> None:
     """Write a reference-compatible graph_data.npz (via shim Data objects)."""
     from ..interfaces.pyg_shim import Data, install_shim
@@ -112,14 +188,16 @@ def _bucket(x: int, quantum: int) -> int:
 
 
 class GraphDataModule:
-    """Split + batching front end; batches are built on ``device``."""
+    """Split + batching front end; batches are built on ``device``.  A
+    sequence of graphs is kept as it is (a lazy store stays lazy), an
+    iterator is read into a list."""
 
     def __init__(self, graphs: Sequence[Dict[str, np.ndarray]], batch_size: int = 1,
                  train_ratio: float = 0.6, val_ratio: float = 0.2,
                  test_ratio: float = 0.2, split_file: Optional[str] = None,
                  test_mode: bool = False, node_quantum: int = 16,
                  edge_quantum: int = 256, device="cpu"):
-        self.graphs = list(graphs)
+        self.graphs = graphs if hasattr(graphs, "__getitem__") else list(graphs)
         self.batch_size = batch_size
         self.node_quantum = node_quantum
         self.edge_quantum = edge_quantum

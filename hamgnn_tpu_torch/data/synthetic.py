@@ -1,5 +1,6 @@
 """Synthetic crystals with random Hamiltonian targets, for smoke runs and
-benchmarks, and the fields of the SOC head (``add_random_soc_targets``).
+benchmarks, and the fields of the SOC head (``add_random_soc_targets``) and
+of the magnetic head (``add_random_spin_targets``).
 
 The same construction as ``tests/util_fixtures.py`` (``make_crystal``,
 ``add_random_hamiltonian_targets``), drawing the same numbers from the same
@@ -187,6 +188,94 @@ def add_random_soc_targets(rng, crystal, nao_max=14, ham_type="openmx", ksi_amp=
         Hon0=np.zeros((n, big)), Hoff0=np.zeros((e, big)),
         iHon0=np.zeros((n, big)), iHoff0=np.zeros((e, big)),
         Lon=Lon.reshape(n, nao * nao, 3), Loff=Loff.reshape(e, nao * nao, 3))
+    return crystal
+
+
+SPIN_MODES = ("collinear", "noncollinear", "spinsoc")
+
+
+def add_random_spin_targets(rng, crystal, mode, nao_max=14, ham_type="openmx",
+                            split=0.1, weak_moment=0.2):
+    """Attach the magnetic head's fields to a crystal of
+    ``add_random_hamiltonian_targets``: ``spin_vec`` / ``spin_length`` and
+    spin-resolved targets.  One atom in eight (at least one) gets a moment
+    of ``weak_moment``, below the configs' ``minMagneticMoment`` of 0.5; the
+    others a moment of length 1: +/-z when ``mode`` is ``collinear`` (as
+    ``hamgnn_tpu.tools.sk_dataset`` draws them), a random direction else.
+
+    The spin part of each target block is ``sum_k A_k (x) sigma_k`` with real
+    A_k = ``split`` * a random block * the spins of the magnetic atoms it
+    joins, symmetric through the inverse edge, so every block stays
+    Hermitian.  ``collinear``: ``Hon`` / ``Hoff`` (rows, 2, nao^2), the up
+    and down channels ``H +/- A_z``, and zero H0 of that shape.
+    ``noncollinear``: ``Hon`` / ``Hoff`` (real) and ``iHon`` / ``iHoff``
+    (imaginary), (rows, (2 nao)^2), the spatial ``Hon`` / ``Hoff`` on the
+    spin-diagonal blocks plus the spin part; ``spinsoc``: the same on the
+    SOC spinor targets of ``add_random_soc_targets``.  Both carry zero
+    ``Hon0`` / ``Hoff0`` / ``iHon0`` / ``iHoff0`` of that shape.  ``Son`` /
+    ``Soff`` stay the spatial (rows, nao^2) overlap."""
+    if mode not in SPIN_MODES:
+        raise ValueError(f"mode {mode!r}: one of {SPIN_MODES}")
+    nao = nao_max
+    table = get_basis_set(ham_type, nao_max).orbital_mask_table
+    z = crystal["z"]
+    src, dst = crystal["edge_index"]
+    inv = crystal["inv_edge_idx"]
+    n, e = z.shape[0], src.shape[0]
+    on_mask = table[z][:, :, None] * table[z][:, None, :]
+    off_mask = table[z[src]][:, :, None] * table[z[dst]][:, None, :]
+
+    if mode == "collinear":
+        direction = np.zeros((n, 3))
+        direction[:, 2] = rng.choice([-1.0, 1.0], size=n)
+    else:
+        direction = rng.normal(size=(n, 3))
+        direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    length = np.ones(n)
+    length[rng.choice(n, size=max(1, n // 8), replace=False)] = weak_moment
+    spin = direction * length[:, None]
+    moment = spin * (length > 0.5)[:, None]      # the spins the head sees
+
+    comps = range(2, 3) if mode == "collinear" else range(3)
+    a_on, a_off = {}, {}
+    for k in comps:
+        r_on = rng.normal(size=(n, nao, nao))
+        r_on = 0.5 * (r_on + r_on.transpose(0, 2, 1))
+        a_on[k] = split * r_on * moment[:, k, None, None] * on_mask
+        r_off = rng.normal(size=(e, nao, nao)) \
+            * 0.5 * (moment[src, k] + moment[dst, k])[:, None, None]
+        a_off[k] = split * 0.5 * (r_off + r_off[inv].transpose(0, 2, 1)) * off_mask
+
+    crystal = dict(crystal, spin_vec=spin, spin_length=length)
+    if mode == "collinear":
+        def channels(h, a):
+            h = h.reshape(a.shape)
+            return np.stack([h + a, h - a], 1).reshape(len(h), 2, nao * nao)
+
+        crystal.update(Hon=channels(crystal["Hon"], a_on[2]),
+                       Hoff=channels(crystal["Hoff"], a_off[2]),
+                       Hon0=np.zeros((n, 2, nao * nao)), Hoff0=np.zeros((e, 2, nao * nao)))
+        return crystal
+
+    if mode == "spinsoc":
+        crystal = add_random_soc_targets(rng, crystal, nao_max=nao, ham_type=ham_type)
+        base = {key: crystal[key].reshape(-1, 2, nao, 2, nao)
+                for key in ("Hon", "Hoff", "iHon", "iHoff")}
+    else:
+        eye = np.eye(2)[None, :, None, :, None]
+        base = {"Hon": crystal["Hon"].reshape(n, 1, nao, 1, nao) * eye,
+                "Hoff": crystal["Hoff"].reshape(e, 1, nao, 1, nao) * eye,
+                "iHon": np.zeros((n, 2, nao, 2, nao)), "iHoff": np.zeros((e, 2, nao, 2, nao))}
+    # the Pauli matrices' real (x, z) and imaginary (y) parts
+    sig_re = {0: np.array([[0, 1], [1, 0]]), 2: np.array([[1, 0], [0, -1]])}
+    sig_im = {1: np.array([[0, -1], [1, 0]])}
+    big = (2 * nao) ** 2
+    for where, a in (("on", a_on), ("off", a_off)):
+        for key, sig in ((f"H{where}", sig_re), (f"iH{where}", sig_im)):
+            term = sum(np.einsum("nij,op->noipj", a[k], m) for k, m in sig.items())
+            crystal[key] = (base[key] + term).reshape(-1, big)
+    for key in ("Hon0", "Hoff0", "iHon0", "iHoff0"):
+        crystal[key] = np.zeros((n if key.endswith("on0") else e, big))
     return crystal
 
 

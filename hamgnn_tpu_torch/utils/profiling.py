@@ -64,16 +64,26 @@ def device_time_ms(fn, args=(), n: int = 5, warmup: int = 2, device=None) -> flo
     return statistics.median(times)
 
 
+PROFILER_LEAD_S = 0.05
+
+
 def device_launches(fn, names) -> dict:
     """Launches of device kernels whose names contain each of ``names``
     during one ``fn()``, read from a ``torch.profiler`` trace: what a CUDA
     graph's replay launched, which no host-side counter sees.  Fails where
     the trace holds no device kernel at all (a profiler that cannot see the
-    card)."""
+    card).
+
+    The trace keeps only kernels timed after the session's start, and a
+    replay's first kernels run microseconds after the call: ``fn`` starts
+    ``PROFILER_LEAD_S`` into the session, so that none of its kernels falls
+    before it (without it, a replay of 13 forward TP launches was read as 11
+    or 12 in some sessions, its later kernels all counted)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_LEAD_S)
         fn()
         torch.cuda.synchronize()
     kernels = [ev for ev in prof.key_averages()

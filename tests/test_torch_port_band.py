@@ -650,13 +650,15 @@ def test_cli_band_control_warns_on_a_fraction():
 
 @pytest.mark.parametrize("key", ["soc_switch", "spin_constrained"])
 def test_cli_still_refuses_soc_and_spin(key):
-    """The magnetic head, with and without its SOC switch, waits for a later
-    slice; the SOC head alone (``soc_switch`` without ``spin_constrained``)
-    is built, band branch included."""
+    """The magnetic head, with and without its SOC switch, is built (it was
+    refused before it was ported), its band flags kept; the SOC head alone
+    (``soc_switch`` without ``spin_constrained``) is built, band branch
+    included."""
     cfg = load_config(None, overrides=_merge_out(BAND_CFG, {key: True,
                                                             "spin_constrained": True}))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t_cli.build_model(cfg)
+    head = t_cli.build_model(cfg).output
+    assert type(head).__name__ == "HamGNNMagneticOut" and head.calculate_band_energy
+    assert head.soc_switch == (key == "soc_switch")
     if key == "soc_switch":
         head = t_cli.build_model(load_config(None, overrides=_merge_out(
             BAND_CFG, {key: True}))).output

@@ -95,8 +95,8 @@ def test_cli_stage_test_predictions(case, tmp_path, ckpt):
 @pytest.mark.parametrize("override,match", [
     ({"setup": {"stage": "fit", "parallel": {"mode": "dp"}}}, "training slice"),
     ({"setup": {"stage": "test", "GNN_Net": "HamGNNTransformer"}}, "Transformer"),
-    ({"setup": {"stage": "test"}, "output_nets": {"HamGNN_out": {"spin_constrained": True}}},
-     "magnetic"),
+    ({"setup": {"stage": "test"},
+      "representation_nets": {"HamGNN_pre": {"use_corr_prod": True}}}, "CorrProductBlock"),
 ])
 def test_cli_unported_paths_raise(tmp_path, override, match):
     cfg = load_config(None, overrides=_merge(_merge(BASE, {

@@ -43,7 +43,9 @@ layers, ``...+4x4e+2x4o``), su2 and so3, under both engines: the kernel model
 against the same model with the plain TP within 1e-4 * max|ref|, the real
 part Hermitian and the imaginary part anti-Hermitian through the inverse edge
 (su2), 9 forward launches; its captured step against the eager one at the
-limits above.
+limits above.  The magnetic head (collinear, non-collinear, non-collinear
+with SOC) at that width: its captured step against the eager one under
+deterministic algorithms, at the same limits.
 """
 
 import dataclasses
@@ -806,4 +808,54 @@ def test_cuda_soc_captured_step_matches_eager(tmp_path, basis):
     tb, _l, _m, pb = cap.eval_step(g)
     assert abs(float(tb) - float(ta)) <= 1e-6 * abs(float(ta))
     for key in ("hamiltonian_real_off", "hamiltonian_imag_off"):
+        assert float((pa[key] - pb[key]).abs().max()) <= 1e-5 * float(pa[key].abs().max())
+
+
+SPIN_MODES = {"collinear": {"collinear_spin": True, "soc_switch": False},
+              "noncollinear": {"collinear_spin": False, "soc_switch": False},
+              "spinsoc": {"collinear_spin": False, "soc_switch": True}}
+
+
+def _spin_batch(mode):
+    """2 crystals of 8 atoms with the magnetic head's fields, on the card."""
+    from hamgnn_tpu_torch.data.graph import pad_and_batch
+    from hamgnn_tpu_torch.data.synthetic import (add_random_hamiltonian_targets,
+                                                 add_random_spin_targets, make_crystal)
+
+    rng = np.random.default_rng(25)
+    cr = [add_random_spin_targets(rng, add_random_hamiltonian_targets(
+        rng, make_crystal(rng, n_atoms=8, cell_size=6.0, cutoff=5.0), nao_max=14), mode)
+        for _ in range(2)]
+    e = sum(c["edge_index"].shape[1] for c in cr)
+    return pad_and_batch(cr, node_bucket=16, edge_bucket=-(-e // 256) * 256, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(SPIN_MODES))
+def test_cuda_magnetic_captured_step_matches_eager(tmp_path, mode):
+    """The magnetic head at the sk_collinear / sk_ncl / sk_spinsoc width (2
+    layers here), its training step replayed from a CUDA graph against the
+    eager step under deterministic algorithms, then the eval step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = {k: dict(v) for k, v in SK_SOC_CFG.items()}
+    cfg["output_nets"] = {"HamGNN_out": {"nao_max": 14, "spin_constrained": True,
+                                         "use_learned_weight": False, **SPIN_MODES[mode]}}
+    losses = HAM if mode == "collinear" else SOC_HAM
+    g = _spin_batch(mode)
+    eager, cap = _trainer_pair(tmp_path, cfg, losses)
+    torch.use_deterministic_algorithms(True)
+    try:
+        _first_steps_agree(eager, cap, g)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    with torch.no_grad():
+        for a, b in zip(_state(eager), _state(cap)):
+            a.copy_(b)
+    ta, _l, _m, pa = eager.eval_step(g)
+    tb, _l, _m, pb = cap.eval_step(g)
+    assert abs(float(tb) - float(ta)) <= 1e-6 * abs(float(ta))
+    keys = ("hamiltonian_off",) if mode == "collinear" else ("hamiltonian_real_off",
+                                                             "hamiltonian_imag_off")
+    for key in keys:
         assert float((pa[key] - pb[key]).abs().max()) <= 1e-5 * float(pa[key].abs().max())

@@ -8,7 +8,8 @@ config and then a ``stage: test`` config from its ``best.pt`` on the CPU,
 under the default engine and under ``HAMGNN_TP_ENGINE=zonal``; with a band
 loss in the config, followed by ``tools.band_cal`` on the prediction and the
 three probe entry points; with the SOC head (so3), testing from the
-reference's ``<train_dir>/best`` name.  ``chip_smoke.py`` must fail, printing no result,
+reference's ``<train_dir>/best`` name; with the non-collinear magnetic head
+on an lmdb-lite store written by ``tools.npz_to_lmdb``.  ``chip_smoke.py`` must fail, printing no result,
 where no GPU is available.
 """
 
@@ -40,18 +41,27 @@ for name in mods:
     importlib.import_module(name)
 from hamgnn_tpu_torch.data.dataset import save_graph_npz
 from hamgnn_tpu_torch.data.synthetic import (add_random_hamiltonian_targets,
-                                             add_random_soc_targets, make_crystal)
+                                             add_random_soc_targets, add_random_spin_targets,
+                                             make_crystal)
 work = {work!r}
 soc = {soc!r}
+spin = {spin!r}
 rng = np.random.default_rng(0)
 crystals = [add_random_hamiltonian_targets(rng, make_crystal(rng, n_atoms=4, cutoff=4.0))
             for _ in range(3)]
 if soc:
     crystals = [add_random_soc_targets(rng, c) for c in crystals]
+if spin:
+    crystals = [add_random_spin_targets(rng, c, "noncollinear") for c in crystals]
 save_graph_npz(work + "/graph_data.npz", crystals)
+data_path = work
+if spin:
+    from hamgnn_tpu_torch.tools.npz_to_lmdb import convert
+    data_path = work + "/graph_data.lmdb"
+    assert convert(work + "/graph_data.npz", data_path) == 3
 cfg = {{
     "setup": {{"stage": "fit"}},
-    "dataset_params": {{"graph_data_path": work, "batch_size": 1, "train_ratio": 1 / 3,
+    "dataset_params": {{"graph_data_path": data_path, "batch_size": 1, "train_ratio": 1 / 3,
                         "val_ratio": 1 / 3, "test_ratio": 1 / 3}},
     "optim_params": {{"min_epochs": 0, "max_epochs": 1}},
     "profiler_params": {{"train_dir": work + "/fit"}},
@@ -70,8 +80,11 @@ if band:
           "loss_weight": 27.211}},
         {{"metric": "mae", "prediction": "band_energy", "target": "band_energy",
           "loss_weight": 0.27211}}], "metrics": []}}
-if soc:
-    cfg["output_nets"]["HamGNN_out"].update(soc_switch=True, soc_basis="so3")
+if spin:
+    cfg["output_nets"]["HamGNN_out"].update(spin_constrained=True, use_learned_weight=False)
+if soc or spin:
+    if soc:
+        cfg["output_nets"]["HamGNN_out"].update(soc_switch=True, soc_basis="so3")
     cfg["losses_metrics"] = {{"losses": [
         {{"metric": "mae", "prediction": p, "target": p, "loss_weight": 27.211}}
         for p in ("hamiltonian_real", "hamiltonian_imag")], "metrics": []}}
@@ -86,9 +99,9 @@ for stage in ("fit", "test"):
     sys.argv = ["hamgnn_tpu_torch.cli", "--config", work + "/config.yaml", "--device", "cpu"]
     runpy.run_module("hamgnn_tpu_torch.cli", run_name="__main__")
 assert open(work + "/fit/metrics.jsonl").read().count("train_loss") == 1
-pred = np.load(work + ("/out/prediction_hamiltonian_real.npy" if soc
+pred = np.load(work + ("/out/prediction_hamiltonian_real.npy" if soc or spin
                        else "/out/prediction_hamiltonian.npy"))
-if soc:
+if soc or spin:
     assert np.isfinite(np.load(work + "/out/prediction_hamiltonian_imag.npy")).all()
 if band:
     assert "val/mae_band_energy" in open(work + "/fit/metrics.jsonl").read()
@@ -113,11 +126,11 @@ print("MODULES", len(mods), "PRED", pred.shape, bool(np.isfinite(pred).all()))
 """
 
 
-def _run_script(tmp_path, engine, band=False, soc=False):
+def _run_script(tmp_path, engine, band=False, soc=False, spin=False):
     """Runs SCRIPT in a subprocess; returns (modules imported, Wigner-D
     frame builds, whether the predictions are finite)."""
     code = SCRIPT.format(blocked=BLOCKED, root=str(ROOT), work=str(tmp_path), band=band,
-                         soc=soc)
+                         soc=soc, spin=spin)
     env = {k: v for k, v in os.environ.items() if k != "HAMGNN_TP_ENGINE"}
     if engine is not None:
         env["HAMGNN_TP_ENGINE"] = engine
@@ -164,6 +177,15 @@ def test_port_soc_fit_and_test_run_without_jax(tmp_path):
     assert finite
 
 
+def test_port_magnetic_fit_and_test_from_a_store_run_without_jax(tmp_path):
+    """A non-collinear magnetic fit on an lmdb-lite store written by the
+    port's ``npz_to_lmdb``, then ``stage: test`` from ``best.pt``, nothing
+    of JAX importable."""
+    n_mods, _builds, finite = _run_script(tmp_path, None, spin=True)
+    assert n_mods >= 34
+    assert finite
+
+
 def _imports(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -178,6 +200,11 @@ def _imports(path):
 def test_source_imports_no_jax(path):
     for name in _imports(path):
         assert name.split(".")[0] not in BLOCKED, f"{path.name} imports {name}"
+
+
+def test_source_import_check_covers_the_magnetic_head_and_the_store():
+    for rel in ("models/spin.py", "data/dataset.py", "tools/npz_to_lmdb.py"):
+        assert PKG / rel in set(PKG.rglob("*.py")), rel
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):
