@@ -133,7 +133,26 @@ Phases (any failure exits non-zero, before the result lines are printed):
  10. the LMDB store (``phase_lmdb``): an npz of 6 crystals converted by
      ``tools.npz_to_lmdb``, the store's batches on the card bit-identical to
      the npz's in every split, ``examples/sk_lmdb/config.yaml`` 2 epochs on it;
- 11. print one JSON line describing each kernel, then the result line
+ 11. the other representation networks (``phase_representation``):
+     ``examples/sk/config.yaml``'s model with only its representation keys
+     changed, on the bench crystal at 6 A (the config's 9 A cut as in phase
+     8): (a) ``GNN_Net: HamGNNTransformer`` with 2 heads under both engines,
+     (b) ConvE3 with ``use_corr_prod`` and (c) ConvE3 with ``use_kan`` under
+     the default one; per case the forward against the plain TP within 1e-4 *
+     max|ref| with 13 launches of the engine's forward kernel and no other,
+     the training step eager (13 + 13 launches) and captured, bit for bit
+     under deterministic algorithms (the default mode's spread reported),
+     both timed in turns (wall, median of 3, edges/s), one replay's launches
+     by device kernel name (13 of each) and its device time by kernel
+     (``profile_rep_<case>_<engine>.txt`` in the report directory), the first step's peak
+     memory and the memory held before and after the case; the new dense
+     ops (a correlation block, the edge softmax, the attention's segment sum,
+     a KAN generator beside the MLP one) timed forward and backward;
+     ``MessagePackBlockV2`` at the sk width on 1,024 edges against its
+     plain-TP form (output 1e-4, gradients 1e-3 * max|ref|); the Transformer
+     config through the CLI, ``stage: fit`` 2 epochs then ``stage: test``
+     from ``<train_dir>/best``;
+ 12. print one JSON line describing each kernel, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 It needs one card, imports nothing of JAX or of the JAX package, writes only
@@ -2455,6 +2474,423 @@ def phase_lmdb(tp_kernel, dev):
     return dict(n_batches=n_batches, fit_s=fit_s, launches=launches, records=records)
 
 
+REP_CONFIG = ROOT / "examples" / "sk" / "config.yaml"
+# case -> (setup keys, representation keys) over examples/sk/config.yaml: (a)
+# the Transformer (2 heads: the most that divide every multiplicity of the sk
+# features), (b) ConvE3 with the correlation block, (c) ConvE3 with KAN
+REP_CASES = {"transformer": ({"GNN_Net": "HamGNNTransformer"},
+                             {"num_heads": 2, "correlation": 2, "num_hidden_features": 16}),
+             "corr": ({}, {"use_corr_prod": True, "correlation": 2,
+                           "num_hidden_features": 16}),
+             "kan": ({}, {"use_kan": True})}
+REP_RUNS = (("transformer", "auto"), ("transformer", "zonal"), ("corr", "auto"),
+            ("kan", "auto"))
+
+
+def rep_config(case, cutoff=SOC_CUTOFF):
+    """``examples/sk/config.yaml`` with the case's setup and representation
+    keys and the representation's cutoff set to ``cutoff``."""
+    import yaml
+
+    with open(REP_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    setup, pre = REP_CASES[case]
+    cfg["setup"].update(setup)
+    cfg["representation_nets"]["HamGNN_pre"].update(cutoff=cutoff, **pre)
+    return cfg
+
+
+def rep_bench_graph(dev):
+    """The bench crystal (512 atoms, 6 A, 19,672 edges padded to 19,968)
+    with targets at nao 14."""
+    from hamgnn_tpu_torch.data.graph import pad_and_batch
+    from hamgnn_tpu_torch.data.synthetic import bench_crystal
+
+    crystal = bench_crystal(nao_max=SOC_NAO)
+    n_edges = int(crystal["edge_index"].shape[1])
+    graph = pad_and_batch([crystal], node_bucket=512,
+                          edge_bucket=((n_edges + 511) // 512) * 512, device=dev)
+    return graph, n_edges
+
+
+def _state(tr):
+    return [tr.flat, *tr.opt.state_dict().values()]
+
+
+def grad_spread(a, b) -> dict:
+    """How far trainer ``b``'s flat gradient is from ``a``'s: the largest
+    max|d| / max|ref| over parameter tensors, and the largest max|d| over the
+    largest gradient of all (a tensor whose gradient is zero in exact
+    arithmetic holds only rounding, so its own ratio can reach 1)."""
+    worst, largest, top = 0.0, float(a.grad.abs().max()), 0.0
+    ofs = 0
+    for p in a.model.parameters():
+        err, scale = rel_err(b.grad[ofs:ofs + p.numel()], a.grad[ofs:ofs + p.numel()])
+        ofs += p.numel()
+        worst = max(worst, err / scale if scale else 0.0)
+        top = max(top, err)
+    return dict(worst_grad_rel_err=worst, worst_of_largest=top / largest if largest else 0.0)
+
+
+def phase_rep_case(tp_kernel, dev, card, graph, n_edges, case, eng):
+    """One representation network at the sk width under engine ``eng``: the
+    forward against the same model through the plain TP (13 launches of the
+    engine's forward kernel and no other, within 1e-4 * max|ref|); the
+    training step (MAE x 27.211 on ``hamiltonian``, amsgrad at lr 1e-3) eager
+    (13 + 13 launches) and captured from the same weights under deterministic
+    algorithms, bit for bit (loss, gradients, updated parameters); one more
+    step of each in the default mode, its spread reported and not held to a
+    limit; both forms timed in turns (wall, median of 3), one replay's
+    launches by device kernel name (13 of each) and its device time by
+    kernel (``profile_rep_<case>_<engine>.txt`` in the report directory); the first step's
+    peak memory, and the memory held before the case and after it."""
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.train.config import load_config
+    from hamgnn_tpu_torch.train.trainer import Trainer
+    from hamgnn_tpu_torch.utils.profiling import device_launches
+
+    cfg = rep_config(case)
+    per = 4 * cfg["representation_nets"]["HamGNN_pre"]["num_layers"] + 1
+    tag = f"{case}_{eng}"
+    fwd, bwd = ENGINES[eng]
+    WORK.mkdir(parents=True, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    keys = ("hamiltonian_on", "hamiltonian_off")
+    with engine(eng):
+        trs, peaks = {}, {}
+        for form, capture in (("eager", False), ("captured", None)):
+            model = init_weights(build_model(load_config(None, overrides=cfg)), 0)
+            trs[form] = Trainer(model, losses=BENCH_LOSSES, metrics=[], lr=1e-3,
+                                train_dir=str(WORK / f"rep_{form}_{tag}"), device=dev,
+                                capture=capture)
+        eager, cap = trs["eager"], trs["captured"]
+        if eager.captured is not None or cap.captured is None:
+            fail(f"{tag} step: the default trainer must capture, capture=False not")
+
+        model = eager.model.eval()
+        with torch.inference_mode():
+            with engine("xla"):
+                ref = model(graph)
+            reset_launches(tp_kernel)
+            out = model(graph)
+            torch.cuda.synchronize()
+            check_launches(tp_kernel, {fwd: per}, f"one {tag} forward")
+        errs = {}
+        for key in keys:
+            err, scale = rel_err(out[key], ref[key])
+            errs[key] = (err, scale)
+            if not math.isfinite(err) or err > TOL * scale:
+                fail(f"{tag} forward {key} vs plain TP: max|d| {err:.3e} > {TOL} * {scale:.3e}")
+        del ref, out
+
+        torch.use_deterministic_algorithms(True)
+        try:
+            losses = {}
+            for form in ("eager", "captured"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                reset_launches(tp_kernel)
+                loss, logs = trs[form].train_step(graph)
+                torch.cuda.synchronize()
+                peaks[form] = torch.cuda.max_memory_allocated(dev) / 1e9
+                losses[form] = float(loss)
+                if form == "eager":
+                    launches = check_launches(tp_kernel, {fwd: per, bwd: per},
+                                              f"one eager {tag} step")
+                if not math.isfinite(float(loss)) or float(logs["nonfinite_step"]) != 0.0:
+                    fail(f"{tag} step ({form}): loss {float(loss)}")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        la, lb = losses["eager"], losses["captured"]
+        if la != lb or not all(torch.equal(a, b) for a, b in zip(
+                [eager.grad, *_state(eager)], [cap.grad, *_state(cap)])):
+            fail(f"{tag}: the captured step differs from the eager one under deterministic "
+                 f"algorithms (loss {lb!r} vs {la!r})")
+
+        # the default mode from the same state: the atomic sums' spread
+        la2, lb2 = (float(trs[form].train_step(graph)[0]) for form in ("eager", "captured"))
+        spread = grad_spread(eager, cap)
+
+        times = {"eager": [], "captured": []}
+        for _ in range(3):
+            for form in ("eager", "captured"):
+                times[form].append(_host_time(lambda: trs[form].train_step(graph)))
+        names = [n for k in ENGINES[eng] for n in tp_kernel.KERNELS[k].device_kernels]
+        replay = device_launches(lambda: cap.train_step(graph), names)
+        if replay != {n: per for n in names}:
+            fail(f"one replay of the {tag} step launched {replay}, expected {per} of each")
+        device = profile_train_step(cap, graph, f"profile_rep_{tag}.txt")
+    result = dict(first_loss=[la, lb], default_mode=dict(loss=[la2, lb2], **spread),
+                  peak_gb=peaks, held_before_gb=held_gb, launches=launches,
+                  replay_launches=replay, errors={k: list(v) for k, v in errs.items()},
+                  device_ms=device["__all__"], device_ms_by_kernel=device)
+    for form, ts in times.items():
+        ms = 1e3 * float(np.median(ts))
+        result[form] = dict(ms=ms, times_ms=[1e3 * t for t in ts],
+                            edges_per_s=n_edges / (ms * 1e-3))
+    del trs, eager, cap, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["held_after_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+    print(f"[representation] {tag}: forward vs plain TP " + ", ".join(
+        f"{k[12:]} {e:.3e} of {s_:.3e}" for k, (e, s_) in errs.items())
+        + f"; eager launches {launches}; deterministic: captured = eager bit for bit (loss "
+        f"{la!r}); default mode: loss {lb2!r} vs {la2!r}, gradients apart by "
+        f"{spread['worst_of_largest']:.3e} of the largest gradient, at most "
+        f"{spread['worst_grad_rel_err']:.3e} of a tensor's own (atomic sums, not held to a "
+        f"limit); eager {result['eager']['ms']:.3f} ms, "
+        f"captured {result['captured']['ms']:.3f} ms (median of 3) = "
+        f"{result['captured']['edges_per_s']:.1f} edges/s; one replay: device kernels "
+        f"{device['__all__']:.3f} ms, launches {replay}; peak memory eager "
+        f"{peaks['eager']:.2f} GB, captured {peaks['captured']:.2f} GB; held before "
+        f"{held_gb:.3f} GB, after {result['held_after_gb']:.3f} GB; card {card}", flush=True)
+    return result
+
+
+def _device_ms(fn, n=3) -> tuple:
+    """(device ms, kernel launches) per ``fn()`` summed over the device
+    kernels of a torch.profiler trace of ``n`` runs after one warm-up: the
+    device's time alone, which CUDA events around an eager call of many
+    small ops would mix with the host's launch time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hamgnn_tpu_torch.utils.profiling import PROFILER_LEAD_S
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_LEAD_S)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ms, count = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us = getattr(ev, "self_device_time_total", None)
+            ms += (ev.self_cuda_time_total if dev_us is None else dev_us) / 1e3
+            count += ev.count
+    return ms / n, count // n
+
+
+def phase_rep_dense(dev, graph):
+    """Device time (torch.profiler, the mean of 3 runs) of the new dense ops
+    at the sk width on the bench graph, forward and backward: one
+    correlation block on the 512 nodes, the (E, 2) edge softmax with its
+    segment sums, the attention's weighted (E, 2, 230) segment sum, and a KAN
+    radial generator beside the MLP generator it replaces (64 -> 64 -> 64 ->
+    the node plan's scale channels).  Also what a product on a stream not
+    used before leaves held (cuBLAS's workspace for that stream)."""
+    import torch
+
+    from hamgnn_tpu_torch.e3.irreps import Irreps
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.nn.attention import edge_softmax
+    from hamgnn_tpu_torch.nn.blocks import CorrProductBlock, MessagePackBlock, segment_sum
+    from hamgnn_tpu_torch.nn.mlp import make_weight_generator
+    from hamgnn_tpu_torch.train.config import load_config
+
+    pre = load_config(None, overrides=rep_config("corr")).representation_nets.HamGNN_pre
+    feat = Irreps(pre.irreps_node_features)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    n, e = graph.num_nodes, graph.num_edges
+    dst = graph.edge_index[1]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev).requires_grad_(True)
+
+    def fwd_bwd(fn, *args):
+        def run():
+            out = fn(*args)
+            out.backward(torch.ones_like(out))
+        return _device_ms(run)
+
+    result = {}
+    corr = init_weights(CorrProductBlock(feat, pre.num_hidden_features, pre.correlation,
+                                         pre.num_types), 0).to(dev)
+    attrs = torch.nn.functional.one_hot(graph.z, pre.num_types).to(torch.float32)
+    result["corr_block"] = fwd_bwd(corr, randn(n, feat.dim), attrs)
+    logits = randn(e, 2)
+    result["edge_softmax"] = fwd_bwd(lambda x: edge_softmax(x, dst, n, graph.edge_mask), logits)
+    w, v = randn(e, 2), randn(e, 2, feat.dim // 2)
+    result["attention_segment_sum"] = fwd_bwd(
+        lambda a, b: segment_sum(a[:, :, None] * b, dst, n), w, v)
+    sh = Irreps(pre.irreps_edge_sh)
+    width = MessagePackBlock(feat, feat, sh, feat, pre.num_radial).node_scaler.weight_numel
+    scal = randn(e, pre.num_radial)
+    for kan in (False, True):
+        g = init_weights(make_weight_generator(pre.num_radial, pre.radial_MLP, width,
+                                               use_kan=kan), 0).to(dev)
+        result["kan_generator" if kan else "mlp_generator"] = fwd_bwd(g, scal)
+    print("[representation] dense ops, forward + backward, device ms (launches): " + ", ".join(
+        f"{k} {ms:.4f} ({c})" for k, (ms, c) in result.items())
+        + f"; generator width {width}", flush=True)
+    result = {k: dict(ms=ms, launches=c) for k, (ms, c) in result.items()}
+    result["generator_width"] = width
+    # what a product on a stream not used before leaves held: cuBLAS's
+    # workspace for that stream, kept for the life of the process
+    a = torch.randn(256, 256, device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    with torch.cuda.stream(torch.cuda.Stream(device=dev)):
+        a @ a
+    torch.cuda.synchronize()
+    result["new_stream_held_mb"] = (torch.cuda.memory_allocated(dev) - before) / 1e6
+    print(f"[representation] a product on a new stream left "
+          f"{result['new_stream_held_mb']:.2f} MB held", flush=True)
+    return result
+
+
+def phase_rep_v2(tp_kernel, dev):
+    """``MessagePackBlockV2`` at the sk width on 1,024 edges: forward and
+    backward through the kernels (B1 twice, B2 twice) against the same block
+    through the plain TP, the output within 1e-4 * max|ref| and every
+    gradient (parameters and inputs) within 1e-3 * max|ref| per tensor."""
+    import torch
+
+    from hamgnn_tpu_torch.e3.irreps import Irreps
+    from hamgnn_tpu_torch.e3.spherical import spherical_harmonics
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.nn.blocks import MessagePackBlockV2
+
+    pre = rep_config("corr")["representation_nets"]["HamGNN_pre"]
+    feat, sh_irreps = Irreps(pre["irreps_node_features"]), Irreps(pre["irreps_edge_sh"])
+    e = 1024
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    block = init_weights(MessagePackBlockV2(feat, feat, sh_irreps, feat, pre["num_radial"],
+                                            radial_mlp=tuple(pre["radial_MLP"])), 0).to(dev)
+    # the edge SH take no gradient, as in the model
+    sh = spherical_harmonics([ir.l for _, ir in sh_irreps], torch.randn(e, 3, generator=gen),
+                             normalize=True).to(dev)
+    src, dst, edge = (torch.randn(e, feat.dim, generator=gen).to(dev).requires_grad_(True)
+                      for _ in range(3))
+    scal = torch.randn(e, pre["num_radial"], generator=gen).to(dev).requires_grad_(True)
+    R = torch.randn(e, feat.dim, generator=gen).to(dev)
+    wrt = list(block.parameters()) + [src, dst, edge, scal]
+
+    def run():
+        out = block(src, dst, edge, sh, scal)
+        return out, torch.autograd.grad((out * R).sum(), wrt)
+
+    with engine("xla"):
+        ref, ref_g = run()
+    fwd, bwd = ENGINES["auto"]
+    with engine("auto"):
+        reset_launches(tp_kernel)
+        out, got_g = run()
+        torch.cuda.synchronize()
+        launches = check_launches(tp_kernel, {fwd: 2, bwd: 2}, "one V2 forward and backward")
+    err, scale = rel_err(out, ref)
+    if not math.isfinite(err) or err > TOL * scale:
+        fail(f"MessagePackBlockV2 vs plain TP: max|d| {err:.3e} > {TOL} * {scale:.3e}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got_g, ref_g)):
+        gerr, gscale = rel_err(a, b)
+        if not gerr <= GRAD_TOL * gscale:
+            fail(f"MessagePackBlockV2 gradient {i}: max|d| {gerr:.3e} > {GRAD_TOL} * {gscale:.3e}")
+        worst = max(worst, gerr / gscale if gscale else 0.0)
+    print(f"[representation] MessagePackBlockV2, 1,024 edges: output {err:.3e} of {scale:.3e}, "
+          f"worst gradient {worst:.3e} of max|ref| ({len(ref_g)} tensors), launches {launches}",
+          flush=True)
+    return dict(max_abs_err=err, scale=scale, worst_grad_rel_err=worst, launches=launches)
+
+
+def phase_rep_cli(tp_kernel):
+    """The Transformer config through the CLI in a scratch directory that
+    holds ``examples/sk/config.yaml``'s relative paths: ``stage: fit`` for 2
+    epochs on 5 crystals of 8 atoms (3 train, 1 validation, 1 test), then
+    ``stage: test`` from ``<train_dir>/best``."""
+    import numpy as np
+    import yaml
+
+    from hamgnn_tpu_torch import cli
+    from hamgnn_tpu_torch.data.dataset import save_graph_npz
+    from hamgnn_tpu_torch.data.synthetic import add_random_hamiltonian_targets, make_crystal
+
+    work = WORK / "cli_representation"
+    data_dir = work / "datasets" / "sk_v1_graph"
+    data_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(9)
+    crystals = [add_random_hamiltonian_targets(
+        rng, make_crystal(rng, n_atoms=8, cell_size=6.0, cutoff=5.0), nao_max=SOC_NAO)
+        for _ in range(5)]
+    save_graph_npz(str(data_dir / "graph_data.npz"), crystals)
+    cfg = rep_config("transformer", cutoff=9.0)  # the config's own cutoff
+    cfg["optim_params"].update(min_epochs=0, max_epochs=2)
+    fit_path = work / "transformer_fit.yaml"
+    fit_path.write_text(yaml.safe_dump(cfg))
+    cfg["setup"].update(stage="test", checkpoint_path="./train_out/sk_v2/best")
+    cfg["profiler_params"]["train_dir"] = "./train_out/sk_v2_test"
+    test_path = work / "transformer_test.yaml"
+    test_path.write_text(yaml.safe_dump(cfg))
+    with contextlib.chdir(work):
+        reset_launches(tp_kernel)
+        t0 = time.perf_counter()
+        cli.main(["--config", str(fit_path)])
+        fit_s = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in all_kernels(tp_kernel).items() if k.launches}
+        if set(launches) != set(ENGINES["auto"]):
+            fail(f"the Transformer fit run should launch {ENGINES['auto']} and no other: "
+                 f"{launches}")
+        records = [json.loads(line) for line in open(work / "train_out" / "sk_v2"
+                                                     / "metrics.jsonl")]
+        if [r["epoch"] for r in records] != [0, 1] or not all(
+                math.isfinite(r["train_loss"]) and math.isfinite(r["val_loss"])
+                for r in records):
+            fail(f"Transformer fit metrics.jsonl: {records}")
+        cli.main(["--config", str(test_path)])
+    pred = np.load(work / "train_out" / "sk_v2_test" / "prediction_hamiltonian.npy")
+    if pred.shape[1:] != (SOC_NAO ** 2,) or not np.isfinite(pred).all():
+        fail(f"Transformer test from <train_dir>/best: prediction {pred.shape}, finite")
+    print(f"[representation] cli Transformer: fit 2 epochs in {fit_s:.1f} s, launches "
+          f"{launches}, val_loss {[round(r['val_loss'], 6) for r in records]}; test from "
+          f"<train_dir>/best: {pred.shape}", flush=True)
+    return dict(fit_s=fit_s, launches=launches, records=records, test_shape=list(pred.shape))
+
+
+def phase_representation(tp_kernel, dev, card):
+    """Phase 11: the other representation networks on the card (see the
+    module docstring); each part's seconds printed."""
+    import torch
+
+    seconds, steps = {}, {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"[representation] {name} done in {seconds[name]:.1f} s", flush=True)
+        return out
+
+    graph, n_edges = part("graph", rep_bench_graph, dev)
+    for case, eng in REP_RUNS:
+        steps[f"{case}:{eng}"] = part(f"{case}_{eng}", phase_rep_case, tp_kernel, dev, card,
+                                      graph, n_edges, case, eng)
+    dense = part("dense", phase_rep_dense, dev, graph)
+    del graph
+    torch.cuda.empty_cache()
+    v2 = part("v2", phase_rep_v2, tp_kernel, dev)
+    cli_run = part("cli", phase_rep_cli, tp_kernel)
+    return dict(n_edges=n_edges, steps=steps, dense_ms=dense, v2=v2, cli=cli_run,
+                seconds=seconds)
+
+
+def rep_launches(representation, eng, name, tp_kernel) -> int:
+    """A kernel's launches in one replay of the Transformer step under its
+    engine (the profiler's count of each of its device kernels)."""
+    counts = {representation["steps"][f"transformer:{eng}"]["replay_launches"][dk]
+              for dk in tp_kernel.KERNELS[name].device_kernels}
+    if len(counts) != 1:
+        fail(f"{name}: the Transformer replay launched its device kernels {counts} times")
+    return counts.pop()
+
+
 def mag_launches(magnetic, eng, name, tp_kernel) -> int:
     """A kernel's launches in one replay of the magnetic step (the profiler's
     count of each of its device kernels), the same in every branch."""
@@ -2517,12 +2953,13 @@ def main():
     soc = timed("soc", phase_soc, tp_kernel, dev, card)
     magnetic = timed("magnetic", phase_magnetic, tp_kernel, dev, card)
     lmdb = timed("lmdb", phase_lmdb, tp_kernel, dev)
+    representation = timed("representation", phase_representation, tp_kernel, dev, card)
 
     report = {"card": card, "kernel_rows": rows, "wide": wide, "zonal_engine": zonal_engine,
               "model": model, "train": train, "captured": captured, "fit": fit,
               "probes": probes,
               "band": band, "band_fit": band_fit, "soc": soc, "magnetic": magnetic,
-              "lmdb": lmdb, "seconds": seconds}
+              "lmdb": lmdb, "representation": representation, "seconds": seconds}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -2555,6 +2992,8 @@ def main():
                                     for r in soc["kernels"][name]},
                 "sk_soc_launches_per_step": soc["steps"][f"so3:{eng}"]["launches"][name],
                 "sk_magnetic_launches_per_step": mag_launches(magnetic, eng, name, tp_kernel),
+                "transformer_launches_per_step": rep_launches(representation, eng, name,
+                                                              tp_kernel),
             })
     for name, r in probes.items():
         kernels.append({

@@ -2,7 +2,9 @@
 ``python -m hamgnn_tpu_torch.cli --config config.yaml [--device cpu]``.
 
 Counterpart of ``hamgnn_tpu/cli.py``: load the YAML over the defaults, build
-the dataset and the ConvE3 model, then
+the dataset and the model (``setup.GNN_Net: HamGNNTransformer`` the attention
+network, else ConvE3, with ``use_corr_prod`` and ``use_kan`` as the
+representation keys say), then
 
 * ``setup.stage: fit``: train with ``train.trainer.Trainer`` (metrics.jsonl
   and ``best.pt`` in ``profiler_params.train_dir``), warm-started from
@@ -46,7 +48,7 @@ import torch
 from . import resolve_device
 from .models.model import HamGNNModel, init_weights
 from .models.output import HamGNNPlusPlusOut, concatenate_by_crystal
-from .models.representation import HamGNNConvE3
+from .models.representation import HamGNNConvE3, HamGNNTransformer
 from .models.soc import HamGNNSOCOut
 from .models.spin import HamGNNMagneticOut
 from .train.config import NS, config_to_dict, load_config
@@ -57,13 +59,7 @@ def build_model(config) -> HamGNNModel:
     """Representation + output modules from a reference-schema config."""
     pre = config.representation_nets.HamGNN_pre
     out = config.output_nets.HamGNN_out
-    if config.setup.get("GNN_Net", "HamGNNpre").lower() == "hamgnntransformer":
-        raise NotImplementedError(
-            "HamGNNTransformer is not ported yet (a later slice)")
-    for key, what in (("use_corr_prod", "CorrProductBlock"), ("use_kan", "KAN")):
-        if pre.get(key, False):
-            raise NotImplementedError(f"{what} is not ported yet (a later slice)")
-    rep = HamGNNConvE3(
+    common = dict(
         num_types=pre.num_types,
         irreps_edge_sh=pre.irreps_edge_sh,
         irreps_node_features=pre.irreps_node_features,
@@ -73,14 +69,23 @@ def build_model(config) -> HamGNNModel:
         cutoff=pre.cutoff,
         cutoff_func=pre.get("cutoff_func", "cos"),
         radial_mlp=tuple(pre.radial_MLP),
-        lite_mode=pre.get("lite_mode", False),
+        correlation=pre.get("correlation", 2),
+        num_hidden_features=pre.get("num_hidden_features", 16),
+        use_kan=pre.get("use_kan", False),
         apply_charge_doping=pre.get("apply_charge_doping", False),
         num_charge_attr_feas=pre.get("num_charge_attr_feas", 8),
-        legacy_edge_update=pre.get("legacy_edge_update", False),
-        use_gradient_checkpointing=bool(
-            pre.get("use_gradient_checkpointing", False)
-            or config.setup.get("use_gradient_checkpointing", False)),
     )
+    if config.setup.get("GNN_Net", "HamGNNpre").lower() == "hamgnntransformer":
+        rep = HamGNNTransformer(num_heads=pre.get("num_heads", 4), **common)
+    else:
+        rep = HamGNNConvE3(
+            use_corr_prod=pre.get("use_corr_prod", False),
+            lite_mode=pre.get("lite_mode", False),
+            legacy_edge_update=pre.get("legacy_edge_update", False),
+            use_gradient_checkpointing=bool(
+                pre.get("use_gradient_checkpointing", False)
+                or config.setup.get("use_gradient_checkpointing", False)),
+            **common)
     bnc = out.get("band_num_control", 8)
     if not isinstance(bnc, int) or isinstance(bnc, bool):
         bnc = 8  # the magnetic and SOC heads take an int window only

@@ -28,15 +28,23 @@ class HamGNNModel(nn.Module):
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
-    """Draw every random weight (the Linear ``w`` and MLP ``w<i>`` parameters,
-    N(0, 1) as in the reference) from a ``torch.Generator`` seeded with
-    ``seed``; parameters with fixed initial values keep them."""
+    """Draw every random weight from a ``torch.Generator`` seeded with
+    ``seed``, module by module in ``named_parameters`` order.  A module with
+    a ``draw_parameters(gen)`` method draws its own (the KAN layers' uniform
+    weights, the electron embedding's) or keeps fixed initial values
+    (``E3LayerNorm``'s ones); elsewhere the Linear ``w`` and the MLP and
+    contraction ``w<i>`` parameters are drawn N(0, 1), as in the reference,
+    and every other parameter keeps its fixed initial value."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "w" or (leaf[0] == "w" and leaf[1:].isdigit()):
-                p.copy_(torch.randn(p.shape, generator=gen))
+        for module in model.modules():
+            draw = getattr(module, "draw_parameters", None)
+            if draw is not None:
+                draw(gen)
+                continue
+            for leaf, p in module.named_parameters(recurse=False):
+                if leaf == "w" or (leaf[0] == "w" and leaf[1:].isdigit()):
+                    p.copy_(torch.randn(p.shape, generator=gen))
     return model
 
 

@@ -1,13 +1,18 @@
-"""HamGNNConvE3, the E(3)-equivariant representation network, counterpart of
+"""The representation networks, counterpart of
 ``hamgnn_tpu/models/representation.py`` (dense single-device view).
 
-one-hot / charge-doped embedding -> edge SH -> RBF x cutoff -> pair-interaction
-edge embedding -> chemical embedding -> num_layers x (ConvBlockE3 ->
-PairInteractionBlock).  Padded edges get edge length 1 so no 0-length vector
-reaches the radial basis.  ``use_gradient_checkpointing`` recomputes each
-layer's ``ConvBlockE3.gathered_call``, ``PairInteractionBlock.lift`` and
-``PairInteractionBlock.gathered_call`` in the backward (the calls the JAX
-model wraps in ``flax.linen.remat``).
+``HamGNNConvE3``: one-hot / charge-doped embedding -> edge SH -> RBF x
+cutoff -> pair-interaction edge embedding -> chemical embedding ->
+num_layers x (ConvBlockE3 [-> CorrProductBlock] -> PairInteractionBlock).
+``HamGNNTransformer``: the same front end, then num_layers x
+(AttentionBlockE3 -> CorrProductBlock -> PairInteractionBlock).  Padded edges
+get edge length 1 so no 0-length vector reaches the radial basis.
+``use_gradient_checkpointing`` (ConvE3 only, as in JAX) recomputes each
+layer's ``ConvBlockE3.gathered_call``, ``CorrProductBlock``,
+``PairInteractionBlock.lift`` and ``PairInteractionBlock.gathered_call`` in
+the backward (the calls the JAX model wraps in ``flax.linen.remat``).
+``ElectronConfigurationEmbedding`` lies on no model path; it is ported as a
+public module.
 """
 
 from __future__ import annotations
@@ -23,7 +28,10 @@ from ..e3.irreps import Irreps
 from ..e3.linear import Linear
 from ..e3.spherical import spherical_harmonics
 from ..e3.zonal_tp import FRAME_MEMO
-from ..nn.blocks import ConvBlockE3, PairInteractionBlock, PairInteractionEmbeddingBlock
+from ..nn.attention import AttentionBlockE3
+from ..nn.blocks import (ConvBlockE3, CorrProductBlock, PairInteractionBlock,
+                         PairInteractionEmbeddingBlock)
+from ..nn.electron_configurations import electron_configurations
 from ..nn.mlp import FullyConnectedNet
 from ..nn.radial import RBF_REGISTRY, cosine_cutoff, polynomial_envelope
 
@@ -61,6 +69,55 @@ class ChargeDopedOneHot(nn.Module):
         return one_hot + mlp(smear(q)) - mlp(smear(torch.zeros_like(q)))
 
 
+def _front_end(net: nn.Module, num_types, irreps_edge_sh, irreps_node_features,
+               num_layers, num_radial, rbf_func, cutoff, cutoff_func, radial_mlp, use_kan,
+               apply_charge_doping, num_charge_attr_feas) -> None:
+    """The modules and settings both representation networks share:
+    ``atomic_embedding``, the radial basis (flax's ``<class>_0``),
+    ``pair_embedding`` and ``chemical_embedding``."""
+    net.irreps_sh = Irreps(irreps_edge_sh)
+    net.irreps_feat = Irreps(irreps_node_features)
+    irreps_onehot = Irreps(f"{num_types}x0e")
+    net.sh_ls = [ir.l for _, ir in net.irreps_sh]
+    net.num_layers = num_layers
+    net.cutoff = cutoff
+    net.cutoff_func = cutoff_func
+    net.atomic_embedding = ChargeDopedOneHot(num_types, apply_charge_doping,
+                                             num_charge_attr_feas)
+    rbf = RBF_REGISTRY[rbf_func](num_radial, cutoff)
+    net.rbf_name = f"{type(rbf).__name__}_0"
+    net.add_module(net.rbf_name, rbf)
+    net.pair_embedding = PairInteractionEmbeddingBlock(
+        irreps_onehot, net.irreps_feat, net.irreps_sh, num_radial, radial_mlp=radial_mlp,
+        use_kan=use_kan)
+    net.chemical_embedding = Linear(irreps_onehot, net.irreps_feat)
+
+
+def _embed(net: nn.Module, graph: Graph):
+    """(node_attrs, edge_len, edge_sh, edge_scalars, edge_feats, node_feats)
+    of ``graph`` through the front end ``_front_end`` built on ``net``."""
+    src, dst = graph.edge_index[0], graph.edge_index[1]
+    doping = None
+    if net.atomic_embedding.apply_charge_doping:
+        doping = graph.doping_charge[graph.batch]
+    node_attrs = net.atomic_embedding(graph.z, doping)
+    onehot_src = net.atomic_embedding(graph.z[src], None if doping is None else doping[src])
+    onehot_dst = net.atomic_embedding(graph.z[dst], None if doping is None else doping[dst])
+
+    edge_vec = graph.edge_vectors()
+    edge_len = torch.sqrt(torch.sum(edge_vec * edge_vec, dim=-1))
+    edge_len = torch.where(graph.edge_mask, edge_len, torch.ones_like(edge_len))
+    edge_sh = spherical_harmonics(net.sh_ls, edge_vec, normalize=True)
+    rbf = getattr(net, net.rbf_name)(edge_len)
+    cut = (polynomial_envelope(edge_len, net.cutoff)
+           if net.cutoff_func.lower().startswith("pol")
+           else cosine_cutoff(edge_len, net.cutoff))
+    edge_scalars = rbf * cut[:, None]
+    edge_feats = net.pair_embedding(onehot_src, onehot_dst, edge_sh, edge_scalars)
+    node_feats = net.chemical_embedding(node_attrs)
+    return node_attrs, edge_len, edge_sh, edge_scalars, edge_feats, node_feats
+
+
 class HamGNNConvE3(nn.Module):
     """Representation network producing {node_attr, edge_attr} features."""
 
@@ -69,65 +126,39 @@ class HamGNNConvE3(nn.Module):
                  irreps_node_features: str = "64x0e+32x1o+16x2e",
                  num_layers: int = 3, num_radial: int = 64, rbf_func: str = "bessel",
                  cutoff: float = 26.0, cutoff_func: str = "cos",
-                 radial_mlp: Sequence[int] = (64, 64), lite_mode: bool = False,
+                 radial_mlp: Sequence[int] = (64, 64), use_corr_prod: bool = False,
+                 correlation: int = 2, num_hidden_features: int = 16,
+                 use_kan: bool = False, lite_mode: bool = False,
                  apply_charge_doping: bool = False, num_charge_attr_feas: int = 8,
                  legacy_edge_update: bool = False,
                  use_gradient_checkpointing: bool = False):
         super().__init__()
         self.use_gradient_checkpointing = use_gradient_checkpointing
-        self.irreps_sh = Irreps(irreps_edge_sh)
-        self.irreps_feat = Irreps(irreps_node_features)
-        irreps_onehot = Irreps(f"{num_types}x0e")
-        self.sh_ls = [ir.l for _, ir in self.irreps_sh]
-        self.num_layers = num_layers
-        self.cutoff = cutoff
-        self.cutoff_func = cutoff_func
+        self.use_corr_prod = use_corr_prod
         radial_mlp = tuple(radial_mlp)
-
-        self.atomic_embedding = ChargeDopedOneHot(
-            num_types, apply_charge_doping, num_charge_attr_feas)
-        rbf = RBF_REGISTRY[rbf_func](num_radial, cutoff)
-        self.rbf_name = f"{type(rbf).__name__}_0"
-        self.add_module(self.rbf_name, rbf)
-        self.pair_embedding = PairInteractionEmbeddingBlock(
-            irreps_onehot, self.irreps_feat, self.irreps_sh, num_radial,
-            radial_mlp=radial_mlp)
-        self.chemical_embedding = Linear(irreps_onehot, self.irreps_feat)
+        _front_end(self, num_types, irreps_edge_sh, irreps_node_features, num_layers,
+                   num_radial, rbf_func, cutoff, cutoff_func, radial_mlp, use_kan,
+                   apply_charge_doping, num_charge_attr_feas)
         for i in range(num_layers):
             self.add_module(f"conv_{i}", ConvBlockE3(
                 self.irreps_feat, self.irreps_feat, self.irreps_sh, num_radial,
-                radial_mlp=radial_mlp, use_skip_connections=True,
+                radial_mlp=radial_mlp, use_skip_connections=True, use_kan=use_kan,
                 lite_mode=lite_mode))
+            if use_corr_prod:
+                self.add_module(f"corr_{i}", CorrProductBlock(
+                    self.irreps_feat, num_hidden_features, correlation, num_types))
             self.add_module(f"pair_{i}", PairInteractionBlock(
                 self.irreps_feat, self.irreps_feat, self.irreps_sh, num_radial,
                 radial_mlp=radial_mlp,
                 use_skip_connections=(i > 0) if legacy_edge_update else True,
-                lite_mode=lite_mode, legacy_edge_update=legacy_edge_update))
+                use_kan=use_kan, lite_mode=lite_mode,
+                legacy_edge_update=legacy_edge_update))
 
     @FRAME_MEMO.one_forward()  # every pipeline below runs on this call's one edge_sh
     def forward(self, graph: Graph):
         src, dst = graph.edge_index[0], graph.edge_index[1]
-        doping = None
-        if self.atomic_embedding.apply_charge_doping:
-            doping = graph.doping_charge[graph.batch]
-        node_attrs = self.atomic_embedding(graph.z, doping)
-        onehot_src = self.atomic_embedding(
-            graph.z[src], None if doping is None else doping[src])
-        onehot_dst = self.atomic_embedding(
-            graph.z[dst], None if doping is None else doping[dst])
-
-        edge_vec = graph.edge_vectors()
-        edge_len = torch.sqrt(torch.sum(edge_vec * edge_vec, dim=-1))
-        edge_len = torch.where(graph.edge_mask, edge_len, torch.ones_like(edge_len))
-        edge_sh = spherical_harmonics(self.sh_ls, edge_vec, normalize=True)
-        rbf = getattr(self, self.rbf_name)(edge_len)
-        cut = (polynomial_envelope(edge_len, self.cutoff)
-               if self.cutoff_func.lower().startswith("pol")
-               else cosine_cutoff(edge_len, self.cutoff))
-        edge_scalars = rbf * cut[:, None]
-
-        edge_feats = self.pair_embedding(onehot_src, onehot_dst, edge_sh, edge_scalars)
-        node_feats = self.chemical_embedding(node_attrs)
+        node_attrs, edge_len, edge_sh, edge_scalars, edge_feats, node_feats = \
+            _embed(self, graph)
         remat = self.use_gradient_checkpointing and torch.is_grad_enabled()
 
         def call(fn, *args):
@@ -142,7 +173,80 @@ class HamGNNConvE3(nn.Module):
             node_feats = call(conv.gathered_call,
                               node_feats, node_feats[src], node_feats[dst], edge_feats,
                               edge_sh, edge_scalars, dst, graph.edge_mask)
+            if self.use_corr_prod:
+                node_feats = call(getattr(self, f"corr_{i}"), node_feats, node_attrs)
             up_src, up_dst = call(pair.lift, node_feats)
             edge_feats = call(pair.gathered_call, up_src[src], up_dst[dst], edge_feats,
                               edge_sh, edge_scalars)
         return {"node_attr": node_feats, "edge_attr": edge_feats}
+
+
+class HamGNNTransformer(nn.Module):
+    """Attention representation network: the ConvE3 front end, then per layer
+    AttentionBlockE3 -> CorrProductBlock -> PairInteractionBlock (the
+    correlation block always on; no lite mode and no checkpointing, as in
+    JAX)."""
+
+    def __init__(self, num_types: int = 96,
+                 irreps_edge_sh: str = "0e + 1o + 2e + 3o + 4e + 5o",
+                 irreps_node_features: str = "64x0e+32x1o+16x2e",
+                 num_layers: int = 3, num_radial: int = 64, rbf_func: str = "bessel",
+                 cutoff: float = 26.0, cutoff_func: str = "cos",
+                 radial_mlp: Sequence[int] = (64, 64), num_heads: int = 4,
+                 correlation: int = 2, num_hidden_features: int = 16,
+                 use_kan: bool = False, apply_charge_doping: bool = False,
+                 num_charge_attr_feas: int = 8):
+        super().__init__()
+        radial_mlp = tuple(radial_mlp)
+        _front_end(self, num_types, irreps_edge_sh, irreps_node_features, num_layers,
+                   num_radial, rbf_func, cutoff, cutoff_func, radial_mlp, use_kan,
+                   apply_charge_doping, num_charge_attr_feas)
+        for i in range(num_layers):
+            self.add_module(f"orb_transformer_{i}", AttentionBlockE3(
+                self.irreps_feat, self.irreps_feat, self.irreps_sh, num_radial,
+                num_heads=num_heads, max_radius=cutoff, radial_mlp=radial_mlp,
+                use_kan=use_kan))
+            self.add_module(f"corr_{i}", CorrProductBlock(
+                self.irreps_feat, num_hidden_features, correlation, num_types))
+            self.add_module(f"pair_{i}", PairInteractionBlock(
+                self.irreps_feat, self.irreps_feat, self.irreps_sh, num_radial,
+                radial_mlp=radial_mlp, use_kan=use_kan))
+
+    @FRAME_MEMO.one_forward()  # every pipeline below runs on this call's one edge_sh
+    def forward(self, graph: Graph):
+        src, dst = graph.edge_index[0], graph.edge_index[1]
+        node_attrs, edge_len, edge_sh, edge_scalars, edge_feats, node_feats = \
+            _embed(self, graph)
+        for i in range(self.num_layers):
+            node_feats = getattr(self, f"orb_transformer_{i}").gathered_call(
+                node_feats, lambda rows: rows[src], lambda rows: rows[dst], edge_feats,
+                edge_sh, edge_scalars, edge_len, dst, graph.edge_mask)
+            node_feats = getattr(self, f"corr_{i}")(node_feats, node_attrs)
+            pair = getattr(self, f"pair_{i}")
+            up_src, up_dst = pair.lift(node_feats)
+            edge_feats = pair.gathered_call(up_src[src], up_dst[dst], edge_feats, edge_sh,
+                                            edge_scalars)
+        return {"node_attr": node_feats, "edge_attr": edge_feats}
+
+
+class ElectronConfigurationEmbedding(nn.Module):
+    """Z -> features: a learned per-element table plus a linear map of the
+    scaled electron configuration.  ``element_embedding`` is drawn from
+    U(0, 2 sqrt 3) and shifted by -sqrt 3 at apply time; ``config_linear`` is
+    orthogonal."""
+
+    def __init__(self, num_features: int, zmax: int = 87):
+        super().__init__()
+        table = torch.as_tensor(electron_configurations, dtype=torch.float32)
+        self.register_buffer("table", table, persistent=False)
+        self.element_embedding = nn.Parameter(torch.zeros(zmax, num_features))
+        self.config_linear = nn.Parameter(torch.zeros(table.shape[1], num_features))
+
+    def draw_parameters(self, gen: torch.Generator) -> None:
+        self.element_embedding.copy_(
+            torch.rand(self.element_embedding.shape, generator=gen) * (2 * 3 ** 0.5))
+        nn.init.orthogonal_(self.config_linear, generator=gen)
+
+    def forward(self, z):
+        emb = (self.element_embedding - 3 ** 0.5) + self.table @ self.config_linear
+        return emb[z]

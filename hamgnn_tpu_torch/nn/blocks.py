@@ -17,7 +17,8 @@ from ..e3.fused_tp import mid_irreps
 from ..e3.gate import NormActivation, make_gate
 from ..e3.irreps import Irreps
 from ..e3.linear import ElementwiseChannelScale, Linear
-from .mlp import make_weight_generator
+from .mlp import add_generator, make_weight_generator
+from .symmetric_contraction import SymmetricContraction
 
 
 def segment_sum(messages, receiver, num_nodes: int):
@@ -87,20 +88,21 @@ class MessagePackBlock(nn.Module):
             self.node_scaler = Linear(mid_node.simplify(), irreps_out)
             self.edge_scaler = Linear(mid_edge.simplify(), irreps_out)
             self.combine = ElementwiseChannelScale(irreps_out.simplify(), irreps_out)
-            self.FullyConnectedNet_0 = make_weight_generator(
-                num_edge_scalars, radial_mlp, self.combine.weight_numel, use_kan)
+            self._gen = (add_generator(self, 0, make_weight_generator(
+                num_edge_scalars, radial_mlp, self.combine.weight_numel, use_kan)),)
             return
         self.node_scaler = ElementwiseChannelScale(mid_node.simplify(), irreps_out)
         self.edge_scaler = ElementwiseChannelScale(mid_edge.simplify(), irreps_out)
         node_plan = self.node_scaler.packed_plan(self.combined, self.irreps_sh)
         edge_plan = self.edge_scaler.packed_plan(self.irreps_edge, self.irreps_sh)
         # the radial generators emit packed channel order directly
-        self.FullyConnectedNet_0 = make_weight_generator(
-            num_edge_scalars, radial_mlp, self.node_scaler.weight_numel,
-            use_kan, out_perm=node_plan.scale_perm)
-        self.FullyConnectedNet_1 = make_weight_generator(
-            num_edge_scalars, radial_mlp, self.edge_scaler.weight_numel,
-            use_kan, out_perm=edge_plan.scale_perm)
+        self._gen = (
+            add_generator(self, 0, make_weight_generator(
+                num_edge_scalars, radial_mlp, self.node_scaler.weight_numel,
+                use_kan, out_perm=node_plan.scale_perm)),
+            add_generator(self, 1, make_weight_generator(
+                num_edge_scalars, radial_mlp, self.edge_scaler.weight_numel,
+                use_kan, out_perm=edge_plan.scale_perm)))
         self.node_out = Linear(irreps_out, irreps_out)
         self.edge_out = Linear(irreps_out, irreps_out)
 
@@ -112,10 +114,10 @@ class MessagePackBlock(nn.Module):
                 self.combined, self.irreps_sh, node_inter, local_env_edge)
             edge_dn = self.edge_scaler.packed_tp_call(
                 self.irreps_edge, self.irreps_sh, edge_feats, local_env_edge)
-            w = self.FullyConnectedNet_0(edge_scalars)
+            w = getattr(self, self._gen[0])(edge_scalars)
             return self.combine(node_dn + edge_dn, w)
-        w_node = self.FullyConnectedNet_0(edge_scalars)
-        w_edge = self.FullyConnectedNet_1(edge_scalars)
+        w_node = getattr(self, self._gen[0])(edge_scalars)
+        w_edge = getattr(self, self._gen[1])(edge_scalars)
         node_dn = self.node_scaler.packed_tp_call(
             self.combined, self.irreps_sh, node_inter, local_env_edge, w_node,
             weight_packed=True)
@@ -218,14 +220,92 @@ class PairInteractionEmbeddingBlock(nn.Module):
         mid = mid_irreps(self.irreps_node, self.irreps_sh, irreps_out)
         self.scaler = ElementwiseChannelScale(mid.simplify(), irreps_out)
         plan = self.scaler.packed_plan(self.irreps_node, self.irreps_sh)
-        self.FullyConnectedNet_0 = make_weight_generator(
+        self._gen = add_generator(self, 0, make_weight_generator(
             num_edge_scalars, radial_mlp, self.scaler.weight_numel, use_kan,
-            out_perm=plan.scale_perm)
+            out_perm=plan.scale_perm))
 
     def forward(self, src_rows, dst_rows, edge_sh, edge_scalars):
         """``src_rows``/``dst_rows``: (E, D) node features of each edge's
         endpoints (the lift linears commute with the gather)."""
         x = self.linear_up_src(src_rows) + self.linear_up_dst(dst_rows)
-        w = self.FullyConnectedNet_0(edge_scalars)
+        w = getattr(self, self._gen)(edge_scalars)
         return self.scaler.packed_tp_call(self.irreps_node, self.irreps_sh, x,
                                           edge_sh, w, weight_packed=True)
+
+
+class CorrProductBlock(nn.Module):
+    """Many-body node update: Linear to ``num_hidden_features`` channels per
+    irrep, the symmetric contraction against the element embedding, two
+    Linears back to the node irreps, plus a Linear skip."""
+
+    def __init__(self, irreps_node_feats, num_hidden_features: int, correlation: int,
+                 num_elements: int, use_skip_connections: bool = True):
+        super().__init__()
+        irreps_node = Irreps(irreps_node_feats).simplify()
+        self.irreps_hidden = Irreps([(num_hidden_features, ir) for _, ir in irreps_node])
+        coupling = Irreps([(1, ir) for _, ir in irreps_node])
+        self.linear_pre = Linear(irreps_node, self.irreps_hidden)
+        self.prod = SymmetricContraction(repr(coupling), repr(self.irreps_hidden),
+                                         correlation, num_hidden_features, num_elements)
+        self.prod_linear = Linear(self.irreps_hidden, self.irreps_hidden)
+        self.linear_out = Linear(self.irreps_hidden, irreps_node)
+        self.linear_sc = Linear(irreps_node, irreps_node) if use_skip_connections else None
+
+    def forward(self, node_feats, node_attrs):
+        h = self.linear_pre(node_feats)
+        # (N, sum mul*dim) -> (N, channels, n_ell): every chunk has the same
+        # channel count
+        x = torch.cat([h[..., sl].reshape(h.shape[:-1] + (mul, ir.dim))
+                       for sl, (mul, ir) in zip(self.irreps_hidden.slices(),
+                                                self.irreps_hidden)], dim=-1)
+        out = self.linear_out(self.prod_linear(self.prod(x, node_attrs)))
+        if self.linear_sc is not None:
+            out = out + self.linear_sc(node_feats)
+        return out
+
+
+class NodePairTensorProduct(nn.Module):
+    """The uvu node (x) node pathway of MessagePackBlockV2: an internally
+    weighted ``uvu`` tensor product of dst (x) src features at full
+    multiplicity, a per-edge radial channel scale, an equivariant Linear."""
+
+    def __init__(self, irreps_node_feats, irreps_out, num_edge_scalars: int,
+                 radial_mlp: Sequence[int] = (64, 64), use_kan: bool = False):
+        super().__init__()
+        from ..e3.tensor_product import TensorProduct, tp_out_irreps_with_instructions
+
+        irreps = Irreps(irreps_node_feats)
+        irreps_out = Irreps(irreps_out)
+        mid, instructions = tp_out_irreps_with_instructions(irreps, irreps, irreps_out,
+                                                            mode="uvu")
+        self.tp = TensorProduct(irreps, irreps, mid, tuple(instructions))
+        self.scaler = ElementwiseChannelScale(mid.simplify(), irreps_out)
+        self._gen = add_generator(self, 0, make_weight_generator(
+            num_edge_scalars, radial_mlp, self.scaler.weight_numel, use_kan))
+        self.out = Linear(irreps_out, irreps_out)
+
+    def forward(self, feats_dst, feats_src, edge_scalars):
+        up = self.tp(feats_dst, feats_src)
+        w = getattr(self, self._gen)(edge_scalars)
+        return self.out(self.scaler(up, w))
+
+
+class MessagePackBlockV2(nn.Module):
+    """MessagePackBlock plus the node (x) node tensor-product pathway."""
+
+    def __init__(self, irreps_node_feats, irreps_edge_feats, irreps_local_env_edge,
+                 irreps_out, num_edge_scalars: int, radial_mlp: Sequence[int] = (64, 64),
+                 use_kan: bool = False):
+        super().__init__()
+        self.base = MessagePackBlock(irreps_node_feats, irreps_edge_feats,
+                                     irreps_local_env_edge, irreps_out, num_edge_scalars,
+                                     radial_mlp=radial_mlp, use_kan=use_kan)
+        self.node_node = NodePairTensorProduct(irreps_node_feats, irreps_out,
+                                               num_edge_scalars, radial_mlp=radial_mlp,
+                                               use_kan=use_kan)
+
+    def forward(self, node_feats_src, node_feats_dst, edge_feats, local_env_edge,
+                edge_scalars):
+        return (self.base(node_feats_src, node_feats_dst, edge_feats, local_env_edge,
+                          edge_scalars)
+                + self.node_node(node_feats_dst, node_feats_src, edge_scalars))

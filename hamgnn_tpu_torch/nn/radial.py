@@ -35,6 +35,24 @@ def softplus_inverse(x: float) -> float:
     return float(x + np.log(-np.expm1(-x)))
 
 
+class SoftUnitStepCutoff(nn.Module):
+    """soft_unit_step(k * (1 - r/c)) with a trainable sharpness k (init 10):
+    exp(-1/x) for x > 0, else 0."""
+
+    def __init__(self, cutoff: float):
+        super().__init__()
+        self.cutoff = cutoff
+        self.cut_param = nn.Parameter(torch.tensor(10.0))
+
+    def forward(self, r):
+        x = self.cut_param * (1.0 - r / self.cutoff)
+        pos = x > 0
+        # the inner where keeps exp(-1/x) off x <= 0: its gradient there
+        # would be NaN, and 0 * NaN stays NaN in the backward
+        safe = torch.where(pos, x, torch.ones_like(x))
+        return torch.where(pos, torch.exp(-1.0 / safe), torch.zeros_like(x))
+
+
 def _log_binomial(n: int) -> np.ndarray:
     logf = np.zeros(n)
     for i in range(2, n):

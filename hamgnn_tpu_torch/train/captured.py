@@ -25,6 +25,14 @@ step replays: the host launches one graph instead of the step's kernels.
   replay.
 - All graphs of a trainer share one memory pool; each replay's outputs are
   cloned or read before another graph replays.
+- Every trainer on a device warms up and captures on one side stream of
+  that device (``capture_stream``).  cuBLAS keeps a workspace for each
+  stream it has run on, for the life of the process: a new stream per
+  trainer left one more workspace held after each trainer was gone.
+- The cyclic garbage collector is off during a capture (``torch.cuda.graph``
+  collects just before it): an earlier trainer's graph destroyed by a
+  collection in the middle of a capture calls the runtime while the stream
+  is capturing, which invalidates the capture.
 
 A capture that fails raises: nothing falls back to the eager step.  The
 kernels' launch counters are host-side, so they count the warm-up and the
@@ -35,6 +43,7 @@ launches show in a profiler trace.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -77,6 +86,17 @@ def copy_into(static: Graph, graph: Graph) -> None:
         getattr(static, name).copy_(t)
 
 
+_CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream on which every capture on ``device`` warms up and is
+    recorded, made at its first use."""
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device=device)
+    return _CAPTURE_STREAMS[device]
+
+
 @dataclasses.dataclass
 class _Captured:
     graph: torch.cuda.CUDAGraph
@@ -96,11 +116,13 @@ class CapturedSteps:
     def __init__(self, device, train_body: Callable, eval_body: Callable,
                  state: Callable):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if self.device.type != "cuda":
             raise ValueError(f"a captured step runs on the card, not {self.device}")
         self.train_body, self.eval_body, self.state = train_body, eval_body, state
         self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(device=self.device)
+        self.stream = capture_stream(self.device)
         self.static: Dict[tuple, Graph] = {}
         self.train_graphs: Dict[tuple, _Captured] = {}
         self.eval_graphs: Dict[tuple, _Captured] = {}
@@ -128,9 +150,15 @@ class CapturedSteps:
         del saved
         zonal_tp.FRAME_MEMO.clear()
         graph = torch.cuda.CUDAGraph()
-        with torch.inference_mode(inference), \
-                torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            out = body(static)
+        collecting = gc.isenabled()
+        try:
+            with torch.inference_mode(inference), \
+                    torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                gc.disable()
+                out = body(static)
+        finally:
+            if collecting:
+                gc.enable()
         self.captures += 1
         return _Captured(graph, out)
 

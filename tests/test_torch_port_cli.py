@@ -94,11 +94,15 @@ def test_cli_stage_test_predictions(case, tmp_path, ckpt):
 
 @pytest.mark.parametrize("override,match", [
     ({"setup": {"stage": "fit", "parallel": {"mode": "dp"}}}, "training slice"),
-    ({"setup": {"stage": "test", "GNN_Net": "HamGNNTransformer"}}, "Transformer"),
-    ({"setup": {"stage": "test"},
-      "representation_nets": {"HamGNN_pre": {"use_corr_prod": True}}}, "CorrProductBlock"),
+    ({"setup": {"stage": "test", "parallel": {"mode": "halo"}}}, "halo"),
+    ({"setup": {"stage": "test", "checkpoint_path": "{tmp}/orbax"}}, "directory"),
 ])
 def test_cli_unported_paths_raise(tmp_path, override, match):
+    """What the port does not run: data parallel and the halo partition,
+    and orbax checkpoint directories."""
+    if "checkpoint_path" in override["setup"]:
+        (tmp_path / "orbax").mkdir()
+        override = {"setup": dict(override["setup"], checkpoint_path=str(tmp_path / "orbax"))}
     cfg = load_config(None, overrides=_merge(_merge(BASE, {
         "dataset_params": {"graph_data_path": str(tmp_path)},
         "profiler_params": {"train_dir": str(tmp_path / "out")}}), override))

@@ -45,7 +45,12 @@ part Hermitian and the imaginary part anti-Hermitian through the inverse edge
 (su2), 9 forward launches; its captured step against the eager one at the
 limits above.  The magnetic head (collinear, non-collinear, non-collinear
 with SOC) at that width: its captured step against the eager one under
-deterministic algorithms, at the same limits.
+deterministic algorithms, at the same limits.  The Transformer (both
+engines), ConvE3 with the correlation block and ConvE3 with KAN generators at
+that width: the captured step equal to the eager one bit for bit under
+deterministic algorithms.  Captured trainers made one after another leave the
+memory held flat within 0.05 GB; a capture runs with the cyclic collector off,
+on the device's one capture stream.
 """
 
 import dataclasses
@@ -671,6 +676,36 @@ def test_cuda_capture_that_fails_raises():
     assert float(flat.abs().max()) == 0.0  # the warm-up's update was put back
 
 
+@pytest.mark.cuda
+def test_cuda_capture_runs_without_the_collector_on_one_stream():
+    """The cyclic collector is off while a step is captured and on again
+    after it (also after a capture that fails); every capture on the card
+    uses the one capture stream of the device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import gc
+
+    g1, _g2 = _step_batches()
+    flat = torch.zeros(4, device="cuda")
+    seen = []
+
+    def body(g):
+        seen.append(gc.isenabled())
+        return flat.add_(g.pos.sum()), {}
+
+    steps = CapturedSteps("cuda", body, body, lambda: (flat,))
+    steps.train_step(g1)
+    assert seen == [True, False] and gc.isenabled()
+
+    def failing(g):
+        return flat.add_(float(g.pos.sum())), {}
+
+    other = CapturedSteps("cuda", failing, failing, lambda: (flat,))
+    with pytest.raises(RuntimeError):
+        other.train_step(g1)
+    assert gc.isenabled() and other.stream is steps.stream
+
+
 def _trainer_pair(tmp_path, cfg, losses):
     """An eager and a capturing trainer on the same weights of ``cfg``'s model."""
     from hamgnn_tpu_torch.cli import build_model
@@ -859,3 +894,75 @@ def test_cuda_magnetic_captured_step_matches_eager(tmp_path, mode):
                                                              "hamiltonian_imag_off")
     for key in keys:
         assert float((pa[key] - pb[key]).abs().max()) <= 1e-5 * float(pa[key].abs().max())
+
+
+# the other representation networks at the sk width (2 layers here): (a) the
+# Transformer, (b) ConvE3 with the correlation block, (c) ConvE3 with KAN
+SK_REP = {"irreps_node_features": SK_SOC_CFG["representation_nets"]["HamGNN_pre"][
+    "irreps_node_features"]}
+REPS = {"transformer": ({"GNN_Net": "HamGNNTransformer"},
+                        {"num_heads": 2, "correlation": 2, "num_hidden_features": 16}),
+        "corr": ({}, {"use_corr_prod": True, "correlation": 2, "num_hidden_features": 16}),
+        "kan": ({}, {"use_kan": True})}
+
+
+def _rep_cfg(rep):
+    setup, pre = REPS[rep]
+    return {"setup": dict(setup),
+            "representation_nets": {"HamGNN_pre": dict(
+                SK_SOC_CFG["representation_nets"]["HamGNN_pre"], **pre)},
+            "output_nets": {"HamGNN_out": {"nao_max": 14}}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep,engine", [("transformer", "auto"), ("transformer", "zonal"),
+                                        ("corr", "auto"), ("kan", "auto")])
+def test_cuda_representation_captured_step_equals_eager(tmp_path, monkeypatch, rep, engine):
+    """The step of each new representation, replayed from a CUDA graph,
+    against the eager step from the same weights under deterministic
+    algorithms: loss, every gradient and the updated parameters bit for bit;
+    at 2 layers the eager step launches the engine's kernels 9 times each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if engine != "auto":
+        monkeypatch.setenv("HAMGNN_TP_ENGINE", engine)
+    g, _g2 = _step_batches()
+    eager, cap = _trainer_pair(tmp_path, _rep_cfg(rep), HAM)
+    fwd, bwd = (tp_kernel.KERNELS[n] for n in ENGINE_KERNELS[engine])
+    torch.use_deterministic_algorithms(True)
+    try:
+        before = (fwd.launches, bwd.launches)
+        la, _ = eager.train_step(g)
+        torch.cuda.synchronize()
+        assert (fwd.launches - before[0], bwd.launches - before[1]) == (9, 9)
+        lb, logs = cap.train_step(g)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert float(logs["nonfinite_step"]) == 0.0 and cap.captured.captures == 1
+    assert float(la) == float(lb)
+    assert torch.equal(eager.grad, cap.grad)
+    assert torch.equal(eager.flat, cap.flat)
+
+
+@pytest.mark.cuda
+def test_cuda_captured_trainers_leave_held_memory_flat(tmp_path):
+    """Trainers that capture, made and dropped one after another: once the
+    first has made the process's first uses, the memory held after each of
+    the next two stays within 0.05 GB of that held after the first."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import gc
+
+    g1, _g2 = _step_batches()
+    held = []
+    for i in range(3):
+        _eager, cap = _trainer_pair(tmp_path / str(i), SMALL_CFG, HAM)
+        cap.train_step(g1)
+        cap.eval_step(g1)
+        torch.cuda.synchronize()
+        del _eager, cap
+        gc.collect()
+        torch.cuda.empty_cache()
+        held.append(torch.cuda.memory_allocated())
+    assert max(held[1:]) - held[0] <= 0.05e9, held

@@ -9,8 +9,9 @@ under the default engine and under ``HAMGNN_TP_ENGINE=zonal``; with a band
 loss in the config, followed by ``tools.band_cal`` on the prediction and the
 three probe entry points; with the SOC head (so3), testing from the
 reference's ``<train_dir>/best`` name; with the non-collinear magnetic head
-on an lmdb-lite store written by ``tools.npz_to_lmdb``.  ``chip_smoke.py`` must fail, printing no result,
-where no GPU is available.
+on an lmdb-lite store written by ``tools.npz_to_lmdb``; with the
+Transformer representation (attention, correlation blocks, KAN generators).
+``chip_smoke.py`` must fail, printing no result, where no GPU is available.
 """
 
 import ast
@@ -46,6 +47,7 @@ from hamgnn_tpu_torch.data.synthetic import (add_random_hamiltonian_targets,
 work = {work!r}
 soc = {soc!r}
 spin = {spin!r}
+transformer = {transformer!r}
 rng = np.random.default_rng(0)
 crystals = [add_random_hamiltonian_targets(rng, make_crystal(rng, n_atoms=4, cutoff=4.0))
             for _ in range(3)]
@@ -82,6 +84,10 @@ if band:
           "loss_weight": 0.27211}}], "metrics": []}}
 if spin:
     cfg["output_nets"]["HamGNN_out"].update(spin_constrained=True, use_learned_weight=False)
+if transformer:
+    cfg["setup"]["GNN_Net"] = "HamGNNTransformer"
+    cfg["representation_nets"]["HamGNN_pre"].update(num_heads=2, num_hidden_features=4,
+                                                   use_kan=True)
 if soc or spin:
     if soc:
         cfg["output_nets"]["HamGNN_out"].update(soc_switch=True, soc_basis="so3")
@@ -91,8 +97,8 @@ if soc or spin:
 for stage in ("fit", "test"):
     if stage == "test":
         # a SOC run reads the reference's name for the best weights
-        cfg["setup"] = {{"stage": "test",
-                         "checkpoint_path": work + ("/fit/best" if soc else "/fit/best.pt")}}
+        cfg["setup"] = dict(cfg["setup"], stage="test",
+                            checkpoint_path=work + ("/fit/best" if soc else "/fit/best.pt"))
         cfg["profiler_params"] = {{"train_dir": work + "/out"}}
     with open(work + "/config.yaml", "w") as f:
         yaml.safe_dump(cfg, f)
@@ -117,7 +123,9 @@ if band:
         sys.argv = [name, "--device", "cpu"] + extra
         runpy.run_module("hamgnn_tpu_torch.tools_dev." + name, run_name="__main__")
 for sub in ("tools_dev.op_probe", "tools_dev.op_probe2", "tools_dev.throughput_probe",
-            "physics.band", "physics.kpoints", "tools.band_cal", "utils.profiling"):
+            "physics.band", "physics.kpoints", "tools.band_cal", "utils.profiling",
+            "nn.attention", "nn.symmetric_contraction", "e3.tensor_product",
+            "e3.normalization", "nn.electron_configurations"):
     assert "hamgnn_tpu_torch." + sub in mods, sub
 assert not any(sys.modules.get(b) for b in {blocked!r})
 from hamgnn_tpu_torch.e3 import zonal_tp
@@ -126,11 +134,11 @@ print("MODULES", len(mods), "PRED", pred.shape, bool(np.isfinite(pred).all()))
 """
 
 
-def _run_script(tmp_path, engine, band=False, soc=False, spin=False):
+def _run_script(tmp_path, engine, band=False, soc=False, spin=False, transformer=False):
     """Runs SCRIPT in a subprocess; returns (modules imported, Wigner-D
     frame builds, whether the predictions are finite)."""
     code = SCRIPT.format(blocked=BLOCKED, root=str(ROOT), work=str(tmp_path), band=band,
-                         soc=soc, spin=spin)
+                         soc=soc, spin=spin, transformer=transformer)
     env = {k: v for k, v in os.environ.items() if k != "HAMGNN_TP_ENGINE"}
     if engine is not None:
         env["HAMGNN_TP_ENGINE"] = engine
@@ -183,6 +191,15 @@ def test_port_magnetic_fit_and_test_from_a_store_run_without_jax(tmp_path):
     of JAX importable."""
     n_mods, _builds, finite = _run_script(tmp_path, None, spin=True)
     assert n_mods >= 34
+    assert finite
+
+
+def test_port_transformer_fit_and_test_run_without_jax(tmp_path):
+    """A Transformer fit (attention, correlation blocks, KAN radial
+    generators), then ``stage: test`` from ``best.pt``, nothing of JAX
+    importable."""
+    n_mods, _builds, finite = _run_script(tmp_path, None, transformer=True)
+    assert n_mods >= 39
     assert finite
 
 

@@ -511,8 +511,9 @@ def test_audit_config_warns_on_each_knob(knob):
 
 def test_audit_config_all_knobs_raise_the_references_nine(tmp_path):
     """All knobs together on examples/sk/config.yaml: the reference's 9
-    warnings, and ``train_and_evaluate`` raises them before it builds
-    anything."""
+    warnings, which ``train_and_evaluate`` raises on its way to the orbax
+    checkpoint directory it refuses (after the data and the model, with no
+    other warning)."""
     over = {}
     for o in AUDIT_KNOBS.values():
         over = _merge(over, o)
@@ -520,12 +521,17 @@ def test_audit_config_all_knobs_raise_the_references_nine(tmp_path):
     want = _audit_warnings(j_cli.audit_config, j_load_config(path, overrides=over))
     got = _audit_warnings(t_cli.audit_config, load_config(path, overrides=over))
     assert len(want) == len(got) == 9
+    rng = np.random.default_rng(0)
+    save_graph_npz(str(tmp_path / "graph_data.npz"), [add_random_hamiltonian_targets(
+        rng, make_crystal(rng, n_atoms=3, species=(6, 14)), nao_max=14) for _ in range(2)])
+    (tmp_path / "orbax").mkdir()
     cfg = load_config(path, overrides=_merge(over, {
-        "setup": {"stage": "test", "GNN_Net": "HamGNNTransformer"},
-        "profiler_params": {"train_dir": str(tmp_path)}}))
+        "setup": {"stage": "test", "checkpoint_path": str(tmp_path / "orbax")},
+        "dataset_params": {"graph_data_path": str(tmp_path)},
+        "profiler_params": {"train_dir": str(tmp_path / "out")}}))
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
-        with pytest.raises(NotImplementedError, match="Transformer"):
+        with pytest.raises(NotImplementedError, match="directory"):
             t_cli.train_and_evaluate(cfg, device="cpu")
     assert len(seen) == 9
 
