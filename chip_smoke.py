@@ -152,12 +152,30 @@ Phases (any failure exits non-zero, before the result lines are printed):
      plain-TP form (output 1e-4, gradients 1e-3 * max|ref|); the Transformer
      config through the CLI, ``stage: fit`` 2 epochs then ``stage: test``
      from ``<train_dir>/best``;
- 12. print one JSON line describing each kernel, then the result line
+ 12. the data-preparation layer through the port alone (``phase_datagen``,
+     under build/chip_smoke/datagen): the native readers built from source with
+     g++; seeded SK sets made by ``tools.sk_dataset`` (OpenMX: 4 Si, 4 C and
+     4 SiC with the pristine band set; OpenMX ``--soc``, SIESTA and ABACUS: 3
+     each; collinear, non-collinear and spinsoc: 3 each), each timed; every
+     container read back against the teacher's blocks bit for bit after the
+     container's own rounding (scfout doubles; HSX float32 in Ry; CSR text of
+     13 digits), and the spin sets' first crystal against the npz; each
+     container set packed by ``tools.graph_data_gen*`` through the Python
+     parsers and through the native readers, the two npz bit for bit; then
+     on the card ``examples/sk/config.yaml``'s model ``stage: fit`` 2 epochs on
+     the OpenMX set (finite losses, a captured step built, one replay of it
+     launching 13 B1 and 13 B2 by the profiler), ``stage: test`` from
+     ``<train_dir>/best`` on the pristine set and ``tools.band_cal`` on its
+     prediction (finite bands, H(k) Hermitian within 1e-6 relative), and
+     ``stage: test`` with random weights at ``examples/sk_siesta`` and
+     ``sk_abacus``'s widths on the SIESTA and ABACUS sets (finite); the
+     containers are removed at the end;
+ 13. print one JSON line describing each kernel, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 It needs one card, imports nothing of JAX or of the JAX package, writes only
-under ``build/`` in the checkout, and exits non-zero without a result when
-``torch.cuda.is_available()`` is false.
+under ``build/`` and ``chiprun_out/`` in the checkout, and exits non-zero
+without a result when ``torch.cuda.is_available()`` is false.
 """
 
 from __future__ import annotations
@@ -167,6 +185,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2881,6 +2900,396 @@ def phase_representation(tp_kernel, dev, card):
                 seconds=seconds)
 
 
+# the sets, their packed npz and the run's checkpoints (~120 MB, too large for
+# the run's report directory, so they stay under build/)
+DATAGEN_WORK = WORK / "datagen"
+_SMALL = ["--n-si", "1", "--n-c", "1", "--n-sic", "1"]
+# set -> (sk_dataset command line after --out, graph_data_gen tool, nao, soc)
+DATAGEN_SETS = {
+    "openmx": (["--n-si", "4", "--n-c", "4", "--n-sic", "4", "--band-set"], "openmx", 14,
+               False),
+    "soc": (["--soc", *_SMALL], "openmx", 14, True),
+    "siesta": (["--format", "siesta", "--nao-max", "19", *_SMALL], "siesta", 19, False),
+    "abacus": (["--format", "abacus", "--nao-max", "27", *_SMALL], "abacus", 27, False),
+}
+SPIN_SETS = ("collinear", "noncollinear", "spinsoc")
+# the containers' own rounding of a teacher block (the read-back must equal it
+# bit for bit): scfout stores doubles; HSX float32 in Ry (S unscaled); the CSR
+# text 13 significant digits in Ry (S unscaled)
+RY2HA = 13.60580 / 27.21138506
+
+
+def _hsx_stored(b, ham: bool):
+    import numpy as np
+
+    v = (np.asarray(b) / RY2HA) if ham else np.asarray(b)
+    v = v.astype("<f4").astype(np.float64)
+    return v * RY2HA if ham else v
+
+
+def _csr_stored(b, ham: bool):
+    import numpy as np
+
+    v = np.asarray(b) * (1.0 / RY2HA) if ham else np.asarray(b)
+    v = np.array([float(f"{x:.12e}") for x in v.ravel()]).reshape(v.shape)
+    return v * RY2HA if ham else v
+
+
+def _gdg_yaml(tool, soc, runs, out, nao):
+    """A graph_data_gen* config for the run directories ``runs`` (a glob)."""
+    if tool == "openmx":
+        cfg = {"scfout_paths": runs, "soc_switch": soc}
+    elif tool == "siesta":
+        cfg = {"calc_paths": runs, "h0_hsx_file_name": "H0.HSX"}
+    else:
+        cfg = {"calc_paths": runs, "h0_file_name": "data-H0R-sparse_SPIN0.csr"}
+    cfg.update(nao_max=nao, graph_data_save_path=str(out))
+    return cfg
+
+
+def _same_bits(a, b) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        sorted(ca) == sorted(cb) and all(
+            np.asarray(ca[k]).dtype == np.asarray(cb[k]).dtype
+            and np.asarray(ca[k]).shape == np.asarray(cb[k]).shape
+            and np.asarray(ca[k]).tobytes() == np.asarray(cb[k]).tobytes() for k in ca)
+        for ca, cb in zip(a, b))
+
+
+def _read_back(name, d, teacher, z, pos, cell, soc_terms) -> int:
+    """The teacher's blocks of the crystal in run directory ``d`` against what
+    the port's reader gets from its containers, bit for bit after the
+    container's own rounding; returns the number of blocks compared."""
+    import numpy as np
+
+    from hamgnn_tpu_torch.interfaces import abacus, openmx, siesta
+
+    data = teacher.build(z, pos, cell)
+    key = lambda s, t, cs: (int(s), int(t), tuple(int(v) for v in cs))  # noqa: E731
+    want = {key(s, t, cs): e for e, (s, t, cs) in enumerate(
+        zip(data["edge_src"], data["edge_dst"], data["cell_shift"]))}
+    n = 0
+
+    def check(got_on, got_off, src, dst, cs, field, store):
+        nonlocal n
+        for a, blk in enumerate(got_on):
+            if np.asarray(blk).tobytes() != store(data[field + "on"][a]).tobytes():
+                fail(f"datagen {name}: {field}on[{a}] read back from {d.name} differs")
+        for e, blk in enumerate(got_off):
+            ref = data[field + "off"][want[key(src[e], dst[e], cs[e])]]
+            if np.asarray(blk).tobytes() != store(ref).tobytes():
+                fail(f"datagen {name}: {field}off[{e}] read back from {d.name} differs")
+        n += len(got_on) + len(got_off)
+
+    if name == "openmx":
+        same = lambda b: np.asarray(b, np.float64)  # noqa: E731
+        for fname, field in (("openmx.scfout", "H"), ("overlap.scfout", "H0")):
+            scf = openmx.parse_scfout(str(d / fname))
+            args = (scf.edge_src, scf.edge_dst, scf.cell_shift)
+            check(scf.Hon[0], scf.Hoff[0], *args, field, same)
+            check(scf.Son, scf.Soff, *args, "S", same)
+    elif name == "soc":
+        scf = openmx.parse_scfout(str(d / "openmx.scfout"))
+        if scf.spinp_switch != 3 or len(scf.Hon) != 4 or len(scf.iHon) != 3:
+            fail(f"datagen soc: {d.name} is not a SpinP_switch 3 scfout")
+        bd = teacher.basis.basis_def
+        for a, zz in enumerate(z):  # the angular-momentum blocks, as written
+            ref = soc_terms.L[np.ix_(bd[int(zz)], bd[int(zz)])]
+            if scf.Lon[a].tobytes() != np.ascontiguousarray(ref).tobytes():
+                fail(f"datagen soc: Lon[{a}] read back from {d.name} differs")
+        args = (scf.edge_src, scf.edge_dst, scf.cell_shift)
+        same = lambda b: np.asarray(b, np.float64)  # noqa: E731
+        for spin in (0, 1):  # the up-up and down-down components: H itself
+            check(scf.Hon[spin], scf.Hoff[spin], *args, "H", same)
+        check(scf.Son, scf.Soff, *args, "S", same)
+    elif name == "siesta":
+        fdf = siesta.parse_fdf(str(d / "input.fdf"))
+        for fname, field in (("siesta.HSX", "H"), ("H0.HSX", "H0")):
+            g = siesta.hsx_to_graph(siesta.parse_hsx(str(d / fname)), fdf)
+            args = (g["edge_src"], g["edge_dst"], g["cell_shift"])
+            check(g["Hon"][0], g["Hoff"][0], *args, field, lambda b: _hsx_stored(b, True))
+            check(g["Son"], g["Soff"], *args, "S", lambda b: _hsx_stored(b, False))
+    else:
+        stru = abacus.parse_stru(str(d / "STRU"))
+        for fname, field in (("data-HR-sparse_SPIN0.csr", "H"),
+                             ("data-H0R-sparse_SPIN0.csr", "H0")):
+            g = abacus.build_graph_from_csr(stru, str(d / fname),
+                                            str(d / "data-SR-sparse_SPIN0.csr"))
+            args = (g["edge_src"], g["edge_dst"], g["cell_shift"])
+            check(g["Hon"][0], g["Hoff"][0], *args, field, lambda b: _csr_stored(b, True))
+            check(g["Son"], g["Soff"], *args, "S", lambda b: _csr_stored(b, False))
+    return n
+
+
+def _datagen_sets(sk):
+    """Every set made by the port's sk_dataset under DATAGEN_WORK, timed."""
+    seconds = {}
+    for name, (argv, *_rest) in DATAGEN_SETS.items():
+        t0 = time.perf_counter()
+        sk.run(["--out", str(DATAGEN_WORK / name), *argv])
+        seconds[name] = time.perf_counter() - t0
+    for kind in SPIN_SETS:
+        t0 = time.perf_counter()
+        sk.run([kind, "--out", str(DATAGEN_WORK / kind), "--n", "3"])
+        seconds[kind] = time.perf_counter() - t0
+    print("[datagen] sets made in " + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items()),
+          flush=True)
+    return seconds
+
+
+def _datagen_read_back(sk):
+    """Every container of every set read back against a fresh teacher (the
+    sets' geometry replayed from the seed as sk_dataset draws it), and the
+    spin sets' first crystal against the npz."""
+    import numpy as np
+
+    from hamgnn_tpu_torch.data.dataset import load_graph_npz
+
+    blocks = {}
+    for name, (argv, _tool, nao, soc) in DATAGEN_SETS.items():
+        ham_type = name if name in ("siesta", "abacus") else "openmx"
+        teacher = sk.SKTeacher(ham_type=ham_type, nao_max=nao, seed=7)
+        soc_terms = sk.SOCTerms(teacher.basis, seed=7) if soc else None
+        protos = {"si": sk._fcc_primitive(sk.A_SI, 14, 14),
+                  "c": sk._fcc_primitive(sk.A_C, 6, 6),
+                  "sic": sk._fcc_primitive(sk.A_SIC, 14, 6)}
+        counts = [int(argv[argv.index(f"--n-{p}") + 1]) for p in protos]
+        rng = np.random.RandomState(7 + 1)
+        idx, blocks[name] = 0, 0
+        for p, count in zip(protos, counts):
+            for _ in range(count):
+                cell, pos, z = sk.rattled(rng, protos[p])
+                blocks[name] += _read_back(name, DATAGEN_WORK / name / f"struct_{idx:04d}",
+                                           teacher, z, pos, cell, soc_terms)
+                idx += 1
+    teacher = sk.SKTeacher(seed=7)
+    terms = {"collinear": sk.CollinearTerms(teacher.basis, seed=7),
+             "noncollinear": sk.NonCollinearTerms(teacher.basis, seed=7),
+             "spinsoc": sk.NonCollinearTerms(teacher.basis, seed=7, soc=True)}
+    for kind in SPIN_SETS:
+        rng = np.random.RandomState(7 + 1)
+        cell, pos, z = sk.rattled(rng, sk._fcc_primitive(sk.A_SI, 14, 14))
+        ref = (sk.collinear_crystal(teacher, terms[kind], z, pos, cell, rng)
+               if kind == "collinear" else
+               sk.noncollinear_crystal(teacher, terms[kind], z, pos, cell, rng,
+                                       soc=kind == "spinsoc"))
+        got = load_graph_npz(str(DATAGEN_WORK / kind / "graph_data.npz"))
+        if len(got) != 3 or not _same_bits([{k: got[0][k] for k in ref}], [ref]):
+            fail(f"datagen {kind}: graph_data.npz does not hold the teacher's first crystal")
+        blocks[kind] = len(ref)
+    print(f"[datagen] read back bit for bit: {blocks} (blocks; spin sets: arrays)", flush=True)
+    return blocks
+
+
+def _datagen_pack(tools):
+    """Each container set packed by the port's graph_data_gen* through the
+    Python parser and through the native one: the two npz bit for bit."""
+    import yaml
+
+    from hamgnn_tpu_torch.data.dataset import load_graph_npz
+
+    out = {}
+    jobs = [(name, tool, nao, soc, DATAGEN_WORK / name / "struct_*")
+            for name, (_a, tool, nao, soc) in DATAGEN_SETS.items()]
+    jobs.append(("band", "openmx", 14, False, DATAGEN_WORK / "openmx_band" / "pristine_*"))
+    for name, tool, nao, soc, runs in jobs:
+        packed = {}
+        for parser in ("python", "native"):
+            dst = DATAGEN_WORK / f"graph_{name}_{parser}"
+            dst.mkdir(parents=True, exist_ok=True)
+            cfg = dst / "graph_data_gen.yaml"
+            cfg.write_text(yaml.safe_dump(_gdg_yaml(tool, soc, str(runs), dst, nao)))
+            t0 = time.perf_counter()
+            tools[tool].main(["--config", str(cfg)] + (["--native"] if parser == "native"
+                                                       else []))
+            packed[parser] = (load_graph_npz(str(dst / "graph_data.npz")),
+                              time.perf_counter() - t0)
+        if not packed["python"][0] or not _same_bits(packed["python"][0],
+                                                     packed["native"][0]):
+            fail(f"datagen {name}: the native and Python parsers packed different npz")
+        out[name] = {"crystals": len(packed["python"][0]),
+                     "python_s": packed["python"][1], "native_s": packed["native"][1]}
+    print(f"[datagen] packed, native == Python bit for bit: {out}", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_trainers():
+    """The trainers the CLI builds in the body, kept in a list."""
+    from hamgnn_tpu_torch import cli
+
+    made, base = [], cli.Trainer
+
+    class Recorded(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    cli.Trainer = Recorded
+    try:
+        yield made
+    finally:
+        cli.Trainer = base
+
+
+def _datagen_fit(tp_kernel):
+    """``examples/sk/config.yaml``'s model on the OpenMX set, 2 epochs on the
+    card; one replay of its captured step profiled (13 B1 + 13 B2); then
+    ``stage: test`` from ``<train_dir>/best`` on the pristine set and
+    ``tools.band_cal`` on its prediction."""
+    import numpy as np
+    import yaml
+
+    from hamgnn_tpu_torch import cli
+    from hamgnn_tpu_torch.data.dataset import load_graph_npz
+    from hamgnn_tpu_torch.models.basis import get_basis_set
+    from hamgnn_tpu_torch.physics.kpoints import k_path
+    from hamgnn_tpu_torch.tools import band_cal
+    from hamgnn_tpu_torch.utils.profiling import device_launches
+
+    work, train = DATAGEN_WORK / "run", DATAGEN_WORK / "run" / "train"
+    work.mkdir(parents=True, exist_ok=True)
+    fit_cfg = _shipped(REP_CONFIG, work, "sk_fit.yaml",
+                       setup={"checkpoint_path": str(train / "ckpt")},
+                       profiler_params={"train_dir": str(train)},
+                       dataset_params={"graph_data_path":
+                                       str(DATAGEN_WORK / "graph_openmx_python")},
+                       optim_params={"max_epochs": 2})
+    reset_launches(tp_kernel)
+    t0 = time.perf_counter()
+    with recorded_trainers() as made:
+        cli.main(["--config", fit_cfg])
+    fit_s = time.perf_counter() - t0
+    fit_launches = {n: k.launches for n, k in all_kernels(tp_kernel).items() if k.launches}
+    if set(fit_launches) != set(ENGINES["auto"]):
+        fail(f"the datagen fit should launch {ENGINES['auto']} and no other: {fit_launches}")
+    records = [json.loads(line) for line in open(train / "metrics.jsonl")]
+    if [r["epoch"] for r in records] != [0, 1] or not all(
+            math.isfinite(r["train_loss"]) and math.isfinite(r["val_loss"]) for r in records):
+        fail(f"datagen fit metrics.jsonl: {records}")
+    cap = made[0].captured if made else None
+    if cap is None or not cap.train_graphs:
+        fail("the datagen fit built no captured training step")
+    names = [n for k in ENGINES["auto"] for n in tp_kernel.KERNELS[k].device_kernels]
+    first = next(iter(cap.train_graphs.values()))
+    replay = device_launches(first.graph.replay, names)
+    if replay != {n: 13 for n in names}:
+        fail(f"one replay of the datagen fit's step launched {replay}, expected 13 of each")
+
+    test_cfg = _shipped(ROOT / "examples" / "sk" / "config_band_test.yaml", work,
+                        "sk_band_test.yaml",
+                        setup={"checkpoint_path": str(train / "best")},
+                        profiler_params={"train_dir": str(work / "band_pred")},
+                        dataset_params={"graph_data_path":
+                                        str(DATAGEN_WORK / "graph_band_python")})
+    cli.main(["--config", test_cfg])
+    pred_path = work / "band_pred" / "prediction_hamiltonian.npy"
+    pred = np.load(pred_path)
+    band_yaml = work / "band_cal.yaml"
+    band_yaml.write_text(yaml.safe_dump({
+        "nao_max": 14, "graph_data_path": str(DATAGEN_WORK / "graph_band_python"
+                                              / "graph_data.npz"),
+        "hamiltonian_path": str(pred_path), "nk": 20, "save_dir": str(work / "bands"),
+        "auto_mode": True}))
+    band_cal.main(["--config", str(band_yaml)])
+    graphs = load_graph_npz(str(DATAGEN_WORK / "graph_band_python" / "graph_data.npz"))
+    basis = get_basis_set("openmx", 14)
+    ofs, herm, gaps = 0, 0.0, []
+    for i, c in enumerate(graphs):
+        n, e = len(c["z"]), c["edge_index"].shape[1]
+        bands = np.load(work / "bands" / f"structure_{i}_bands.npz")
+        if not np.isfinite(bands["bands"]).all():
+            fail(f"datagen band_cal: structure {i} has non-finite bands")
+        gaps.append(float(bands["gap"]))
+        valid = np.concatenate([basis.orbital_mask_table[zi] > 0 for zi in c["z"]])
+        k_frac, _d, _n, lat_inv = k_path([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0.25, 0.75]], 7,
+                                         np.asarray(c["cell"]).reshape(3, 3))
+        hk = band_cal.assemble_k_matrices_numpy(
+            pred[ofs:ofs + n + e].astype(np.float64), n, c["edge_index"],
+            np.asarray(c["nbr_shift"], float), k_frac @ lat_inv, 14, valid)
+        ofs += n + e
+        herm = max(herm, float(np.abs(hk - np.conj(np.swapaxes(hk, 1, 2))).max()
+                               / np.abs(hk).max()))
+    if herm > 1e-6:
+        fail(f"datagen band_cal: H(k) of the prediction not Hermitian ({herm:.3g})")
+    print(f"[datagen] sk fit 2 epochs in {fit_s:.1f} s, launches {fit_launches}, "
+          f"{len(cap.train_graphs)} captured shape key(s), one replay {replay}, "
+          f"val_loss {[round(r['val_loss'], 6) for r in records]}; test from "
+          f"<train_dir>/best {pred.shape}; band_cal gaps {gaps} eV, max|H(k) - H(k)^H| / "
+          f"max|H(k)| {herm:.3g}", flush=True)
+    return dict(fit_s=fit_s, launches=fit_launches, replay_launches=replay,
+                shape_keys=len(cap.train_graphs), records=records, gaps_eV=gaps,
+                hermitian_rel_err=herm)
+
+
+def _datagen_predict(tp_kernel, name, config):
+    """``stage: test`` with random weights (seed 0) on a packed set, at the
+    width of the shipped ``config``."""
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch import cli
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.train.config import load_config
+
+    work = DATAGEN_WORK / "run"
+    path = _shipped(config, work, f"{name}_test.yaml",
+                    setup={"stage": "test", "checkpoint_path": str(work / f"{name}.pt")},
+                    profiler_params={"train_dir": str(work / f"{name}_pred")},
+                    dataset_params={"graph_data_path":
+                                    str(DATAGEN_WORK / f"graph_{name}_python")})
+    torch.save(init_weights(cli.build_model(load_config(path)), 0).state_dict(),
+               work / f"{name}.pt")
+    reset_launches(tp_kernel)
+    cli.main(["--config", path])
+    launches = tp_kernel.KERNELS["packed_tp_fwd"].launches
+    pred = np.load(work / f"{name}_pred" / "prediction_hamiltonian.npy")
+    nao = {"siesta": 19, "abacus": 27}[name]
+    if pred.shape[1] != nao * nao or not np.isfinite(pred).all() or launches == 0:
+        fail(f"datagen {name} test: prediction {pred.shape}, finite "
+             f"{bool(np.isfinite(pred).all())}, {launches} B1 launches")
+    print(f"[datagen] {name} stage test, random weights: {pred.shape} finite, "
+          f"{launches} B1 launches", flush=True)
+    return dict(shape=list(pred.shape), launches=launches)
+
+
+def phase_datagen(tp_kernel):
+    """Phase 12: the data-preparation layer through the port alone (see the
+    module docstring); the containers are removed at the end, the packed npz
+    and the run's files kept."""
+    from hamgnn_tpu_torch.interfaces.native import build_native
+    from hamgnn_tpu_torch.tools import (graph_data_gen, graph_data_gen_abacus,
+                                        graph_data_gen_siesta, sk_dataset)
+
+    if DATAGEN_WORK.exists():
+        shutil.rmtree(DATAGEN_WORK)
+    DATAGEN_WORK.mkdir(parents=True)
+    seconds = {}
+    t0 = time.perf_counter()
+    built = build_native()
+    seconds["native_build"] = time.perf_counter() - t0
+    print(f"[datagen] native readers built in {seconds['native_build']:.1f} s: "
+          + ", ".join(f"{n} {s:.1f} s" for n, (_p, s) in built.items()), flush=True)
+    tools = {"openmx": graph_data_gen, "siesta": graph_data_gen_siesta,
+             "abacus": graph_data_gen_abacus}
+    parts = (("sets", _datagen_sets, sk_dataset), ("read_back", _datagen_read_back, sk_dataset),
+             ("pack", _datagen_pack, tools), ("fit", _datagen_fit, tp_kernel),
+             ("siesta", _datagen_predict, tp_kernel, "siesta",
+              ROOT / "examples" / "sk_siesta" / "config.yaml"),
+             ("abacus", _datagen_predict, tp_kernel, "abacus",
+              ROOT / "examples" / "sk_abacus" / "config.yaml"))
+    out = {}
+    for name, fn, *args in parts:
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+    for name in (*DATAGEN_SETS, "openmx_band"):
+        shutil.rmtree(DATAGEN_WORK / name)
+    return dict(out, seconds=seconds)
+
+
 def rep_launches(representation, eng, name, tp_kernel) -> int:
     """A kernel's launches in one replay of the Transformer step under its
     engine (the profiler's count of each of its device kernels)."""
@@ -2954,12 +3363,14 @@ def main():
     magnetic = timed("magnetic", phase_magnetic, tp_kernel, dev, card)
     lmdb = timed("lmdb", phase_lmdb, tp_kernel, dev)
     representation = timed("representation", phase_representation, tp_kernel, dev, card)
+    datagen = timed("datagen", phase_datagen, tp_kernel)
 
     report = {"card": card, "kernel_rows": rows, "wide": wide, "zonal_engine": zonal_engine,
               "model": model, "train": train, "captured": captured, "fit": fit,
               "probes": probes,
               "band": band, "band_fit": band_fit, "soc": soc, "magnetic": magnetic,
-              "lmdb": lmdb, "representation": representation, "seconds": seconds}
+              "lmdb": lmdb, "representation": representation, "datagen": datagen,
+              "seconds": seconds}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -2995,6 +3406,10 @@ def main():
                 "transformer_launches_per_step": rep_launches(representation, eng, name,
                                                               tp_kernel),
             })
+            if eng == "auto":  # the step of the fit on the data the port made
+                kernels[-1]["sk_datagen_launches_per_step"] = {
+                    dk: datagen["fit"]["replay_launches"][dk]
+                    for dk in tp_kernel.KERNELS[name].device_kernels}
     for name, r in probes.items():
         kernels.append({
             "name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],

@@ -1,1 +1,2 @@
-"""Interfaces to other formats (flax parameters, PyG pickles)."""
+"""Interfaces to other formats: flax parameters, PyG pickles, and the DFT codes'
+containers (OpenMX SCFOUT, SIESTA HSX, ABACUS CSR) with their native readers."""

@@ -11,6 +11,8 @@ three probe entry points; with the SOC head (so3), testing from the
 reference's ``<train_dir>/best`` name; with the non-collinear magnetic head
 on an lmdb-lite store written by ``tools.npz_to_lmdb``; with the
 Transformer representation (attention, correlation blocks, KAN generators).
+The data tools (the SK teacher in every format, the three ``graph_data_gen``)
+run with JAX blocked too, and their output trains, predicts and gives bands.
 ``chip_smoke.py`` must fail, printing no result, where no GPU is available.
 """
 
@@ -203,6 +205,94 @@ def test_port_transformer_fit_and_test_run_without_jax(tmp_path):
     assert finite
 
 
+DATAGEN_SCRIPT = r"""
+import sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {root!r})
+import runpy
+import numpy as np
+import yaml
+work = {work!r}
+
+
+def run(mod, *argv):
+    sys.argv = [mod, *argv]
+    runpy.run_module(mod, run_name="__main__")
+
+
+sk = "hamgnn_tpu_torch.tools.sk_dataset"
+small = ["--n-si", "1", "--n-c", "1", "--n-sic", "1"]
+run(sk, "--out", work + "/openmx", "--band-set", *small)
+run(sk, "--out", work + "/soc", "--soc", *small)
+run(sk, "--out", work + "/siesta", "--format", "siesta", "--nao-max", "19", *small)
+run(sk, "--out", work + "/abacus", "--format", "abacus", "--nao-max", "27", *small)
+for kind in ("collinear", "noncollinear", "spinsoc"):
+    run(sk, kind, "--out", work + "/" + kind, "--n", "2")
+from hamgnn_tpu_torch.data.dataset import load_graph_npz
+for kind in ("collinear", "noncollinear", "spinsoc"):
+    assert len(load_graph_npz(work + "/" + kind + "/graph_data.npz")) == 2
+gdg = "hamgnn_tpu_torch.tools.graph_data_gen"
+packs = {{
+    "openmx": (gdg, {{"nao_max": 14, "scfout_paths": work + "/openmx/struct_*"}}),
+    "band": (gdg, {{"nao_max": 14, "scfout_paths": work + "/openmx_band/pristine_*"}}),
+    "soc": (gdg, {{"nao_max": 14, "scfout_paths": work + "/soc/struct_*", "soc_switch": True}}),
+    "siesta": (gdg + "_siesta", {{"nao_max": 19, "calc_paths": work + "/siesta/struct_*",
+                                 "h0_hsx_file_name": "H0.HSX"}}),
+    "abacus": (gdg + "_abacus", {{"nao_max": 27, "calc_paths": work + "/abacus/struct_*",
+                                 "h0_file_name": "data-H0R-sparse_SPIN0.csr"}}),
+}}
+for name, (mod, cfg) in packs.items():
+    cfg["graph_data_save_path"] = work + "/graph_" + name
+    with open(work + "/gdg_" + name + ".yaml", "w") as f:
+        yaml.safe_dump(cfg, f)
+    run(mod, "--config", work + "/gdg_" + name + ".yaml")
+    graphs = load_graph_npz(work + "/graph_" + name + "/graph_data.npz")
+    assert len(graphs) == 3 and "Hon0" in graphs[0], name
+cfg = {{
+    "setup": {{"stage": "fit"}},
+    "dataset_params": {{"graph_data_path": work + "/graph_openmx", "batch_size": 1,
+                        "train_ratio": 1 / 3, "val_ratio": 1 / 3, "test_ratio": 1 / 3}},
+    "optim_params": {{"min_epochs": 0, "max_epochs": 1}},
+    "profiler_params": {{"train_dir": work + "/fit"}},
+    "representation_nets": {{"HamGNN_pre": {{
+        "irreps_node_features": "4x0e+2x1o", "irreps_edge_sh": "0e+1o+2e",
+        "num_layers": 1, "num_radial": 4, "cutoff": 6.0, "radial_MLP": [4]}}}},
+    "output_nets": {{"HamGNN_out": {{"nao_max": 14, "add_H0": True}}}},
+}}
+for stage in ("fit", "test"):
+    if stage == "test":
+        cfg["setup"] = {{"stage": "test", "checkpoint_path": work + "/fit/best"}}
+        cfg["dataset_params"]["graph_data_path"] = work + "/graph_band"
+        cfg["profiler_params"] = {{"train_dir": work + "/pred"}}
+    with open(work + "/config.yaml", "w") as f:
+        yaml.safe_dump(cfg, f)
+    run("hamgnn_tpu_torch.cli", "--config", work + "/config.yaml", "--device", "cpu")
+with open(work + "/band_cal.yaml", "w") as f:
+    yaml.safe_dump({{"nao_max": 14, "graph_data_path": work + "/graph_band/graph_data.npz",
+                    "hamiltonian_path": work + "/pred/prediction_hamiltonian.npy",
+                    "nk": 4, "save_dir": work + "/bands", "auto_mode": True}}, f)
+run("hamgnn_tpu_torch.tools.band_cal", "--config", work + "/band_cal.yaml")
+assert np.isfinite(np.load(work + "/bands/structure_2_bands.npz")["bands"]).all()
+assert not any(sys.modules.get(b) for b in {blocked!r})
+print("DATAGEN OK")
+"""
+
+
+def test_port_data_tools_and_sk_pipeline_run_without_jax(tmp_path):
+    """``tools.sk_dataset`` for every ``--format``, ``--soc``, ``collinear``,
+    ``noncollinear`` and ``spinsoc``; ``graph_data_gen``, ``_siesta`` and
+    ``_abacus`` on their output; then fit, test from ``<train_dir>/best`` and
+    ``band_cal`` on the pristine band set, nothing of JAX importable."""
+    code = DATAGEN_SCRIPT.format(blocked=BLOCKED, root=str(ROOT), work=str(tmp_path))
+    env = {k: v for k, v in os.environ.items() if k != "HAMGNN_TP_ENGINE"}
+    env["OMP_NUM_THREADS"] = "1"
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300, cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.splitlines()[-1] == "DATAGEN OK"
+
+
 def _imports(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -221,6 +311,16 @@ def test_source_imports_no_jax(path):
 
 def test_source_import_check_covers_the_magnetic_head_and_the_store():
     for rel in ("models/spin.py", "data/dataset.py", "tools/npz_to_lmdb.py"):
+        assert PKG / rel in set(PKG.rglob("*.py")), rel
+
+
+def test_source_import_check_covers_the_data_tools():
+    for rel in ("tools/sk_dataset.py", "tools/graph_data_gen.py", "tools/graph_data_gen_siesta.py",
+                "tools/graph_data_gen_abacus.py", "tools/poscar2openmx.py",
+                "tools/poscar2abacus.py", "interfaces/openmx.py", "interfaces/siesta.py",
+                "interfaces/abacus.py", "interfaces/scfout_writer.py",
+                "interfaces/openmx_tables.py", "interfaces/native.py",
+                "tools_dev/sk_accuracy.py"):
         assert PKG / rel in set(PKG.rglob("*.py")), rel
 
 
