@@ -170,7 +170,32 @@ Phases (any failure exits non-zero, before the result lines are printed):
      ``stage: test`` with random weights at ``examples/sk_siesta`` and
      ``sk_abacus``'s widths on the SIESTA and ABACUS sets (finite); the
      containers are removed at the end;
- 13. print one JSON line describing each kernel, then the result line
+ 13. the Uni-HamGNN predictor, the reference-parametrization model and the
+     batched band solver (``phase_uni``, under build/chip_smoke/uni): a pair
+     of graph sets of one structure list (``tools.sk_dataset`` with and
+     without ``--soc``, seed 7, one Si, one C, one SiC, packed by
+     ``tools.graph_data_gen``); the native predictor of
+     ``examples/sk/config.yaml`` (3 layers) and ``examples/sk_soc/config.yaml``
+     (2 layers, ``add_H_nonsoc`` forced), seeded weights, saved in the port's
+     package form and read back equal, then ``tools.uni_hamgnn``'s CLI with
+     ``calculate_mae`` under the plain TP, the default and the zonal engine:
+     13 + 9 launches of the engine's forward kernel a crystal and no other
+     (none under the plain TP), the default engine within 1e-4 * max|ref| of
+     the plain TP and the zonal within the engine limit of the default, the
+     SOC rows Hermitian within 1e-6 * max|ref| per crystal, each stage timed
+     warm per crystal with its peak memory; ``HamGNNConvE3Compat`` at its own
+     default widths (96 types, SH to 5o, ``64x0e+32x1o+16x2e``, 3 layers, 64
+     radial) with the openmx nao-14 head, filled from a synthetic
+     reference-format state dict through ``map_reference_state`` (full
+     coverage both ways), one forward on the bench crystal at 6 A (the
+     default cutoff is 26 A) launching no kernel of the port, within 1e-4 *
+     max|ref| of the same model in float64 on the CPU, timed, its peak memory
+     and its device time by kind (``profile_uni_compat.txt``); and
+     ``tools.band_cal_parallel.solve_bands_batched`` on the band phase's
+     crystals, 60 k along a path, 32 k a solve, within the band phase's 5e-4
+     Ha of scipy's float64 ``eigh``, timed with the host assembly beside it;
+ 14. print one JSON line ``{"uni": {...}}`` (launches a prediction, times,
+     errors, peak memory), one describing each kernel, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 It needs one card, imports nothing of JAX or of the JAX package, writes only
@@ -3290,6 +3315,295 @@ def phase_datagen(tp_kernel):
     return dict(out, seconds=seconds)
 
 
+# phase 13: the Uni-HamGNN two-stage predictor, the reference-parametrization
+# model and the batched band solver (under build/chip_smoke/uni)
+UNI_WORK = WORK / "uni"
+UNI_NONSOC_CONFIG = ROOT / "examples" / "sk" / "config.yaml"
+UNI_LAYERS = (3, 2)  # the sk and sk_soc models: 13 + 9 forward-kernel launches
+UNI_COMPAT_CUTOFF = 6.0  # the bench crystal's graph; the compat default is 26 A
+UNI_COMPAT_ATOMS = 512
+UNI_BAND_NK, UNI_BAND_KBATCH = 60, 32
+SOC_KEYS = ("hamiltonian_real_on", "hamiltonian_real_off", "hamiltonian_imag_on",
+            "hamiltonian_imag_off")
+
+
+def _uni_sets():
+    """A pair of graph sets of one structure list: ``tools.sk_dataset`` with
+    and without ``--soc`` (seed 7, one Si, one C, one SiC: the structures
+    are drawn before the SOC terms), packed by ``tools.graph_data_gen``."""
+    import numpy as np
+    import yaml
+
+    from hamgnn_tpu_torch.data.dataset import load_graph_npz
+    from hamgnn_tpu_torch.tools import graph_data_gen, sk_dataset
+
+    if UNI_WORK.exists():
+        shutil.rmtree(UNI_WORK)
+    sets = {}
+    for name, extra, soc in (("nonsoc", [], False), ("soc", ["--soc"], True)):
+        sk_dataset.run(["--out", str(UNI_WORK / name), *_SMALL, *extra])
+        dst = UNI_WORK / f"graph_{name}"
+        dst.mkdir(parents=True)
+        cfg = dst / "graph_data_gen.yaml"
+        cfg.write_text(yaml.safe_dump(_gdg_yaml("openmx", soc, str(UNI_WORK / name / "struct_*"),
+                                                dst, 14)))
+        graph_data_gen.main(["--config", str(cfg)])
+        sets[name] = load_graph_npz(str(dst / "graph_data.npz"))
+        shutil.rmtree(UNI_WORK / name)
+    for a, b in zip(sets["nonsoc"], sets["soc"], strict=True):
+        for key in ("z", "pos", "edge_index", "nbr_shift"):
+            if not np.array_equal(a[key], b[key]):
+                fail(f"uni: the SOC set's {key} differs from the non-SOC set's")
+        if b["Hon"].shape[1] != 4 * a["Hon"].shape[1]:
+            fail(f"uni: SOC rows {b['Hon'].shape}, non-SOC rows {a['Hon'].shape}")
+    return sets
+
+
+def _uni_native(tp_kernel, dev, card, sets):
+    """The native predictor (sk + sk_soc models, seeded weights) saved in the
+    port's package form, loaded back and run through its CLI under the plain
+    TP, the default and the zonal engine; per crystal the stages timed warm
+    and the SOC rows' Hermitian structure."""
+    import io
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from hamgnn_tpu_torch.data.dataset import GraphDataModule
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.tools import uni_hamgnn
+
+    pred = uni_hamgnn.HamiltonianPredictor(str(UNI_NONSOC_CONFIG), str(SOC_CONFIG),
+                                           soc_switch=True, device=dev)
+    init_weights(pred.model_nonsoc, 0)
+    init_weights(pred.model_soc, 1)
+    pkg = UNI_WORK / "package"
+    pred.save(str(pkg))
+    loaded = uni_hamgnn.HamiltonianPredictor.load(str(pkg), device=dev)
+    for a, b in ((pred.model_nonsoc, loaded.model_nonsoc), (pred.model_soc, loaded.model_soc)):
+        sa, sb = a.state_dict(), b.state_dict()
+        if set(sa) != set(sb) or not all(torch.equal(sa[k], sb[k]) for k in sa):
+            fail("uni: the package read back differs from the predictor saved")
+    n_cryst = len(sets["nonsoc"])
+    per_pred = 4 * UNI_LAYERS[0] + 1 + 4 * UNI_LAYERS[1] + 1
+    preds, maes, launches = {}, {}, {}
+    for eng in ("xla", "auto", "zonal"):
+        out = UNI_WORK / f"out_{eng}"
+        cfg = {"model_pkl_path": str(pkg),
+               "non_soc_data_dir": str(UNI_WORK / "graph_nonsoc" / "graph_data.npz"),
+               "soc_data_dir": str(UNI_WORK / "graph_soc" / "graph_data.npz"),
+               "output_dir": str(out), "calculate_mae": True}
+        (UNI_WORK / f"Input_{eng}.yaml").write_text(yaml.safe_dump(cfg))
+        with engine(eng):
+            reset_launches(tp_kernel)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                uni_hamgnn.main(["--config", str(UNI_WORK / f"Input_{eng}.yaml")])
+            torch.cuda.synchronize()
+            expect = {} if eng == "xla" else {ENGINES[eng][0]: n_cryst * per_pred}
+            launches[eng] = check_launches(tp_kernel, expect, f"the uni_hamgnn CLI ({eng})")
+        preds[eng] = np.load(out / "prediction_hamiltonian.npy")
+        maes[eng] = float(buf.getvalue().split("masked MAE:")[1].split()[0])
+        rows = sum(c["z"].shape[0] + c["edge_index"].shape[1] for c in sets["soc"])
+        if preds[eng].shape != (rows, (2 * SOC_NAO) ** 2) or not np.isfinite(preds[eng]).all():
+            fail(f"uni ({eng}): prediction {preds[eng].shape}, expected ({rows}, "
+                 f"{(2 * SOC_NAO) ** 2}) finite")
+    scale = float(np.abs(preds["xla"]).max())
+    err_plain = float(np.abs(preds["auto"] - preds["xla"]).max())
+    err_zonal = float(np.abs(preds["zonal"] - preds["auto"]).max())
+    if not err_plain <= TOL * scale:
+        fail(f"uni: default engine vs plain TP max|d| {err_plain:.3e} > {TOL} * {scale:.3e}")
+    if not err_zonal <= ENGINE_TOL * scale:
+        fail(f"uni: zonal vs default engine max|d| {err_zonal:.3e} > {ENGINE_TOL} * {scale:.3e}")
+
+    # per crystal, warm: each stage's time, the SOC rows' Hermitian structure
+    data = {name: list(GraphDataModule(sets[name], batch_size=1, test_mode=True,
+                                       device=dev).test_batches()) for name in sets}
+    times = {"nonsoc": [], "soc": []}
+    herm = 0.0
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    for g, g_soc in zip(data["nonsoc"], data["soc"]):
+        p1 = loaded.predict_nonsoc(g)
+        p2 = loaded.predict_soc(g_soc, p1["hamiltonian_on"], p1["hamiltonian_off"])
+        s2 = max(float(p2[k].abs().max()) for k in SOC_KEYS)
+        h = soc_hermiticity(p2, g_soc, "so3")
+        if not h <= 1e-6 * s2:
+            fail(f"uni: SOC rows Hermitian to {h:.3e} > 1e-6 * {s2:.3e}")
+        herm = max(herm, h / s2)
+        for _ in range(3):
+            times["nonsoc"].append(_host_time(lambda: loaded.predict_nonsoc(g)))
+            times["soc"].append(_host_time(lambda: loaded.predict_soc(
+                g_soc, p1["hamiltonian_on"], p1["hamiltonian_off"])))
+    peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+    ms = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
+    print(f"[uni] native two-stage CLI on {n_cryst} crystals: {per_pred} forward-kernel "
+          f"launches a prediction (B1 default, B3 zonal, none plain); vs plain TP max|d| "
+          f"{err_plain:.3e}, zonal vs default {err_zonal:.3e} of {scale:.3e}; SOC rows Hermitian "
+          f"to {herm:.3e} relative; masked MAE (random weights) {maes['auto']:.4e} Ha; per "
+          f"crystal non-SOC {ms['nonsoc']:.3f} ms, SOC {ms['soc']:.3f} ms (median of "
+          f"{len(times['soc'])}), peak {peak_mb:.1f} MiB over the models; card {card}", flush=True)
+    del pred, loaded
+    torch.cuda.empty_cache()
+    return dict(crystals=n_cryst, launches_per_prediction=per_pred, launches=launches,
+                err_vs_plain=err_plain, err_zonal=err_zonal, scale=scale,
+                hermiticity=herm, mae=maes, ms_per_crystal=ms, peak_mb=peak_mb)
+
+
+def _uni_compat(tp_kernel, dev, card):
+    """``HamGNNConvE3Compat`` at its own default widths with the openmx
+    nao-14 head, filled from a synthetic reference-format state dict, one
+    forward on the bench crystal at 6 A against the same model in float64
+    on the CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hamgnn_tpu_torch.data.graph import pad_and_batch
+    from hamgnn_tpu_torch.data.synthetic import bench_crystal
+    from hamgnn_tpu_torch.interfaces import e3nn_compat
+    from hamgnn_tpu_torch.interfaces.torch_ckpt import assign_params, flatten_params
+    from hamgnn_tpu_torch.models.basis import get_basis_set, hamiltonian_irreps
+    from hamgnn_tpu_torch.models.model import HamGNNModel
+    from hamgnn_tpu_torch.models.output import HamGNNPlusPlusOut
+    from hamgnn_tpu_torch.tools_dev.profile_summary import summarize
+
+    rep = e3nn_compat.HamGNNConvE3Compat()
+    feat = "64x0e+32x1o+16x2e"
+    kw = dict(num_types=96, irreps_node_features=feat,
+              irreps_edge_sh="0e + 1o + 2e + 3o + 4e + 5o", num_layers=3,
+              irreps_ham=repr(hamiltonian_irreps(get_basis_set("openmx", SOC_NAO))))
+    shapes = e3nn_compat.reference_state_shapes(num_radial=64, radial_mlp=(64, 64), **kw)
+    rng = np.random.default_rng(0)
+    state = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    state["representation.radial_basis.basis.bessel_weights"] = (
+        np.pi * np.arange(1, 65) * rng.uniform(0.9, 1.1, 64)).astype(np.float32)
+    model = HamGNNModel(rep, HamGNNPlusPlusOut(feat, feat, nao_max=SOC_NAO, ham_type="openmx",
+                                               ham_only=True))
+    assignments = e3nn_compat.map_reference_state(state, **kw)
+    _, untouched = assign_params(model, assignments)
+    if untouched or set(assignments) != set(flatten_params(model)):
+        fail(f"uni compat: the import does not cover the model both ways ({untouched[:5]})")
+    crystal = bench_crystal(n_atoms=UNI_COMPAT_ATOMS, cutoff=UNI_COMPAT_CUTOFF, nao_max=SOC_NAO)
+    n_edges = int(crystal["edge_index"].shape[1])
+    buckets = dict(node_bucket=512, edge_bucket=((n_edges + 511) // 512) * 512)
+    graph = pad_and_batch([crystal], device=dev, **buckets)
+    model = model.to(dev).eval()
+    keys = ("hamiltonian_on", "hamiltonian_off")
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reset_launches(tp_kernel)
+        out = model(graph)
+        torch.cuda.synchronize()
+        check_launches(tp_kernel, {}, "the compat forward")  # plain einsums: no kernel
+        peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+        times = [_host_time(lambda: model(graph)) for _ in range(3)]
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model(graph)
+            torch.cuda.synchronize()
+        prof_rows = _write_profile(prof, time.perf_counter() - t0, 1, "profile_uni_compat.txt",
+                                   "forward")
+    with open(ROOT / "chiprun_out" / "profile_uni_compat.txt") as f:
+        kinds = {k: {"ms": ms, "launches": n} for k, (ms, n) in summarize(f).items()}
+    t0 = time.perf_counter()
+    cpu64 = copy.deepcopy(model).cpu().double()
+    with torch.no_grad():
+        ref = cpu64(pad_and_batch([crystal], dtype=np.float64, device="cpu", **buckets))
+    cpu_s = time.perf_counter() - t0
+    scale = max(float(ref[k].abs().max()) for k in keys)
+    errs = {k: float((out[k].double().cpu() - ref[k]).abs().max()) for k in keys}
+    if not all(math.isfinite(e) and e <= TOL * scale for e in errs.values()):
+        fail(f"uni compat vs float64 on the CPU: {errs} > {TOL} * {scale:.3e}")
+    ms = 1e3 * float(np.median(times))
+    print(f"[uni] compat HamGNNConvE3Compat defaults (96 types, SH to 5o, {feat}, 3 layers, "
+          f"64 radial) + openmx head, {len(assignments)} reference tensors imported, bench "
+          f"crystal at {UNI_COMPAT_CUTOFF} A ({n_edges} edges): no port kernel launched; vs "
+          f"float64 CPU max|d| " + ", ".join(f"{k[12:]} {e:.3e}" for k, e in errs.items())
+          + f" of {scale:.3e} (limit {TOL}); forward {ms:.3f} ms (median of 3), peak "
+          f"{peak_mb:.1f} MiB; by kind " + ", ".join(f"{k} {v['ms']:.3f} ms"
+                                                      for k, v in kinds.items())
+          + f"; card {card}", flush=True)
+    del model, cpu64, out
+    torch.cuda.empty_cache()
+    return dict(edges=n_edges, tensors=len(assignments), errors=errs, scale=scale,
+                forward_ms=ms, forward_times_ms=[1e3 * t for t in times], peak_mb=peak_mb,
+                cpu_float64_s=cpu_s, device_by_kind=kinds, profile=prof_rows)
+
+
+def _uni_bands(tp_kernel, dev, card):
+    """``tools.band_cal_parallel.solve_bands_batched`` on the band phase's
+    crystals (bench width's nao 19), 60 k along a path, 32 k a solve,
+    against scipy's float64 ``eigh`` on the host."""
+    import numpy as np
+    import scipy.linalg
+    import torch
+
+    from hamgnn_tpu_torch.data.synthetic import add_random_hamiltonian_targets, make_crystal
+    from hamgnn_tpu_torch.models.basis import get_basis_set
+    from hamgnn_tpu_torch.physics.kpoints import k_path
+    from hamgnn_tpu_torch.tools.band_cal import assemble_k_matrices_numpy
+    from hamgnn_tpu_torch.tools.band_cal_parallel import solve_bands_batched
+
+    nao = band_config()["output_nets"]["HamGNN_out"]["nao_max"]
+    basis = get_basis_set("openmx", nao)
+    rng = np.random.default_rng(5)
+    crystals = [add_random_hamiltonian_targets(
+        rng, make_crystal(rng, n_atoms=16, cell_size=8.0, cutoff=5.0), nao_max=nao)
+        for _ in range(4)]
+    worst, asm_s, solve_ms, norbs = 0.0, [], [], []
+    for c in crystals:
+        t0 = time.perf_counter()
+        cell = np.asarray(c["cell"]).reshape(3, 3)
+        k_frac, _d, _n, lat_inv = k_path([[0, 0, 0], [0.5, 0, 0], [0.5, 0.5, 0], [0, 0, 0]],
+                                         UNI_BAND_NK, cell)
+        k_cart = k_frac @ lat_inv
+        valid = np.concatenate([basis.orbital_mask_table[zi] > 0 for zi in c["z"]])
+        HK, SK = (assemble_k_matrices_numpy(
+            np.concatenate([c[on], c[off]]), len(c["z"]), c["edge_index"], c["nbr_shift"],
+            k_cart, nao, valid) for on, off in (("Hon", "Hoff"), ("Son", "Soff")))
+        asm_s.append(time.perf_counter() - t0)
+        norbs.append(int(HK.shape[1]))
+        reset_launches(tp_kernel)
+        got = solve_bands_batched(HK, SK, k_batch=UNI_BAND_KBATCH, device=dev)
+        check_launches(tp_kernel, {}, "solve_bands_batched")
+        solve_ms.append(1e3 * float(np.median([_host_time(lambda: solve_bands_batched(
+            HK, SK, k_batch=UNI_BAND_KBATCH, device=dev)) for _ in range(3)])))
+        want = np.stack([scipy.linalg.eigh(h, s_, eigvals_only=True) for h, s_ in zip(HK, SK)])
+        if got.shape != want.shape:
+            fail(f"band_cal_parallel: {got.shape} bands, expected {want.shape}")
+        worst = max(worst, float(np.abs(got - want).max()))
+    if not worst <= BAND_TOL:
+        fail(f"band_cal_parallel vs float64 scipy: max|d| {worst:.3e} Ha > {BAND_TOL}")
+    torch.cuda.empty_cache()
+    print(f"[uni] band_cal_parallel: 4 crystals x 16 atoms, H(k) {norbs} orbitals, "
+          f"{UNI_BAND_NK} k, k_batch {UNI_BAND_KBATCH}, complex64 on the card vs float64 scipy "
+          f"max|d| {worst:.3e} Ha (limit {BAND_TOL}); solve {np.mean(solve_ms):.3f} ms, host "
+          f"assembly {1e3 * np.mean(asm_s):.1f} ms a crystal; no port kernel launched; card "
+          f"{card}", flush=True)
+    return dict(max_abs_err=worst, solve_ms=solve_ms, assembly_ms=[1e3 * t for t in asm_s],
+                orbitals=norbs, nk=UNI_BAND_NK, k_batch=UNI_BAND_KBATCH)
+
+
+def phase_uni(tp_kernel, dev, card):
+    """Phase 13 (see the module docstring)."""
+    seconds, out = {}, {}
+    for name, fn, *args in (("sets", _uni_sets), ("native", _uni_native, tp_kernel, dev, card),
+                            ("compat", _uni_compat, tp_kernel, dev, card),
+                            ("bands", _uni_bands, tp_kernel, dev, card)):
+        if name == "native":
+            args.append(out["sets"])
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+    out["sets"] = {name: len(v) for name, v in out["sets"].items()}
+    return dict(out, seconds=seconds)
+
+
 def rep_launches(representation, eng, name, tp_kernel) -> int:
     """A kernel's launches in one replay of the Transformer step under its
     engine (the profiler's count of each of its device kernels)."""
@@ -3364,13 +3678,14 @@ def main():
     lmdb = timed("lmdb", phase_lmdb, tp_kernel, dev)
     representation = timed("representation", phase_representation, tp_kernel, dev, card)
     datagen = timed("datagen", phase_datagen, tp_kernel)
+    uni = timed("uni", phase_uni, tp_kernel, dev, card)
 
     report = {"card": card, "kernel_rows": rows, "wide": wide, "zonal_engine": zonal_engine,
               "model": model, "train": train, "captured": captured, "fit": fit,
               "probes": probes,
               "band": band, "band_fit": band_fit, "soc": soc, "magnetic": magnetic,
               "lmdb": lmdb, "representation": representation, "datagen": datagen,
-              "seconds": seconds}
+              "uni": uni, "seconds": seconds}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -3405,6 +3720,9 @@ def main():
                 "sk_magnetic_launches_per_step": mag_launches(magnetic, eng, name, tp_kernel),
                 "transformer_launches_per_step": rep_launches(representation, eng, name,
                                                               tp_kernel),
+                # per two-stage Uni-HamGNN prediction (sk + sk_soc models, no backward)
+                "uni_launches_per_prediction": (
+                    uni["native"]["launches"][eng][name] // uni["native"]["crystals"]),
             })
             if eng == "auto":  # the step of the fit on the data the port made
                 kernels[-1]["sk_datagen_launches_per_step"] = {
@@ -3419,6 +3737,22 @@ def main():
         if len(r["at_rows"]) > 1:  # P1/P2: the smaller size too
             kernels[-1]["at_rows"] = {n: {k: m[k] for k in ("ms", "library_ms", "bound_ms")}
                                       for n, m in r["at_rows"].items()}
+    print(json.dumps({"uni": {
+        "launches_per_prediction": {ENGINES[eng][0]: uni["native"]["launches"][eng][
+            ENGINES[eng][0]] // uni["native"]["crystals"] for eng in ENGINES},
+        "ms": {"nonsoc_per_crystal": uni["native"]["ms_per_crystal"]["nonsoc"],
+               "soc_per_crystal": uni["native"]["ms_per_crystal"]["soc"],
+               "compat_forward": uni["compat"]["forward_ms"],
+               "band_solve": float(sum(uni["bands"]["solve_ms"]) / len(uni["bands"]["solve_ms"]))},
+        "errors": {"vs_plain_tp": uni["native"]["err_vs_plain"],
+                   "zonal_vs_default": uni["native"]["err_zonal"],
+                   "scale": uni["native"]["scale"],
+                   "compat_vs_cpu_float64": max(uni["compat"]["errors"].values()),
+                   "compat_scale": uni["compat"]["scale"],
+                   "bands_vs_scipy_ha": uni["bands"]["max_abs_err"]},
+        "peak_mb": {"predictor": uni["native"]["peak_mb"],
+                    "compat_forward": uni["compat"]["peak_mb"]},
+        "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,9 @@ representation keys say), then
   learning rate restarts at ``optim_params.lr`` unless ``setup.resume``),
   then a final test pass;
 * ``setup.stage: test``: load weights from ``setup.checkpoint_path`` (a
-  trainer checkpoint, the port's ``torch.save`` state dict, or an ``.npz``
-  of the flattened flax tree) and run the test batches;
+  trainer checkpoint, the port's ``torch.save`` state dict, an ``.npz`` of
+  the flattened flax tree, or an orbax directory of the JAX trainer) and run
+  the test batches;
 
 and save ``prediction_hamiltonian.npy`` / ``target_hamiltonian.npy`` in the
 reference's interleaved layout (with the SOC head, ``output_nets.HamGNN_out.
@@ -264,13 +265,16 @@ def prepare_dataset(config, device=None):
 
 
 def load_weights(model: HamGNNModel, path: str) -> None:
-    """``path``: an ``.npz`` of the flattened flax tree, a ``torch.save``
-    state dict of this model, or a trainer checkpoint (its parameters)."""
+    """``path``: an orbax directory the JAX package wrote (a trainer
+    checkpoint such as ``<train_dir>/best``, read through ``tensorstore``),
+    an ``.npz`` of the flattened flax tree, a ``torch.save`` state dict of
+    this model, or a trainer checkpoint (its parameters)."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory: reading orbax checkpoints comes with a "
-            "later slice; pass an .npz of the flax parameters or a torch "
-            "state dict")
+        from .interfaces.jax_params import load_flax_params
+        from .interfaces.orbax_reader import checkpoint_params
+
+        load_flax_params(model, checkpoint_params(path))
+        return
     if path.endswith(".npz"):
         from .interfaces.jax_params import load_flax_npz
 

@@ -13,7 +13,8 @@ lr_decay, threshold 1e-6, cooldown patience // 2, min_lr 1e-6) and
 ``EarlyStopping`` are the JAX classes.  ``fit`` writes ``metrics.jsonl``
 records with the JAX trainer's keys and keeps the best validation
 checkpoint as ``train_dir/best.pt`` (a ``torch.save`` of params, optimizer
-state and learning rate).
+state and learning rate); ``load_checkpoint`` also resumes from an orbax
+checkpoint of the JAX trainer.
 """
 
 from __future__ import annotations
@@ -253,6 +254,18 @@ class Trainer:
         }, path)
 
     def load_checkpoint(self, path: str) -> None:
+        """A checkpoint of this trainer, or an orbax directory of the JAX
+        trainer (its parameters, amsgrad state and learning rate; the
+        moments reordered from jax's leaf order into this model's)."""
+        if os.path.isdir(path):
+            from ..interfaces.jax_params import load_flax_params
+            from ..interfaces.orbax_reader import trainer_checkpoint
+
+            params, state, lr = trainer_checkpoint(path, self.model)
+            load_flax_params(self.model, params)
+            self.opt.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+            self.sched.lr = lr
+            return
         ckpt = torch.load(path, map_location=self.device)
         load_params(self.model, ckpt["params"])
         self.opt.load_state_dict(ckpt["opt_state"])

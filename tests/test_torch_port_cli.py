@@ -98,16 +98,19 @@ def test_cli_stage_test_predictions(case, tmp_path, ckpt):
     ({"setup": {"stage": "test", "checkpoint_path": "{tmp}/orbax"}}, "directory"),
 ])
 def test_cli_unported_paths_raise(tmp_path, override, match):
-    """What the port does not run: data parallel and the halo partition,
-    and orbax checkpoint directories."""
+    """What the port does not run: data parallel and the halo partition; and
+    a checkpoint directory that is not an orbax checkpoint (orbax directories
+    themselves are read, ``tests/test_torch_port_compat.py``)."""
+    exc = NotImplementedError
     if "checkpoint_path" in override["setup"]:
         (tmp_path / "orbax").mkdir()
         override = {"setup": dict(override["setup"], checkpoint_path=str(tmp_path / "orbax"))}
+        exc = FileNotFoundError
     cfg = load_config(None, overrides=_merge(_merge(BASE, {
         "dataset_params": {"graph_data_path": str(tmp_path)},
         "profiler_params": {"train_dir": str(tmp_path / "out")}}), override))
     save_graph_npz(str(tmp_path / "graph_data.npz"), _crystals(2, seed=0))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         t_cli.train_and_evaluate(cfg, device="cpu")
 
 

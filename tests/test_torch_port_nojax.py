@@ -12,7 +12,9 @@ reference's ``<train_dir>/best`` name; with the non-collinear magnetic head
 on an lmdb-lite store written by ``tools.npz_to_lmdb``; with the
 Transformer representation (attention, correlation blocks, KAN generators).
 The data tools (the SK teacher in every format, the three ``graph_data_gen``)
-run with JAX blocked too, and their output trains, predicts and gives bands.
+run with JAX blocked too, and their output trains, predicts and gives bands; so do
+the Uni-HamGNN CLI, ``band_cal_parallel``, the magnetism workflows and the
+wavefunction cube.
 ``chip_smoke.py`` must fail, printing no result, where no GPU is available.
 """
 
@@ -291,6 +293,117 @@ def test_port_data_tools_and_sk_pipeline_run_without_jax(tmp_path):
                        timeout=300, cwd=str(tmp_path), env=env)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.splitlines()[-1] == "DATAGEN OK"
+
+
+TOOLS_SCRIPT = r"""
+import sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {root!r})
+import importlib, os, runpy
+import numpy as np
+import yaml
+work = {work!r}
+for mod in {new_modules!r}:
+    importlib.import_module(mod)
+
+
+def run(mod, *argv):
+    sys.argv = [mod, *argv]
+    runpy.run_module(mod, run_name="__main__")
+
+
+def dump(name, cfg):
+    with open(work + "/" + name, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return work + "/" + name
+
+
+from hamgnn_tpu_torch.data.dataset import load_graph_npz, save_graph_npz
+from hamgnn_tpu_torch.data.synthetic import (add_random_hamiltonian_targets,
+                                             add_random_soc_targets, make_crystal)
+from hamgnn_tpu_torch.models.model import init_weights
+from hamgnn_tpu_torch.tools.uni_hamgnn import HamiltonianPredictor
+rng = np.random.default_rng(0)
+plain = [add_random_hamiltonian_targets(rng, make_crystal(rng, n_atoms=3, cutoff=4.0))
+         for _ in range(2)]
+save_graph_npz(work + "/nonsoc.npz", plain)
+save_graph_npz(work + "/soc.npz", [add_random_soc_targets(rng, dict(c)) for c in plain])
+
+# the Uni-HamGNN CLI on a package in the port's form
+model = {{"representation_nets": {{"HamGNN_pre": {{
+    "irreps_node_features": "4x0e+2x1o", "irreps_edge_sh": "0e+1o+2e", "num_layers": 1,
+    "num_radial": 4, "cutoff": 4.0, "radial_MLP": [4], "num_types": 16}}}}}}
+pred = HamiltonianPredictor(
+    dump("nonsoc.yaml", dict(model, output_nets={{"HamGNN_out": {{"nao_max": 14}}}})),
+    dump("soc.yaml", dict(model, output_nets={{"HamGNN_out": {{
+        "nao_max": 14, "soc_switch": True, "soc_basis": "so3"}}}})),
+    soc_switch=True, device="cpu")
+init_weights(pred.model_nonsoc, 0)
+init_weights(pred.model_soc, 1)
+pred.save(work + "/pkg")
+run("hamgnn_tpu_torch.tools.uni_hamgnn", "--device", "cpu", "--config", dump("Input.yaml", {{
+    "model_pkl_path": work + "/pkg", "non_soc_data_dir": work + "/nonsoc.npz",
+    "soc_data_dir": work + "/soc.npz", "output_dir": work + "/uni", "calculate_mae": True}}))
+rows = np.load(work + "/uni/prediction_hamiltonian.npy")
+assert rows.shape == (sum(c["z"].shape[0] + c["edge_index"].shape[1] for c in plain), 784)
+assert np.isfinite(rows).all()
+
+# band_cal_parallel on the stored Hamiltonians
+run("hamgnn_tpu_torch.tools.band_cal_parallel", "--device", "cpu", "--config",
+    dump("bcp.yaml", {{"nao_max": 14, "graph_data_path": work + "/nonsoc.npz", "nk": 6,
+                       "k_batch": 4, "save_dir": work + "/bands"}}))
+assert np.isfinite(np.load(work + "/bands/bands_1.npz")["bands"]).all()
+
+# magnetism: a collinear deck from a POSCAR, a non-collinear graph from scfout files
+with open(work + "/POSCAR", "w") as f:
+    f.write("Si2\n1.0\n3.8 0 0\n0 3.8 0\n0 0 3.8\nSi\n2\nDirect\n0 0 0\n0.25 0.25 0.25\n")
+run("hamgnn_tpu_torch.tools.magnetism", "convert-collinear", "--config", dump("c.yaml", {{
+    "inputs": {{"patterns": [work + "/POSCAR"]}}, "outputs": {{"directory": work + "/mag"}}}}))
+assert "Atoms.SpeciesAndCoordinates" in open(work + "/mag/collinear_1.dat").read()
+run("hamgnn_tpu_torch.tools.sk_dataset", "--out", work + "/scf", "--soc", "--n-si", "1",
+    "--n-c", "1", "--n-sic", "0")
+run("hamgnn_tpu_torch.tools.magnetism", "pack-graph-data", "--config", dump("p.yaml", {{
+    "inputs": {{"patterns": [work + "/scf/struct_*"]}}, "outputs": {{"directory": work + "/mag"}},
+    "pack_graph_data": {{"nao_max": 14, "collinear": False}}}}))
+packed = load_graph_npz(work + "/mag/graph_data.npz")
+assert len(packed) == 2 and packed[0]["Hon"].shape[1] == 784
+
+# the wavefunction cube, Gaussian fallback
+np.save(work + "/vecs.npy", rng.normal(size=(2, 13 * 3)))
+run("hamgnn_tpu_torch.tools.wfn_export", "--config", dump("w.yaml", {{
+    "graph_data_path": work + "/nonsoc.npz", "eigen_vecs_path": work + "/vecs.npy",
+    "nao_max": 14, "band_index": 1, "grid": [4, 4, 4], "save_dir": work + "/wfn"}}))
+assert open(work + "/wfn/band_1.cube").read().count("\n") > 10
+assert not any(sys.modules.get(b) for b in {blocked!r})
+print("TOOLS OK")
+"""
+NEW_MODULES = ("interfaces.orbax_reader", "interfaces.torch_ckpt", "interfaces.e3nn_compat",
+               "interfaces.uni_pickle", "interfaces.pao", "tools.uni_hamgnn",
+               "tools.band_cal_parallel", "tools.magnetism", "tools.wfn_export",
+               "physics.matrix_operations", "utils.triplets")
+
+
+def test_port_tools_run_without_jax(tmp_path):
+    """The Uni-HamGNN CLI on a package in the port's form (two stages, CPU),
+    ``band_cal_parallel``, ``magnetism convert-collinear`` and
+    ``pack-graph-data`` (on the SK teacher's non-collinear scfout files) and
+    the ``wfn_export`` cube, with every checkpoint-reader and tool module imported and
+    nothing of JAX importable."""
+    code = TOOLS_SCRIPT.format(blocked=BLOCKED, root=str(ROOT), work=str(tmp_path),
+                               new_modules=["hamgnn_tpu_torch." + m for m in NEW_MODULES])
+    env = {k: v for k, v in os.environ.items() if k != "HAMGNN_TP_ENGINE"}
+    env["OMP_NUM_THREADS"] = "1"
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300, cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.splitlines()[-1] == "TOOLS OK"
+
+
+def test_source_import_check_covers_the_checkpoint_readers_and_tools():
+    for mod in NEW_MODULES:
+        rel = mod.replace(".", "/") + ".py"
+        assert PKG / rel in set(PKG.rglob("*.py")), rel
 
 
 def _imports(path):

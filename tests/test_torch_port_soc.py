@@ -511,9 +511,9 @@ def test_audit_config_warns_on_each_knob(knob):
 
 def test_audit_config_all_knobs_raise_the_references_nine(tmp_path):
     """All knobs together on examples/sk/config.yaml: the reference's 9
-    warnings, which ``train_and_evaluate`` raises on its way to the orbax
-    checkpoint directory it refuses (after the data and the model, with no
-    other warning)."""
+    warnings, which ``train_and_evaluate`` raises on its way to a checkpoint
+    directory that holds no orbax checkpoint and is refused (after the data
+    and the model, with no other warning)."""
     over = {}
     for o in AUDIT_KNOBS.values():
         over = _merge(over, o)
@@ -531,7 +531,7 @@ def test_audit_config_all_knobs_raise_the_references_nine(tmp_path):
         "profiler_params": {"train_dir": str(tmp_path / "out")}}))
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
-        with pytest.raises(NotImplementedError, match="directory"):
+        with pytest.raises(FileNotFoundError, match="directory"):
             t_cli.train_and_evaluate(cfg, device="cpu")
     assert len(seen) == 9
 
