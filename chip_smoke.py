@@ -194,9 +194,31 @@ Phases (any failure exits non-zero, before the result lines are printed):
      ``tools.band_cal_parallel.solve_bands_batched`` on the band phase's
      crystals, 60 k along a path, 32 k a solve, within the band phase's 5e-4
      Ha of scipy's float64 ``eigh``, timed with the host assembly beside it;
- 14. print one JSON line ``{"uni": {...}}`` (launches a prediction, times,
-     errors, peak memory), one describing each kernel, then the result line
-     ``{"ok": true, "device": {...}}`` last.
+ 14. multi-device training (``phase_parallel``, under build/chip_smoke/parallel):
+     (a) a one-process NCCL group on a free localhost port; per engine, the
+     one-device eager step at the bench width, then an eager halo step
+     (``HaloTrainer``, n_graph 1) and a data-parallel step
+     (``ParallelTrainer``) from the same seeded weights: loss within 1e-6
+     relative, flat gradient within 1e-5 * max|g|, 13 + 13 launches of the
+     engine's kernels by the host counters and by the profiler, wall and
+     device ms a step, peak memory, the plan's sizes; (b) two processes on the
+     one card over gloo, the bench crystal split 2 ways, against (a)'s step
+     (loss 1e-6, gradient 1e-4 * max|g|), halo rows a layer and the boundary
+     share, left out and reported where this build's gloo carries no CUDA
+     tensor; (c) one so3 halo step at phase 8's cell against the one-device
+     step under deterministic algorithms (phase 8's limits) and one band-mode
+     halo step (a 16-atom crystal of phase 7, 6 k) against the one-device band
+     step (loss 1e-5 relative, band MAE 5e-4, gradient 2e-2 * max|g|, the band
+     term's limit); (d)
+     ``torch.distributed.run --standalone --nproc_per_node 1 -m
+     hamgnn_tpu_torch.cli`` with ``setup.parallel.mode: halo``, then ``dp``,
+     2 epochs on phase 5's set; each run's ``best.pt`` tested under ``mode:
+     none`` on the validation crystal gives the MAE its halo evaluation logged
+     at the best epoch within 1e-5 relative; the magnetic head under ``mode:
+     halo`` raises the JAX package's NotImplementedError;
+ 15. print one JSON line ``{"uni": {...}}`` (launches a prediction, times,
+     errors, peak memory), one ``{"parallel": {...}}``, one describing each
+     kernel, then the result line ``{"ok": true, "device": {...}}`` last.
 
 It needs one card, imports nothing of JAX or of the JAX package, writes only
 under ``build/`` and ``chiprun_out/`` in the checkout, and exits non-zero
@@ -3604,6 +3626,450 @@ def phase_uni(tp_kernel, dev, card):
     return dict(out, seconds=seconds)
 
 
+PAR_WORK = WORK / "parallel"
+PAR_GRAD_TOL = 1e-5   # a halo / dp step's flat gradient vs the one-device step's, x max|g|
+PAR_GRAD_TOL_2 = 1e-4  # the same at two ranks (the other summation order of the split)
+
+
+def _local_batch(graph, n_shards, shard, dev, edge_quantum=64):
+    """(plan, the rank's local halo inputs on ``dev``) of a padded Graph."""
+    from hamgnn_tpu_torch.parallel.halo_model import (build_halo_inputs, local_inputs,
+                                                      plan_for_graph)
+    from hamgnn_tpu_torch.parallel.halo_trainer import graph_to
+
+    host = graph_to(graph, "cpu")
+    plan = plan_for_graph(host, n_shards, edge_quantum)
+    return plan, local_inputs(build_halo_inputs(host, plan), n_shards, shard, dev)
+
+
+def _plan_sizes(plan) -> dict:
+    """E_loc, H, HE and E_b of a plan, and the real rows behind them."""
+    real_b = int(plan.boundary_mask.sum())
+    real_e = int(plan.edge_mask.sum())
+    return {"E_loc": int(plan.edge_id.shape[1]), "H": plan.halo_bucket,
+            "HE": plan.edge_halo_bucket, "E_b": plan.boundary_bucket,
+            "edges_per_shard": [int(m.sum()) for m in plan.edge_mask],
+            # rows an exchange brings each shard: its distinct remote sources
+            "halo_rows_per_shard": [len(set(pos[pos >= plan.n_nodes_local].tolist()))
+                                    for pos in (p[m] for p, m in zip(plan.src_pos,
+                                                                     plan.edge_mask))],
+            "boundary_share": real_b / max(real_e, 1)}
+
+
+def _grad_check(what, got, ref, tol):
+    """max|got - ref| over the flat gradient <= tol * max|ref|; returns the ratio."""
+    err, scale = rel_err(got, ref)
+    if not math.isfinite(err) or err > tol * scale:
+        fail(f"{what}: flat gradient max|d| {err:.3e} > {tol} * {scale:.3e}")
+    return err / scale
+
+
+def _par_step_stats(tr, item, fname, names):
+    """Wall ms (median of 3, host clock to a sync), peak memory, and from one
+    profiled step its device ms and each named device kernel's launches
+    (written to chiprun_out/<fname>)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hamgnn_tpu_torch.utils.profiling import PROFILER_LEAD_S
+
+    times = [_host_time(lambda: tr.train_step(item)) for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_LEAD_S)  # no kernel of the step before the session's start
+        wall = _host_time(lambda: tr.train_step(item))
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return {"wall_ms": 1e3 * float(np.median(times)),
+            "device_ms": _write_profile(prof, wall, 1, fname, "step")["__all__"],
+            "device_launches": {n: sum(ev.count for ev in kernels if n in ev.key)
+                                for n in names},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _par_world1(tp_kernel, dev, card, eng):
+    """(a) at world size 1 over NCCL: the one-device eager step, then a halo
+    step (``HaloTrainer``, n_graph 1) and a data-parallel step
+    (``ParallelTrainer``) from the same seeded weights, under ``eng``."""
+    import torch
+
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.parallel.halo_trainer import HaloTrainer
+    from hamgnn_tpu_torch.parallel.trainer import ParallelTrainer
+    from hamgnn_tpu_torch.train.config import load_config
+    from hamgnn_tpu_torch.train.trainer import Trainer
+
+    graph, n_edges = bench_graph(dev)
+    layers = BENCH_CFG["representation_nets"]["HamGNN_pre"]["num_layers"]
+    expect = {k: 4 * layers + 1 for k in ENGINES[eng]}
+    names = [n for k in ENGINES[eng] for n in tp_kernel.KERNELS[k].device_kernels]
+
+    def trainer(cls, tag, **kw):
+        model = init_weights(build_model(load_config(None, overrides=BENCH_CFG)), 0)
+        return cls(model, losses=BENCH_LOSSES, metrics=[], lr=1e-3, device=dev,
+                   train_dir=str(PAR_WORK / f"{tag}_{eng}"), **kw)
+
+    out = {}
+    with engine(eng):
+        one = trainer(Trainer, "one", capture=False)
+        loss1 = float(one.train_step(graph)[0])
+        g1 = one.grad.clone()
+        del one
+        plan, loc = _local_batch(graph, 1, 0, dev)
+        for kind in ("halo", "dp"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            if kind == "halo":
+                tr, item = trainer(HaloTrainer, kind, n_data=1, n_graph=1), None
+                step = lambda: tr._halo_step()(loc, tr.sched.lr)  # noqa: E731
+            else:
+                tr, item = trainer(ParallelTrainer, kind, n_data=1, n_graph=1), graph
+                step = lambda: tr.train_step(graph)  # noqa: E731
+            reset_launches(tp_kernel)
+            loss, logs = step()
+            torch.cuda.synchronize()
+            launches = check_launches(tp_kernel, expect, f"one {kind} step ({eng})")
+            if not abs(float(loss) - loss1) <= 1e-6 * abs(loss1) \
+                    or float(logs["nonfinite_step"]) != 0.0:
+                fail(f"{kind} step ({eng}): loss {float(loss)!r} vs one-device {loss1!r}")
+            ratio = _grad_check(f"{kind} step ({eng})", tr.grad, g1, PAR_GRAD_TOL)
+            if kind == "halo":
+                # the step as the trainer runs it: host inputs sliced and moved each time
+                from hamgnn_tpu_torch.parallel.halo_model import build_halo_inputs
+                from hamgnn_tpu_torch.parallel.halo_trainer import graph_to
+
+                item = build_halo_inputs(graph_to(graph, "cpu"), plan)
+                item = {k: v[None] for k, v in item.items()}
+            stats = _par_step_stats(tr, item, f"profile_{kind}_step_{eng}.txt", names)
+            if stats["device_launches"] != {n: 4 * layers + 1 for n in names}:
+                fail(f"{kind} step ({eng}): device launches {stats['device_launches']}")
+            out[kind] = dict(loss=float(loss), loss_one_device=loss1, grad_rel_err=ratio,
+                             launches=launches, **stats)
+            del tr
+    out["plan"] = _plan_sizes(plan)
+    out["ref"] = (loss1, g1.cpu())
+    torch.cuda.empty_cache()
+    print(f"[parallel] (a) world 1 over NCCL, engine {eng}: one-device loss {loss1!r}; "
+          + "; ".join(f"{k} loss {r['loss']!r}, gradient {r['grad_rel_err']:.2e} of max|g|, "
+                      f"launches {r['launches']}, wall {r['wall_ms']:.3f} ms, device "
+                      f"{r['device_ms']:.3f} ms a step, peak {r['peak_gb']:.2f} GB"
+                      for k, r in out.items() if k in ("halo", "dp"))
+          + f"; plan (S=1) {out['plan']}; card {card}", flush=True)
+    return out
+
+
+def _par_rank(rank, world, port, work):
+    """(b) one of two ranks on one card over gloo: the bench crystal split
+    2 ways, one halo step; rank 0 saves the loss and the flat gradient."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    result = {"rank": rank}
+    try:
+        x = torch.full((4, 3), float(rank + 1), device=dev)
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x)
+        dist.all_reduce(x)
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        torch.cuda.synchronize()
+        result["gloo_cuda"] = "supported"
+    except Exception as exc:  # reported, and (b) is left out
+        result["gloo_cuda"] = f"unsupported: {type(exc).__name__}: {exc}"[:300]
+    if result["gloo_cuda"] == "supported":
+        sys.path.insert(0, str(ROOT))
+        from hamgnn_tpu_torch.cli import build_model
+        from hamgnn_tpu_torch.e3 import tp_kernel
+        from hamgnn_tpu_torch.models.model import init_weights
+        from hamgnn_tpu_torch.parallel.halo_trainer import HaloTrainer
+        from hamgnn_tpu_torch.train.config import load_config
+
+        graph, _ = bench_graph(dev)
+        plan, loc = _local_batch(graph, world, rank, dev)
+        tr = HaloTrainer(init_weights(build_model(load_config(None, overrides=BENCH_CFG)), 0),
+                         losses=BENCH_LOSSES, metrics=[], lr=1e-3, device=dev,
+                         train_dir=str(Path(work) / f"two_{rank}"), n_data=1, n_graph=world)
+        reset_launches(tp_kernel)
+        loss, _ = tr._halo_step()(loc, tr.sched.lr)
+        torch.cuda.synchronize()
+        result.update(loss=float(loss), plan=_plan_sizes(plan),
+                      launches={n: k.launches for n, k in tp_kernel.KERNELS.items()})
+        if rank == 0:  # the first step's gradient, before the timed steps overwrite it
+            torch.save(tr.grad.cpu(), Path(work) / "two_rank_grad.pt")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tr._halo_step()(loc, tr.sched.lr)
+        torch.cuda.synchronize()
+        result["wall_ms_shared_card"] = (time.perf_counter() - t0) / 3 * 1e3
+    every = [None] * world
+    dist.all_gather_object(every, result)
+    if rank == 0:
+        (Path(work) / "two_ranks.json").write_text(json.dumps(every))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _par_two_ranks(card, ref):
+    """(b) two processes on the one card over gloo against (a)'s one-device
+    step; left out where this build's gloo carries no CUDA tensor."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from hamgnn_tpu_torch.parallel.multihost import free_port
+
+    for f in ("two_ranks.json", "two_rank_grad.pt"):
+        (PAR_WORK / f).unlink(missing_ok=True)
+    mp.spawn(_par_rank, args=(2, free_port(), str(PAR_WORK)), nprocs=2)
+    ranks = json.loads((PAR_WORK / "two_ranks.json").read_text())
+    if ranks[0]["gloo_cuda"] != "supported":
+        print(f"[parallel] (b) left out: gloo with CUDA tensors in this build: "
+              f"{ranks[0]['gloo_cuda']}", flush=True)
+        return {"ran": False, "gloo_cuda": ranks[0]["gloo_cuda"]}
+    loss1, g1 = ref
+    for r in ranks:
+        if not abs(r["loss"] - loss1) <= 1e-6 * abs(loss1):
+            fail(f"two ranks: rank {r['rank']} loss {r['loss']!r} vs one-device {loss1!r}")
+    g2 = torch.load(PAR_WORK / "two_rank_grad.pt")
+    ratio = _grad_check("two ranks on one card", g2, g1, PAR_GRAD_TOL_2)
+    plan = ranks[0]["plan"]
+    print(f"[parallel] (b) two ranks on one card over gloo: loss {ranks[0]['loss']!r} vs "
+          f"{loss1!r}, gradient {ratio:.2e} of max|g|; plan (S=2) E_loc {plan['E_loc']}, "
+          f"H {plan['H']}, HE {plan['HE']}, E_b {plan['E_b']}, halo rows a layer per rank "
+          f"{plan['halo_rows_per_shard']}, boundary share {plan['boundary_share']:.4f}; "
+          f"launches a rank {ranks[0]['launches']}; wall (both ranks on one card, not a "
+          f"speed) {[round(r['wall_ms_shared_card'], 3) for r in ranks]} ms; card {card}",
+          flush=True)
+    return {"ran": True, "gloo_cuda": "supported", "grad_rel_err": ratio,
+            "losses": [r["loss"] for r in ranks], "plan": plan,
+            "launches": ranks[0]["launches"],
+            "wall_ms_shared_card": [r["wall_ms_shared_card"] for r in ranks]}
+
+
+def _par_soc(tp_kernel, dev, card):
+    """(c) one so3 halo step at the SOC cell against the one-device eager
+    step, deterministic algorithms on (phase_soc's limits)."""
+    import torch
+
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.parallel.halo_trainer import HaloTrainer
+    from hamgnn_tpu_torch.train.config import load_config
+    from hamgnn_tpu_torch.train.trainer import Trainer
+
+    graph, _ = soc_bench_graph(dev)
+    cfg, losses = soc_config("so3")
+    layers = cfg["representation_nets"]["HamGNN_pre"]["num_layers"]
+    _, loc = _local_batch(graph, 1, 0, dev)
+    trs, res = {}, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for kind, cls, kw in (("one", Trainer, {"capture": False}),
+                              ("halo", HaloTrainer, {"n_data": 1, "n_graph": 1})):
+            model = init_weights(build_model(load_config(None, overrides=cfg)), 0)
+            trs[kind] = cls(model, losses=losses, metrics=[], lr=1e-3, device=dev,
+                            train_dir=str(PAR_WORK / f"soc_{kind}"), **kw)
+            reset_launches(tp_kernel)
+            loss, _ = (trs[kind].train_step(graph) if kind == "one"
+                       else trs[kind]._halo_step()(loc, trs[kind].sched.lr))
+            torch.cuda.synchronize()
+            res[kind] = float(loss)
+        launches = check_launches(tp_kernel, {k: 4 * layers + 1 for k in ENGINES["auto"]},
+                                  "one so3 halo step")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not abs(res["halo"] - res["one"]) <= 1e-6 * abs(res["one"]):
+        fail(f"so3 halo step loss {res['halo']!r} vs one-device {res['one']!r}")
+    ofs, worst = 0, 0.0
+    for name, p in trs["one"].model.named_parameters():
+        err, scale = rel_err(trs["halo"].grad[ofs:ofs + p.numel()],
+                             trs["one"].grad[ofs:ofs + p.numel()])
+        ofs += p.numel()
+        if not err <= 1e-5 * scale:
+            fail(f"so3 halo step gradient {name}: max|d| {err:.3e} > 1e-5 * {scale:.3e}")
+        worst = max(worst, err / scale if scale else 0.0)
+    del trs
+    torch.cuda.empty_cache()
+    print(f"[parallel] (c) so3 halo step (world 1, deterministic): loss {res['halo']!r} vs "
+          f"{res['one']!r}, worst gradient {worst:.2e} of max|ref| per tensor, launches "
+          f"{launches}; card {card}", flush=True)
+    return dict(losses=res, worst_grad_rel_err=worst, launches=launches)
+
+
+def _par_band(tp_kernel, dev, card):
+    """(c) one band-mode halo step (one 16-atom crystal of the band phase,
+    6 k, n_data 1) against the one-device eager band step: loss within 1e-5
+    relative, band MAE within 5e-4, the flat gradient within 2e-2 * max|g|."""
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.data.graph import pad_and_batch
+    from hamgnn_tpu_torch.data.synthetic import add_random_hamiltonian_targets, make_crystal
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.parallel.halo_model import build_halo_inputs, plan_for_graph
+    from hamgnn_tpu_torch.parallel.halo_trainer import HaloTrainer, graph_to
+    from hamgnn_tpu_torch.train.config import load_config
+    from hamgnn_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(5)
+    crystal = add_random_hamiltonian_targets(
+        rng, make_crystal(rng, n_atoms=16, cell_size=8.0, cutoff=5.0), nao_max=19)
+    e = crystal["edge_index"].shape[1]
+    graph = pad_and_batch([crystal], node_bucket=16, edge_bucket=((e + 255) // 256) * 256,
+                          device=dev)
+    host = graph_to(graph, "cpu")
+    item = ({k: v[None] for k, v in build_halo_inputs(host, plan_for_graph(host, 1)).items()},
+            host)
+    layers = BENCH_CFG["representation_nets"]["HamGNN_pre"]["num_layers"]
+    trs, res = {}, {}
+    for kind, cls, kw in (("one", Trainer, {}), ("halo", HaloTrainer, {"n_data": 1,
+                                                                     "n_graph": 1})):
+        model = init_weights(build_model(load_config(None, overrides=band_config())), 0)
+        trs[kind] = cls(model, losses=BAND_LOSSES, metrics=[], lr=1e-3, device=dev,
+                        train_dir=str(PAR_WORK / f"band_{kind}"), **kw)
+        reset_launches(tp_kernel)
+        loss, logs = trs[kind].train_step(graph if kind == "one" else item)
+        torch.cuda.synchronize()
+        res[kind] = (float(loss), float(logs["mae_band_energy"]))
+    launches = check_launches(tp_kernel, {k: 4 * layers + 1 for k in ENGINES["auto"]},
+                              "one band-mode halo step")
+    if not (abs(res["halo"][0] - res["one"][0]) <= 1e-5 * abs(res["one"][0])
+            and abs(res["halo"][1] - res["one"][1]) <= BAND_TOL):
+        fail(f"band-mode halo step (loss, band MAE) {res['halo']} vs one-device {res['one']}")
+    # the band-loss term's limit (PERF.md section 2): fp32 eigenvectors beside the pad
+    # states at 1e3 carry the rounding of the two paths' sums into the gradient
+    ratio = _grad_check("band-mode halo step", trs["halo"].grad, trs["one"].grad, 2e-2)
+    del trs
+    torch.cuda.empty_cache()
+    print(f"[parallel] (c) band-mode halo step (16 atoms, 6 k, world 1): (loss, band MAE) "
+          f"{res['halo']} vs one-device {res['one']}, gradient {ratio:.2e} of max|g|, "
+          f"launches {launches}; card {card}", flush=True)
+    return dict(losses=res, grad_rel_err=ratio, launches=launches)
+
+
+def _par_cli(dev, card):
+    """(d) ``torchrun`` (one process) ``-m hamgnn_tpu_torch.cli`` with
+    ``setup.parallel.mode: halo``, then ``dp``, 2 epochs on phase 5's set;
+    each run's best.pt tested under ``mode: none`` on the validation crystal
+    must give the MAE the run's halo evaluation logged at its best epoch;
+    the magnetic head under ``mode: halo`` raises NotImplementedError."""
+    import numpy as np
+    import yaml
+
+    from hamgnn_tpu_torch import cli
+    from hamgnn_tpu_torch.data.dataset import load_graph_npz, reference_split, save_graph_npz
+    from hamgnn_tpu_torch.train.config import load_config
+
+    src = WORK / "cli_auto" / "graph_data.npz"
+    graphs = load_graph_npz(str(src))
+    _, val_idx, _ = reference_split(len(graphs), 1 / 3, 1 / 3, 1 / 3)
+    val_dir = PAR_WORK / "cli_val"
+    val_dir.mkdir(parents=True, exist_ok=True)
+    save_graph_npz(str(val_dir / "graph_data.npz"), [graphs[i] for i in val_idx])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT),
+                                                         os.environ.get("PYTHONPATH", "")]))
+    env.pop("HAMGNN_TP_ENGINE", None)
+    out = {}
+    for mode in ("halo", "dp"):
+        cfg = json.loads(json.dumps(BENCH_CFG))
+        cfg["setup"] = {"stage": "fit", "parallel": {"mode": mode}}
+        cfg["dataset_params"] = {"graph_data_path": str(src.parent), "batch_size": 1,
+                                 "train_ratio": 1 / 3, "val_ratio": 1 / 3, "test_ratio": 1 / 3}
+        cfg["optim_params"] = {"lr": 1e-3, "min_epochs": 0, "max_epochs": 2}
+        cfg["profiler_params"] = {"train_dir": str(PAR_WORK / f"cli_{mode}")}
+        path = PAR_WORK / f"cli_{mode}.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                            "--nproc_per_node", "1", "-m", "hamgnn_tpu_torch.cli",
+                            "--config", str(path)], cwd=str(ROOT), env=env,
+                           capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"torchrun mode {mode}: exit {r.returncode}\n{r.stdout[-2000:]}\n"
+                 f"{r.stderr[-3000:]}")
+        train_dir = PAR_WORK / f"cli_{mode}"
+        records = [json.loads(line) for line in open(train_dir / "metrics.jsonl")]
+        if [x["epoch"] for x in records] != [0, 1] or not all(
+                math.isfinite(x["train_loss"]) and math.isfinite(x["val_loss"])
+                for x in records):
+            fail(f"torchrun mode {mode}: metrics.jsonl {records}")
+        for fname in ("best.pt", "prediction_hamiltonian.npy", "config_resolved.yaml"):
+            if not (train_dir / fname).exists():
+                fail(f"torchrun mode {mode} wrote no {fname}")
+        best = min(records, key=lambda x: x["val_loss"])
+        test = json.loads(json.dumps(BENCH_CFG))
+        test["setup"] = {"stage": "test", "checkpoint_path": str(train_dir / "best.pt")}
+        test["dataset_params"] = {"graph_data_path": str(val_dir), "batch_size": 1}
+        test["profiler_params"] = {"train_dir": str(PAR_WORK / f"cli_{mode}_test")}
+        logs = cli.train_and_evaluate(load_config(None, overrides=test), device=dev)
+        got, want = logs["mae_hamiltonian"], best["val/mae_hamiltonian"]
+        if not abs(got - want) <= 1e-5 * abs(want):
+            fail(f"mode {mode}: best.pt tested under mode none gives MAE {got!r}, the halo "
+                 f"evaluation logged {want!r}")
+        out[mode] = dict(wall_s=wall, records=records, test_mae=got, logged_mae=want)
+        print(f"[parallel] (d) torchrun mode {mode}: 2 epochs in {wall:.1f} s (process "
+              f"start included), val_loss {[round(x['val_loss'], 6) for x in records]}; "
+              f"best.pt under mode none on the validation crystal: MAE {got!r} vs logged "
+              f"{want!r}; card {card}", flush=True)
+
+    # the magnetic head has no GraphView forward: the reference's error
+    mag_cfg, _ = mag_config("collinear")
+    mag_dir = PAR_WORK / "cli_magnetic"
+    mag_dir.mkdir(parents=True, exist_ok=True)
+    save_graph_npz(str(mag_dir / "graph_data.npz"), mag_crystals(
+        np.random.default_rng(3), "collinear", 3, 4, 6.0, SOC_CUTOFF))
+    mag_cfg.update(setup={"stage": "fit", "parallel": {"mode": "halo"}},
+                   dataset_params={"graph_data_path": str(mag_dir), "batch_size": 1,
+                                   "train_ratio": 1 / 3, "val_ratio": 1 / 3, "test_ratio": 1 / 3},
+                   optim_params={"min_epochs": 0, "max_epochs": 1},
+                   profiler_params={"train_dir": str(mag_dir / "out")})
+    try:
+        cli.train_and_evaluate(load_config(None, overrides=mag_cfg), device=dev)
+    except NotImplementedError as exc:
+        out["magnetic"] = str(exc)
+    else:
+        fail("mode halo with the magnetic head did not raise NotImplementedError")
+    print(f"[parallel] (d) mode halo with the magnetic head: NotImplementedError "
+          f"({out['magnetic']})", flush=True)
+    return out
+
+
+def phase_parallel(tp_kernel, dev, card):
+    """Phase 14 (see the module docstring)."""
+    import torch.distributed as dist
+
+    from hamgnn_tpu_torch.parallel.multihost import free_port, maybe_initialize_distributed
+
+    PAR_WORK.mkdir(parents=True, exist_ok=True)
+    maybe_initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0, device=dev)
+    if dist.get_backend() != "nccl":
+        fail(f"the world-1 group runs {dist.get_backend()}, not nccl")
+    seconds, out = {}, {}
+    try:
+        for name, fn, *args in (
+                ("world1_auto", _par_world1, tp_kernel, dev, card, "auto"),
+                ("world1_zonal", _par_world1, tp_kernel, dev, card, "zonal"),
+                ("two_ranks", _par_two_ranks, card),
+                ("soc", _par_soc, tp_kernel, dev, card),
+                ("band", _par_band, tp_kernel, dev, card),
+                ("cli", _par_cli, dev, card)):
+            if name == "two_ranks":
+                args.append(out["world1_auto"].pop("ref"))
+            t0 = time.perf_counter()
+            out[name] = fn(*args)
+            seconds[name] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    out["world1_zonal"].pop("ref", None)
+    return dict(out, seconds=seconds)
+
+
 def rep_launches(representation, eng, name, tp_kernel) -> int:
     """A kernel's launches in one replay of the Transformer step under its
     engine (the profiler's count of each of its device kernels)."""
@@ -3679,13 +4145,14 @@ def main():
     representation = timed("representation", phase_representation, tp_kernel, dev, card)
     datagen = timed("datagen", phase_datagen, tp_kernel)
     uni = timed("uni", phase_uni, tp_kernel, dev, card)
+    parallel = timed("parallel", phase_parallel, tp_kernel, dev, card)
 
     report = {"card": card, "kernel_rows": rows, "wide": wide, "zonal_engine": zonal_engine,
               "model": model, "train": train, "captured": captured, "fit": fit,
               "probes": probes,
               "band": band, "band_fit": band_fit, "soc": soc, "magnetic": magnetic,
               "lmdb": lmdb, "representation": representation, "datagen": datagen,
-              "uni": uni, "seconds": seconds}
+              "uni": uni, "parallel": parallel, "seconds": seconds}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -3723,6 +4190,8 @@ def main():
                 # per two-stage Uni-HamGNN prediction (sk + sk_soc models, no backward)
                 "uni_launches_per_prediction": (
                     uni["native"]["launches"][eng][name] // uni["native"]["crystals"]),
+                # one eager halo step (world 1, n_graph 1) at the bench width
+                "halo_launches_per_step": parallel[f"world1_{eng}"]["halo"]["launches"][name],
             })
             if eng == "auto":  # the step of the fit on the data the port made
                 kernels[-1]["sk_datagen_launches_per_step"] = {
@@ -3752,6 +4221,19 @@ def main():
                    "bands_vs_scipy_ha": uni["bands"]["max_abs_err"]},
         "peak_mb": {"predictor": uni["native"]["peak_mb"],
                     "compat_forward": uni["compat"]["peak_mb"]},
+        "card": card}}))
+    two = parallel["two_ranks"]
+    print(json.dumps({"parallel": {
+        "world1": {eng: {kind: {k: parallel[f"world1_{eng}"][kind][k] for k in
+                                ("wall_ms", "device_ms", "peak_gb", "grad_rel_err")}
+                         for kind in ("halo", "dp")} for eng in ENGINES},
+        "plan_s1": parallel["world1_auto"]["plan"],
+        "two_ranks": ({k: two[k] for k in ("grad_rel_err", "plan", "wall_ms_shared_card")}
+                      if two["ran"] else {"left_out": two["gloo_cuda"]}),
+        "soc_worst_grad": parallel["soc"]["worst_grad_rel_err"],
+        "band_grad": parallel["band"]["grad_rel_err"],
+        "cli_mae": {m: [parallel["cli"][m]["test_mae"], parallel["cli"][m]["logged_mae"]]
+                    for m in ("halo", "dp")},
         "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,12 @@ representation keys say), then
   ``setup.checkpoint_path`` when ``setup.load_from_checkpoint`` is set (the
   learning rate restarts at ``optim_params.lr`` unless ``setup.resume``),
   then a final test pass;
+* ``setup.parallel.mode: dp`` or ``halo`` (``n_data``, ``n_graph``,
+  ``edge_quantum``, as the JAX CLI reads them): the same stages through
+  ``parallel.halo_trainer.HaloTrainer`` over ``torch.distributed``, one
+  process per card (``torchrun --nproc_per_node <cards> -m
+  hamgnn_tpu_torch.cli --config ...``; without a launcher, one process);
+  rank 0 alone writes files;
 * ``setup.stage: test``: load weights from ``setup.checkpoint_path`` (a
   trainer checkpoint, the port's ``torch.save`` state dict, an ``.npz`` of
   the flattened flax tree, or an orbax directory of the JAX trainer) and run
@@ -315,25 +321,47 @@ def train_and_evaluate(config, device=None) -> dict:
         raise ValueError(f"setup.stage must be 'fit' or 'test', not {stage!r}")
     par = config.setup.get("parallel", None)
     mode = str(par.get("mode", "none") if par is not None else "none").lower()
-    if mode != "none":
-        raise NotImplementedError(
-            f"setup.parallel.mode {mode!r}: the port's training slice runs on "
-            "one device; data parallel and the halo partition come later")
-    dev = resolve_device(device)
+    if mode not in ("none", "dp", "halo"):
+        raise ValueError(f"setup.parallel.mode must be none, dp or halo, not {mode!r}")
+    if mode == "none":
+        return _train_and_evaluate(config, mode, resolve_device(device))
+    import torch.distributed as dist
+
+    from .parallel.multihost import ensure_process_group, local_device
+
+    dev = local_device(device)
+    created = ensure_process_group(dev)
+    try:
+        return _train_and_evaluate(config, mode, dev)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _train_and_evaluate(config, mode, dev) -> dict:
+    from .parallel.multihost import is_primary
+
+    stage = config.setup.stage
+    primary = is_primary()
     audit_config(config)
     model = build_model(config)
     data = prepare_dataset(config, dev)
-    _dump_resolved_config(config)
+    if primary:
+        _dump_resolved_config(config)
     init_weights(model, 666)
     opt = config.optim_params
-    trainer = Trainer(
-        model,
+    trainer_kwargs = dict(
         losses=[config_to_dict(l) for l in config.losses_metrics.losses],
         metrics=[config_to_dict(m) for m in config.losses_metrics.metrics],
         lr=opt.lr, lr_decay=opt.lr_decay, lr_patience=opt.lr_patience,
         gradient_clip_val=opt.gradient_clip_val, stop_patience=opt.stop_patience,
         min_epochs=opt.min_epochs, max_epochs=opt.max_epochs,
         train_dir=config.profiler_params.train_dir, device=dev)
+    if mode == "none":
+        trainer = Trainer(model, **trainer_kwargs)
+    else:
+        trainer, data = _parallel_trainer(config.setup.parallel, mode, model, data,
+                                          trainer_kwargs)
     ckpt = resolve_checkpoint(config.setup.checkpoint_path)
     if stage == "test":
         if ckpt and os.path.exists(ckpt):
@@ -347,9 +375,39 @@ def train_and_evaluate(config, device=None) -> dict:
     if stage == "fit":
         trainer.fit(data)
     _, logs, preds_all = trainer.eval_epoch(data.test_batches(), collect=True)
-    _save_predictions(config, preds_all)
-    print("test metrics:", logs)
+    if primary:
+        _save_predictions(config, preds_all)
+        print("test metrics:", logs)
     return logs
+
+
+def _parallel_trainer(par, mode, model, data, trainer_kwargs):
+    """The ``dp`` / ``halo`` trainer and its data adapter, with the JAX CLI's
+    defaults: the world size in place of the device count, and with a band
+    head one crystal a step on all the ranks."""
+    import torch.distributed as dist
+
+    from .parallel.halo_trainer import HaloDataAdapter, HaloTrainer
+
+    n_dev = dist.get_world_size()
+    n_graph = int(par.get("n_graph", 0) or 0)
+    n_data = int(par.get("n_data", 0) or 0)
+    if mode == "dp":
+        n_graph = n_graph or 1
+        n_data = n_data or max(1, n_dev // n_graph)
+    else:
+        n_graph = n_graph or max(1, n_dev // max(n_data, 1))
+        n_data = n_data or max(1, n_dev // n_graph)
+    edge_q = int(par.get("edge_quantum", 64) or 64)
+    if getattr(model.output, "calculate_band_energy", False) and n_data != 1:
+        # band losses solve the whole crystal on gathered rows: one crystal a step
+        n_graph = max(n_graph * n_data, n_graph)
+        n_data = 1
+    trainer = HaloTrainer(model, n_data=n_data, n_graph=n_graph, edge_quantum=edge_q,
+                          **trainer_kwargs)
+    adapter = HaloDataAdapter(data, n_data=n_data, n_graph=n_graph, edge_quantum=edge_q,
+                              band_mode=trainer._band_mode)
+    return trainer, adapter
 
 
 def _save_predictions(config, preds_all) -> None:

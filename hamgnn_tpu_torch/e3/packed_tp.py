@@ -193,15 +193,15 @@ class PackedTPPlan:
             return plain_apply(self, x, sh, weight, flat_w)
         raise ValueError(f"HAMGNN_TP_ENGINE={eng!r}: expected one of {TP_ENGINES}")
 
-    def _tables(self, device):
-        """Coupling matrices and row permutations as tensors on ``device``
-        (made outside inference mode: the cache also serves autograd)."""
-        key = str(device)
+    def _tables(self, device, dtype=torch.float32):
+        """Coupling matrices (in ``dtype``) and row permutations as tensors on
+        ``device`` (made outside inference mode: the cache also serves
+        autograd)."""
+        key = (str(device), dtype)
         if key not in self._device_tables:
             with torch.inference_mode(False):
                 coup = [None if C.shape[-1] == 0 else torch.as_tensor(
-                            C.reshape(C.shape[0], -1), dtype=torch.float32,
-                            device=device)
+                            C.reshape(C.shape[0], -1), dtype=dtype, device=device)
                         for (_sl, _mul, _d1, C, _groups) in self.per_chunk]
                 perms = [[torch.as_tensor(rp, dtype=torch.long, device=device)
                           for (_g, _gi, rp) in srcs] for srcs in self.out_sources]
@@ -213,10 +213,10 @@ def plain_apply(plan: PackedTPPlan, x, sh, weight, flat_w):
     """Plain PyTorch version of the pipeline (``PackedTPPlan._apply``).
 
     x (E, d_in), sh (E, S), weight (E, n_ch) in packed order or None,
-    flat_w (linear_numel,) -> (E, d_out), all float32.
+    flat_w (linear_numel,) -> (E, d_out), all float32 (or all float64).
     """
     E = x.shape[0]
-    coup, perms = plan._tables(x.device)
+    coup, perms = plan._tables(x.device, x.dtype)
     mids = []
     for g, (sl, mul, d1, C, groups) in enumerate(plan.per_chunk):
         K = C.shape[-1]

@@ -10,6 +10,7 @@ from torch import nn
 
 from ..data.graph import Graph
 from ..train.losses import get_metric
+from .view import GraphView
 
 
 class HamGNNModel(nn.Module):
@@ -20,11 +21,23 @@ class HamGNNModel(nn.Module):
 
     def forward(self, graph: Graph, k_vecs=None) -> Dict[str, torch.Tensor]:
         """``k_vecs`` (B, nk, 3) Cartesian: the k-points of the band branch,
-        for a head built with ``calculate_band_energy``."""
-        feats = self.representation(graph)
-        if k_vecs is None:
-            return self.output(graph, feats)
-        return self.output(graph, feats, k_vecs=k_vecs)
+        for a head built with ``calculate_band_energy``.  Modules that speak
+        GraphView run on one dense view of ``graph``."""
+        kw = {} if k_vecs is None else {"k_vecs": k_vecs}
+        if hasattr(self.representation, "forward_view") \
+                and hasattr(self.output, "forward_view"):
+            return self.forward_view(GraphView.dense(graph), **kw)
+        return self.output(graph, self.representation(graph), **kw)
+
+    def forward_view(self, view: GraphView, k_vecs=None) -> Dict[str, torch.Tensor]:
+        """The forward over a GraphView: the halo edge partition calls it with
+        its collectives injected, with the same parameters and arithmetic as
+        ``forward``.  The magnetic head has none, and raises."""
+        if not hasattr(self.output, "forward_view"):
+            raise NotImplementedError(
+                f"{type(self.output).__name__} has no GraphView forward")
+        feats = self.representation.forward_view(view)
+        return self.output.forward_view(view, feats, k_vecs=k_vecs)
 
 
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
@@ -48,8 +61,9 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
-def _stack_pred_target(name: str, preds: Dict, graph: Graph):
-    """Map a loss name to (pred rows, target rows, row mask)."""
+def _stack_pred_target(name: str, preds: Dict, graph):
+    """Map a loss name to (pred rows, target rows, row mask); ``graph`` is a
+    Graph or a GraphView (both carry the target and mask fields)."""
     nm = name.lower()
     if nm in ("hamiltonian", "overlap", "hamiltonian_real", "hamiltonian_imag"):
         # the SOC head's spinor rows: real against Hon/Hoff, imag against iHon/iHoff
@@ -94,10 +108,13 @@ def _stack_pred_target(name: str, preds: Dict, graph: Graph):
     raise KeyError(f"unknown loss target {name} (available predictions: {sorted(preds)})")
 
 
-def compute_losses(preds: Dict[str, torch.Tensor], graph: Graph,
-                   losses: Sequence[Dict[str, Any]]) -> Tuple[torch.Tensor, Dict]:
+def compute_losses(preds: Dict[str, torch.Tensor], graph,
+                   losses: Sequence[Dict[str, Any]], psum=None) -> Tuple[torch.Tensor, Dict]:
     """Weighted total loss + per-component logs; Hamiltonian components are
-    scaled by the sparsity ratio, as in the reference."""
+    scaled by the sparsity ratio, as in the reference.  ``graph``: a Graph or
+    a GraphView; under the partition pass ``psum=view.psum``, so the masked
+    means are global."""
+    kw = {} if psum is None else {"psum": psum}
     total = torch.zeros((), dtype=torch.float32, device=graph.z.device)
     logs = {}
     for spec in losses:
@@ -109,7 +126,7 @@ def compute_losses(preds: Dict[str, torch.Tensor], graph: Graph,
             pred = preds[pname].reshape(preds[pname].shape[0], -1)
             target = torch.zeros_like(pred)
             mask = torch.ones((pred.shape[0], 1), dtype=torch.float32, device=pred.device)
-        value = fn(pred, target, mask)
+        value = fn(pred, target, mask, **kw)
         if pname in ("hamiltonian", "hamiltonian_real", "hamiltonian_imag") \
                 and "sparsity_ratio" in preds:
             value = value * preds["sparsity_ratio"]
@@ -118,13 +135,14 @@ def compute_losses(preds: Dict[str, torch.Tensor], graph: Graph,
     return total, logs
 
 
-def compute_metrics(preds, graph, metrics: Sequence[Dict[str, Any]]):
+def compute_metrics(preds, graph, metrics: Sequence[Dict[str, Any]], psum=None):
+    kw = {} if psum is None else {"psum": psum}
     out = {}
     for spec in metrics:
         fn = get_metric(spec["metric"])
         pname = spec["prediction"].lower()
         pred, target, mask = _stack_pred_target(pname, preds, graph)
-        value = fn(pred, target, mask)
+        value = fn(pred, target, mask, **kw)
         if pname.startswith("hamiltonian") and "sparsity_ratio" in preds:
             value = value * preds["sparsity_ratio"]
         out[f"{spec['metric']}_{pname}"] = value

@@ -7,6 +7,11 @@ edge (the transposed merge matrix ``M_T`` gives the Hermitian mates straight
 from the head matmul), orbital masks, H0 and the zero-point shift; with
 ``calculate_band_energy`` and k-points, the band branch
 (``physics/band.py``) on the predicted and on the reference Hamiltonian.
+The head is written against a ``GraphView``: under the halo partition the
+inverse-edge rows come through ``view.inv_exchange``, the zero-point shift
+and the sparsity ratio sum through ``view.psum``, and the band branch runs
+when the view carries the whole crystal (``view.graph``), on the rows
+``view.gather_nodes_global`` / ``gather_edges_global`` reassemble.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from ..e3.linear import Linear
 from ..e3.wigner import wigner_3j
 from ..nn.blocks import ResidualBlock
 from .basis import get_basis_set, hamiltonian_irreps
+from .view import as_view
 
 
 @functools.lru_cache(maxsize=None)
@@ -144,9 +150,11 @@ class HamGNNPlusPlusOut(nn.Module):
 
     def forward(self, graph: Graph, representation: Dict[str, torch.Tensor],
                 k_vecs: Optional[torch.Tensor] = None):
+        return self.forward_view(as_view(graph), representation, k_vecs=k_vecs)
+
+    def forward_view(self, view, representation: Dict[str, torch.Tensor],
+                     k_vecs: Optional[torch.Tensor] = None):
         nao = self.nao
-        src, dst = graph.edge_index[0], graph.edge_index[1]
-        inv = graph.inv_edge_idx
         node_attr = representation["node_attr"]
         edge_attr = representation["edge_attr"]
         dtype = node_attr.dtype
@@ -157,15 +165,15 @@ class HamGNNPlusPlusOut(nn.Module):
 
         def off(head):
             h, hT = self._blocks(head, edge_attr)
-            return 0.5 * (h + hT[inv]) if self.symmetrize else h
+            return 0.5 * (h + view.inv_exchange(hT)) if self.symmetrize else h
 
         tab = self.mask_table.to(dtype)
-        node_orb = tab[graph.z]
+        node_orb = tab[view.z]
         on_mask = (node_orb[:, :, None] * node_orb[:, None, :]).reshape(-1, nao * nao)
-        off_mask = (tab[graph.z[src]][:, :, None]
-                    * tab[graph.z[dst]][:, None, :]).reshape(-1, nao * nao)
-        on_mask = on_mask * graph.node_mask[:, None].to(dtype)
-        off_mask = off_mask * graph.edge_mask[:, None].to(dtype)
+        off_mask = (tab[view.z_src][:, :, None]
+                    * tab[view.z_dst][:, None, :]).reshape(-1, nao * nao)
+        on_mask = on_mask * view.node_mask[:, None].to(dtype)
+        off_mask = off_mask * view.edge_mask[:, None].to(dtype)
 
         result: Dict[str, torch.Tensor] = {}
         if not self.ham_only:
@@ -173,21 +181,22 @@ class HamGNNPlusPlusOut(nn.Module):
             result["overlap_off"] = off("offsite_overlap") * off_mask
 
         h_on = on("onsite_hamiltonian")
-        if self.add_H0 and graph.Hon0 is not None:
-            h_on = h_on + graph.Hon0
+        if self.add_H0 and view.Hon0 is not None:
+            h_on = h_on + view.Hon0
         h_off = off("offsite_hamiltonian")
-        if self.add_H0 and graph.Hoff0 is not None:
-            h_off = h_off + graph.Hoff0
+        if self.add_H0 and view.Hoff0 is not None:
+            h_off = h_off + view.Hoff0
         h_on = h_on * on_mask
         h_off = h_off * off_mask
 
-        if self.zero_point_shift and graph.Son is not None and graph.Hon is not None:
+        if self.zero_point_shift and view.Son is not None and view.Hon is not None:
             thresh = 1e-6
-            s_on, s_off = graph.Son, graph.Soff
+            s_on, s_off = view.Son, view.Soff
             w_on = (s_on > thresh).to(dtype) * on_mask
             w_off = (s_off > thresh).to(dtype) * off_mask
-            num = torch.sum(w_on * (h_on - graph.Hon)) + torch.sum(w_off * (h_off - graph.Hoff))
-            den = torch.sum(w_on * s_on) + torch.sum(w_off * s_off)
+            num = view.psum(torch.sum(w_on * (h_on - view.Hon))
+                            + torch.sum(w_off * (h_off - view.Hoff)))
+            den = view.psum(torch.sum(w_on * s_on) + torch.sum(w_off * s_off))
             shift = num / torch.clamp(den, min=1e-12)
             h_on = h_on - shift * s_on * on_mask
             h_off = h_off - shift * s_off * off_mask
@@ -198,23 +207,25 @@ class HamGNNPlusPlusOut(nn.Module):
             result["mask_on"] = on_mask
             result["mask_off"] = off_mask
 
-        node_mask = graph.node_mask.to(torch.float32)
-        edge_mask = graph.edge_mask.to(torch.float32)
-        n_i = self.n_orb[graph.z] * node_mask
-        eff = torch.sum(n_i * n_i) + torch.sum(
-            self.n_orb[graph.z[src]] * self.n_orb[graph.z[dst]] * edge_mask)
-        total = (torch.sum(node_mask) + torch.sum(edge_mask)) * float(nao * nao)
+        node_mask = view.node_mask.to(torch.float32)
+        edge_mask = view.edge_mask.to(torch.float32)
+        n_i = self.n_orb[view.z] * node_mask
+        eff = view.psum(torch.sum(n_i * n_i) + torch.sum(
+            self.n_orb[view.z_src] * self.n_orb[view.z_dst] * edge_mask))
+        total = view.psum(torch.sum(node_mask) + torch.sum(edge_mask)) * float(nao * nao)
         result["sparsity_ratio"] = total / torch.clamp(eff, min=1.0)
 
-        if self.calculate_band_energy and k_vecs is not None:
-            self._band_branch(graph, k_vecs, result)
+        if self.calculate_band_energy and k_vecs is not None and view.graph is not None:
+            self._band_branch(view, k_vecs, result)
         return result
 
-    def _band_branch(self, graph: Graph, k_vecs: torch.Tensor, result: Dict) -> None:
+    def _band_branch(self, view, k_vecs: torch.Tensor, result: Dict) -> None:
         """Bands of the predicted Hamiltonian, and of the graph's reference
-        Hamiltonian (no gradient), against the reference overlap."""
+        Hamiltonian (no gradient), against the reference overlap, on the
+        whole crystal's rows (``view.gather_*_global``)."""
         from ..physics.band import band_counts_per_crystal, band_energies_batched
 
+        graph = view.graph
         band_counts = None
         if self.band_species_counts is not None:
             band_counts = band_counts_per_crystal(graph, self.band_species_counts)
@@ -222,12 +233,13 @@ class HamGNNPlusPlusOut(nn.Module):
         # PREDICTED overlap while the solve factorizes the reference S
         sk_pred = {}
         if self.export_reciprocal_values and not self.ham_only:
-            sk_pred = {"sk_export_on": result["overlap_on"],
-                       "sk_export_off": result["overlap_off"]}
+            sk_pred = {"sk_export_on": view.gather_nodes_global(result["overlap_on"]),
+                       "sk_export_off": view.gather_edges_global(result["overlap_off"])}
         # H_sym (the Cholesky-transformed H) goes out on the non-reciprocal path
         want_H_sym = not self.export_reciprocal_values
         band, wfn, gap, *extras = band_energies_batched(
-            graph, result["hamiltonian_on"], result["hamiltonian_off"],
+            graph, view.gather_nodes_global(result["hamiltonian_on"]),
+            view.gather_edges_global(result["hamiltonian_off"]),
             graph.Son, graph.Soff, k_vecs, self.basis,
             num_bands=self.band_num_control,
             export_reciprocal=self.export_reciprocal_values,

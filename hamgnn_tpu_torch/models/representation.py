@@ -1,16 +1,22 @@
 """The representation networks, counterpart of
-``hamgnn_tpu/models/representation.py`` (dense single-device view).
+``hamgnn_tpu/models/representation.py``.
 
 ``HamGNNConvE3``: one-hot / charge-doped embedding -> edge SH -> RBF x
 cutoff -> pair-interaction edge embedding -> chemical embedding ->
 num_layers x (ConvBlockE3 [-> CorrProductBlock] -> PairInteractionBlock).
 ``HamGNNTransformer``: the same front end, then num_layers x
-(AttentionBlockE3 -> CorrProductBlock -> PairInteractionBlock).  Padded edges
-get edge length 1 so no 0-length vector reaches the radial basis.
+(AttentionBlockE3 -> CorrProductBlock -> PairInteractionBlock).  Both are
+written once, against a ``GraphView`` (``models/view.py``): ``forward(graph)``
+is ``forward_view(as_view(graph))``, and the halo edge partition calls
+``forward_view`` with its collectives injected.  Under the partition each
+ConvE3 layer runs an interior pass on owned source rows and a boundary pass on
+the rows received from the peers (``nn/blocks.py``).  Padded edges get edge
+length 1 so no 0-length vector reaches the radial basis.
 ``use_gradient_checkpointing`` (ConvE3 only, as in JAX) recomputes each
 layer's ``ConvBlockE3.gathered_call``, ``CorrProductBlock``,
 ``PairInteractionBlock.lift`` and ``PairInteractionBlock.gathered_call`` in
-the backward (the calls the JAX model wraps in ``flax.linen.remat``).
+the backward (the calls the JAX model wraps in ``flax.linen.remat``); the
+exchanges run outside them, so the recompute issues no collective.
 ``ElectronConfigurationEmbedding`` lies on no model path; it is ported as a
 public module.
 """
@@ -34,6 +40,7 @@ from ..nn.blocks import (ConvBlockE3, CorrProductBlock, PairInteractionBlock,
 from ..nn.electron_configurations import electron_configurations
 from ..nn.mlp import FullyConnectedNet
 from ..nn.radial import RBF_REGISTRY, cosine_cutoff, polynomial_envelope
+from .view import as_view
 
 
 class ChargeDopedOneHot(nn.Module):
@@ -49,9 +56,9 @@ class ChargeDopedOneHot(nn.Module):
             n = num_charge_attr_feas
             self.FullyConnectedNet_0 = FullyConnectedNet((n, n, n, num_types), "silu")
 
-    def forward(self, z, doping_charge_per_node=None):
+    def forward(self, z, doping_charge_per_node=None, dtype=torch.float32):
         types = torch.arange(self.num_types, device=z.device)
-        one_hot = (z[:, None] == types).to(torch.float32)
+        one_hot = (z[:, None] == types).to(dtype)
         if not self.apply_charge_doping:
             return one_hot
         cmin, cmax = -8.0, 8.0
@@ -93,20 +100,21 @@ def _front_end(net: nn.Module, num_types, irreps_edge_sh, irreps_node_features,
     net.chemical_embedding = Linear(irreps_onehot, net.irreps_feat)
 
 
-def _embed(net: nn.Module, graph: Graph):
+def _embed(net: nn.Module, view):
     """(node_attrs, edge_len, edge_sh, edge_scalars, edge_feats, node_feats)
-    of ``graph`` through the front end ``_front_end`` built on ``net``."""
-    src, dst = graph.edge_index[0], graph.edge_index[1]
-    doping = None
-    if net.atomic_embedding.apply_charge_doping:
-        doping = graph.doping_charge[graph.batch]
-    node_attrs = net.atomic_embedding(graph.z, doping)
-    onehot_src = net.atomic_embedding(graph.z[src], None if doping is None else doping[src])
-    onehot_dst = net.atomic_embedding(graph.z[dst], None if doping is None else doping[dst])
+    of a GraphView through the front end ``_front_end`` built on ``net``.
+    The embedding is a function of (z, doping) per atom, so the edge
+    endpoints' rows need no exchange."""
+    dtype = net.chemical_embedding.w.dtype
+    emb = net.atomic_embedding
+    doping = emb.apply_charge_doping
+    node_attrs = emb(view.z, view.doping_own if doping else None, dtype)
+    onehot_src = emb(view.z_src, view.doping_src if doping else None, dtype)
+    onehot_dst = emb(view.z_dst, view.doping_dst if doping else None, dtype)
 
-    edge_vec = graph.edge_vectors()
+    edge_vec = view.edge_vec
     edge_len = torch.sqrt(torch.sum(edge_vec * edge_vec, dim=-1))
-    edge_len = torch.where(graph.edge_mask, edge_len, torch.ones_like(edge_len))
+    edge_len = torch.where(view.edge_mask, edge_len, torch.ones_like(edge_len))
     edge_sh = spherical_harmonics(net.sh_ls, edge_vec, normalize=True)
     rbf = getattr(net, net.rbf_name)(edge_len)
     cut = (polynomial_envelope(edge_len, net.cutoff)
@@ -154,11 +162,13 @@ class HamGNNConvE3(nn.Module):
                 use_kan=use_kan, lite_mode=lite_mode,
                 legacy_edge_update=legacy_edge_update))
 
-    @FRAME_MEMO.one_forward()  # every pipeline below runs on this call's one edge_sh
     def forward(self, graph: Graph):
-        src, dst = graph.edge_index[0], graph.edge_index[1]
+        return self.forward_view(as_view(graph))
+
+    @FRAME_MEMO.one_forward()  # the pipelines below run on this call's edge_sh
+    def forward_view(self, view):
         node_attrs, edge_len, edge_sh, edge_scalars, edge_feats, node_feats = \
-            _embed(self, graph)
+            _embed(self, view)
         remat = self.use_gradient_checkpointing and torch.is_grad_enabled()
 
         def call(fn, *args):
@@ -167,17 +177,39 @@ class HamGNNConvE3(nn.Module):
             return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False) \
                 if remat else fn(*args)
 
+        overlap = view.boundary_pos is not None
+        if overlap:
+            # the overlap split: the interior pass reads owned source rows,
+            # the boundary pass the rows the exchange received
+            b_pos, b_mask, halo_pos = view.boundary_pos, view.boundary_mask, view.src_halo_pos
+            sh_b, scal_b, dst_b = edge_sh[b_pos], edge_scalars[b_pos], view.dst_index[b_pos]
         for i in range(self.num_layers):
             conv = getattr(self, f"conv_{i}")
             pair = getattr(self, f"pair_{i}")
-            node_feats = call(conv.gathered_call,
-                              node_feats, node_feats[src], node_feats[dst], edge_feats,
-                              edge_sh, edge_scalars, dst, graph.edge_mask)
+            dst_rows = view.gather_dst(node_feats)
+            if overlap:
+                boundary = (view.halo_rows(node_feats)[halo_pos], dst_rows[b_pos],
+                            edge_feats[b_pos], sh_b, scal_b, dst_b, b_mask)
+                node_feats = call(conv.gathered_call, node_feats,
+                                  view.gather_src_interior(node_feats), dst_rows,
+                                  edge_feats, edge_sh, edge_scalars, view.dst_index,
+                                  view.interior_mask, boundary)
+            else:
+                node_feats = call(conv.gathered_call, node_feats,
+                                  view.gather_src(node_feats), dst_rows, edge_feats,
+                                  edge_sh, edge_scalars, view.dst_index, view.edge_mask)
             if self.use_corr_prod:
                 node_feats = call(getattr(self, f"corr_{i}"), node_feats, node_attrs)
             up_src, up_dst = call(pair.lift, node_feats)
-            edge_feats = call(pair.gathered_call, up_src[src], up_dst[dst], edge_feats,
-                              edge_sh, edge_scalars)
+            up_dst_rows = view.gather_dst(up_dst)
+            if overlap:
+                boundary = (view.halo_rows(up_src)[halo_pos], up_dst_rows[b_pos],
+                            edge_feats[b_pos], sh_b, scal_b, b_pos, b_mask)
+                edge_feats = call(pair.gathered_call, view.gather_src_interior(up_src),
+                                  up_dst_rows, edge_feats, edge_sh, edge_scalars, boundary)
+            else:
+                edge_feats = call(pair.gathered_call, view.gather_src(up_src), up_dst_rows,
+                                  edge_feats, edge_sh, edge_scalars)
         return {"node_attr": node_feats, "edge_attr": edge_feats}
 
 
@@ -212,20 +244,25 @@ class HamGNNTransformer(nn.Module):
                 self.irreps_feat, self.irreps_feat, self.irreps_sh, num_radial,
                 radial_mlp=radial_mlp, use_kan=use_kan))
 
-    @FRAME_MEMO.one_forward()  # every pipeline below runs on this call's one edge_sh
     def forward(self, graph: Graph):
-        src, dst = graph.edge_index[0], graph.edge_index[1]
+        return self.forward_view(as_view(graph))
+
+    @FRAME_MEMO.one_forward()  # every pipeline below runs on this call's one edge_sh
+    def forward_view(self, view):
+        """The attention softmax and aggregation segment over the view's
+        local destination index, which the destination-owned partition keeps
+        on one rank."""
         node_attrs, edge_len, edge_sh, edge_scalars, edge_feats, node_feats = \
-            _embed(self, graph)
+            _embed(self, view)
         for i in range(self.num_layers):
             node_feats = getattr(self, f"orb_transformer_{i}").gathered_call(
-                node_feats, lambda rows: rows[src], lambda rows: rows[dst], edge_feats,
-                edge_sh, edge_scalars, edge_len, dst, graph.edge_mask)
+                node_feats, view.gather_src, view.gather_dst, edge_feats,
+                edge_sh, edge_scalars, edge_len, view.dst_index, view.edge_mask)
             node_feats = getattr(self, f"corr_{i}")(node_feats, node_attrs)
             pair = getattr(self, f"pair_{i}")
             up_src, up_dst = pair.lift(node_feats)
-            edge_feats = pair.gathered_call(up_src[src], up_dst[dst], edge_feats, edge_sh,
-                                            edge_scalars)
+            edge_feats = pair.gathered_call(view.gather_src(up_src), view.gather_dst(up_dst),
+                                            edge_feats, edge_sh, edge_scalars)
         return {"node_attr": node_feats, "edge_attr": edge_feats}
 
 

@@ -15,7 +15,11 @@ its real and imaginary parts, (rows, (2 nao)^2) each, spin-major:
   per-orbital-block ksi couplings times the graph's angular-momentum
   matrices ``Lon`` / ``Loff`` in the spin-coupling entries.
 
-Hermitian symmetrisation goes through the inverse edge (``graph.inv_edge_idx``),
+The head is written against a ``GraphView``: Hermitian symmetrisation goes
+through the inverse edge (``view.inv_exchange``, an exchange under the halo
+partition), the zero-point shift and the sparsity ratio sum through
+``view.psum``, and the spinor bands run on the rows
+``view.gather_*_global`` reassemble when the view carries the whole crystal;
 then orbital masks, H0 (its spin-diagonal blocks zeroed with
 ``add_H_nonsoc``), the zero-point shift on the spin-diagonal real blocks, the
 sparsity ratio and, with ``calculate_band_energy`` and k-points, the spinor
@@ -40,6 +44,7 @@ from ..e3.irreps import Irreps
 from ..e3.wigner import wigner_3j
 from .basis import BasisSetInfo, get_basis_set, hamiltonian_irreps
 from .output import HamLayer, _merge_reorder_matrix
+from .view import as_view
 
 _SQRT2 = 1.4142135623730951
 
@@ -231,14 +236,10 @@ class HamGNNSOCOut(nn.Module):
         """Real and imaginary spinor blocks from the spatial part ``h_sp`` and
         ksi * L; ``mate(m)`` is the block whose transpose symmetrises ``m``
         (itself on site, its inverse edge's off site): the spin-coupling
-        parts are antisymmetrised."""
+        parts are antisymmetrised, the three of them through one ``mate``."""
         nao = self.nao
-
-        def anti(x):
-            m = x.reshape(-1, nao, nao)
-            return 0.5 * (m - mate(m).transpose(-1, -2))
-
-        kx, ky, kz = (anti(ksi * L[:, :, a]) for a in range(3))
+        m = (ksi[:, None, :] * L.transpose(1, 2)).reshape(-1, 3, nao, nao)
+        kx, ky, kz = (0.5 * (m - mate(m).transpose(-1, -2))).unbind(1)
         hr = torch.cat([torch.cat([h_sp, ky], 2), torch.cat([ky, h_sp], 2)], 1)
         hi = torch.cat([torch.cat([kz, kx], 2), torch.cat([-kx, -kz], 2)], 1)
         return hr, hi
@@ -248,24 +249,30 @@ class HamGNNSOCOut(nn.Module):
     def forward(self, graph: Graph, representation: Dict[str, torch.Tensor],
                 k_vecs: Optional[torch.Tensor] = None,
                 h_nonsoc: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        return self.forward_view(as_view(graph), representation, k_vecs=k_vecs,
+                                 h_nonsoc=h_nonsoc)
+
+    def forward_view(self, view, representation: Dict[str, torch.Tensor],
+                     k_vecs: Optional[torch.Tensor] = None,
+                     h_nonsoc: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         nao = self.nao
         n2 = (2 * nao) ** 2
-        src, dst = graph.edge_index[0], graph.edge_index[1]
-        inv = graph.inv_edge_idx
         node_attr = representation["node_attr"]
         edge_attr = representation["edge_attr"]
         dtype = node_attr.dtype
-        node_mask = graph.node_mask.to(dtype)
-        edge_mask = graph.edge_mask.to(dtype)
+        node_mask = view.node_mask.to(dtype)
+        edge_mask = view.edge_mask.to(dtype)
 
         tab = self.mask_table.to(dtype)
-        node_orb = tab[graph.z]
+        node_orb = tab[view.z]
         on_pair = node_orb[:, :, None] * node_orb[:, None, :] * node_mask[:, None, None]
-        off_pair = (tab[graph.z[src]][:, :, None] * tab[graph.z[dst]][:, None, :]
+        off_pair = (tab[view.z_src][:, :, None] * tab[view.z_dst][:, None, :]
                     * edge_mask[:, None, None])
         m_on, m_off = _spin_tile(on_pair), _spin_tile(off_pair)
-        on_mate = lambda m: m                   # noqa: E731
-        off_mate = lambda m: m[inv]             # noqa: E731
+
+        def off_mate(m):
+            """The inverse edges' (n, ..., a, b) blocks, one exchange."""
+            return view.inv_exchange(m.reshape(m.shape[0], -1)).reshape(m.shape)
 
         if self.soc_basis == "su2":
             h_on_r, h_on_i = self._su2(self.onsite_hamiltonian, node_attr)
@@ -274,8 +281,9 @@ class HamGNNSOCOut(nn.Module):
                 # 0.5 (h + h^H): the real part symmetric, the imaginary antisymmetric
                 h_on_r = 0.5 * (h_on_r + h_on_r.transpose(-1, -2))
                 h_on_i = 0.5 * (h_on_i - h_on_i.transpose(-1, -2))
-                h_off_r = 0.5 * (h_off_r + h_off_r[inv].transpose(-1, -2))
-                h_off_i = 0.5 * (h_off_i - h_off_i[inv].transpose(-1, -2))
+                inv_r, inv_i = off_mate(torch.stack([h_off_r, h_off_i], 1)).unbind(1)
+                h_off_r = 0.5 * (h_off_r + inv_r.transpose(-1, -2))
+                h_off_i = 0.5 * (h_off_i - inv_i.transpose(-1, -2))
             h_on_r, h_on_i = h_on_r * m_on, h_on_i * m_on
             h_off_r, h_off_i = h_off_r * m_off, h_off_i * m_off
         else:
@@ -289,7 +297,7 @@ class HamGNNSOCOut(nn.Module):
                 hs_off = self._spatial(self.offsite_hamiltonian, edge_attr)
                 if self.symmetrize:
                     hs_on = 0.5 * (hs_on + hs_on.transpose(-1, -2))
-                    hs_off = 0.5 * (hs_off + hs_off[inv].transpose(-1, -2))
+                    hs_off = 0.5 * (hs_off + off_mate(hs_off).transpose(-1, -2))
                 hs_on = hs_on * on_pair
                 hs_off = hs_off * off_pair
             ksi_on = _symmetrize_orbital_coefficients(self.onsite_ksi(node_attr),
@@ -297,15 +305,15 @@ class HamGNNSOCOut(nn.Module):
             ksi_off = _symmetrize_orbital_coefficients(self.offsite_ksi(edge_attr),
                                                        self.orbital_avg)
             h_on_r, h_on_i = self._assemble_so3(
-                hs_on, ksi_on, graph.Lon.reshape(-1, nao * nao, 3), on_mate)
+                hs_on, ksi_on, view.Lon.reshape(-1, nao * nao, 3), lambda m: m)
             h_off_r, h_off_i = self._assemble_so3(
-                hs_off, ksi_off, graph.Loff.reshape(-1, nao * nao, 3), off_mate)
+                hs_off, ksi_off, view.Loff.reshape(-1, nao * nao, 3), off_mate)
 
         h_on_r, h_on_i = h_on_r.reshape(-1, n2), h_on_i.reshape(-1, n2)
         h_off_r, h_off_i = h_off_r.reshape(-1, n2), h_off_i.reshape(-1, n2)
 
-        if self.add_H0 and graph.Hon0 is not None:
-            hon0, hoff0 = graph.Hon0, graph.Hoff0
+        if self.add_H0 and view.Hon0 is not None:
+            hon0, hoff0 = view.Hon0, view.Hoff0
             if self.add_H_nonsoc:
                 # the upstream prediction carries the spatial H0: keep only
                 # H0's spin-coupling blocks
@@ -314,9 +322,9 @@ class HamGNNSOCOut(nn.Module):
                 hoff0 = (hoff0.reshape(-1, 2, nao, 2, nao) * off_diag).reshape(-1, n2)
             h_on_r = h_on_r + hon0
             h_off_r = h_off_r + hoff0
-            if graph.iHon0 is not None:
-                h_on_i = h_on_i + graph.iHon0
-                h_off_i = h_off_i + graph.iHoff0
+            if view.iHon0 is not None:
+                h_on_i = h_on_i + view.iHon0
+                h_off_i = h_off_i + view.iHoff0
 
         result = {
             "hamiltonian_real_on": h_on_r,
@@ -327,27 +335,29 @@ class HamGNNSOCOut(nn.Module):
             "mask_off": m_off.reshape(-1, n2) * edge_mask[:, None],
         }
 
-        if self.zero_point_shift and graph.Son is not None and graph.Hon is not None:
-            self._zero_point_shift(graph, result, node_mask, edge_mask)
+        if self.zero_point_shift and view.Son is not None and view.Hon is not None:
+            self._zero_point_shift(view, result, node_mask, edge_mask)
 
-        n_i = self.n_orb[graph.z] * graph.node_mask.to(torch.float32)
-        eff = torch.sum(n_i * n_i) + torch.sum(
-            self.n_orb[graph.z[src]] * self.n_orb[graph.z[dst]]
-            * graph.edge_mask.to(torch.float32))
-        total = (graph.node_mask.sum() + graph.edge_mask.sum()).to(torch.float32) \
+        n_i = self.n_orb[view.z] * view.node_mask.to(torch.float32)
+        eff = view.psum(torch.sum(n_i * n_i) + torch.sum(
+            self.n_orb[view.z_src] * self.n_orb[view.z_dst]
+            * view.edge_mask.to(torch.float32)))
+        total = view.psum((view.node_mask.sum() + view.edge_mask.sum()).to(torch.float32)) \
             * float(nao * nao)
         result["sparsity_ratio"] = total / torch.clamp(eff, min=1.0)
 
-        if self.calculate_band_energy and k_vecs is not None and graph.Son is not None:
-            self._band_branch(graph, k_vecs, result)
+        graph = view.graph
+        if self.calculate_band_energy and k_vecs is not None and graph is not None \
+                and graph.Son is not None:
+            self._band_branch(view, k_vecs, result)
         return result
 
-    def _zero_point_shift(self, graph: Graph, result: Dict, node_mask, edge_mask) -> None:
+    def _zero_point_shift(self, view, result: Dict, node_mask, edge_mask) -> None:
         """One energy shift of the spin-diagonal real blocks towards the
         reference, weighted by the overlap: sum w (H - H_ref) / (2 sum w S)
         over both spin-diagonal blocks."""
         nao = self.nao
-        s_on, s_off = graph.Son, graph.Soff
+        s_on, s_off = view.Son, view.Soff
         w_on = (s_on > 1e-6).to(s_on.dtype) * node_mask[:, None]
         w_off = (s_off > 1e-6).to(s_off.dtype) * edge_mask[:, None]
 
@@ -356,9 +366,9 @@ class HamGNNSOCOut(nn.Module):
             return (hb[:, 0, :, 0, :] + hb[:, 1, :, 1, :]).reshape(-1, nao * nao)
 
         h_on, h_off = result["hamiltonian_real_on"], result["hamiltonian_real_off"]
-        num = torch.sum(w_on * (diag_sum(h_on) - diag_sum(graph.Hon))) \
-            + torch.sum(w_off * (diag_sum(h_off) - diag_sum(graph.Hoff)))
-        den = 2.0 * (torch.sum(w_on * s_on) + torch.sum(w_off * s_off))
+        num = view.psum(torch.sum(w_on * (diag_sum(h_on) - diag_sum(view.Hon)))
+                        + torch.sum(w_off * (diag_sum(h_off) - diag_sum(view.Hoff))))
+        den = 2.0 * view.psum(torch.sum(w_on * s_on) + torch.sum(w_off * s_off))
         shift = num / torch.clamp(den, min=1e-12)
 
         def apply(h, s, w):
@@ -369,14 +379,16 @@ class HamGNNSOCOut(nn.Module):
         result["hamiltonian_real_on"] = apply(h_on, s_on, w_on)
         result["hamiltonian_real_off"] = apply(h_off, s_off, w_off)
 
-    def _band_branch(self, graph: Graph, k_vecs: torch.Tensor, result: Dict) -> None:
-        """Spinor bands of the predicted Hamiltonian and, without gradient, of
-        the graph's reference Hamiltonian."""
+    def _band_branch(self, view, k_vecs: torch.Tensor, result: Dict) -> None:
+        """Spinor bands of the predicted Hamiltonian, on the whole crystal's
+        rows, and, without gradient, of the graph's reference Hamiltonian."""
         from ..physics.band import band_energies_soc_batched
 
+        graph = view.graph
+        nodes, edges = view.gather_nodes_global, view.gather_edges_global
         band, wfn, gap = band_energies_soc_batched(
-            graph, result["hamiltonian_real_on"], result["hamiltonian_imag_on"],
-            result["hamiltonian_real_off"], result["hamiltonian_imag_off"],
+            graph, nodes(result["hamiltonian_real_on"]), nodes(result["hamiltonian_imag_on"]),
+            edges(result["hamiltonian_real_off"]), edges(result["hamiltonian_imag_off"]),
             graph.Son, graph.Soff, k_vecs, self.basis, num_bands=self.band_num_control)
         result["band_energy"] = band
         result["wavefunction"] = wfn

@@ -1,9 +1,12 @@
 """Equivariant GNN blocks, counterpart of ``hamgnn_tpu/nn/blocks.py``.
 
-Dense single-device path only: the halo ``boundary`` arguments of the
-reference wait for the multi-device slice.  Module attribute names follow the
-reference's flax parameter names, so a flattened flax tree maps onto
-``state_dict`` keys one to one (``interfaces/jax_params.py``).
+``ConvBlockE3.gathered_call`` and ``PairInteractionBlock.gathered_call`` take
+pre-gathered endpoint rows and, under the halo edge partition, a
+``boundary`` tuple: the interior pass reads owned rows only and the boundary
+pass runs the same ``MessagePackBlock`` on the rows received from the peers.
+Module attribute names follow the reference's flax parameter names, so a
+flattened flax tree maps onto ``state_dict`` keys one to one
+(``interfaces/jax_params.py``).
 """
 
 from __future__ import annotations
@@ -147,11 +150,23 @@ class ConvBlockE3(nn.Module):
         self.residual = ResidualBlock(irreps_out, irreps_out)
 
     def gathered_call(self, node_feats_own, src_feats, dst_feats, edge_feats,
-                      edge_sh, edge_scalars, dst_idx, edge_mask):
+                      edge_sh, edge_scalars, dst_idx, edge_mask, boundary=None):
+        """``boundary``: the overlap split of the halo partition, a tuple
+        ``(src_b, dst_b, edge_b, sh_b, scal_b, dst_idx_b, mask_b)`` of the
+        boundary edges' rows.  With it, ``edge_mask`` covers the interior
+        edges only; the boundary messages come from the same
+        ``MessagePackBlock`` and join the same aggregate."""
+        num_nodes = node_feats_own.shape[0]
         messages = self.conv_tp(src_feats, dst_feats, edge_feats, edge_sh,
                                 edge_scalars)
         messages = messages * edge_mask[:, None].to(messages.dtype)
-        out = self.residual(segment_sum(messages, dst_idx, node_feats_own.shape[0]))
+        agg = segment_sum(messages, dst_idx, num_nodes)
+        if boundary is not None:
+            src_b, dst_b, edge_b, sh_b, scal_b, dst_idx_b, mask_b = boundary
+            msg_b = self.conv_tp(src_b, dst_b, edge_b, sh_b, scal_b)
+            msg_b = torch.where(mask_b[:, None], msg_b, torch.zeros_like(msg_b))
+            agg = agg + segment_sum(msg_b, dst_idx_b, num_nodes)
+        out = self.residual(agg)
         if self.skip is not None:
             out = out + self.skip(node_feats_own)
         return out
@@ -189,8 +204,23 @@ class PairInteractionBlock(nn.Module):
     def lift(self, node_feats):
         return self.linear_up_src(node_feats), self.linear_up_tar(node_feats)
 
-    def gathered_call(self, src_lifted, dst_lifted, edge_feats, edge_sh, edge_scalars):
+    def gathered_call(self, src_lifted, dst_lifted, edge_feats, edge_sh, edge_scalars,
+                      boundary=None):
+        """``boundary``: the overlap split, a tuple ``(src_b, dst_b, edge_b,
+        sh_b, scal_b, pos_b, mask_b)``.  With it, ``src_lifted`` holds owned
+        rows only (the boundary rows are arbitrary); the boundary rows are
+        computed from the received rows and put in place at ``pos_b``, so
+        every edge's output equals the joint call's."""
         mix = self.conv_tp(src_lifted, dst_lifted, edge_feats, edge_sh, edge_scalars)
+        if boundary is not None:
+            src_b, dst_b, edge_b, sh_b, scal_b, pos_b, mask_b = boundary
+            mix_b = self.conv_tp(src_b, dst_b, edge_b, sh_b, scal_b)
+            # zero the main pass's boundary rows, then add the boundary
+            # results; padded pos_b rows add zero
+            keep = torch.ones(mix.shape[0], dtype=mix.dtype, device=mix.device)
+            keep = keep.scatter_reduce(0, pos_b, 1.0 - mask_b.to(mix.dtype), reduce="amin")
+            mix_b = torch.where(mask_b[:, None], mix_b, torch.zeros_like(mix_b))
+            mix = (mix * keep[:, None]).index_add(0, pos_b, mix_b)
         if self.use_skip_connections:
             return mix + self.skip(edge_feats)
         if self.legacy_edge_update:

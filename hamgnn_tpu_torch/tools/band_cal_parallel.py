@@ -11,9 +11,13 @@ host (``tools/band_cal.py``).  No TPU kernel lies on this path: the solve is
 ``torch.linalg`` (cuSOLVER on the card).
 
 Same YAML as band_cal (nao_max, graph_data_path, hamiltonian_path, nk,
-save_dir, Ham_type, k_path); extra key: ``k_batch``.  The JAX package can
-shard the k batch over a device mesh; this port solves on one device and
-raises when asked for more.
+save_dir, Ham_type, k_path); extra key: ``k_batch``.  Where the JAX package
+shards the k batch over a device mesh, ``solve_bands_batched`` takes a
+``torch.distributed`` process group: each rank solves its share of every
+k batch and the eigenvalues are gathered on every rank.  Under a launcher
+(``torchrun --nproc_per_node <cards> -m hamgnn_tpu_torch.tools.band_cal_parallel``)
+the CLI solves over the world, each rank on ``cuda:LOCAL_RANK``, and rank 0
+writes the files.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import yaml
 
 from .. import resolve_device
@@ -41,21 +46,39 @@ def _batched_geig(HK: torch.Tensor, SK: torch.Tensor) -> torch.Tensor:
 
 
 def solve_bands_batched(HK: np.ndarray, SK: np.ndarray, k_batch: int = 32,
-                        mesh=None, device=None) -> np.ndarray:
+                        group=None, device=None) -> np.ndarray:
     """Generalized eigenvalues for (nk, n, n) Hermitian pairs, ``k_batch``
     k-points per solve on ``device`` (cuda unless the caller asks for the
-    CPU)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_bands_batched: the port solves on one device; sharding the "
-            "k batch over several devices is not supported yet")
+    CPU).  ``group``: a ``torch.distributed`` process group over which each
+    k batch is split; a batch is padded with copies of its last k-point to a
+    multiple of the group's size, as the JAX package pads it for its mesh,
+    and every rank returns all the eigenvalues."""
+    if group is not None and not isinstance(group, dist.ProcessGroup):
+        raise TypeError("group: a torch.distributed process group (the port's "
+                        f"counterpart of the JAX mesh), not {type(group).__name__}")
     dev = resolve_device(device)
     nk = HK.shape[0]
     out = []
     for s in range(0, nk, k_batch):
-        hk = torch.as_tensor(HK[s : s + k_batch].astype(np.complex64), device=dev)
-        sk = torch.as_tensor(SK[s : s + k_batch].astype(np.complex64), device=dev)
-        out.append(_batched_geig(hk, sk).cpu().numpy())
+        hk = HK[s : s + k_batch].astype(np.complex64)
+        sk = SK[s : s + k_batch].astype(np.complex64)
+        if group is None:
+            ev = _batched_geig(torch.as_tensor(hk, device=dev), torch.as_tensor(sk, device=dev))
+            out.append(ev.cpu().numpy())
+            continue
+        size, rank = dist.get_world_size(group), dist.get_rank(group)
+        pad = (-len(hk)) % size
+        if pad:
+            hk = np.concatenate([hk, np.tile(hk[-1:], (pad, 1, 1))])
+            sk = np.concatenate([sk, np.tile(sk[-1:], (pad, 1, 1))])
+        share = len(hk) // size
+        mine = slice(rank * share, (rank + 1) * share)
+        ev = _batched_geig(torch.as_tensor(hk[mine], device=dev),
+                           torch.as_tensor(sk[mine], device=dev)).contiguous()
+        parts = [torch.empty_like(ev) for _ in range(size)]
+        dist.all_gather(parts, ev, group=group)
+        ev = torch.cat(parts).cpu().numpy()
+        out.append(ev[: len(ev) - pad] if pad else ev)
     return np.concatenate(out)
 
 
@@ -69,11 +92,21 @@ def main(argv=None):
     args = parser.parse_args(argv)
     with open(args.config, encoding="utf-8") as f:
         cfg = yaml.safe_load(f)
+    from ..parallel.multihost import is_primary, local_device, maybe_initialize_distributed
+
+    device = args.device
+    group = None
+    if maybe_initialize_distributed(device=device):
+        # under a launcher: the k batches split over the world
+        device = local_device(device)
+        group = dist.group.WORLD
+    primary = is_primary()
 
     nao = cfg["nao_max"]
     basis = get_basis_set(cfg.get("Ham_type", "openmx").lower(), nao)
     save_dir = cfg["save_dir"]
-    os.makedirs(save_dir, exist_ok=True)
+    if primary:
+        os.makedirs(save_dir, exist_ok=True)
     nk = cfg["nk"]
     k_batch = cfg.get("k_batch", 32)
 
@@ -104,11 +137,12 @@ def main(argv=None):
         SK = assemble_k_matrices_numpy(
             s_rows, n, np.asarray(c["edge_index"], int),
             np.asarray(c["nbr_shift"], float), k_cart, nao, valid)
-        bands = solve_bands_batched(HK, SK, k_batch=k_batch,
-                                    device=args.device) * HARTREE2EV
-        np.savez(os.path.join(save_dir, f"bands_{idx}.npz"),
-                 k_dist=k_dist, k_node=k_node, bands=bands)
-        print(f"[{idx}] solved {bands.shape} bands")
+        bands = solve_bands_batched(HK, SK, k_batch=k_batch, group=group,
+                                    device=device) * HARTREE2EV
+        if primary:
+            np.savez(os.path.join(save_dir, f"bands_{idx}.npz"),
+                     k_dist=k_dist, k_node=k_node, bands=bands)
+            print(f"[{idx}] solved {bands.shape} bands")
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ checkpoint of the JAX trainer.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -123,6 +124,9 @@ class Trainer:
             self.device, lambda g: self._step(g, self.lr_t), self._eval,
             lambda: (self.flat, self.grad, *self.opt.state_dict().values())) if capture else None
         self.nonfinite_steps = 0  # of the last train_epoch
+        # the process that writes metrics.jsonl and checkpoints (rank 0 of a
+        # multi-process trainer)
+        self.primary = True
         os.makedirs(train_dir, exist_ok=True)
         self._log_path = os.path.join(train_dir, "metrics.jsonl")
 
@@ -218,7 +222,8 @@ class Trainer:
         max_epochs = max_epochs or self.max_epochs
         rng = np.random.default_rng(666)
         best_val = float("inf")
-        with open(self._log_path, "a") as log_f:
+        with (open(self._log_path, "a") if self.primary
+              else contextlib.nullcontext()) as log_f:
             for epoch in range(max_epochs):
                 t0 = time.time()
                 train_loss = self.train_epoch(data_module.train_batches(rng))
@@ -234,11 +239,12 @@ class Trainer:
                 }
                 if self.nonfinite_steps:
                     record["nonfinite_steps"] = self.nonfinite_steps
-                log_f.write(json.dumps(record) + "\n")
-                log_f.flush()
+                if log_f is not None:
+                    log_f.write(json.dumps(record) + "\n")
+                    log_f.flush()
                 if val_loss < best_val:
                     best_val = val_loss
-                    if checkpoint:
+                    if checkpoint and self.primary:
                         self.save_checkpoint(os.path.join(self.train_dir, "best.pt"))
                 if epoch >= self.min_epochs and self.stopper.step(val_loss):
                     break

@@ -92,15 +92,21 @@ def test_cli_stage_test_predictions(case, tmp_path, ckpt):
     assert os.path.exists(tmp_path / "out" / "config_resolved.yaml")
 
 
+_MAGNETIC = {"output_nets": {"HamGNN_out": {"spin_constrained": True,
+                                            "collinear_spin": True}}}
+
+
 @pytest.mark.parametrize("override,match", [
-    ({"setup": {"stage": "fit", "parallel": {"mode": "dp"}}}, "training slice"),
-    ({"setup": {"stage": "test", "parallel": {"mode": "halo"}}}, "halo"),
+    (_merge({"setup": {"stage": "fit", "parallel": {"mode": "dp"}}}, _MAGNETIC), "GraphView"),
+    (_merge({"setup": {"stage": "fit", "parallel": {"mode": "halo"}}}, _MAGNETIC), "GraphView"),
     ({"setup": {"stage": "test", "checkpoint_path": "{tmp}/orbax"}}, "directory"),
 ])
 def test_cli_unported_paths_raise(tmp_path, override, match):
-    """What the port does not run: data parallel and the halo partition; and
-    a checkpoint directory that is not an orbax checkpoint (orbax directories
-    themselves are read, ``tests/test_torch_port_compat.py``)."""
+    """What the port does not run: the magnetic head under data parallel or
+    the halo partition (it has no GraphView forward, and raises the JAX
+    package's NotImplementedError); and a checkpoint directory that is not an
+    orbax checkpoint (orbax directories themselves are read,
+    ``tests/test_torch_port_compat.py``)."""
     exc = NotImplementedError
     if "checkpoint_path" in override["setup"]:
         (tmp_path / "orbax").mkdir()
@@ -112,6 +118,9 @@ def test_cli_unported_paths_raise(tmp_path, override, match):
     save_graph_npz(str(tmp_path / "graph_data.npz"), _crystals(2, seed=0))
     with pytest.raises(exc, match=match):
         t_cli.train_and_evaluate(cfg, device="cpu")
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()   # the CLI took down the group it brought up
 
 
 def test_entry_points_default_to_cuda():

@@ -13,7 +13,8 @@ on an lmdb-lite store written by ``tools.npz_to_lmdb``; with the
 Transformer representation (attention, correlation blocks, KAN generators).
 The data tools (the SK teacher in every format, the three ``graph_data_gen``)
 run with JAX blocked too, and their output trains, predicts and gives bands; so do
-the Uni-HamGNN CLI, ``band_cal_parallel``, the magnetism workflows and the
+the Uni-HamGNN CLI, ``band_cal_parallel``, the CLI under ``setup.parallel.mode``
+``halo`` and ``dp`` (one process over gloo), the magnetism workflows and the
 wavefunction cube.
 ``chip_smoke.py`` must fail, printing no result, where no GPU is available.
 """
@@ -355,6 +356,22 @@ run("hamgnn_tpu_torch.tools.band_cal_parallel", "--device", "cpu", "--config",
                        "k_batch": 4, "save_dir": work + "/bands"}}))
 assert np.isfinite(np.load(work + "/bands/bands_1.npz")["bands"]).all()
 
+# the halo partition and data parallel through the CLI, one process over gloo,
+# then a one-device test from the halo run's best.pt
+par_cfg = dict(model, output_nets={{"HamGNN_out": {{"nao_max": 14}}}},
+               dataset_params={{"graph_data_path": work + "/nonsoc.npz", "batch_size": 1,
+                                "train_ratio": 0.5, "val_ratio": 0.5, "test_ratio": 0.0}},
+               optim_params={{"min_epochs": 0, "max_epochs": 1}})
+for mode in ("halo", "dp"):
+    run("hamgnn_tpu_torch.cli", "--device", "cpu", "--config", dump(mode + ".yaml", dict(
+        par_cfg, setup={{"stage": "fit", "parallel": {{"mode": mode}}}},
+        profiler_params={{"train_dir": work + "/" + mode}})))
+    assert open(work + "/" + mode + "/metrics.jsonl").read().count("train_loss") == 1
+run("hamgnn_tpu_torch.cli", "--device", "cpu", "--config", dump("halo_test.yaml", dict(
+    par_cfg, setup={{"stage": "test", "checkpoint_path": work + "/halo/best.pt"}},
+    profiler_params={{"train_dir": work + "/halo_test"}})))
+assert np.isfinite(np.load(work + "/halo_test/prediction_hamiltonian.npy")).all()
+
 # magnetism: a collinear deck from a POSCAR, a non-collinear graph from scfout files
 with open(work + "/POSCAR", "w") as f:
     f.write("Si2\n1.0\n3.8 0 0\n0 3.8 0\n0 0 3.8\nSi\n2\nDirect\n0 0 0\n0.25 0.25 0.25\n")
@@ -381,7 +398,9 @@ print("TOOLS OK")
 NEW_MODULES = ("interfaces.orbax_reader", "interfaces.torch_ckpt", "interfaces.e3nn_compat",
                "interfaces.uni_pickle", "interfaces.pao", "tools.uni_hamgnn",
                "tools.band_cal_parallel", "tools.magnetism", "tools.wfn_export",
-               "physics.matrix_operations", "utils.triplets")
+               "physics.matrix_operations", "utils.triplets", "models.view",
+               "parallel.halo", "parallel.halo_model", "parallel.halo_trainer",
+               "parallel.multihost", "parallel.sharding", "parallel.trainer")
 
 
 def test_port_tools_run_without_jax(tmp_path):

@@ -106,9 +106,11 @@ def test_solve_bands_batched_matches_jax_and_scipy():
 
 
 def test_solve_bands_batched_refuses_a_mesh():
+    """The port splits the k batch over a torch.distributed process group
+    (tests/test_torch_port_parallel.py); anything else in its place raises."""
     HK, SK = _pencils(5, nk=2, n=4)
-    with pytest.raises(NotImplementedError, match="one device"):
-        t_bcp.solve_bands_batched(HK, SK, mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="process group"):
+        t_bcp.solve_bands_batched(HK, SK, group=object(), device="cpu")
 
 
 def test_band_cal_parallel_cli_matches_jax(tmp_path):
