@@ -216,9 +216,25 @@ Phases (any failure exits non-zero, before the result lines are printed):
      none`` on the validation crystal gives the MAE its halo evaluation logged
      at the best epoch within 1e-5 relative; the magnetic head under ``mode:
      halo`` raises the JAX package's NotImplementedError;
- 15. print one JSON line ``{"uni": {...}}`` (launches a prediction, times,
+ 15. the precision and schedule switches (``phase_variants``, run after
+     phase 4): at the bench width and the pair, pair_lite, node and edge plans,
+     each of B1-B4 in its bf16 instantiation (``HAMGNN_TP_BF16``) against its
+     plain bf16 version within 1e-3 * max|plain|, a second launch
+     bit-identical, the 3xTF32 kernel at least 10x farther (the mode rounds),
+     bf16 and 3xTF32 timed in turns; the stored-mid pair
+     (``HAMGNN_TP_STOREMID``: B1 writing its mids, B2 reading them) bit for bit
+     against the recompute path, both timed, the mids' bytes; then the
+     captured bench step under BF16=bwd, BF16=all, STOREMID=1 and zonal with
+     BF16=all, each against the fp32 captured step of its engine from the same
+     weights (first step under deterministic algorithms: under ``bwd`` and
+     STOREMID the loss bit for bit, under STOREMID the gradient too, bf16
+     gradients within 5e-2 * max|ref| per tensor), 13 + 13 launches of the
+     mode's kernels (host counters of an eager pass; a replay by the
+     profiler), wall and device ms, edges/s, peak memory;
+ 16. print one JSON line ``{"uni": {...}}`` (launches a prediction, times,
      errors, peak memory), one ``{"parallel": {...}}``, one describing each
-     kernel, then the result line ``{"ok": true, "device": {...}}`` last.
+     kernel (the variants as entries of their own), then the result line
+     ``{"ok": true, "device": {...}}`` last.
 
 It needs one card, imports nothing of JAX or of the JAX package, writes only
 under ``build/`` and ``chiprun_out/`` in the checkout, and exits non-zero
@@ -297,7 +313,7 @@ def all_kernels(tp_kernel) -> dict:
     from hamgnn_tpu_torch.tools_dev import op_probe, op_probe2, throughput_probe  # noqa: F401
     from hamgnn_tpu_torch.tools_dev.probe import PROBE_KERNELS
 
-    return {**tp_kernel.KERNELS, **PROBE_KERNELS}
+    return {**tp_kernel.KERNELS, **tp_kernel.VARIANTS, **PROBE_KERNELS}
 
 
 def reset_launches(tp_kernel):
@@ -4070,6 +4086,355 @@ def phase_parallel(tp_kernel, dev, card):
     return dict(out, seconds=seconds)
 
 
+# ----------------------------------------------------------------------
+# the precision and schedule variants (HAMGNN_TP_BF16, HAMGNN_TP_STOREMID)
+# ----------------------------------------------------------------------
+
+# a bf16 instantiation against its plain bf16 version, of max|plain|: the
+# kernel's fp32 operands differ from the plain version's in the last bit (FFMA
+# against multiply and add, the order of sums), and one next to a bf16
+# rounding boundary rounds to the other neighbour (one bf16 ulp of one term)
+VARIANT_TOL = 1e-3
+VARIANT_GAP = 10      # max|bf16 kernel - fp32 kernel| >= 10 x max|bf16 kernel - plain|
+# a bf16 step's parameter gradients against the fp32 step's, per tensor, of
+# max|fp32|: the rounding of the products' operands (2^-9 relative each)
+# carried through three layers
+VARIANT_GRAD_TOL = 5e-2
+# the variants' entries in the kernels line: (kernel, the kernel they vary, mode)
+VARIANT_KERNELS = {"packed_tp_fwd_bf16": ("packed_tp_fwd", "all"),
+                   "packed_tp_bwd_bf16": ("packed_tp_bwd", "bwd"),
+                   "zonal_tp_fwd_bf16": ("zonal_tp_fwd", "all"),
+                   "zonal_tp_bwd_bf16": ("zonal_tp_bwd", "bwd"),
+                   "packed_tp_fwd_storemid": ("packed_tp_fwd", "storemid"),
+                   "packed_tp_bwd_storemid": ("packed_tp_bwd", "storemid")}
+# the captured bench steps of phase_variants: (engine, HAMGNN_TP_BF16, HAMGNN_TP_STOREMID)
+VARIANT_STEPS = {"fp32": ("auto", "", ""), "bf16_bwd": ("auto", "bwd", ""),
+                 "bf16_all": ("auto", "all", ""), "storemid": ("auto", "", "1"),
+                 "zonal_fp32": ("zonal", "", ""), "zonal_bf16_all": ("zonal", "all", "")}
+
+
+@contextlib.contextmanager
+def switches(eng: str, bf16: str, store: str):
+    """The body under ``HAMGNN_TP_ENGINE`` (``engine``), ``HAMGNN_TP_BF16``
+    and ``HAMGNN_TP_STOREMID`` (empty: unset)."""
+    old = {k: os.environ.pop(k, None) for k in ("HAMGNN_TP_BF16", "HAMGNN_TP_STOREMID")}
+    for k, v in (("HAMGNN_TP_BF16", bf16), ("HAMGNN_TP_STOREMID", store)):
+        if v:
+            os.environ[k] = v
+    try:
+        with engine(eng):
+            yield
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def in_turns(fns: dict, rounds: int = 3, iters: int = 5) -> dict:
+    """CUDA-event medians of each function, timed in turns (``rounds`` of
+    ``iters`` each), so that a clock drift touches all alike."""
+    import numpy as np
+
+    ts = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            ts[k].append(cuda_time_ms(fn, iters, warmup=1))
+    return {k: float(np.median(v)) for k, v in ts.items()}
+
+
+def _bound_parts(tp_kernel, spec, E, has_w, fwd, bf16=False, stored=False) -> dict:
+    """A variant's least time on an H100, by side: the operations (the Wcat
+    products of a bf16 instantiation at the dense bf16 tensor-core rate, the
+    rest at the fp32 rate) and the bytes."""
+    kw = {"stored": True} if stored else {}
+    flops, nbytes = spec.work(E, has_w, **kw) if fwd else spec.work_bwd(E, has_w, **kw)
+    tc = (1 if fwd else 2) * spec.wcat_flops(E) if bf16 else 0
+    ops_ms = ((flops - tc) / tp_kernel.H100_FP32_FLOPS + tc / tp_kernel.H100_BF16_FLOPS) * 1e3
+    bytes_ms = nbytes / tp_kernel.H100_HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _variant_check(what, got, again, ref, fp32):
+    """A bf16 kernel's output against its plain bf16 version (VARIANT_TOL),
+    a second launch bit-identical, and the fp32 kernel's output at least
+    VARIANT_GAP times farther.  Returns (err, scale, gap)."""
+    import torch
+
+    if not torch.equal(got, again):
+        fail(f"{what}: differs between two launches")
+    err, scale = rel_err(got, ref)
+    gap = float((got - fp32).abs().max())
+    if not math.isfinite(err) or err > VARIANT_TOL * scale:
+        fail(f"{what}: max|d| {err:.3e} > {VARIANT_TOL} * {scale:.3e}")
+    if not gap >= VARIANT_GAP * err:
+        fail(f"{what}: the bf16 kernel is {gap:.3e} from the fp32 one, not {VARIANT_GAP} x "
+             f"its {err:.3e} from the plain bf16 version: the mode does not round")
+    return err, scale, gap
+
+
+def _variant_lab(tp_kernel, dev, name, plan, has_w):
+    """B1 and B2 in bf16, and the stored-mid pair, at one bench plan."""
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch.e3.packed_tp import plain_apply, plain_backward
+
+    spec = tp_kernel.get_spec(plan)
+    rng = np.random.default_rng(21)
+    E = E_BENCH
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev)
+
+    x, sh, fw, gy = t(E, spec.d_in), t(E, spec.S), t(plan.linear_numel), t(E, spec.d_out)
+    w = t(E, spec.n_ch) if has_w else None
+    out = {}
+    with torch.inference_mode():
+        fwd = lambda bf: tp_kernel.packed_tp_forward(plan, x, sh, w, fw, bf)  # noqa: E731
+        got, again, fp32 = fwd("all"), fwd("all"), fwd("")
+        ref = plain_apply(plan, x, sh, w, fw, bf16=True)
+        torch.cuda.synchronize()
+        err, scale, gap = _variant_check(f"packed_tp_fwd_bf16[{name}]", got, again, ref, fp32)
+        del got, again, ref
+        ms = in_turns({"bf16": lambda: fwd("all"), "fp32": lambda: fwd("")})
+        plain_ms = cuda_time_ms(lambda: plain_apply(plan, x, sh, w, fw, bf16=True), 3)
+    out["packed_tp_fwd_bf16"] = dict(max_abs_err=err, max_abs_ref=scale, gap_to_fp32=gap,
+                                     ms=ms["bf16"], fp32_ms=ms["fp32"], plain_ms=plain_ms,
+                                     **_bound_parts(tp_kernel, spec, E, has_w, True, True))
+
+    bwd = lambda bf, mids=None: tp_kernel.packed_tp_backward(  # noqa: E731
+        plan, x, sh, w, fw, gy, False, bf, mids)
+    got, again, fp32 = bwd(True), bwd(True), bwd(False)
+    ref = plain_backward(plan, x, sh, w, fw, gy, False, True)
+    torch.cuda.synchronize()
+    errs = {}
+    for key, a, b, c, d in zip(("dx", "dsh", "dw", "dflat_w"), got, again, ref, fp32):
+        if c is not None:
+            errs[key] = _variant_check(f"packed_tp_bwd_bf16[{name}] {key}", a, b, c, d)
+    del got, again, ref, fp32
+    ms = in_turns({"bf16": lambda: bwd(True), "fp32": lambda: bwd(False)})
+    plain_ms = cuda_time_ms(lambda: plain_backward(plan, x, sh, w, fw, gy, False, True), 3)
+    passes = bwd_pass_ms(tp_kernel.PACKED_TP_BWD,
+                         tp_kernel.bwd_call(spec, x, sh, w, fw, gy, False, True))
+    out["packed_tp_bwd_bf16"] = dict(
+        max_abs_err=max(e for e, _s, _g in errs.values()),
+        errors={k: list(v) for k, v in errs.items()}, ms=ms["bf16"], fp32_ms=ms["fp32"],
+        plain_ms=plain_ms, **_bound_parts(tp_kernel, spec, E, has_w, False, True), **passes)
+
+    # the stored-mid pair, fp32: bit-identical to the recompute path
+    with torch.inference_mode():
+        o_s, mids = tp_kernel.packed_tp_store_forward(plan, x, sh, w, fw)
+        if not torch.equal(o_s, fwd("")):
+            fail(f"packed_tp_fwd_storemid[{name}]: the output differs from the recompute path's")
+    stored, recomputed = bwd(False, mids), bwd(False)
+    torch.cuda.synchronize()
+    for key, a, b in zip(("dx", "dsh", "dw", "dflat_w"), stored, recomputed):
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            fail(f"packed_tp_bwd_storemid[{name}] {key}: differs from the recompute path")
+    del stored, recomputed
+    with torch.inference_mode():
+        ms_f = in_turns({"store": lambda: tp_kernel.packed_tp_store_forward(plan, x, sh, w, fw),
+                         "fp32": lambda: fwd("")})
+        plain_f = cuda_time_ms(lambda: plain_apply(plan, x, sh, w, fw), 3)
+    ms_b = in_turns({"store": lambda: bwd(False, mids), "fp32": lambda: bwd(False)})
+    plain_b = cuda_time_ms(lambda: plain_backward(plan, x, sh, w, fw, gy), 3)
+    extra = 4 * E * spec.midw
+    for key, m, pl_ms, fwd_ in (("packed_tp_fwd_storemid", ms_f, plain_f, True),
+                                ("packed_tp_bwd_storemid", ms_b, plain_b, False)):
+        out[key] = dict(max_abs_err=0.0, ms=m["store"], fp32_ms=m["fp32"], plain_ms=pl_ms,
+                        mid_bytes=extra,
+                        **_bound_parts(tp_kernel, spec, E, has_w, fwd_, stored=True))
+    del x, sh, w, fw, gy, mids
+    torch.cuda.empty_cache()
+    return out
+
+
+def _variant_zonal(tp_kernel, dev, name, plan, has_w):
+    """B3 and B4 in bf16 at one bench plan."""
+    import torch
+
+    from hamgnn_tpu_torch.e3 import zonal_kernel, zonal_tp
+
+    spec = zonal_kernel.get_zonal_kernel_spec(plan)
+    E = E_BENCH
+    _x, _sh, x_rot, w, fw, gy = zonal_inputs(plan, has_w, 22, dev, with_gout=True)
+    out = {}
+    with torch.inference_mode():
+        fwd = lambda bf: zonal_kernel.zonal_core_forward(plan, x_rot, w, fw, bf)  # noqa: E731
+        got, again, fp32 = fwd("all"), fwd("all"), fwd("")
+        ref = zonal_tp.plain_zonal_core(plan, x_rot, w, fw, True)
+        torch.cuda.synchronize()
+        err, scale, gap = _variant_check(f"zonal_tp_fwd_bf16[{name}]", got, again, ref, fp32)
+        del got, again, ref
+        ms = in_turns({"bf16": lambda: fwd("all"), "fp32": lambda: fwd("")})
+        plain_ms = cuda_time_ms(lambda: zonal_tp.plain_zonal_core(plan, x_rot, w, fw, True), 3)
+    out["zonal_tp_fwd_bf16"] = dict(max_abs_err=err, max_abs_ref=scale, gap_to_fp32=gap,
+                                    ms=ms["bf16"], fp32_ms=ms["fp32"], plain_ms=plain_ms,
+                                    **_bound_parts(tp_kernel, spec, E, has_w, True, True))
+    bwd = lambda bf: zonal_kernel.zonal_core_backward(plan, x_rot, w, fw, gy, bf)  # noqa: E731
+    got, again, fp32 = bwd(True), bwd(True), bwd(False)
+    ref = zonal_tp.plain_zonal_core_backward(plan, x_rot, w, fw, gy, True)
+    torch.cuda.synchronize()
+    errs = {}
+    for key, a, b, c, d in zip(("dx_rot", "dw", "dflat_w"), got, again, ref, fp32):
+        if c is not None:
+            errs[key] = _variant_check(f"zonal_tp_bwd_bf16[{name}] {key}", a, b, c, d)
+    del got, again, ref, fp32
+    ms = in_turns({"bf16": lambda: bwd(True), "fp32": lambda: bwd(False)})
+    plain_ms = cuda_time_ms(
+        lambda: zonal_tp.plain_zonal_core_backward(plan, x_rot, w, fw, gy, True), 3)
+    passes = bwd_pass_ms(tp_kernel.ZONAL_TP_BWD,
+                         zonal_kernel.bwd_call(spec, x_rot, w, fw, gy, True))
+    out["zonal_tp_bwd_bf16"] = dict(
+        max_abs_err=max(e for e, _s, _g in errs.values()),
+        errors={k: list(v) for k, v in errs.items()}, ms=ms["bf16"], fp32_ms=ms["fp32"],
+        plain_ms=plain_ms, **_bound_parts(tp_kernel, spec, E, has_w, False, True), **passes)
+    del x_rot, w, fw, gy
+    torch.cuda.empty_cache()
+    return out
+
+
+def _variant_step(tp_kernel, dev, card, graph, n_edges, key, ref=None):
+    """The bench training step under the switches of ``VARIANT_STEPS[key]``,
+    captured as the trainer runs it by default, its first step under
+    deterministic algorithms (so that two modes compare bit for bit): its
+    loss and flat gradient; one replay's launches by the profiler (13 of
+    each device kernel of the engine); an eager pass through the trainer's
+    model, 13 + 13 host launches of the mode's kernels and no other; the
+    captured step's wall (median of 5) and device time, edges/s, and the
+    peak memory of its first step (warm-up, capture, replay)."""
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.models.model import compute_losses, init_weights
+    from hamgnn_tpu_torch.train.config import load_config
+    from hamgnn_tpu_torch.train.trainer import Trainer
+    from hamgnn_tpu_torch.utils.profiling import device_launches
+
+    eng, bf16, store = VARIANT_STEPS[key]
+    layers = BENCH_CFG["representation_nets"]["HamGNN_pre"]["num_layers"]
+    per = 4 * layers + 1
+    base_f, base_b = ENGINES[eng]
+    fwd = f"{base_f}_storemid" if store else (f"{base_f}_bf16" if bf16 == "all" else base_f)
+    bwd = f"{base_b}_storemid" if store else (f"{base_b}_bf16" if bf16 else base_b)
+    with switches(eng, bf16, store):
+        model = init_weights(build_model(load_config(None, overrides=BENCH_CFG)), 0)
+        tr = Trainer(model, losses=BENCH_LOSSES, metrics=[], lr=1e-3,
+                     train_dir=str(WORK / f"variant_{key}"), device=dev)
+        if tr.captured is None:
+            fail(f"variant step {key}: the default trainer must capture on the card")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.use_deterministic_algorithms(True)
+        try:
+            reset_launches(tp_kernel)
+            loss, logs = tr.train_step(graph)
+            torch.cuda.synchronize()
+            check_launches(tp_kernel, {fwd: 2 * per, bwd: 2 * per},
+                           f"the first captured {key} step (warm-up and capture)")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        loss = float(loss)
+        if not math.isfinite(loss) or float(logs["nonfinite_step"]) != 0.0:
+            fail(f"variant step {key}: loss {loss}")
+        grad = tr.grad.clone()
+        names = [n for k in ENGINES[eng] for n in tp_kernel.KERNELS[k].device_kernels]
+        replay = device_launches(lambda: tr.train_step(graph), names)
+        if replay != {n: per for n in names}:
+            fail(f"one replay of the {key} step launched {replay}, expected {per} of each")
+        times = [_host_time(lambda: tr.train_step(graph)) for _ in range(5)]
+        device = profile_train_step(tr, graph, f"profile_variant_{key}.txt")
+        # an eager pass through the same model: the mode's kernels, 13 + 13
+        reset_launches(tp_kernel)
+        compute_losses(tr.model(graph), graph, BENCH_LOSSES)[0].backward()
+        torch.cuda.synchronize()
+        launches = check_launches(tp_kernel, {fwd: per, bwd: per}, f"an eager {key} pass")
+        launches = {n: k.launches for n, k in all_kernels(tp_kernel).items() if k.launches}
+    ms = 1e3 * float(np.median(times))
+    res = dict(engine=eng, bf16=bf16, storemid=bool(store), loss=loss, kernels=[fwd, bwd],
+               launches=launches, replay_launches=replay, wall_ms=ms,
+               times_ms=[1e3 * t for t in times], device_ms=device["__all__"],
+               edges_per_s=n_edges / (ms * 1e-3), peak_gb=peak_gb)
+    if ref is not None:
+        res["loss_vs_fp32"] = [loss, ref["loss"]]
+        worst, ofs = (0.0, ""), 0
+        for name, p in tr.model.named_parameters():
+            a, b = grad[ofs:ofs + p.numel()], ref["grad"][ofs:ofs + p.numel()]
+            ofs += p.numel()
+            err, scale = rel_err(a, b)
+            if scale > 0 and err / scale > worst[0]:
+                worst = (err / scale, name)
+        res["worst_grad_vs_fp32"] = list(worst)
+        res["grad_equal_fp32"] = bool(torch.equal(grad, ref["grad"]))
+    print(f"[variants] step {key} ({eng}, BF16={bf16 or '-'}, STOREMID={store or '-'}): "
+          f"loss {loss!r}" + (f" (fp32 {ref['loss']!r}), worst gradient vs fp32 "
+                              f"{res['worst_grad_vs_fp32'][0]:.3e} of max|ref| "
+                              f"({res['worst_grad_vs_fp32'][1]}), gradient bit-identical "
+                              f"{res['grad_equal_fp32']}" if ref is not None else "")
+          + f"; replay launched {replay}; eager pass {launches}; captured step {ms:.3f} ms "
+          f"wall (median of 5), {device['__all__']:.3f} ms device, "
+          f"{n_edges / (ms * 1e-3):.1f} edges/s, peak {peak_gb:.2f} GB, card {card}",
+          flush=True)
+    res["grad"] = grad
+    del tr, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_variants(tp_kernel, dev, card):
+    """The TP kernels' precision and schedule variants at the bench width
+    (E = 19,968; the pair, pair_lite, node and edge plans): each of B1-B4 in
+    bf16 against its plain bf16 version (VARIANT_TOL), a second launch
+    bit-identical, the fp32 kernel VARIANT_GAP times farther, bf16 and
+    3xTF32 timed in turns (B2 and B4 have one bf16 instantiation, which
+    ``bwd`` and ``all`` share); the stored-mid pair bit-identical to the
+    recompute path, both timed, its bytes; then the captured bench step under
+    each of VARIANT_STEPS against the fp32 step of its engine."""
+    import torch
+
+    rows = {k: [] for k in VARIANT_KERNELS}
+    for name, plan, has_w, per in bench_plans():
+        for part in (_variant_lab(tp_kernel, dev, name, plan, has_w),
+                     _variant_zonal(tp_kernel, dev, name, plan, has_w)):
+            for k, r in part.items():
+                rows[k].append(dict(plan=name, launches_per_step=per, **r))
+                print(f"[variants] {k:22s} {name:9s} E={E_BENCH} max|d|={r['max_abs_err']:.3e} "
+                      f"kernel {r['ms']:.4f} ms (fp32 kernel {r['fp32_ms']:.4f} ms, in turns) "
+                      f"plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_by']})" + (f" stored mids {r['mid_bytes'] / 1e6:.1f} MB"
+                                              if "mid_bytes" in r else ""), flush=True)
+    graph, n_edges = bench_graph(dev)
+    steps = {}
+    for key in VARIANT_STEPS:
+        base = "zonal_fp32" if VARIANT_STEPS[key][0] == "zonal" else "fp32"
+        steps[key] = _variant_step(tp_kernel, dev, card, graph, n_edges, key,
+                                   None if key == base else steps[base])
+    for key, r in steps.items():
+        if "loss_vs_fp32" not in r:
+            continue
+        la, lb = r["loss_vs_fp32"]
+        if VARIANT_STEPS[key][1] == "all":
+            if not abs(la - lb) <= 1e-2 * abs(lb) or r["worst_grad_vs_fp32"][0] == 0.0:
+                fail(f"variant step {key}: loss {la!r} vs fp32 {lb!r}")
+        elif la != lb:
+            fail(f"variant step {key}: the forward is fp32, but the loss {la!r} is not the "
+                 f"fp32 step's {lb!r}")
+        if key == "storemid" and not r["grad_equal_fp32"]:
+            fail("the stored-mid step's gradient differs from the fp32 step's")
+        if VARIANT_STEPS[key][1] and not (
+                0.0 < r["worst_grad_vs_fp32"][0] <= VARIANT_GRAD_TOL):
+            fail(f"variant step {key}: worst gradient {r['worst_grad_vs_fp32']} of max|ref| "
+                 f"against the fp32 step, expected in (0, {VARIANT_GRAD_TOL}]")
+    for r in steps.values():
+        del r["grad"]
+    torch.cuda.empty_cache()
+    return dict(rows=rows, steps=steps)
+
+
 def rep_launches(representation, eng, name, tp_kernel) -> int:
     """A kernel's launches in one replay of the Transformer step under its
     engine (the profiler's count of each of its device kernels)."""
@@ -4131,6 +4496,7 @@ def main():
              for eng in ENGINES}
     captured = {eng: timed(f"captured_{eng}", phase_captured, tp_kernel, dev, card, eng)
                 for eng in ENGINES}
+    variants = timed("variants", phase_variants, tp_kernel, dev, card)
     fit = {}
     for eng in ENGINES:
         cfg, n_rows = timed(f"cli_{eng}", phase_cli, tp_kernel, eng)
@@ -4148,7 +4514,8 @@ def main():
     parallel = timed("parallel", phase_parallel, tp_kernel, dev, card)
 
     report = {"card": card, "kernel_rows": rows, "wide": wide, "zonal_engine": zonal_engine,
-              "model": model, "train": train, "captured": captured, "fit": fit,
+              "model": model, "train": train, "captured": captured, "variants": variants,
+              "fit": fit,
               "probes": probes,
               "band": band, "band_fit": band_fit, "soc": soc, "magnetic": magnetic,
               "lmdb": lmdb, "representation": representation, "datagen": datagen,
@@ -4197,6 +4564,29 @@ def main():
                 kernels[-1]["sk_datagen_launches_per_step"] = {
                     dk: datagen["fit"]["replay_launches"][dk]
                     for dk in tp_kernel.KERNELS[name].device_kernels}
+    for vname, (name, mode) in VARIANT_KERNELS.items():
+        # per training step: the 13 launches at their plans' shapes; launches:
+        # a step of the mode's captured run (an eager pass through its model)
+        path_rows = [r for r in variants["rows"][vname] if r["launches_per_step"] > 0]
+        per_step = lambda key: sum(r[key] * r["launches_per_step"]  # noqa: E731
+                                   for r in path_rows)
+        step = {"all": "bf16_all", "bwd": "bf16_bwd", "storemid": "storemid"}[mode]
+        if name.startswith("zonal"):
+            step = "zonal_bf16_all"
+        src, replaces = KERNEL_SOURCES[name]
+        ops_ms, bytes_ms = per_step("ops_ms"), per_step("bytes_ms")
+        kernels.append({
+            "name": vname, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": variants["steps"][step]["launches"].get(vname, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in variants["rows"][vname]),
+            "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None, "fp32_ms": per_step("fp32_ms"), "mode": mode,
+            "per_plan": {r["plan"]: {k: r[k] for k in
+                                     ("ms", "fp32_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "max_abs_err", "edge_ms", "wcat_ms", "mid_bytes")
+                                     if k in r} for r in variants["rows"][vname]}})
     for name, r in probes.items():
         kernels.append({
             "name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],

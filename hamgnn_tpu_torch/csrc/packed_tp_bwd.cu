@@ -56,6 +56,15 @@
 //    and stages only the x values they read, so both passes fit two
 //    256-thread blocks in an SM's shared memory; the inner loops are
 //    unrolled to each column's d1.
+//  * Variants.  BF16 = true is the instantiation of HAMGNN_TP_BF16=bwd|all:
+//    sh and the coefficients rounded to bf16 in the coupling slots, both
+//    Wcat-stage products one bf16 mma.sync m16n8k16 pass
+//    (packed_tp_mma.cuh), and dsh's products (dmid x) and coefficients
+//    rounded to bf16, as the JAX kernel's dots round them.  STORE = true
+//    (HAMGNN_TP_STOREMID, `mids` given): both passes read the forward's
+//    stored mids (host table `mcols`) instead of rebuilding them; the edge
+//    pass still computes the coupling slots, which dx needs.  Both are
+//    compile-time parameters: the default instantiation carries neither.
 //  * Rows past E load zeros and store nothing.
 
 #include "packed_tp_mma.cuh"
@@ -107,6 +116,28 @@ struct Layout {
   }
 };
 
+// The slab's BLK columns from the forward's stored mids, laid out as
+// build_slab lays them: A[(m3 * TE + e) * ast + c] = mid[e, m3, c] * w_s[e *
+// KS + c] (the mid alone where w_s is null), zero for c >= nc or e >= n_rows;
+// mc: the slab's first column's record in `mcols` (offset at m3 = 0, step
+// per m3 in the (E, midw) buffer).
+template <int NT>
+__device__ inline void load_slab(float* A, int ast, const float* __restrict__ mids, int midw,
+                                 const int2* __restrict__ mc, const float* w_s, int nc, int d3,
+                                 int e0, int n_rows) {
+  for (int idx = threadIdx.x; idx < d3 * TE * KS; idx += NT) {
+    const int c = idx % KS, r = idx / KS, m = r / TE, e = r - m * TE;
+    float v = 0.f;
+    if (c < nc && e < n_rows) {
+      const int2 q = __ldg(mc + c);
+      v = __ldg(mids + (size_t)(e0 + e) * midw + q.x + m * q.y);
+      if (w_s) v *= w_s[e * KS + c];
+    }
+    A[r * ast + c] = v;
+  }
+}
+
+template <bool BF16, bool STORE>
 __global__ void __launch_bounds__(NT, 2) packed_tp_bwd_edge_kernel(
     const float* __restrict__ x, const float* __restrict__ sh,
     const float* __restrict__ w, const float* __restrict__ wcat,
@@ -116,8 +147,9 @@ __global__ void __launch_bounds__(NT, 2) packed_tp_bwd_edge_kernel(
     const int* __restrict__ sq, const int* __restrict__ xmap,
     const int* __restrict__ xgrp, const int* __restrict__ qgrp,
     const int* __restrict__ lst, float* __restrict__ dx, float* __restrict__ dsh,
-    float* __restrict__ dw, int E, int d_in, int S, int n_ch, int d_out, int n_groups,
-    int sq_max, int nx_max, int g_floats, int d3_max, int v_max, int has_w, int need_dsh) {
+    float* __restrict__ dw, const float* __restrict__ mids, const int2* __restrict__ mcols,
+    int E, int d_in, int S, int n_ch, int d_out, int n_groups, int sq_max, int nx_max,
+    int g_floats, int d3_max, int v_max, int has_w, int need_dsh, int midw) {
   extern __shared__ __align__(16) float smem[];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -176,12 +208,15 @@ __global__ void __launch_bounds__(NT, 2) packed_tp_bwd_edge_kernel(
         cp_async4(B_s + c * ST + v, ok ? wcat + wofs + (size_t)(c0 + c) * V + v : wcat, ok);
       }
       cp_async_commit();
-      stage_slots(t, NT, W_s, need_dsh ? dW_s : nullptr, sqp, sh_s, S, sqs, n_sq, coef);
+      stage_slots<BF16>(t, NT, W_s, need_dsh ? dW_s : nullptr, sqp, sh_s, S, sqs, n_sq, coef);
       cp_async_wait_all();
       __syncthreads();
 
-      // 2. the mid slab (unscaled)
-      build_slab<NT>(D_s, DST, W_s, sqp, x_s, nxp, nullptr, cols_s, nc, d3, n_rows);
+      // 2. the mid slab (unscaled), built or read from the stored mids
+      if (STORE)
+        load_slab<NT>(D_s, DST, mids, midw, mcols + col_ofs + c0, nullptr, nc, d3, e0, n_rows);
+      else
+        build_slab<NT, BF16>(D_s, DST, W_s, sqp, x_s, nxp, nullptr, cols_s, nc, d3, n_rows);
       __syncthreads();
 
       // 3. warp w: columns 8w..8w+7.  dBLK = G Wcat^T on the tensor cores,
@@ -205,14 +240,22 @@ __global__ void __launch_bounds__(NT, 2) packed_tp_bwd_edge_kernel(
         const float* br = B_s + (warp * 8 + gid) * ST + tig;
 #pragma unroll 2
         for (int m = 0; m < d3; ++m) {
-          float hi[4] = {0.f, 0.f, 0.f, 0.f}, lo[4] = {0.f, 0.f, 0.f, 0.f};
-          const float* ar = G_s + (m * TE + gid) * ST + tig;
-          for (int kk = 0; kk < KV; kk += 8) {
-            const float a[4] = {ar[kk], ar[8 * ST + kk], ar[kk + 4], ar[8 * ST + kk + 4]};
-            const float b[2] = {br[kk], br[kk + 4]};
-            mma_3xtf32(hi, lo, a, b);
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          if (BF16) {
+            const float* ar = G_s + (m * TE + gid) * ST + 2 * tig;
+            for (int kk = 0; kk < KV; kk += 16)
+              mma_bf16_rows(d, ar + kk, ST, br + tig + kk, kk + 8 < KV);
+          } else {
+            float hi[4] = {0.f, 0.f, 0.f, 0.f}, lo[4] = {0.f, 0.f, 0.f, 0.f};
+            const float* ar = G_s + (m * TE + gid) * ST + tig;
+            for (int kk = 0; kk < KV; kk += 8) {
+              const float a[4] = {ar[kk], ar[8 * ST + kk], ar[kk + 4], ar[8 * ST + kk + 4]};
+              const float b[2] = {br[kk], br[kk + 4]};
+              mma_3xtf32(hi, lo, a, b);
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) d[q] = lo[q] + hi[q];
           }
-          const float d[4] = {lo[0] + hi[0], lo[1] + hi[1], lo[2] + hi[2], lo[3] + hi[3]};
           float2* p0 = reinterpret_cast<float2*>(D_s + (m * TE + gid) * DST + c);
           float2* p1 = reinterpret_cast<float2*>(D_s + (m * TE + gid + 8) * DST + c);
           const float2 m0 = *p0, m1 = *p1;
@@ -280,7 +323,7 @@ __global__ void __launch_bounds__(NT, 2) packed_tp_bwd_edge_kernel(
             for (int m = 0; m < d3; ++m, dr += d1) {
               const float dm = D_s[(m * TE + e) * DST + c];
 #pragma unroll
-              for (int i = 0; i < d1; ++i) dr[i] += dm * xv[i];
+              for (int i = 0; i < d1; ++i) dr[i] += operand<BF16>(dm * xv[i]);
             }
           }
         });
@@ -295,7 +338,8 @@ __global__ void __launch_bounds__(NT, 2) packed_tp_bwd_edge_kernel(
         for (int j = 0; j < n_sq; ++j) {
           const int* qm = sqs + j * Q_W;
           const int dd = sc - __ldg(qm + 1);
-          if (dd >= 0 && dd < __ldg(qm + 2)) acc += __ldg(coef + __ldg(qm) + dd) * dW_s[e * sqp + j];
+          if (dd >= 0 && dd < __ldg(qm + 2))
+            acc += operand<BF16>(__ldg(coef + __ldg(qm) + dd)) * dW_s[e * sqp + j];
         }
         dsh[(size_t)(e0 + e) * S + sc] += acc;
       }
@@ -310,15 +354,17 @@ __device__ __forceinline__ int ld_int(const int* p) {
   return v;
 }
 
+template <bool BF16, bool STORE>
 __global__ void __launch_bounds__(NT, 2) packed_tp_bwd_wcat_kernel(
     const float* __restrict__ x, const float* __restrict__ sh,
     const float* __restrict__ w, const float* __restrict__ gy,
     const float* __restrict__ coef, const int* __restrict__ grp,
     const int* __restrict__ cols, const int* __restrict__ slabs,
     const int* __restrict__ sq, const int* __restrict__ xmap,
-    const int* __restrict__ items, float* __restrict__ part, int E, int d_in, int S,
+    const int* __restrict__ items, float* __restrict__ part,
+    const float* __restrict__ mids, const int2* __restrict__ mcols, int E, int d_in, int S,
     int n_ch, int d_out, int linear_numel, int sq_max, int nx_max, int stage_floats,
-    int g_floats, int n_split, int tiles_per_split, int has_w) {
+    int g_floats, int n_split, int tiles_per_split, int has_w, int midw) {
   extern __shared__ __align__(16) float smem[];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -394,15 +440,39 @@ __global__ void __launch_bounds__(NT, 2) packed_tp_bwd_wcat_kernel(
     cp_async_wait_all();
     __syncthreads();  // stage b landed; the previous tile is done with W, BLK, stage b ^ 1
     if (tile + 1 < tile1) issue(tile + 1, b ^ 1);
-    stage_slots(t, NT, W_s, nullptr, sqp, stage_sh(b), S, sqs, n_sq, coef);
-    __syncthreads();
-    build_slab<NT>(A_s, DST, W_s, sqp, stage_xb(b), nxp, has_w ? stage_w(b) : nullptr, cols_s,
-                   nc, d3, n_rows);
+    if (STORE) {
+      load_slab<NT>(A_s, DST, mids, midw, mcols + gm[5] + c0, has_w ? stage_w(b) : nullptr, nc,
+                    d3, tile * TE, n_rows);
+    } else {
+      stage_slots<BF16>(t, NT, W_s, nullptr, sqp, stage_sh(b), S, sqs, n_sq, coef);
+      __syncthreads();
+      build_slab<NT, BF16>(A_s, DST, W_s, sqp, stage_xb(b), nxp, has_w ? stage_w(b) : nullptr,
+                           cols_s, nc, d3, n_rows);
+    }
     __syncthreads();
     // dWcat[c, v] += sum_r BLK[r, c] G[r, v]: A operand BLK^T (rows c, read
     // [tig][gid]), B operand G; this warp's K half of the tile's d3*TE rows,
     // summed in fragments per n8 tile, then added into fp32 registers
-    if (mt * 16 < nc) {
+    if (BF16 && mt * 16 < nc) {
+      // bf16: one k16 step per m3 (its TE = 16 rows), the m3 alternating
+      // between the two K halves
+      const float* gs = stage_gb(b);
+      for (int m = kh; m < d3; m += 2) {
+        const float* ar = A_s + (m * TE + 2 * tig) * DST + mt * 16 + gid;
+        const uint32_t a[4] = {pack_bf16(ar[0], ar[DST]), pack_bf16(ar[8], ar[DST + 8]),
+                               pack_bf16(ar[8 * DST], ar[9 * DST]),
+                               pack_bf16(ar[8 * DST + 8], ar[9 * DST + 8])};
+        const float* gr = gs + (m * TE + 2 * tig) * ST + gid;
+#pragma unroll
+        for (int n = 0; n < ITEM_N8; ++n) {
+          if (n < NV) {
+            const uint32_t bv[2] = {pack_bf16(gr[n * 8], gr[ST + n * 8]),
+                                    pack_bf16(gr[8 * ST + n * 8], gr[9 * ST + n * 8])};
+            mma_bf16(acc[n], a, bv);
+          }
+        }
+      }
+    } else if (mt * 16 < nc) {
       const float* gs = stage_gb(b);
 #pragma unroll
       for (int n = 0; n < ITEM_N8; ++n) {
@@ -476,10 +546,12 @@ int run(int passes, const float* x, const float* sh, const float* w, const float
         const int* slab_base, const int* slabs, const int* sq, const int* xmap, const int* xgrp,
         const int* qgrp, const int* lst, const int* items, const float* wcat_scale,
         const int64_t* wcat_idx, float* dx, float* dsh, float* dw, float* part, float* dflat,
-        const int* grp_host, int E, int d_in, int S, int n_ch, int d_out, int n_groups,
-        int n_items, int linear_numel, int sq_max, int nx_max, int n_split, int has_w,
-        int need_dsh, void* stream) {
+        const int* grp_host, const float* mids, const int* mcols, int E, int d_in, int S,
+        int n_ch, int d_out, int n_groups, int n_items, int linear_numel, int sq_max, int nx_max,
+        int n_split, int has_w, int need_dsh, int midw, int bf16, void* stream) {
   if (E <= 0 || n_groups <= 0) return 0;
+  if (mids && midw <= 0) return (int)cudaErrorInvalidValue;
+  const int2* mc = reinterpret_cast<const int2*>(mcols);
   const int n_tiles = (E + TE - 1) / TE;
   if (n_split < 1 || n_split > n_tiles || n_items < 1 || sq_max < 0 || nx_max < 0)
     return (int)cudaErrorInvalidValue;
@@ -488,26 +560,50 @@ int run(int passes, const float* x, const float* sh, const float* w, const float
   cudaError_t err;
   if (passes & EDGE) {
     const size_t smem = lay.edge_floats(S, sq_max, nx_max, need_dsh) * sizeof(float);
-    err = cudaFuncSetAttribute(packed_tp_bwd_edge_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    packed_tp_bwd_edge_kernel<<<n_tiles, NT, smem, st>>>(
-        x, sh, w, wcat, gy, coef, grp, cols, slab_base, slabs, sq, xmap, xgrp, qgrp, lst, dx,
-        dsh, dw, E, d_in, S, n_ch, d_out, n_groups, sq_max, nx_max, lay.g_edge, lay.d3_max,
-        lay.v_max, has_w, need_dsh);
+#define PACKED_TP_BWD_EDGE(PREC, STORED)                                                   \
+  do {                                                                                      \
+    err = cudaFuncSetAttribute(packed_tp_bwd_edge_kernel<PREC, STORED>,                      \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);      \
+    if (err != cudaSuccess) return (int)err;                                                \
+    packed_tp_bwd_edge_kernel<PREC, STORED><<<n_tiles, NT, smem, st>>>(                      \
+        x, sh, w, wcat, gy, coef, grp, cols, slab_base, slabs, sq, xmap, xgrp, qgrp, lst,   \
+        dx, dsh, dw, mids, mc, E, d_in, S, n_ch, d_out, n_groups, sq_max, nx_max,           \
+        lay.g_edge, lay.d3_max, lay.v_max, has_w, need_dsh, midw);                          \
+  } while (0)
+    if (bf16 && mids)
+      PACKED_TP_BWD_EDGE(true, true);
+    else if (bf16)
+      PACKED_TP_BWD_EDGE(true, false);
+    else if (mids)
+      PACKED_TP_BWD_EDGE(false, true);
+    else
+      PACKED_TP_BWD_EDGE(false, false);
+#undef PACKED_TP_BWD_EDGE
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (passes & WCAT) {
     const size_t smem = lay.wcat_floats(S, sq_max, nx_max) * sizeof(float);
-    err = cudaFuncSetAttribute(packed_tp_bwd_wcat_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
     const int tiles_per_split = (n_tiles + n_split - 1) / n_split;
-    packed_tp_bwd_wcat_kernel<<<n_items * n_split, NT, smem, st>>>(
-        x, sh, w, gy, coef, grp, cols, slabs, sq, xmap, items, part, E, d_in, S, n_ch, d_out,
-        linear_numel, sq_max, nx_max, lay.stage_floats(S, nx_max), lay.g_wcat, n_split,
-        tiles_per_split, has_w);
+#define PACKED_TP_BWD_WCAT(PREC, STORED)                                                   \
+  do {                                                                                      \
+    err = cudaFuncSetAttribute(packed_tp_bwd_wcat_kernel<PREC, STORED>,                      \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);      \
+    if (err != cudaSuccess) return (int)err;                                                \
+    packed_tp_bwd_wcat_kernel<PREC, STORED><<<n_items * n_split, NT, smem, st>>>(            \
+        x, sh, w, gy, coef, grp, cols, slabs, sq, xmap, items, part, mids, mc, E, d_in, S,  \
+        n_ch, d_out, linear_numel, sq_max, nx_max, lay.stage_floats(S, nx_max), lay.g_wcat, \
+        n_split, tiles_per_split, has_w, midw);                                             \
+  } while (0)
+    if (bf16 && mids)
+      PACKED_TP_BWD_WCAT(true, true);
+    else if (bf16)
+      PACKED_TP_BWD_WCAT(true, false);
+    else if (mids)
+      PACKED_TP_BWD_WCAT(false, true);
+    else
+      PACKED_TP_BWD_WCAT(false, false);
+#undef PACKED_TP_BWD_WCAT
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     packed_tp_bwd_reduce<<<(linear_numel + RED_NT - 1) / RED_NT, RED_NT, 0, st>>>(
@@ -542,8 +638,8 @@ int packed_tp_bwd_item_n8(void) { return ITEM_N8; }
 // Blocks of a pass (0: edge, 1: weight) resident on one SM at this
 // shared-memory size.
 int packed_tp_bwd_resident_blocks(int pass, size_t smem) {
-  return resident_per_sm(pass == 0 ? (const void*)packed_tp_bwd_edge_kernel
-                                   : (const void*)packed_tp_bwd_wcat_kernel,
+  return resident_per_sm(pass == 0 ? (const void*)packed_tp_bwd_edge_kernel<false, false>
+                                   : (const void*)packed_tp_bwd_wcat_kernel<false, false>,
                          NT, smem);
 }
 
@@ -553,15 +649,19 @@ int packed_tp_bwd_resident_blocks(int pass, size_t smem) {
       const int *slabs, const int *sq, const int *xmap, const int *xgrp, const int *qgrp,    \
       const int *lst, const int *items, const float *wcat_scale, const int64_t *wcat_idx,    \
       float *dx, float *dsh, float *dw, float *part, float *dflat, const int *grp_host,      \
-      int E, int d_in, int S, int n_ch, int d_out, int n_groups, int n_items,                \
-      int linear_numel, int sq_max, int nx_max, int n_split, int has_w, int need_dsh,        \
-      void *stream
+      const float *mids, const int *mcols, int E, int d_in, int S, int n_ch, int d_out,      \
+      int n_groups, int n_items, int linear_numel, int sq_max, int nx_max, int n_split,      \
+      int has_w, int need_dsh, int midw, int bf16, void *stream
 #define PACKED_TP_BWD_ARGS                                                                   \
   x, sh, w, wcat, gy, coef, grp, cols, slab_base, slabs, sq, xmap, xgrp, qgrp, lst, items,   \
-      wcat_scale, wcat_idx, dx, dsh, dw, part, dflat, grp_host, E, d_in, S, n_ch, d_out,     \
-      n_groups, n_items, linear_numel, sq_max, nx_max, n_split, has_w, need_dsh, stream
+      wcat_scale, wcat_idx, dx, dsh, dw, part, dflat, grp_host, mids, mcols, E, d_in, S,     \
+      n_ch, d_out, n_groups, n_items, linear_numel, sq_max, nx_max, n_split, has_w,         \
+      need_dsh, midw, bf16, stream
 
 // The backward: edge pass (dx, dw, dsh), weight pass and reduce (d(flat_w)).
+// mids: null, or the forward's stored mids (E, midw), read in place of the
+// recompute (mcols: per column its offset there and its step per m3); bf16:
+// the bf16 instantiation.
 int packed_tp_bwd(PACKED_TP_BWD_PARAMS) { return run(EDGE | WCAT, PACKED_TP_BWD_ARGS); }
 // The edge pass alone, and the weight pass with the reduce alone (timing).
 int packed_tp_bwd_edge(PACKED_TP_BWD_PARAMS) { return run(EDGE, PACKED_TP_BWD_ARGS); }

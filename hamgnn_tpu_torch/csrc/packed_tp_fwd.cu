@@ -49,6 +49,15 @@
 //    64, or V > 64) takes several items, each building the chunk's BLK
 //    operand anew.  Limits: d1 <= 13 (MAXD1), d3 <= 64; the shared memory
 //    (chunk's coupling entries) must fit the card (the wrapper checks it).
+//  * Variants.  BF16 = true is the instantiation of HAMGNN_TP_BF16=all: sh
+//    and the coefficients rounded to bf16 before the coupling FFMAs, and the
+//    Wcat product one bf16 mma.sync m16n8k16 pass (packed_tp_mma.cuh).
+//    STORE = true (HAMGNN_TP_STOREMID, `mids` given): the first work item of
+//    each chunk also writes the mids it builds, unscaled, to device memory in
+//    the layout of the JAX kernel's stored mids (host table `mcols`: per
+//    column its offset at m3 = 0 and its step per m3), for the backward to
+//    read.  Both are compile-time parameters, so that the default
+//    instantiation carries no code of either.
 //  * All layout work is host-side int32 tables (e3/tp_kernel.py KernelSpec):
 //    per BLK column its coupling slot, d1, x offset (u-major layout, so no x
 //    permutation) and radial-weight column; per coupling slot its nonzero
@@ -87,20 +96,22 @@ struct Layout {
   }
 };
 
-template <int MAXP>
+template <bool BF16, bool STORE, int MAXP>
 __global__ void __launch_bounds__(NT, MAXP <= 2 ? 2 : 1) packed_tp_fwd_kernel(
     const float* __restrict__ x, const float* __restrict__ sh,
     const float* __restrict__ w, const float* __restrict__ wcat,
     const float* __restrict__ coef, const int* __restrict__ grp,
     const int* __restrict__ cols, const int* __restrict__ qtab,
-    const int* __restrict__ items, float* __restrict__ out, int E, int d_in, int S,
-    int n_ch, int d_out, int a_ofs, int has_w) {
+    const int* __restrict__ items, float* __restrict__ out, float* __restrict__ mids,
+    const int2* __restrict__ mcols, int E, int d_in, int S, int n_ch, int d_out, int a_ofs,
+    int has_w, int midw) {
   extern __shared__ __align__(16) float smem[];
   const int* it = items + (size_t)blockIdx.y * ITEM_W;
   const int* gm = grp + (size_t)__ldg(it) * GRP_W;
   const int out_base = gm[0], d3 = gm[1], V = gm[2], wofs = gm[3];
   const int fan_in = gm[4], col_ofs = gm[5], q_ofs = gm[6], nq = gm[7];
   const int nt0 = __ldg(it + 1), n8 = __ldg(it + 2);
+  float* const mid_out = STORE && nt0 == 0 ? mids : nullptr;  // one item of a chunk writes them
   const int v0 = nt0 * 8, VB = min(V - v0, n8 * 8);  // this item's V columns
   const int KV = n8 * 8, BST = stride_8mod16(VB);
   const int npairs = d3 * n8;
@@ -119,7 +130,8 @@ __global__ void __launch_bounds__(NT, MAXP <= 2 ? 2 : 1) packed_tp_fwd_kernel(
   {
     const float* sg = sh + (size_t)e0 * S;
     const int ns = n_rows * S;
-    for (int idx = t; idx < TE * S; idx += NT) sh_s[idx] = idx < ns ? sg[idx] : 0.f;
+    for (int idx = t; idx < TE * S; idx += NT)
+      sh_s[idx] = idx < ns ? operand<BF16>(sg[idx]) : 0.f;
   }
   __syncthreads();
 
@@ -131,7 +143,7 @@ __global__ void __launch_bounds__(NT, MAXP <= 2 ? 2 : 1) packed_tp_fwd_kernel(
     const float* sr = sh_s + e * S + __ldg(qm + 1);
     const int ns = __ldg(qm + 2);
     float acc = 0.f;
-    for (int s = 0; s < ns; ++s) acc += __ldg(cf + s) * sr[s];
+    for (int s = 0; s < ns; ++s) acc += operand<BF16>(__ldg(cf + s)) * sr[s];
     W_s[e * nqp + q] = acc;
   }
 
@@ -153,6 +165,13 @@ __global__ void __launch_bounds__(NT, MAXP <= 2 ? 2 : 1) packed_tp_fwd_kernel(
         const float* xr = x + (size_t)(e0 + e) * d_in + __ldg(cm + 2);
         const float sc = has_w ? __ldg(w + (size_t)(e0 + e) * n_ch + __ldg(cm + 3)) : 1.f;
         const float* wr = W_s + e * nqp + __ldg(cm);
+        float* mo = nullptr;
+        int mstep = 0;
+        if (mid_out) {
+          const int2 mc = __ldg(mcols + col_ofs + gc);
+          mo = mid_out + (size_t)(e0 + e) * midw + mc.x;
+          mstep = mc.y;
+        }
         with_d1(__ldg(cm + 1), [&](auto D) {
           constexpr int n = decltype(D)::value;
           float xv[n];
@@ -162,8 +181,9 @@ __global__ void __launch_bounds__(NT, MAXP <= 2 ? 2 : 1) packed_tp_fwd_kernel(
           for (int m = 0; m < d3; ++m, wm += nq) {
             float val = 0.f;
 #pragma unroll
-            for (int i = 0; i < n; ++i) val += wm[i] * xv[i];
+            for (int i = 0; i < n; ++i) val = mid_mac<BF16>(val, wm[i], xv[i]);
             a[m * TE * AST] = val * sc;
+            if (mo) mo[m * mstep] = val;
           }
         });
       } else {
@@ -184,17 +204,33 @@ __global__ void __launch_bounds__(NT, MAXP <= 2 ? 2 : 1) packed_tp_fwd_kernel(
       const int p = warp + j * NW;
       if (p < npairs) {
         const int m3 = p / n8, nt = p - m3 * n8;
-        const float* ar = A_s + (m3 * TE + gid) * AST + tig;
-        const float* br = B_s + tig * BST + nt * 8 + gid;
-        float hi[4] = {0.f, 0.f, 0.f, 0.f}, lo[4] = {0.f, 0.f, 0.f, 0.f};
+        if (BF16) {
+          // B is (k, n) row-major here: b0 (k = 2 tig, 2 tig + 1), b1 (+ 8)
+          const float* ar = A_s + (m3 * TE + gid) * AST + 2 * tig;
+          const float* br = B_s + 2 * tig * BST + nt * 8 + gid;
 #pragma unroll
-        for (int k = 0; k < KS; k += 8) {
-          const float a[4] = {ar[k], ar[8 * AST + k], ar[k + 4], ar[8 * AST + k + 4]};
-          const float b[2] = {br[k * BST], br[(k + 4) * BST]};
-          mma_3xtf32(hi, lo, a, b);
+          for (int k = 0; k < KS; k += 16) {
+            const float* a0 = ar + k;
+            const float* b0 = br + k * BST;
+            const uint32_t a[4] = {pack_bf16(a0[0], a0[1]), pack_bf16(a0[8 * AST], a0[8 * AST + 1]),
+                                   pack_bf16(a0[8], a0[9]),
+                                   pack_bf16(a0[8 * AST + 8], a0[8 * AST + 9])};
+            const uint32_t b[2] = {pack_bf16(b0[0], b0[BST]), pack_bf16(b0[8 * BST], b0[9 * BST])};
+            mma_bf16(acc[j], a, b);
+          }
+        } else {
+          const float* ar = A_s + (m3 * TE + gid) * AST + tig;
+          const float* br = B_s + tig * BST + nt * 8 + gid;
+          float hi[4] = {0.f, 0.f, 0.f, 0.f}, lo[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int k = 0; k < KS; k += 8) {
+            const float a[4] = {ar[k], ar[8 * AST + k], ar[k + 4], ar[8 * AST + k + 4]};
+            const float b[2] = {br[k * BST], br[(k + 4) * BST]};
+            mma_3xtf32(hi, lo, a, b);
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[j][r] += lo[r] + hi[r];
         }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[j][r] += lo[r] + hi[r];
       }
     }
   }
@@ -215,18 +251,20 @@ __global__ void __launch_bounds__(NT, MAXP <= 2 ? 2 : 1) packed_tp_fwd_kernel(
   }
 }
 
-template <int MAXP>
+template <bool BF16, bool STORE, int MAXP>
 cudaError_t launch(const float* x, const float* sh, const float* w, const float* wcat,
                    const float* coef, const int* grp, const int* cols, const int* qtab,
-                   const int* items, float* out, int E, int d_in, int S, int n_ch, int d_out,
-                   int n_items, int a_ofs, size_t smem, int has_w, cudaStream_t stream) {
+                   const int* items, float* out, float* mids, const int* mcols, int E, int d_in,
+                   int S, int n_ch, int d_out, int n_items, int a_ofs, size_t smem, int has_w,
+                   int midw, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      packed_tp_fwd_kernel<MAXP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      packed_tp_fwd_kernel<BF16, STORE, MAXP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((E + TE - 1) / TE, n_items);
-  packed_tp_fwd_kernel<MAXP><<<grid, NT, smem, stream>>>(
-      x, sh, w, wcat, coef, grp, cols, qtab, items, out, E, d_in, S, n_ch, d_out, a_ofs,
-      has_w);
+  packed_tp_fwd_kernel<BF16, STORE, MAXP><<<grid, NT, smem, stream>>>(
+      x, sh, w, wcat, coef, grp, cols, qtab, items, out, mids,
+      reinterpret_cast<const int2*>(mcols), E, d_in, S, n_ch, d_out, a_ofs, has_w, midw);
   return cudaGetLastError();
 }
 
@@ -248,15 +286,19 @@ int packed_tp_fwd_item_n8(void) { return ITEM_N8; }
 
 // Blocks resident on one SM at this shared-memory size.
 int packed_tp_fwd_resident_blocks(size_t smem) {
-  return resident_per_sm((const void*)packed_tp_fwd_kernel<1>, NT, smem);
+  return resident_per_sm((const void*)packed_tp_fwd_kernel<false, false, 1>, NT, smem);
 }
 
+// mids: null, or an (E, midw) buffer the mids are written to (mcols: per
+// column its offset there and its step per m3); bf16: the bf16 instantiation.
 int packed_tp_fwd(const float* x, const float* sh, const float* w, const float* wcat,
                   const float* coef, const int* grp, const int* cols, const int* qtab,
-                  const int* items, float* out, const int* grp_host, const int* items_host,
-                  int E, int d_in, int S, int n_ch, int d_out, int n_groups, int n_items,
-                  int has_w, void* stream) {
+                  const int* items, float* out, float* mids, const int* mcols,
+                  const int* grp_host, const int* items_host, int E, int d_in, int S, int n_ch,
+                  int d_out, int n_groups, int n_items, int has_w, int midw, int bf16,
+                  void* stream) {
   if (E <= 0 || n_groups <= 0 || n_items <= 0) return 0;
+  if (mids && midw <= 0) return (int)cudaErrorInvalidValue;
   int max_pairs = 0;
   for (int i = 0; i < n_items; ++i) {
     const int* it = items_host + i * ITEM_W;
@@ -271,16 +313,19 @@ int packed_tp_fwd(const float* x, const float* sh, const float* w, const float* 
   const size_t smem = lay.smem_floats(S) * sizeof(float);
   const int a_ofs = lay.a_offset(S);
   cudaStream_t st = (cudaStream_t)stream;
-#define PACKED_TP_FWD_LAUNCH(P)                                                            \
-  launch<P>(x, sh, w, wcat, coef, grp, cols, qtab, items, out, E, d_in, S, n_ch, d_out,   \
-            n_items, a_ofs, smem, has_w, st)
+#define PACKED_TP_FWD_LAUNCH(PREC, STORED, PAIRS)                                          \
+  launch<PREC, STORED, PAIRS>(x, sh, w, wcat, coef, grp, cols, qtab, items, out, mids, mcols, \
+                              E, d_in, S, n_ch, d_out, n_items, a_ofs, smem, has_w, midw, st)
+#define PACKED_TP_FWD_LAUNCH_P(PREC, STORED)                                               \
+  (per_warp <= 1   ? PACKED_TP_FWD_LAUNCH(PREC, STORED, 1)                                \
+   : per_warp <= 2 ? PACKED_TP_FWD_LAUNCH(PREC, STORED, 2)                                \
+                   : PACKED_TP_FWD_LAUNCH(PREC, STORED, 4))
   cudaError_t err;
-  if (per_warp <= 1)
-    err = PACKED_TP_FWD_LAUNCH(1);
-  else if (per_warp <= 2)
-    err = PACKED_TP_FWD_LAUNCH(2);
+  if (bf16)
+    err = mids ? PACKED_TP_FWD_LAUNCH_P(true, true) : PACKED_TP_FWD_LAUNCH_P(true, false);
   else
-    err = PACKED_TP_FWD_LAUNCH(4);
+    err = mids ? PACKED_TP_FWD_LAUNCH_P(false, true) : PACKED_TP_FWD_LAUNCH_P(false, false);
+#undef PACKED_TP_FWD_LAUNCH_P
 #undef PACKED_TP_FWD_LAUNCH
   return (int)err;
 }

@@ -22,8 +22,27 @@
 // Shared-memory row strides are chosen per operand so that these loads hit
 // 32 distinct banks: stride_4mod8 where a warp reads [gid][tig] (rows by
 // gid), stride_8mod16 where it reads [tig][gid] (rows by tig).
+//
+// bf16 (HAMGNN_TP_BF16).  Each kernel also has an instantiation whose
+// Wcat-stage products take bfloat16 operands, as the JAX kernels' dots do
+// under that switch: every operand is rounded to nearest (ties to even, as
+// torch and JAX round) when its fragment is built from the fp32 values in
+// shared or device memory, and one mma.sync m16n8k16 .bf16 accumulates the
+// exact products in fp32, one pass into one accumulator.  Its coupling
+// stage rounds sh and the coefficients to bf16 before its FFMAs: a product
+// of two bf16 values is exact in fp32, so the FFMA chain computes the bf16
+// dot's function.  Fragment layouts (PTX ISA, mma.m16n8k16 .bf16; two
+// values a register, the lower k in the lower half):
+//   A 16x16: a0 (gid, 2 tig .. +1), a1 (gid + 8, 2 tig ..), a2 (gid, 2 tig + 8 ..),
+//            a3 (gid + 8, 2 tig + 8 ..)
+//   B 16x8:  b0 (k = 2 tig .. +1, n = gid), b1 (k = 2 tig + 8 .. +1, n = gid)
+//   C 16x8:  as for m16n8k8 above.
+// A depth that is 8 mod 16 ends in a step whose upper half (a2, a3, b1) is
+// zero.  The fp32 operand strides are kept: the bf16 loads are not free of
+// bank conflicts (later work, as are bf16 staging, wgmma and TMA).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -107,6 +126,60 @@ __device__ __forceinline__ void mma_3xtf32(float (&hi)[4], float (&lo)[4], float
   mma_tf32(lo, as, bb);
   mma_tf32(hi, ab, bb);
   mma_tf32(lo2, ab, bs);
+}
+
+// ---------------------------------------------------------------- bf16
+
+// a rounded to bf16 (to nearest, ties to even) and back to fp32
+__device__ __forceinline__ float bf16_round(float a) {
+  return __bfloat162float(__float2bfloat16_rn(a));
+}
+
+// a in the precision of a product's operands: bf16-rounded where BF16
+template <bool BF16>
+__device__ __forceinline__ float operand(float a) {
+  return BF16 ? bf16_round(a) : a;
+}
+
+// acc + a * b for the mids: FFMA in fp32; in a bf16 instantiation a product
+// rounded and then a sum rounded, as the plain version (and the JAX kernel)
+// computes them, so that the fp32 values a bf16 product then rounds are the
+// plain version's bit for bit
+template <bool BF16>
+__device__ __forceinline__ float mid_mac(float acc, float a, float b) {
+  return BF16 ? __fadd_rn(acc, __fmul_rn(a, b)) : acc + a * b;
+}
+
+// two values, each rounded to bf16, in one register (lo in the lower half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One k16 step of a bf16 product whose A operand is row-major in memory
+// (element (r, k) at ar[r * ast + k], ar at row gid, column 2 tig of the
+// step) and whose B operand is held as (n, k) rows (element (k, n) at
+// br[n * bst + k], br at row gid, column 2 tig): both read two adjacent
+// values a register.  Without `upper` the step is 8 deep.
+__device__ __forceinline__ void mma_bf16_rows(float (&d)[4], const float* ar, int ast,
+                                              const float* br, bool upper) {
+  uint32_t a[4], b[2];
+  a[0] = pack_bf16(ar[0], ar[1]);
+  a[1] = pack_bf16(ar[8 * ast], ar[8 * ast + 1]);
+  a[2] = upper ? pack_bf16(ar[8], ar[9]) : 0u;
+  a[3] = upper ? pack_bf16(ar[8 * ast + 8], ar[8 * ast + 9]) : 0u;
+  b[0] = pack_bf16(br[0], br[1]);
+  b[1] = upper ? pack_bf16(br[8], br[9]) : 0u;
+  mma_bf16(d, a, b);
 }
 
 // ---------------------------------------------------------------- cp.async
@@ -216,6 +289,8 @@ __device__ inline void zero_g_pad(float* G, int gst, int d3, int V) {
 // Coupling slots of one slab: Wsl[e * sqp + j] = sum_s coef_j[s] sh[e, s0_j + s]
 // for the slab's n_sq slots j (sq: their records), a thread per slot for all
 // the tile's edges, threads tid, tid + nthr, ...; dWsl, where given, is zeroed.
+// BF16: both factors rounded to bf16 (the sum in the order of s, as B1's).
+template <bool BF16>
 __device__ inline void stage_slots(int tid, int nthr, float* Wsl, float* dWsl, int sqp,
                                    const float* sh_s, int S, const int* __restrict__ sq,
                                    int n_sq, const float* __restrict__ coef) {
@@ -228,9 +303,9 @@ __device__ inline void stage_slots(int tid, int nthr, float* Wsl, float* dWsl, i
 #pragma unroll
     for (int e = 0; e < TE; ++e) acc[e] = 0.f;
     for (int s = 0; s < ns; ++s) {
-      const float c = __ldg(cf + s);
+      const float c = operand<BF16>(__ldg(cf + s));
 #pragma unroll
-      for (int e = 0; e < TE; ++e) acc[e] += c * sr[e * S + s];
+      for (int e = 0; e < TE; ++e) acc[e] += c * operand<BF16>(sr[e * S + s]);
     }
 #pragma unroll
     for (int e = 0; e < TE; ++e) {
@@ -242,7 +317,7 @@ __device__ inline void stage_slots(int tid, int nthr, float* Wsl, float* dWsl, i
 
 // One BLK column of one slab, all m3: A[m3 * TE * ast] = sc * sum_i
 // W[m3 * d1 + i] x[i] (A: the column's entry in row e)
-template <int D>
+template <bool BF16, int D>
 __device__ __forceinline__ void build_column(float* A, int ast, const float* wr, const float* xr,
                                              float sc, int d3) {
   float xv[D];
@@ -251,7 +326,7 @@ __device__ __forceinline__ void build_column(float* A, int ast, const float* wr,
   for (int m = 0; m < d3; ++m, wr += D) {
     float val = 0.f;
 #pragma unroll
-    for (int i = 0; i < D; ++i) val += wr[i] * xv[i];
+    for (int i = 0; i < D; ++i) val = mid_mac<BF16>(val, wr[i], xv[i]);
     A[m * TE * ast] = val * sc;
   }
 }
@@ -263,8 +338,8 @@ __device__ __forceinline__ void build_column(float* A, int ast, const float* wr,
 // 2p + 1 of an edge; where both are of one coupling group (the u of one
 // path) it reads their shared slots once for both.  The edge is the fastest
 // index, so that a warp's lanes share their columns' d1 (the inner loops are
-// unrolled to it).  ast must be even.
-template <int NT>
+// unrolled to it).  ast must be even.  BF16: the mids as mid_mac builds them.
+template <int NT, bool BF16>
 __device__ inline void build_slab(float* A, int ast, const float* Wsl, int sqp, const float* x_s,
                                   int nxp, const float* w_s, const int* cols_s, int nc, int d3,
                                   int n_rows) {
@@ -297,19 +372,20 @@ __device__ inline void build_slab(float* A, int ast, const float* Wsl, int sqp, 
 #pragma unroll
           for (int i = 0; i < n; ++i) {
             const float wv = wr[i];
-            v0 += wv * xa[i];
-            v1 += wv * xb[i];
+            v0 = mid_mac<BF16>(v0, wv, xa[i]);
+            v1 = mid_mac<BF16>(v1, wv, xb[i]);
           }
           *reinterpret_cast<float2*>(a + m * TE * ast) = make_float2(v0 * sc0, v1 * sc1);
         }
       });
     } else {
-      with_d1(cm[1], [&](auto D) { build_column<decltype(D)::value>(a, ast, wr, x0, sc0, d3); });
+      with_d1(cm[1],
+              [&](auto D) { build_column<BF16, decltype(D)::value>(a, ast, wr, x0, sc0, d3); });
       if (two) {
         const float* wr1 = Wsl + e * sqp + cm[COL_W];
         const float* x1 = x_s + e * nxp + cm[COL_W + 2];
         with_d1(cm[COL_W + 1], [&](auto D) {
-          build_column<decltype(D)::value>(a + 1, ast, wr1, x1, sc1, d3);
+          build_column<BF16, decltype(D)::value>(a + 1, ast, wr1, x1, sc1, d3);
         });
       } else {
         for (int m = 0; m < d3; ++m) a[m * TE * ast + 1] = 0.f;

@@ -65,6 +65,11 @@
 //    d(flat_w).  No atomics anywhere, no partial row rewritten per tile, and
 //    a repeat is bit-identical.
 //  * Rows past E load zeros and store nothing.
+//  * BF16 = true is the instantiation of HAMGNN_TP_BF16=bwd|all: both
+//    products one bf16 mma.sync m16n8k16 pass (packed_tp_mma.cuh); the
+//    edge pass's K (V padded to 8) ends in a half-deep step where V is 8
+//    mod 16, the weight pass takes a step's 16 edges as one k16 step.  The
+//    mids, dw and dx stay fp32, as in the JAX kernel.
 
 #include "packed_tp_mma.cuh"
 
@@ -204,6 +209,7 @@ __device__ inline void stage_groups(int* T, const int* __restrict__ sm, const Gr
   copy_words(T + gl.xc, reinterpret_cast<const int*>(xcoef) + xl_ofs, n_xl);
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(NT, 3) zonal_tp_bwd_edge_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ went, const float* __restrict__ gy,
@@ -290,7 +296,26 @@ __global__ void __launch_bounds__(NT, 3) zonal_tp_bwd_edge_kernel(
                             __ldg(wcol + col_ofs + ei_s[nt * 8 + 2 * tig + h].z))
                     : (has_w ? 0.f : 1.f);
       float d[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int kq = 0; kq < KV; kq += 64) {
+      if (BF16) {
+        // A rows gid (+a) and gid + 8 (-a); B (n = entry, k = v) rows of Wcat
+        const float* ga = gp + tig;
+        const float* gb = gq + tig;
+        const float* bb = br + tig;
+        for (int kk = 0; kk < KV; kk += 16) {
+          const bool up = kk + 8 < KV;
+          const int k0 = kk + 2 * tig;
+          const uint32_t a[4] = {pack_bf16(ga[kk], ga[kk + 1]), pack_bf16(gb[kk], gb[kk + 1]),
+                                 up ? pack_bf16(ga[kk + 8], ga[kk + 9]) : 0u,
+                                 up ? pack_bf16(gb[kk + 8], gb[kk + 9]) : 0u};
+          const uint32_t b[2] = {
+              pack_bf16(k0 < V ? __ldg(bb + kk) : 0.f, k0 + 1 < V ? __ldg(bb + kk + 1) : 0.f),
+              up ? pack_bf16(k0 + 8 < V ? __ldg(bb + kk + 8) : 0.f,
+                             k0 + 9 < V ? __ldg(bb + kk + 9) : 0.f)
+                 : 0u};
+          mma_bf16(d, a, b);
+        }
+      }
+      for (int kq = 0; kq < (BF16 ? 0 : KV); kq += 64) {
         const int kend = min(KV, kq + 64);
         float hi[4] = {0.f, 0.f, 0.f, 0.f}, lo[4] = {0.f, 0.f, 0.f, 0.f};
         float lo2[4] = {0.f, 0.f, 0.f, 0.f};
@@ -397,6 +422,7 @@ __global__ void __launch_bounds__(NT, 3) zonal_tp_bwd_edge_kernel(
 
 // ---------------------------------------------------------------- weight pass
 
+template <bool BF16>
 __global__ void __launch_bounds__(NT, 4) zonal_tp_bwd_wcat_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ gy, const int* __restrict__ zgrp,
@@ -508,6 +534,31 @@ __global__ void __launch_bounds__(NT, 4) zonal_tp_bwd_wcat_kernel(
       av[ks][2] = c0 * xs[r1 + j0] * ws[r1 + j0];
       av[ks][3] = c1 * xs[r1 + j1] * ws[r1 + j1];
     }
+    if (BF16) {
+      // one k16 step over the 16 edges: a0 (entry j0, edges 2 tig, 2 tig + 1),
+      // a1 (j1, ..), a2 (j0, + 8), a3 (j1, + 8); the operands rounded to bf16
+      float ev[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r0 = (2 * tig + 8 * h) * XW, r1 = r0 + XW;
+        ev[h][0] = c0 * xs[r0 + j0] * ws[r0 + j0];
+        ev[h][1] = c0 * xs[r1 + j0] * ws[r1 + j0];
+        ev[h][2] = c1 * xs[r0 + j1] * ws[r0 + j1];
+        ev[h][3] = c1 * xs[r1 + j1] * ws[r1 + j1];
+      }
+      const uint32_t a[4] = {pack_bf16(ev[0][0], ev[0][1]), pack_bf16(ev[0][2], ev[0][3]),
+                             pack_bf16(ev[1][0], ev[1][1]), pack_bf16(ev[1][2], ev[1][3])};
+      const float* gr = stage_g(bf) + (kh * WTE + 2 * tig) * GW + gid;
+#pragma unroll
+      for (int nn = 0; nn < ITEM_N8; ++nn) {
+        if (nn < NV) {
+          const uint32_t bv[2] = {pack_bf16(gr[nn * 8], gr[GW + nn * 8]),
+                                  pack_bf16(gr[8 * GW + nn * 8], gr[9 * GW + nn * 8])};
+          mma_bf16(acc[nn], a, bv);
+        }
+      }
+      continue;
+    }
     const float* gs = stage_g(bf) + (kh * WTE + tig) * GW + gid;
 #pragma unroll
     for (int nn = 0; nn < ITEM_N8; ++nn) {
@@ -578,7 +629,7 @@ int run(int passes, const float* x, const float* w, const float* went, const flo
         const int* red_lst, const int64_t* wcat_idx, const float* wcat_scale, float* dx,
         float* dw, float* part, float* dflat, int E, int d_in, int n_ch, int d_out,
         int n_chunks, int n_witems, int n_wcat, int n_went, int gmax, int tgrp_words,
-        int n_split, int has_w, void* stream) {
+        int n_split, int has_w, int bf16, void* stream) {
   if (E <= 0 || n_chunks <= 0) return 0;
   const int n_tiles = (E + ZTE - 1) / ZTE;
   if (n_split < 1 || n_split > (E + WTE - 1) / WTE || n_witems < 1 || d_in < 1)
@@ -589,25 +640,39 @@ int run(int passes, const float* x, const float* w, const float* went, const flo
   cudaError_t err;
   if (passes & EDGE) {
     const size_t smem = EdgeLayout(d_in, gmax, tgrp_words).floats() * sizeof(float);
-    err = cudaFuncSetAttribute(zonal_tp_bwd_edge_kernel,
+    err = cudaFuncSetAttribute(bf16 ? zonal_tp_bwd_edge_kernel<true>
+                                    : zonal_tp_bwd_edge_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    zonal_tp_bwd_edge_kernel<<<n_tiles, NT, smem, st>>>(
-        x, w, went, gy, zgrp, stages, ent_i, ent_c, wcol, cgrp, clst, xgrp, xlst, xcoef, dx, dw,
-        E, d_in, n_ch, d_out, n_chunks, gmax, tgrp_words, has_w);
+#define ZONAL_TP_BWD_EDGE(B)                                                                \
+  zonal_tp_bwd_edge_kernel<B><<<n_tiles, NT, smem, st>>>(                                    \
+      x, w, went, gy, zgrp, stages, ent_i, ent_c, wcol, cgrp, clst, xgrp, xlst, xcoef, dx,  \
+      dw, E, d_in, n_ch, d_out, n_chunks, gmax, tgrp_words, has_w)
+    if (bf16)
+      ZONAL_TP_BWD_EDGE(true);
+    else
+      ZONAL_TP_BWD_EDGE(false);
+#undef ZONAL_TP_BWD_EDGE
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (passes & WCAT) {
     const size_t smem = wcat_floats() * sizeof(float);
-    err = cudaFuncSetAttribute(zonal_tp_bwd_wcat_kernel,
+    err = cudaFuncSetAttribute(bf16 ? zonal_tp_bwd_wcat_kernel<true>
+                                    : zonal_tp_bwd_wcat_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const int w_tiles = (E + WTE - 1) / WTE;
     const int tiles_per_split = (w_tiles + n_split - 1) / n_split;
-    zonal_tp_bwd_wcat_kernel<<<n_witems * n_split, NT, smem, st>>>(
-        x, w, gy, zgrp, stages, ei, ec, wcol, witems, part, E, d_in, n_ch, d_out, n_went, n_witems,
-        tiles_per_split, has_w);
+#define ZONAL_TP_BWD_WCAT(B)                                                                \
+  zonal_tp_bwd_wcat_kernel<B><<<n_witems * n_split, NT, smem, st>>>(                         \
+      x, w, gy, zgrp, stages, ei, ec, wcol, witems, part, E, d_in, n_ch, d_out, n_went,      \
+      n_witems, tiles_per_split, has_w)
+    if (bf16)
+      ZONAL_TP_BWD_WCAT(true);
+    else
+      ZONAL_TP_BWD_WCAT(false);
+#undef ZONAL_TP_BWD_WCAT
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     zonal_tp_bwd_reduce<<<(n_wcat + RED_NT - 1) / RED_NT, RED_NT, 0, st>>>(
@@ -642,8 +707,8 @@ int zonal_tp_bwd_wcat_tile_edges(void) { return WTE; }
 // Blocks of a pass (0: edge, 1: weight) resident on one SM at this
 // shared-memory size.
 int zonal_tp_bwd_resident_blocks(int pass, size_t smem) {
-  return resident_per_sm(pass == 0 ? (const void*)zonal_tp_bwd_edge_kernel
-                                   : (const void*)zonal_tp_bwd_wcat_kernel,
+  return resident_per_sm(pass == 0 ? (const void*)zonal_tp_bwd_edge_kernel<false>
+                                   : (const void*)zonal_tp_bwd_wcat_kernel<false>,
                          NT, smem);
 }
 
@@ -654,13 +719,14 @@ int zonal_tp_bwd_resident_blocks(int pass, size_t smem) {
       const int *witems, const int *red_ofs, const int *red_lst, const int64_t *wcat_idx,    \
       const float *wcat_scale, float *dx, float *dw, float *part, float *dflat, int E,        \
       int d_in, int n_ch, int d_out, int n_chunks, int n_witems, int n_wcat, int n_went,     \
-      int gmax, int tgrp_words, int n_split, int has_w, void *stream
+      int gmax, int tgrp_words, int n_split, int has_w, int bf16, void *stream
 #define ZONAL_TP_BWD_ARGS                                                                    \
   x, w, went, gy, zgrp, stages, ent_i, ent_c, wcol, cgrp, clst, xgrp, xlst, xcoef, witems,   \
       red_ofs, red_lst, wcat_idx, wcat_scale, dx, dw, part, dflat, E, d_in, n_ch, d_out,     \
-      n_chunks, n_witems, n_wcat, n_went, gmax, tgrp_words, n_split, has_w, stream
+      n_chunks, n_witems, n_wcat, n_went, gmax, tgrp_words, n_split, has_w, bf16, stream
 
-// The backward: edge pass (dx_rot, dw), weight pass and reduce (d(flat_w)).
+// The backward: edge pass (dx_rot, dw), weight pass and reduce (d(flat_w));
+// bf16: the bf16 instantiation.
 int zonal_tp_bwd(ZONAL_TP_BWD_PARAMS) { return run(EDGE | WCAT, ZONAL_TP_BWD_ARGS); }
 // The edge pass alone, and the weight pass with the reduce alone (timing).
 int zonal_tp_bwd_edge(ZONAL_TP_BWD_PARAMS) { return run(EDGE, ZONAL_TP_BWD_ARGS); }

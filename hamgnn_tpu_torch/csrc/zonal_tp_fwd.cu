@@ -65,6 +65,10 @@
 //    against 1.00 ms a launch).
 //  * The output is written once, straight into the plan's u-major layout.
 //    Rows past E load zeros and store nothing.
+//  * BF16 = true is the instantiation of HAMGNN_TP_BF16=all: the product
+//    one bf16 mma.sync m16n8k16 pass (packed_tp_mma.cuh) over each 16
+//    entries of a segment, a segment's last 8 as a half-deep step.  The
+//    mids are elementwise and stay fp32, as in the JAX kernel.
 
 #include "packed_tp_mma.cuh"
 
@@ -96,6 +100,7 @@ __host__ __device__ inline size_t smem_floats(int d_in, int fan_max) {
   return (size_t)a_offset(d_in) + 16 * AST + ZTE * odd_stride(fan_max);
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(NT, 4) zonal_tp_fwd_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ went, const int* __restrict__ zgrp,
@@ -207,9 +212,27 @@ __global__ void __launch_bounds__(NT, 4) zonal_tp_fwd_kernel(
             ns = __ldg(sg + 2);
           }
         }
-        const float* ar = A_s + gid * AST + tig;
         const int v = v0 + nt * 8 + gid;
         const bool v_ok = v < V;
+        if (BF16) {
+          // B (k, n) row-major in device memory: b0 (k = 2 tig, 2 tig + 1), b1 (+ 8)
+          const float* ar = A_s + gid * AST + 2 * tig;
+          const float* br = went + went0 + (size_t)(2 * tig) * V + (v_ok ? v : 0);
+          for (int k = s0; k < s0 + ns; k += 16) {
+            const bool up = k + 8 < s0 + ns;
+            const float* a0 = ar + k;
+            const float* b0 = br + (size_t)k * V;
+            const uint32_t a[4] = {pack_bf16(a0[0], a0[1]), pack_bf16(a0[8 * AST], a0[8 * AST + 1]),
+                                   up ? pack_bf16(a0[8], a0[9]) : 0u,
+                                   up ? pack_bf16(a0[8 * AST + 8], a0[8 * AST + 9]) : 0u};
+            const uint32_t b[2] = {
+                v_ok ? pack_bf16(__ldg(b0), __ldg(b0 + V)) : 0u,
+                v_ok && up ? pack_bf16(__ldg(b0 + 8 * (size_t)V), __ldg(b0 + 9 * (size_t)V)) : 0u};
+            mma_bf16(acc[jt], a, b);
+          }
+          continue;
+        }
+        const float* ar = A_s + gid * AST + tig;
         const float* br = went + went0 + (size_t)tig * V + (v_ok ? v : 0);
         for (int kq = s0; kq < s0 + ns; kq += 32) {
           const int nk = min(s0 + ns - kq, 32) / 8;
@@ -271,7 +294,7 @@ int zonal_tp_fwd_item_n8(void) { return ITEM_N8; }
 
 // Blocks resident on one SM at this shared-memory size.
 int zonal_tp_fwd_resident_blocks(size_t smem) {
-  return resident_per_sm((const void*)zonal_tp_fwd_kernel, NT, smem);
+  return resident_per_sm((const void*)zonal_tp_fwd_kernel<false>, NT, smem);
 }
 
 // zgrp: per chunk (b, d3, V, first stage, end stage, wcol offset, fan_in);
@@ -280,21 +303,28 @@ int zonal_tp_fwd_resident_blocks(size_t smem) {
 // ZonalKernelSpec._build_stages; wcol: per chunk column its radial-weight
 // column; fan_max: the most columns of a chunk;
 // went: Wcat in entry order; items: n_items work items (chunk, first n8
-// tile, n8 tiles).
+// tile, n8 tiles); bf16: the bf16 instantiation.
 int zonal_tp_fwd(const float* x, const float* w, const float* went, const int* zgrp,
                  const int* stages, const int* segs, const int* ent_i, const float* ent_c,
                  const int* wcol, const int* items, float* out, int E, int d_in, int n_ch,
-                 int d_out, int n_items, int fan_max, int has_w, void* stream) {
+                 int d_out, int n_items, int fan_max, int has_w, int bf16, void* stream) {
   if (E <= 0 || n_items <= 0) return 0;
   if (d_in < 1 || fan_max < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_floats(d_in, fan_max) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      zonal_tp_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      bf16 ? zonal_tp_fwd_kernel<true> : zonal_tp_fwd_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  zonal_tp_fwd_kernel<<<(E + ZTE - 1) / ZTE, NT, smem, (cudaStream_t)stream>>>(
-      x, w, went, zgrp, stages, segs, reinterpret_cast<const int4*>(ent_i),
-      reinterpret_cast<const float2*>(ent_c), wcol, items, out, E, d_in, n_ch, d_out, n_items,
-      fan_max, has_w);
+#define ZONAL_TP_FWD(B)                                                                     \
+  zonal_tp_fwd_kernel<B><<<(E + ZTE - 1) / ZTE, NT, smem, (cudaStream_t)stream>>>(          \
+      x, w, went, zgrp, stages, segs, reinterpret_cast<const int4*>(ent_i),                 \
+      reinterpret_cast<const float2*>(ent_c), wcol, items, out, E, d_in, n_ch, d_out,       \
+      n_items, fan_max, has_w)
+  if (bf16)
+    ZONAL_TP_FWD(true);
+  else
+    ZONAL_TP_FWD(false);
+#undef ZONAL_TP_FWD
   return (int)cudaGetLastError();
 }
 

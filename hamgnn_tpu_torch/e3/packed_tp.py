@@ -33,6 +33,21 @@ from .wigner import wigner_3j
 TP_ENGINES = ("auto", "pallas", "zonal", "zonal-xla", "xla")
 
 
+def bf16_mode() -> str:
+    """``HAMGNN_TP_BF16`` as the JAX package reads it (``pallas_tp._bf16_mode``):
+    ``bwd`` (the backward kernels' products take bfloat16 operands), ``all``
+    (the forward's too) or ``""`` (fp32) for any other value, case aside."""
+    v = os.environ.get("HAMGNN_TP_BF16", "").lower()
+    return v if v in ("bwd", "all") else ""
+
+
+def storemid() -> bool:
+    """``HAMGNN_TP_STOREMID=1`` (``pallas_tp._storemid``): the lab-frame
+    forward keeps its mids for the backward, which then reads them instead
+    of recomputing them."""
+    return os.environ.get("HAMGNN_TP_STOREMID", "") == "1"
+
+
 @functools.lru_cache(maxsize=None)
 def _packed_coupling(l1: int, p1: int, sh_key: Tuple[Tuple[int, int], ...],
                      target_key: Tuple[Tuple[int, int], ...]):
@@ -175,16 +190,28 @@ class PackedTPPlan:
           its Hopper kernels on CUDA tensors, ``zonal_apply`` on CPU tensors);
         * ``zonal-xla``: ``zonal_tp.zonal_apply``, plain PyTorch on any device;
         * ``xla``: ``plain_apply``, plain PyTorch on any device.
+
+        ``HAMGNN_TP_BF16`` (``bf16_mode``) and ``HAMGNN_TP_STOREMID``
+        (``storemid``) are read here too, and apply where the JAX package
+        applies them: to the kernels of ``auto``/``pallas`` on CUDA tensors
+        and of ``zonal`` (``STOREMID`` to the lab-frame pair only), and to
+        the plain versions that ``pallas`` and ``zonal`` take on CPU tensors,
+        as JAX's interpret mode does.  ``xla``, ``zonal-xla`` and ``auto`` on
+        CPU tensors stay fp32, as JAX's ``auto`` is off a TPU.  A CUDA graph
+        captured through this call keeps the modes it was captured under.
         """
         eng = os.environ.get("HAMGNN_TP_ENGINE", "auto")
         if eng in ("auto", "pallas"):
             from . import tp_kernel
 
-            return tp_kernel.packed_tp_forward(self, x, sh, weight, flat_w)
+            if eng == "auto" and x.device.type != "cuda":
+                return tp_kernel.packed_tp_forward(self, x, sh, weight, flat_w)
+            return tp_kernel.packed_tp_forward(self, x, sh, weight, flat_w, bf16_mode(),
+                                               storemid())
         if eng == "zonal":
             from . import zonal_kernel
 
-            return zonal_kernel.zonal_forward(self, x, sh, weight, flat_w)
+            return zonal_kernel.zonal_forward(self, x, sh, weight, flat_w, bf16_mode())
         if eng == "zonal-xla":
             from . import zonal_tp
 
@@ -209,69 +236,202 @@ class PackedTPPlan:
         return self._device_tables[key]
 
 
-def plain_apply(plan: PackedTPPlan, x, sh, weight, flat_w):
-    """Plain PyTorch version of the pipeline (``PackedTPPlan._apply``).
+def round_bf16(t):
+    """``t`` rounded to bfloat16 (to nearest, ties to even, as JAX's
+    ``astype(jnp.bfloat16)`` rounds) and back to its own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
-    x (E, d_in), sh (E, S), weight (E, n_ch) in packed order or None,
-    flat_w (linear_numel,) -> (E, d_out), all float32 (or all float64).
-    """
+
+def _keep(t):
+    return t
+
+
+def coupling(plan: PackedTPPlan, sh, bf16: bool = False):
+    """Per input chunk its coupling entries W = sh @ C_g, (E, d1, K) (None
+    for a chunk that couples to no target).  With ``bf16`` both operands
+    are rounded to bfloat16 first and the products summed in sh's dtype: the
+    JAX kernels' ``W_rep`` dot under ``HAMGNN_TP_BF16``."""
+    coup, _perms = plan._tables(sh.device, sh.dtype)
+    Ws = []
+    for g, (_sl, _mul, d1, C, _groups) in enumerate(plan.per_chunk):
+        if C.shape[-1] == 0:
+            Ws.append(None)
+            continue
+        if bf16:
+            # the products of bfloat16 values are exact: summed in the order
+            # of s, as the kernels' FFMA chains sum them
+            shr, cr = round_bf16(sh), round_bf16(coup[g])
+            W = shr[:, :1] * cr[0]
+            for s in range(1, cr.shape[0]):
+                W = W + shr[:, s : s + 1] * cr[s]
+        else:
+            W = sh @ coup[g]
+        Ws.append(W.reshape(sh.shape[0], d1, C.shape[-1]))
+    return Ws
+
+
+def chunk_mids(plan: PackedTPPlan, x, Ws):
+    """Per input chunk its mids, mid[e, k * mul + u] = sum_i W[e, i, k]
+    x[e, g, u, i], (E, K * mul), from the coupling entries ``Ws``."""
     E = x.shape[0]
-    coup, perms = plan._tables(x.device, x.dtype)
     mids = []
-    for g, (sl, mul, d1, C, groups) in enumerate(plan.per_chunk):
-        K = C.shape[-1]
-        if K == 0:
+    for (sl, mul, d1, C, _groups), W in zip(plan.per_chunk, Ws):
+        if W is None:
             mids.append(None)
             continue
         xc = x[:, sl].reshape(E, mul, d1)
-        W = (sh @ coup[g]).reshape(E, d1, K)
         mid = None
         for i in range(d1):
             term = W[:, i, :, None] * xc[:, None, :, i]
             mid = term if mid is None else mid + term
-        mids.append(mid.reshape(E, K * mul))
+        mids.append(mid.reshape(E, C.shape[-1] * mul))
+    return mids
 
+
+def _out_sources(plan: PackedTPPlan, k_out: int, like):
+    """The sources of output chunk ``k_out``: (g, k0, k1, mul, ncm, radial-
+    weight base, row permutation on the device of ``like``)."""
+    _coup, perms = plan._tables(like.device, like.dtype)
+    for (g, gi, _rp), row_perm in zip(plan.out_sources[k_out], perms[k_out]):
+        _, mul, _, _, groups = plan.per_chunk[g]
+        _ir3, n_cols, k0, k1 = groups[gi]
+        yield g, k0, k1, mul, n_cols * mul, plan._grp_w_base[(g, gi)], row_perm
+
+
+def out_stage(plan: PackedTPPlan, mids, weight, flat_w, bf16: bool = False):
+    """The radial scale and the Wcat product of the pipeline, from the
+    chunks' mids: (E, d_out).  With ``bf16`` the product's operands (BLK,
+    the scaled mids, and the scaled Linear weight) are rounded to bfloat16:
+    the JAX kernels' out-stage dot under ``HAMGNN_TP_BF16=all``.  At least
+    one chunk has mids."""
+    r = round_bf16 if bf16 else _keep
+    E = next(m.shape[0] for m in mids if m is not None)
     out_chunks = []
     for k_out, mio in enumerate(plan.irreps_out):
         fan_in, ofs = plan.out_plans[k_out]
         if fan_in == 0:
-            out_chunks.append(x.new_zeros((E, mio.dim)))
+            out_chunks.append(flat_w.new_zeros((E, mio.dim)))
             continue
         wblk = flat_w[ofs : ofs + fan_in * mio.mul].reshape(fan_in, mio.mul)
         scale = 1.0 / np.sqrt(fan_in)
         d3 = mio.ir.dim
         acc = None
-        for (g, gi, _rp), row_perm in zip(plan.out_sources[k_out], perms[k_out]):
-            _, mul, _, _, groups = plan.per_chunk[g]
-            ir3, n_cols, k0, k1 = groups[gi]
-            ncm = n_cols * mul
+        for g, k0, k1, mul, ncm, cb, row_perm in _out_sources(plan, k_out, flat_w):
             blk = mids[g][:, k0 * mul : k1 * mul].reshape(E, d3, ncm)
             if weight is not None:
-                cb = plan._grp_w_base[(g, gi)]
                 blk = blk * weight[:, None, cb : cb + ncm]
-            y = blk.reshape(E * d3, ncm) @ (scale * wblk[row_perm])
+            y = r(blk.reshape(E * d3, ncm)) @ r(scale * wblk[row_perm])
             acc = y if acc is None else acc + y
         out_chunks.append(
             acc.reshape(E, d3, mio.mul).transpose(1, 2).reshape(E, mio.mul * d3))
     return torch.cat(out_chunks, dim=-1)
 
 
+def out_stage_backward(plan: PackedTPPlan, mids, weight, flat_w, gout, bf16: bool = False):
+    """Backward of ``out_stage`` for the output gradient ``gout``: (d(mids)
+    per chunk, dw or None, d(flat_w)).  With ``bf16`` the operands of its two
+    products are rounded to bfloat16, dWcat = BLKᵀ·gy and dBLK = gy·Wcatᵀ
+    (``pallas_tp.py`` ``_bwd_body``); dw = dBLK·mid and d(mid) = dBLK·w stay
+    in the working dtype."""
+    r = round_bf16 if bf16 else _keep
+    E = gout.shape[0]
+    dmids = [None if m is None else torch.zeros_like(m) for m in mids]
+    dw = None if weight is None else torch.zeros_like(weight)
+    dflat = torch.zeros_like(flat_w)
+    for k_out, (mio, sl) in enumerate(zip(plan.irreps_out, plan.irreps_out.slices())):
+        fan_in, ofs = plan.out_plans[k_out]
+        if fan_in == 0:
+            continue
+        V, d3 = mio.mul, mio.ir.dim
+        wblk = flat_w[ofs : ofs + fan_in * V].reshape(fan_in, V)
+        scale = 1.0 / np.sqrt(fan_in)
+        gy = r(gout[:, sl].reshape(E, V, d3).transpose(1, 2).reshape(E * d3, V))
+        dwblk = torch.zeros_like(wblk)
+        for g, k0, k1, mul, ncm, cb, row_perm in _out_sources(plan, k_out, flat_w):
+            blk = mids[g][:, k0 * mul : k1 * mul].reshape(E, d3, ncm)
+            wsl = None if weight is None else weight[:, None, cb : cb + ncm]
+            blk_s = blk if wsl is None else blk * wsl
+            dwblk.index_add_(0, row_perm, (r(blk_s.reshape(E * d3, ncm)).T @ gy) * scale)
+            dblk = (gy @ r(scale * wblk[row_perm]).T).reshape(E, d3, ncm)
+            if wsl is not None:
+                dw[:, cb : cb + ncm] += (dblk * blk).sum(dim=1)
+                dblk = dblk * wsl
+            dmids[g][:, k0 * mul : k1 * mul] += dblk.reshape(E, d3 * ncm)
+        dflat[ofs : ofs + fan_in * V] = dwblk.reshape(-1)
+    return dmids, dw, dflat
+
+
+def mid_offsets(plan: PackedTPPlan):
+    """The layout of the stored mids (``HAMGNN_TP_STOREMID``), JAX's
+    ``PallasSpec.mid_ofs``: chunk g's (E, K * mul) mids at columns
+    ``ofs[g]`` on of one (E, midw) tensor.  Returns (ofs, midw)."""
+    ofs, midw = [], 0
+    for (_sl, mul, _d1, C, _groups) in plan.per_chunk:
+        ofs.append(midw)
+        midw += C.shape[-1] * mul
+    return ofs, midw
+
+
+def split_mids(plan: PackedTPPlan, flat):
+    """Per-chunk views of stored mids in the layout of ``mid_offsets``."""
+    ofs, _midw = mid_offsets(plan)
+    return [None if C.shape[-1] == 0 else flat[:, o : o + C.shape[-1] * mul]
+            for o, (_sl, mul, _d1, C, _g) in zip(ofs, plan.per_chunk)]
+
+
+def plain_apply(plan: PackedTPPlan, x, sh, weight, flat_w, bf16: bool = False):
+    """Plain PyTorch version of the pipeline (``PackedTPPlan._apply``).
+
+    x (E, d_in), sh (E, S), weight (E, n_ch) in packed order or None,
+    flat_w (linear_numel,) -> (E, d_out), all float32 (or all float64).
+    ``bf16``: the forward of ``HAMGNN_TP_BF16=all``, the operands of the
+    coupling and Wcat products rounded to bfloat16."""
+    mids = chunk_mids(plan, x, coupling(plan, sh, bf16))
+    if not any(m is not None for m in mids):
+        return x.new_zeros((x.shape[0], plan.irreps_out.dim))
+    return out_stage(plan, mids, weight, flat_w, bf16)
+
+
 def plain_backward(plan: PackedTPPlan, x, sh, weight, flat_w, gout,
-                   need_dsh: bool = False):
+                   need_dsh: bool = False, bf16: bool = False, mids=None):
     """Plain version of the pipeline's backward (the custom VJP of
-    ``pallas_tp._pipeline``): autograd through ``plain_apply``.
+    ``pallas_tp._pipeline``, ``_bwd_body``): the mids recomputed from
+    (x, sh), the two transposed Wcat-stage products, dw, and dx (and dsh)
+    through the coupling entries.
 
     Returns (dx, dsh or None, dw or None, d(flat_w)) for the output gradient
-    ``gout`` (E, d_out); dsh only with ``need_dsh``, dw only with weights."""
-    with torch.enable_grad():
-        x_, sh_, fw_ = (t.detach().requires_grad_(True) for t in (x, sh, flat_w))
-        w_ = None if weight is None else weight.detach().requires_grad_(True)
-        inputs = [t for t in (x_, sh_, w_, fw_) if t is not None]
-        grads = torch.autograd.grad(plain_apply(plan, x_, sh_, w_, fw_), inputs,
-                                    gout, allow_unused=True, materialize_grads=True)
-    dx, dsh = grads[0], grads[1]
-    dw = grads[2] if weight is not None else None
-    return dx, (dsh if need_dsh else None), dw, grads[-1]
+    ``gout`` (E, d_out); dsh only with ``need_dsh``, dw only with weights.
+    ``bf16``: the backward of ``HAMGNN_TP_BF16=bwd`` or ``all``, each product's
+    operands rounded to bfloat16 (the recomputed coupling entries, dWcat,
+    dBLK, and dsh's (dmid x)·Cᵀ).  ``mids``: the forward's stored mids
+    (``HAMGNN_TP_STOREMID``), per chunk, used in place of the recompute."""
+    with torch.no_grad():
+        E = x.shape[0]
+        Ws = coupling(plan, sh, bf16)
+        if mids is None:
+            mids = chunk_mids(plan, x, Ws)
+        dx = torch.zeros_like(x)
+        dsh = torch.zeros_like(sh) if need_dsh else None
+        if not any(m is not None for m in mids):
+            return (dx, dsh, None if weight is None else torch.zeros_like(weight),
+                    torch.zeros_like(flat_w))
+        dmids, dw, dflat = out_stage_backward(plan, mids, weight, flat_w, gout, bf16)
+        coup, _perms = plan._tables(x.device, x.dtype)
+        for g, ((sl, mul, d1, C, _groups), W, dmid) in enumerate(
+                zip(plan.per_chunk, Ws, dmids)):
+            if W is None:
+                continue
+            K = C.shape[-1]
+            xc = x[:, sl].reshape(E, mul, d1)
+            dm = dmid.reshape(E, K, mul)
+            dx[:, sl] = torch.einsum("eku,eik->eui", dm, W).reshape(E, mul * d1)
+            if need_dsh:
+                if bf16:
+                    dW = round_bf16(dm[:, None] * xc.transpose(1, 2)[:, :, None]).sum(-1)
+                    dsh += dW.reshape(E, d1 * K) @ round_bf16(coup[g]).T
+                else:
+                    dsh += torch.einsum("eku,eui->eik", dm, xc).reshape(E, d1 * K) @ coup[g].T
+    return dx, dsh, dw, dflat
 
 
 @functools.lru_cache(maxsize=None)

@@ -24,7 +24,15 @@ pass's gathers), and per column its slot base in the slab's list and its
 offset in the slab's compact x row; its weight pass takes a block per edge
 split and work item (a slab and 32 of its chunk's V columns, ``witems``).
 ``csrc/packed_tp_mma.cuh`` holds what the kernels share (the 3xTF32
-``mma.sync`` product, the cp.async copies, the backward's slab build).
+``mma.sync`` product and the one-pass bf16 one, the cp.async copies, the
+backward's slab build).
+
+Each kernel has a bf16 instantiation (``HAMGNN_TP_BF16``: ``bwd`` for B2,
+``all`` for B1 and B2), and B1/B2 a stored-mid form (``HAMGNN_TP_STOREMID``:
+B1 writes the mids in the layout of ``packed_tp.mid_offsets``, B2 reads them);
+``PackedTP`` takes both modes, ``PlainPackedTP`` is its plain twin on CPU
+tensors, and each launch counts on the ``CudaKernel`` of its variant
+(``variant``).
 
 Each library is compiled with nvcc at first use into ``build/kernels/`` from
 the sources in this checkout and loaded with ctypes.  The module also holds
@@ -47,7 +55,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .packed_tp import PackedTPPlan, get_plan, plain_apply, plain_backward
+from .packed_tp import (PackedTPPlan, chunk_mids, coupling, get_plan, mid_offsets,
+                        out_stage, plain_apply, plain_backward, split_mids)
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -56,11 +65,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # H100 SXM peaks used for the bound of a launch (NVIDIA data sheet): fp32 on
-# the CUDA cores and HBM3 bandwidth.  The lab-frame kernels run their Wcat
-# products on the tensor cores in 3xTF32 (three TF32 products per fp32
-# product); the bound keeps counting fp32 FLOPs at the CUDA-core rate, so that
-# it compares with earlier kernels of the same function
+# the CUDA cores, dense bf16 on the tensor cores and HBM3 bandwidth.  The
+# kernels run their Wcat products on the tensor cores in 3xTF32 (three TF32
+# products per fp32 product); the bound of the fp32 kernels keeps counting
+# fp32 FLOPs at the CUDA-core rate, so that it compares with earlier kernels
+# of the same function.  The bf16 instantiations (HAMGNN_TP_BF16) count
+# their Wcat products at the bf16 tensor-core rate and the rest at the fp32
+# rate.
 H100_FP32_FLOPS = 67e12
+H100_BF16_FLOPS = 989e12
 H100_HBM_BYTES_PER_S = 3.35e12
 
 
@@ -146,7 +159,9 @@ class CudaKernel:
     ``csrc/<source>.cu`` that holds the kernel (default: ``name``); kernels
     of one source share its library.  ``launches`` rises by one each time
     ``launch`` starts the kernel and nowhere else, so a run can show that
-    its path went through the kernel; a CUDA graph replays launches without
+    its path went through the kernel.  A variant of a kernel (its bf16
+    instantiation, its stored-mid form) is a ``CudaKernel`` of its own with
+    the same C entry (``symbol``) and a count of its own; a CUDA graph replays launches without
     passing here, so a replay is counted from a profiler trace by the names
     of the ``__global__`` functions a launch runs, ``device_kernels``.
     """
@@ -154,11 +169,12 @@ class CudaKernel:
     _libraries: dict = {}  # source -> loaded library, shared by its kernels
 
     def __init__(self, name: str, symbols: dict, source: Optional[str] = None,
-                 device_kernels: tuple = ()):
+                 device_kernels: tuple = (), symbol: Optional[str] = None):
         self.name = name
         self.device_kernels = device_kernels
         self.source = source or name
-        self.symbols = {name: symbols[name],
+        self.symbol = symbol or name
+        self.symbols = {self.symbol: symbols[self.symbol],
                         f"{self.source}_error_string": ([ctypes.c_int], ctypes.c_char_p),
                         **symbols}
         self.launches = 0
@@ -179,7 +195,7 @@ class CudaKernel:
 
     def launch(self, *args):
         lib = self.library()
-        rc = getattr(lib, self.name)(*args)
+        rc = getattr(lib, self.symbol)(*args)
         if rc != 0:
             msg = getattr(lib, f"{self.source}_error_string")(rc).decode()
             raise RuntimeError(f"{self.name} launch failed: {msg} ({rc})")
@@ -189,7 +205,7 @@ class CudaKernel:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 PACKED_TP_FWD = CudaKernel("packed_tp_fwd", {
-    "packed_tp_fwd": ([_P] * 12 + [_I] * 8 + [_P], _I),
+    "packed_tp_fwd": ([_P] * 14 + [_I] * 10 + [_P], _I),
     "packed_tp_fwd_smem_bytes": ([_P, _I, _I], ctypes.c_size_t),
     "packed_tp_fwd_slab_cols": ([], _I),
     "packed_tp_fwd_max_d1": ([], _I),
@@ -202,7 +218,7 @@ PACKED_TP_FWD = CudaKernel("packed_tp_fwd", {
 # edge pass, the weight pass and the reduce; packed_tp_bwd_edge and
 # packed_tp_bwd_wcat (the weight pass and the reduce) exist to time the
 # passes apart and are not counted as launches
-_BWD_ARGS = [_P] * 24 + [_I] * 13 + [_P]
+_BWD_ARGS = [_P] * 26 + [_I] * 15 + [_P]
 PACKED_TP_BWD = CudaKernel("packed_tp_bwd", {
     "packed_tp_bwd": (_BWD_ARGS, _I),
     "packed_tp_bwd_edge": (_BWD_ARGS, _I),
@@ -220,7 +236,7 @@ PACKED_TP_BWD = CudaKernel("packed_tp_bwd", {
 # as for B2, zonal_tp_bwd runs both passes and the reduce, and the passes'
 # own entries exist to time them apart and are not counted as launches
 ZONAL_TP_FWD = CudaKernel("zonal_tp_fwd", {
-    "zonal_tp_fwd": ([_P] * 11 + [_I] * 7 + [_P], _I),
+    "zonal_tp_fwd": ([_P] * 11 + [_I] * 8 + [_P], _I),
     "zonal_tp_fwd_smem_bytes": ([_I] * 2, ctypes.c_size_t),
     "zonal_tp_fwd_tile_edges": ([], _I),
     "zonal_tp_fwd_stage_entries": ([], _I),
@@ -229,7 +245,7 @@ ZONAL_TP_FWD = CudaKernel("zonal_tp_fwd", {
     "zonal_tp_fwd_resident_blocks": ([ctypes.c_size_t], _I),
 }, device_kernels=("zonal_tp_fwd_kernel",))
 
-_ZBWD_ARGS = [_P] * 23 + [_I] * 12 + [_P]
+_ZBWD_ARGS = [_P] * 23 + [_I] * 13 + [_P]
 ZONAL_TP_BWD = CudaKernel("zonal_tp_bwd", {
     "zonal_tp_bwd": (_ZBWD_ARGS, _I),
     "zonal_tp_bwd_edge": (_ZBWD_ARGS, _I),
@@ -247,6 +263,30 @@ ZONAL_TP_BWD = CudaKernel("zonal_tp_bwd", {
 # every kernel of the port, by name (chip_smoke.py resets and reads the counts)
 KERNELS = {"packed_tp_fwd": PACKED_TP_FWD, "packed_tp_bwd": PACKED_TP_BWD,
            "zonal_tp_fwd": ZONAL_TP_FWD, "zonal_tp_bwd": ZONAL_TP_BWD}
+
+
+def _variant(base: CudaKernel, suffix: str) -> CudaKernel:
+    return CudaKernel(f"{base.name}_{suffix}", {n: base.symbols[n] for n in base.symbols},
+                      source=base.source, device_kernels=base.device_kernels,
+                      symbol=base.symbol)
+
+
+# the kernels' variants, each counted apart from its kernel: the bf16
+# instantiations of B1-B4 (HAMGNN_TP_BF16; each C entry takes its precision
+# as an argument and launches the instantiation of that precision), and the
+# stored-mid pair (HAMGNN_TP_STOREMID: B1 writing its mids, B2 reading them,
+# in either precision)
+VARIANTS = {v.name: v for v in (
+    *(_variant(k, "bf16") for k in KERNELS.values()),
+    _variant(PACKED_TP_FWD, "storemid"), _variant(PACKED_TP_BWD, "storemid"))}
+
+
+def variant(name: str, bf16: bool, stored: bool = False) -> CudaKernel:
+    """The counted kernel of a launch of ``name``: its stored-mid form where
+    the launch writes or reads the mids, else its bf16 or fp32 form."""
+    if stored:
+        return VARIANTS[f"{name}_storemid"]
+    return VARIANTS[f"{name}_bf16"] if bf16 else KERNELS[name]
 
 # columns per slab (packed_tp_fwd.cu, packed_tp_bwd.cu KS)
 BWD_SLAB_COLS = 64
@@ -361,18 +401,25 @@ class PipelineSpec:
         return flat_w[tb["wcat_idx"]] * tb["wcat_scale"]
 
     @staticmethod
-    def _bound(flops: int, nbytes: int) -> tuple:
-        t_ops = flops / H100_FP32_FLOPS * 1e3
+    def _bound(flops: int, nbytes: int, bf16_flops: int = 0) -> tuple:
+        t_ops = ((flops - bf16_flops) / H100_FP32_FLOPS + bf16_flops / H100_BF16_FLOPS) * 1e3
         t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
-    def bound_ms(self, E: int, has_w: bool) -> tuple:
-        """Least time on an H100 for E edges, and which side bounds it."""
-        return self._bound(*self.work(E, has_w))
+    def wcat_flops(self, E: int) -> int:
+        """FLOPs of the forward's Wcat product for E edges (the backward has
+        two products of this size)."""
+        raise NotImplementedError
 
-    def bound_bwd_ms(self, E: int, has_w: bool, **kw) -> tuple:
+    def bound_ms(self, E: int, has_w: bool, bf16: bool = False, **kw) -> tuple:
+        """Least time on an H100 for E edges, and which side bounds it; with
+        ``bf16`` the Wcat product at the bf16 tensor-core rate."""
+        return self._bound(*self.work(E, has_w, **kw), self.wcat_flops(E) if bf16 else 0)
+
+    def bound_bwd_ms(self, E: int, has_w: bool, bf16: bool = False, **kw) -> tuple:
         """Least time on an H100 for the backward of E edges."""
-        return self._bound(*self.work_bwd(E, has_w, **kw))
+        return self._bound(*self.work_bwd(E, has_w, **kw),
+                           2 * self.wcat_flops(E) if bf16 else 0)
 
 
 class KernelSpec(PipelineSpec):
@@ -391,14 +438,18 @@ class KernelSpec(PipelineSpec):
     slabs: ``_build_slabs``; ``slab_base[k] : slab_base[k + 1]`` are chunk
     k's; ``cols``: per BLK column its slot base in its slab's list ``sq``,
     d1, offset in the slab's compact x row and radial-weight column; its
-    slot for (m3, i) is ``sq[sq_ofs + base + m3 * d1 + i]``.
+    slot for (m3, i) is ``sq[sq_ofs + base + m3 * d1 + i]``.  ``mcols``: per
+    BLK column (in ``fcols`` order) where the stored mids hold it
+    (``HAMGNN_TP_STOREMID``): its column at m3 = 0 in the (E, ``midw``) layout
+    of ``packed_tp.mid_offsets``, and the step from one m3 to the next.
     """
 
     def __init__(self, plan: PackedTPPlan):
         super().__init__(plan)
         self.S = plan.irreps_sh.dim
 
-        grp, cols, qtab, coef = [], [], [], []
+        grp, cols, qtab, coef, mcols = [], [], [], [], []
+        mid_ofs, self.midw = mid_offsets(plan)
         for (k_out, b, d3, V, wofs, fan_in) in self.out_chunks:
             col_ofs, q_ofs = len(cols), len(qtab)
             for m3 in range(d3):
@@ -418,6 +469,7 @@ class KernelSpec(PipelineSpec):
                             for u in range(mul):
                                 cols.append((q_src + j * d1, d1, sl.start + u * d1,
                                              cb + j * mul + u))
+                                mcols.append((mid_ofs[g] + (k0 + j) * mul + u, n_cols * mul))
                     q_src += n_cols * d1
             nq = (len(qtab) - q_ofs) // d3
             grp.append((b, d3, V, wofs, fan_in, col_ofs, q_ofs, nq))
@@ -425,6 +477,7 @@ class KernelSpec(PipelineSpec):
         self.qtab = np.asarray(qtab, np.int32).reshape(-1, 3)
         self.coef = np.asarray(coef, np.float32)
         self.fcols = np.asarray(cols, np.int32).reshape(-1, 4)
+        self.mcols = np.asarray(mcols, np.int32).reshape(-1, 2)
         g = self.grp
         self.nq_all_max = int((g[:, 1] * g[:, 7]).max()) if len(g) else 0
         items = []
@@ -511,7 +564,8 @@ class KernelSpec(PipelineSpec):
                 "coef": (self.coef, torch.float32),
                 **{name: (getattr(self, name), torch.int32)
                    for name in ("grp", "qtab", "fcols", "fitems", "cols", "slab_base",
-                                "slabs", "sq", "xmap", "xgrp", "qgrp", "lst", "witems")}}
+                                "slabs", "sq", "xmap", "xgrp", "qgrp", "lst", "witems",
+                                "mcols")}}
 
     def wcat_splits(self, E: int, resident: int) -> int:
         """Edge splits of the backward's weight pass: enough (work item,
@@ -521,10 +575,15 @@ class KernelSpec(PipelineSpec):
         n_tiles = -(-E // TILE_EDGES)
         return max(1, min(n_tiles, -(-WCAT_WAVES * resident // max(1, len(self.witems)))))
 
-    def work(self, E: int, has_w: bool):
+    def wcat_flops(self, E: int) -> int:
+        return E * sum(2 * int(d3) * int(fan_in) * int(V)
+                       for (_b, d3, V, _wofs, fan_in, *_r) in self.grp)
+
+    def work(self, E: int, has_w: bool, stored: bool = False):
         """(FLOPs, bytes) the function needs for E edges: coupling products
         over the nonzero CG entries, mid FMAs, the radial scale and the Wcat
-        product; each operand read once and the output written once."""
+        product; each operand read once and the output (and with ``stored``
+        the mids) written once."""
         plan = self.plan
         flops = 0
         for (sl, mul, d1, C, groups) in plan.per_chunk:
@@ -536,19 +595,20 @@ class KernelSpec(PipelineSpec):
             fan_in, _ = plan.out_plans[k_out]
             flops += 2 * mio.ir.dim * fan_in * mio.mul
         words = E * (self.d_in + self.S + (self.n_ch if has_w else 0)
-                     + self.d_out) + len(self.wcat_idx)
+                     + self.d_out + (self.midw if stored else 0)) + len(self.wcat_idx)
         return flops * E, 4 * words
 
-    def work_bwd(self, E: int, has_w: bool, need_dsh: bool = False):
+    def work_bwd(self, E: int, has_w: bool, need_dsh: bool = False, stored: bool = False):
         """(FLOPs, bytes) of the backward for E edges: the mids recomputed
-        as in ``work``, the dBLK and dWcat products, dw, the dmid scale, the
-        dx FMAs and, with ``need_dsh``, dW and the coupling transpose; x, sh,
-        w, gout and Wcat read once, dx, dw, d(flat_w) (and dsh) written once."""
+        as in ``work`` (read instead with ``stored``), the dBLK and dWcat
+        products, dw, the dmid scale, the dx FMAs and, with ``need_dsh``, dW
+        and the coupling transpose; x, sh, w, gout and Wcat read once, dx,
+        dw, d(flat_w) (and dsh) written once."""
         plan = self.plan
         flops = 0
         for (sl, mul, d1, C, groups) in plan.per_chunk:
             nnz, K = int(np.count_nonzero(C)), C.shape[-1]
-            flops += 2 * nnz + 4 * d1 * K * mul
+            flops += 2 * nnz + (2 if stored else 4) * d1 * K * mul
             if has_w:
                 flops += 4 * K * mul
             if need_dsh:
@@ -557,8 +617,8 @@ class KernelSpec(PipelineSpec):
             fan_in, _ = plan.out_plans[k_out]
             flops += 4 * mio.ir.dim * fan_in * mio.mul
         words = E * (2 * self.d_in + self.S + (2 * self.n_ch if has_w else 0)
-                     + self.d_out + (self.S if need_dsh else 0)) \
-            + 2 * len(self.wcat_idx)
+                     + self.d_out + (self.S if need_dsh else 0)
+                     + (self.midw if stored else 0)) + 2 * len(self.wcat_idx)
         return flops * E, 4 * words
 
 
@@ -601,13 +661,21 @@ def _check_limits(lib, name, spec):
         raise ValueError(f"{name} takes d1 <= {max_d1}; this plan needs {spec.d1_max}")
 
 
-def _launch(spec: KernelSpec, x, sh, w, flat_w):
+def _check_mids(spec: KernelSpec, mids, E, dev):
+    if mids is not None:
+        _check("mids", mids, (E, spec.midw), dev)
+
+
+def _launch(spec: KernelSpec, x, sh, w, flat_w, bf16: bool = False, mids=None):
+    """One launch of B1, in bf16 with ``bf16``; with ``mids`` (an (E, midw)
+    float32 buffer) it also writes its mids there."""
     E = x.shape[0]
     dev = x.device
     _check("x", x, (E, spec.d_in), dev)
     _check("sh", sh, (E, spec.S), dev)
     if w is not None:
         _check("w", w, (E, spec.n_ch), dev)
+    _check_mids(spec, mids, E, dev)
     out = (torch.empty if spec.fully_covered else torch.zeros)(
         (E, spec.d_out), dtype=torch.float32, device=dev)
     if E == 0 or len(spec.grp) == 0:
@@ -626,17 +694,19 @@ def _launch(spec: KernelSpec, x, sh, w, flat_w):
     tb = spec.tables(dev)
     wcat = spec.build_wcat(flat_w).contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    PACKED_TP_FWD.launch(
+    variant("packed_tp_fwd", bf16, mids is not None).launch(
         x.data_ptr(), sh.data_ptr(), 0 if w is None else w.data_ptr(),
         wcat.data_ptr(), tb["coef"].data_ptr(), tb["grp"].data_ptr(),
         tb["fcols"].data_ptr(), tb["qtab"].data_ptr(), tb["fitems"].data_ptr(),
-        out.data_ptr(), grp_host, spec.fitems.ctypes.data,
+        out.data_ptr(), 0 if mids is None else mids.data_ptr(), tb["mcols"].data_ptr(),
+        grp_host, spec.fitems.ctypes.data,
         E, spec.d_in, spec.S, spec.n_ch, spec.d_out, len(spec.grp), len(spec.fitems),
-        0 if w is None else 1, stream)
+        0 if w is None else 1, spec.midw, int(bf16), stream)
     return out
 
 
-def bwd_call(spec: KernelSpec, x, sh, w, flat_w, gout, need_dsh: bool):
+def bwd_call(spec: KernelSpec, x, sh, w, flat_w, gout, need_dsh: bool, bf16: bool = False,
+             mids=None):
     """Checks the backward's inputs, allocates its outputs and returns
     ``(outputs, call)``: (dx, dsh or None, dw or None, d(flat_w)) and
     ``(args, tensors)``, the argument list of the C entries (``packed_tp_bwd``
@@ -644,7 +714,9 @@ def bwd_call(spec: KernelSpec, x, sh, w, flat_w, gout, need_dsh: bool):
     the caller keeps while it launches (``call`` is None where there is
     nothing to launch).  The edge pass writes dx, dw and dsh into the zeroed
     outputs; the weight pass writes one partial row of dWcat per edge split,
-    which the reduce sums into d(flat_w)."""
+    which the reduce sums into d(flat_w).  ``bf16``: the bf16 instantiation;
+    ``mids``: the forward's stored mids, read by both passes in place of the
+    recompute."""
     E = x.shape[0]
     dev = x.device
     _check("x", x, (E, spec.d_in), dev)
@@ -653,6 +725,7 @@ def bwd_call(spec: KernelSpec, x, sh, w, flat_w, gout, need_dsh: bool):
     if w is not None:
         _check("w", w, (E, spec.n_ch), dev)
     _check("flat_w", flat_w, (spec.plan.linear_numel,), dev)
+    _check_mids(spec, mids, E, dev)
     zeros = functools.partial(torch.zeros, dtype=torch.float32, device=dev)
     dx = zeros((E, spec.d_in))
     dsh = zeros((E, spec.S)) if need_dsh else None
@@ -686,36 +759,78 @@ def bwd_call(spec: KernelSpec, x, sh, w, flat_w, gout, need_dsh: bool):
                                          "xmap", "xgrp", "qgrp", "lst", "witems",
                                          "wcat_scale", "wcat_idx")),
             dx.data_ptr(), ptr(dsh), ptr(dw), part.data_ptr(), dflat.data_ptr(), grp_host,
+            ptr(mids), tb["mcols"].data_ptr(),
             E, spec.d_in, spec.S, spec.n_ch, spec.d_out, len(spec.grp), len(spec.witems),
             spec.plan.linear_numel, spec.sq_max, spec.nx_max, n_split, 0 if w is None else 1,
-            int(need_dsh), torch.cuda.current_stream(dev).cuda_stream)
+            int(need_dsh), spec.midw, int(bf16), torch.cuda.current_stream(dev).cuda_stream)
     return outs, (args, (wcat, part))
 
 
-def _launch_bwd(spec: KernelSpec, x, sh, w, flat_w, gout, need_dsh: bool):
-    outs, call = bwd_call(spec, x, sh, w, flat_w, gout, need_dsh)
+def _launch_bwd(spec: KernelSpec, x, sh, w, flat_w, gout, need_dsh: bool, bf16: bool = False,
+                mids=None):
+    outs, call = bwd_call(spec, x, sh, w, flat_w, gout, need_dsh, bf16, mids)
     if call is not None:
-        PACKED_TP_BWD.launch(*call[0])
+        variant("packed_tp_bwd", bf16, mids is not None).launch(*call[0])
     return outs
+
+
+def _modes(bf16: str):
+    """The forward's and the backward's precision under ``HAMGNN_TP_BF16``
+    (``packed_tp.bf16_mode``): bf16 products in both with ``all``, in the
+    backward alone with ``bwd``."""
+    if bf16 not in ("", "bwd", "all"):
+        raise ValueError(f"bf16 mode {bf16!r}: expected '', 'bwd' or 'all'")
+    return bf16 == "all", bf16 in ("bwd", "all")
 
 
 class PackedTP(torch.autograd.Function):
     """The packed pipeline on the card: forward kernel B1, backward kernel
-    B2.  Saves only its inputs; B2 recomputes the mids."""
+    B2, each in the precision of the bf16 mode.  Saves its inputs, and with
+    ``storemid`` the mids B1 writes, which B2 then reads instead of
+    recomputing them (``pallas_tp._pipeline_fwd``)."""
 
     @staticmethod
-    def forward(ctx, x, sh, w, flat_w, spec):
+    def forward(ctx, x, sh, w, flat_w, spec, bf16="", storemid=False):
         ctx.spec = spec
+        ctx.bf16 = _modes(bf16)[1]
+        fwd_bf16 = _modes(bf16)[0]
+        mids = torch.empty((x.shape[0], spec.midw), dtype=torch.float32,
+                           device=x.device) if storemid else None
+        ctx.save_for_backward(x, sh, w, flat_w, mids)
+        return _launch(spec, x, sh, w, flat_w, fwd_bf16, mids)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout):
+        x, sh, w, flat_w, mids = ctx.saved_tensors
+        dx, dsh, dw, dflat = _launch_bwd(ctx.spec, x, sh, w, flat_w, gout.contiguous(),
+                                         ctx.needs_input_grad[1], ctx.bf16, mids)
+        return dx, dsh, dw, dflat, None, None, None
+
+
+class PlainPackedTP(torch.autograd.Function):
+    """The same on CPU tensors, through the plain versions: ``plain_apply``
+    forward, ``plain_backward`` backward, each in the precision of the bf16
+    mode, the forward's mids kept for the backward with ``storemid``."""
+
+    @staticmethod
+    def forward(ctx, x, sh, w, flat_w, plan, bf16="", storemid=False):
+        fwd_bf16, ctx.bf16 = _modes(bf16)
+        ctx.plan = plan
+        mids = chunk_mids(plan, x, coupling(plan, sh, fwd_bf16))
+        ctx.mids = mids if storemid else None
         ctx.save_for_backward(x, sh, w, flat_w)
-        return _launch(spec, x, sh, w, flat_w)
+        if not any(m is not None for m in mids):
+            return x.new_zeros((x.shape[0], plan.irreps_out.dim))
+        return out_stage(plan, mids, w, flat_w, fwd_bf16)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
         x, sh, w, flat_w = ctx.saved_tensors
-        dx, dsh, dw, dflat = _launch_bwd(ctx.spec, x, sh, w, flat_w,
-                                         gout.contiguous(), ctx.needs_input_grad[1])
-        return dx, dsh, dw, dflat, None
+        dx, dsh, dw, dflat = plain_backward(ctx.plan, x, sh, w, flat_w, gout,
+                                            ctx.needs_input_grad[1], ctx.bf16, ctx.mids)
+        return dx, dsh, dw, dflat, None, None, None
 
 
 def _device_kind(x, name):
@@ -724,23 +839,45 @@ def _device_kind(x, name):
     return x.device.type
 
 
-def packed_tp_forward(plan: PackedTPPlan, x, sh, w, flat_w):
+def packed_tp_forward(plan: PackedTPPlan, x, sh, w, flat_w, bf16: str = "",
+                      storemid: bool = False):
     """The packed pipeline of ``plan``: x (E, d_in), sh (E, S), w (E, n_ch)
     in packed order or None, flat_w (linear_numel,) -> (E, d_out) float32.
+    ``bf16``: the mode of ``HAMGNN_TP_BF16`` (``""``, ``"bwd"`` or ``"all"``);
+    ``storemid``: that of ``HAMGNN_TP_STOREMID``.
 
-    CPU tensors take ``plain_apply``; CUDA tensors launch the kernels (B1
-    forward, B2 in the backward)."""
+    CPU tensors take the plain versions (``PlainPackedTP``); CUDA tensors
+    launch the kernels (B1 forward, B2 in the backward)."""
     if _device_kind(x, "packed_tp_forward") == "cpu":
-        return plain_apply(plan, x, sh, w, flat_w)
-    return PackedTP.apply(x, sh, w, flat_w, get_spec(plan))
+        return PlainPackedTP.apply(x, sh, w, flat_w, plan, bf16, storemid)
+    return PackedTP.apply(x, sh, w, flat_w, get_spec(plan), bf16, storemid)
+
+
+def packed_tp_store_forward(plan: PackedTPPlan, x, sh, w, flat_w, bf16: bool = False):
+    """The pipeline's forward with its mids kept, outside autograd: (out,
+    mids), the mids (E, midw) in the layout of ``packed_tp.mid_offsets``
+    (``pallas_tp._fwd_call(store_mid=True)``).  CPU tensors take the plain
+    versions; CUDA tensors launch B1, which writes the mids."""
+    if _device_kind(x, "packed_tp_store_forward") == "cpu":
+        mids = chunk_mids(plan, x, coupling(plan, sh, bf16))
+        flat = torch.cat([m for m in mids if m is not None], dim=1) if any(
+            m is not None for m in mids) else x.new_zeros((x.shape[0], 0))
+        return plain_apply(plan, x, sh, w, flat_w, bf16), flat
+    spec = get_spec(plan)
+    mids = torch.empty((x.shape[0], spec.midw), dtype=torch.float32, device=x.device)
+    return _launch(spec, x, sh, w, flat_w, bf16, mids), mids
 
 
 def packed_tp_backward(plan: PackedTPPlan, x, sh, w, flat_w, gout,
-                       need_dsh: bool = False):
+                       need_dsh: bool = False, bf16: bool = False, mids=None):
     """Backward of the pipeline for the output gradient ``gout`` (E, d_out):
-    (dx, dsh or None, dw or None, d(flat_w)).
+    (dx, dsh or None, dw or None, d(flat_w)); with ``bf16`` in the bf16
+    instantiation, with ``mids`` (from ``packed_tp_store_forward``) reading
+    the stored mids instead of recomputing them.
 
     CPU tensors take ``plain_backward``; CUDA tensors launch kernel B2."""
     if _device_kind(x, "packed_tp_backward") == "cpu":
-        return plain_backward(plan, x, sh, w, flat_w, gout, need_dsh)
-    return _launch_bwd(get_spec(plan), x, sh, w, flat_w, gout.contiguous(), need_dsh)
+        return plain_backward(plan, x, sh, w, flat_w, gout, need_dsh, bf16,
+                              None if mids is None else split_mids(plan, mids))
+    return _launch_bwd(get_spec(plan), x, sh, w, flat_w, gout.contiguous(), need_dsh, bf16,
+                       mids)

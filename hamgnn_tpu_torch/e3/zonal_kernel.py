@@ -36,7 +36,7 @@ import torch
 from . import zonal_tp
 from .packed_tp import PackedTPPlan, get_plan
 from .tp_kernel import (WCAT_ITEM_N8, WCAT_WAVES, ZONAL_TP_BWD, ZONAL_TP_FWD, PipelineSpec,
-                        _check, _device_kind, _smem_limit, append_groups)
+                        _check, _device_kind, _modes, _smem_limit, append_groups, variant)
 
 # edges per tile: an m16 row tile of the products is (sign of m3, edge)
 ZONAL_TILE_EDGES = 8
@@ -297,6 +297,9 @@ class ZonalKernelSpec(PipelineSpec):
     def _scaled(self, has_w: bool) -> int:
         return sum(n for n, _V in self._live()) if has_w else 0
 
+    def wcat_flops(self, E: int) -> int:
+        return E * self._wcat_flops()
+
     def work(self, E: int, has_w: bool):
         """(FLOPs, bytes) the forward kernel's function needs for E edges:
         one FMA per nonzero mid term, and over the records with a nonzero
@@ -338,7 +341,7 @@ def _check_library(lib, name):
         raise RuntimeError(f"{name}.cu and zonal_kernel.py disagree on the tile or the stage")
 
 
-def _launch(spec: ZonalKernelSpec, x_rot, w, flat_w):
+def _launch(spec: ZonalKernelSpec, x_rot, w, flat_w, bf16: bool = False):
     E = x_rot.shape[0]
     dev = x_rot.device
     _check("x_rot", x_rot, (E, spec.d_in), dev)
@@ -357,16 +360,16 @@ def _launch(spec: ZonalKernelSpec, x_rot, w, flat_w):
     _smem_limit("zonal_tp_fwd", lib.zonal_tp_fwd_smem_bytes(spec.d_in, spec.fan_max), dev)
     tb = spec.tables(dev)
     went = spec.build_went(flat_w).contiguous()
-    ZONAL_TP_FWD.launch(
+    variant("zonal_tp_fwd", bf16).launch(
         x_rot.data_ptr(), 0 if w is None else w.data_ptr(), went.data_ptr(),
         *(tb[n].data_ptr() for n in ("zgrp", "stages", "segs", "ent_i", "ent_c", "wcol",
                                      "fitems")),
         out.data_ptr(), E, spec.d_in, spec.n_ch, spec.d_out, len(spec.fitems), spec.fan_max,
-        0 if w is None else 1, torch.cuda.current_stream(dev).cuda_stream)
+        0 if w is None else 1, int(bf16), torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
-def bwd_call(spec: ZonalKernelSpec, x_rot, w, flat_w, gout):
+def bwd_call(spec: ZonalKernelSpec, x_rot, w, flat_w, gout, bf16: bool = False):
     """Checks the backward's inputs, allocates its outputs and returns
     ``(outputs, call)``: (dx_rot, dw or None, d(flat_w)) and ``(args,
     tensors)``, the argument list of the C entries (``zonal_tp_bwd`` and the
@@ -374,7 +377,7 @@ def bwd_call(spec: ZonalKernelSpec, x_rot, w, flat_w, gout):
     caller keeps while it launches (``call`` is None where there is nothing
     to launch).  The edge pass writes dx_rot and dw; the weight pass writes
     one partial row of dWcat (in entry order) per edge split, which the
-    reduce sums into d(flat_w)."""
+    reduce sums into d(flat_w).  ``bf16``: the bf16 instantiation."""
     E = x_rot.shape[0]
     dev = x_rot.device
     _check("x_rot", x_rot, (E, spec.d_in), dev)
@@ -419,63 +422,71 @@ def bwd_call(spec: ZonalKernelSpec, x_rot, w, flat_w, gout):
             dx.data_ptr(), ptr(dw), part.data_ptr(), dflat.data_ptr(),
             E, spec.d_in, spec.n_ch, spec.d_out, len(spec.zgrp), len(spec.witems),
             len(spec.wcat_idx), len(spec.went_idx), spec.gmax, spec.tgrp_words, n_split,
-            0 if w is None else 1, torch.cuda.current_stream(dev).cuda_stream)
+            0 if w is None else 1, int(bf16), torch.cuda.current_stream(dev).cuda_stream)
     return outs, (args, (went, part))
 
 
-def _launch_bwd(spec: ZonalKernelSpec, x_rot, w, flat_w, gout):
-    outs, call = bwd_call(spec, x_rot, w, flat_w, gout)
+def _launch_bwd(spec: ZonalKernelSpec, x_rot, w, flat_w, gout, bf16: bool = False):
+    outs, call = bwd_call(spec, x_rot, w, flat_w, gout, bf16)
     if call is not None:
-        ZONAL_TP_BWD.launch(*call[0])
+        variant("zonal_tp_bwd", bf16).launch(*call[0])
     return outs
 
 
 class ZonalTP(torch.autograd.Function):
     """The edge-frame pipeline between the rotations, on the card: forward
-    kernel B3, backward kernel B4.  Saves only its inputs; B4 recomputes the
-    mids."""
+    kernel B3, backward kernel B4, each in the precision of the bf16 mode.
+    Saves only its inputs; B4 recomputes the mids."""
 
     @staticmethod
-    def forward(ctx, x_rot, w, flat_w, spec):
+    def forward(ctx, x_rot, w, flat_w, spec, bf16=""):
         ctx.spec = spec
+        fwd_bf16, ctx.bf16 = _modes(bf16)
         ctx.save_for_backward(x_rot, w, flat_w)
-        return _launch(spec, x_rot, w, flat_w)
+        return _launch(spec, x_rot, w, flat_w, fwd_bf16)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, gout):
         x_rot, w, flat_w = ctx.saved_tensors
-        dx, dw, dflat = _launch_bwd(ctx.spec, x_rot, w, flat_w, gout.contiguous())
-        return dx, dw, dflat, None
+        dx, dw, dflat = _launch_bwd(ctx.spec, x_rot, w, flat_w, gout.contiguous(), ctx.bf16)
+        return dx, dw, dflat, None, None
 
 
-def zonal_core_forward(plan: PackedTPPlan, x_rot, w, flat_w):
+def zonal_core_forward(plan: PackedTPPlan, x_rot, w, flat_w, bf16: str = ""):
     """The edge-frame pipeline between the rotations: x_rot (E, d_in), w
     (E, n_ch) in packed order or None, flat_w (linear_numel,) -> out_rot
-    (E, d_out) float32, both in the plan's u-major layouts.
+    (E, d_out) float32, both in the plan's u-major layouts.  ``bf16``: the
+    mode of ``HAMGNN_TP_BF16`` (``""``, ``"bwd"`` or ``"all"``).
 
-    CPU tensors take ``plain_zonal_core``; CUDA tensors launch the kernels
-    (B3 forward, B4 in the backward)."""
+    CPU tensors take ``plain_zonal_core`` (under a bf16 mode
+    ``zonal_tp.PlainZonalCore``); CUDA tensors launch the kernels (B3
+    forward, B4 in the backward)."""
     if _device_kind(x_rot, "zonal_core_forward") == "cpu":
+        if bf16:
+            return zonal_tp.PlainZonalCore.apply(x_rot, w, flat_w, plan, bf16)
         return zonal_tp.plain_zonal_core(plan, x_rot, w, flat_w)
-    return ZonalTP.apply(x_rot, w, flat_w, get_zonal_kernel_spec(plan))
+    return ZonalTP.apply(x_rot, w, flat_w, get_zonal_kernel_spec(plan), bf16)
 
 
-def zonal_core_backward(plan: PackedTPPlan, x_rot, w, flat_w, gout_rot):
+def zonal_core_backward(plan: PackedTPPlan, x_rot, w, flat_w, gout_rot, bf16: bool = False):
     """Backward of ``zonal_core_forward`` for the output gradient
-    ``gout_rot`` (E, d_out): (dx_rot, dw or None, d(flat_w)).
+    ``gout_rot`` (E, d_out): (dx_rot, dw or None, d(flat_w)), in the bf16
+    instantiation with ``bf16``.
 
     CPU tensors take ``plain_zonal_core_backward``; CUDA tensors launch
     kernel B4."""
     if _device_kind(x_rot, "zonal_core_backward") == "cpu":
-        return zonal_tp.plain_zonal_core_backward(plan, x_rot, w, flat_w, gout_rot)
-    return _launch_bwd(get_zonal_kernel_spec(plan), x_rot, w, flat_w, gout_rot.contiguous())
+        return zonal_tp.plain_zonal_core_backward(plan, x_rot, w, flat_w, gout_rot, bf16)
+    return _launch_bwd(get_zonal_kernel_spec(plan), x_rot, w, flat_w, gout_rot.contiguous(),
+                       bf16)
 
 
-def zonal_forward(plan: PackedTPPlan, x, sh, w, flat_w):
+def zonal_forward(plan: PackedTPPlan, x, sh, w, flat_w, bf16: str = ""):
     """The packed pipeline of ``plan`` through the edge frame: x (E, d_in),
     sh (E, S), w (E, n_ch) in packed order or None, flat_w (linear_numel,)
-    -> (E, d_out) float32, in the plan's normal layouts.
+    -> (E, d_out) float32, in the plan's normal layouts.  ``bf16``: the mode
+    of ``HAMGNN_TP_BF16``.
 
     The edge direction is read from the l=1 block of ``sh``; each input
     chunk is rotated into the edge frame, the kernels run on the rotated x,
@@ -485,8 +496,8 @@ def zonal_forward(plan: PackedTPPlan, x, sh, w, flat_w):
     CPU tensors take ``zonal_tp.zonal_apply``; CUDA tensors launch the
     kernels (B3 forward, B4 in the backward)."""
     if _device_kind(x, "zonal_forward") == "cpu":
-        return zonal_tp.zonal_apply(plan, x, sh, w, flat_w)
+        return zonal_tp.zonal_apply(plan, x, sh, w, flat_w, bf16)
     Ds = zonal_tp.edge_frames(zonal_tp.get_zonal_spec(plan), sh)
     x_rot = zonal_tp.rotate_in(plan, x, Ds).contiguous()
-    out_rot = ZonalTP.apply(x_rot, w, flat_w, get_zonal_kernel_spec(plan))
+    out_rot = ZonalTP.apply(x_rot, w, flat_w, get_zonal_kernel_spec(plan), bf16)
     return zonal_tp.rotate_out(plan, out_rot, Ds)

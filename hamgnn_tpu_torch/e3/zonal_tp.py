@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..utils.constants import device_constant
-from .packed_tp import PackedTPPlan, get_plan
+from .packed_tp import PackedTPPlan, get_plan, out_stage, out_stage_backward
 from .wigner import PERM_YZX, wigner_3j
 
 
@@ -301,15 +301,11 @@ def rotate_out(plan: PackedTPPlan, out_rot, Ds):
 # the part between the rotations, plain PyTorch
 # ----------------------------------------------------------------------
 
-def plain_zonal_core(plan: PackedTPPlan, x_rot, weight, flat_w):
-    """Edge-frame pipeline between the two rotations, plain PyTorch: the
-    two-term static mids of the rotated x, the radial scale and the Wcat
-    product.  x_rot (E, d_in), weight (E, n_ch) in packed order or None,
-    flat_w (linear_numel,) -> out_rot (E, d_out), all float32, both in the
-    plan's u-major layouts."""
+def _zonal_mids(plan: PackedTPPlan, x_rot):
+    """Per input chunk its edge-frame mids (E, K * mul), lanes k * mul + u:
+    the two-term static combinations of the rotated x."""
     E = x_rot.shape[0]
     ztab = get_zonal_spec(plan).tables(x_rot.device)
-    _coup, perms = plan._tables(x_rot.device)
     mids = []
     for g, (sl, mul, d1, C, _groups) in enumerate(plan.per_chunk):
         K = C.shape[-1]
@@ -320,50 +316,84 @@ def plain_zonal_core(plan: PackedTPPlan, x_rot, weight, flat_w):
         i1, c1, i2, c2 = ztab[g]
         mid = xr[:, :, i1] * c1 + xr[:, :, i2] * c2       # (E, mul, K)
         mids.append(mid.transpose(1, 2).reshape(E, K * mul))
-
-    out_chunks = []
-    for k_out, mio in enumerate(plan.irreps_out):
-        fan_in, ofs = plan.out_plans[k_out]
-        if fan_in == 0:
-            out_chunks.append(x_rot.new_zeros((E, mio.dim)))
-            continue
-        wblk = flat_w[ofs : ofs + fan_in * mio.mul].reshape(fan_in, mio.mul)
-        scale = 1.0 / np.sqrt(fan_in)
-        d3 = mio.ir.dim
-        acc = None
-        for (g, gi, _rp), row_perm in zip(plan.out_sources[k_out], perms[k_out]):
-            _, mul, _, _, groups = plan.per_chunk[g]
-            _ir3, n_cols, k0, k1 = groups[gi]
-            ncm = n_cols * mul
-            blk = mids[g][:, k0 * mul : k1 * mul].reshape(E, d3, ncm)
-            if weight is not None:
-                cb = plan._grp_w_base[(g, gi)]
-                blk = blk * weight[:, None, cb : cb + ncm]
-            y = blk.reshape(E * d3, ncm) @ (scale * wblk[row_perm])
-            acc = y if acc is None else acc + y
-        out_chunks.append(
-            acc.reshape(E, d3, mio.mul).transpose(1, 2).reshape(E, mio.mul * d3))
-    return torch.cat(out_chunks, dim=-1)
+    return mids
 
 
-def plain_zonal_core_backward(plan: PackedTPPlan, x_rot, weight, flat_w, gout_rot):
+def plain_zonal_core(plan: PackedTPPlan, x_rot, weight, flat_w, bf16: bool = False):
+    """Edge-frame pipeline between the two rotations, plain PyTorch: the
+    two-term static mids of the rotated x, the radial scale and the Wcat
+    product.  x_rot (E, d_in), weight (E, n_ch) in packed order or None,
+    flat_w (linear_numel,) -> out_rot (E, d_out), all float32, both in the
+    plan's u-major layouts.  ``bf16``: the forward of ``HAMGNN_TP_BF16=all``,
+    the Wcat product's operands rounded to bfloat16 (the mids are
+    elementwise and stay fp32, as in ``pallas_zonal.py``)."""
+    mids = _zonal_mids(plan, x_rot)
+    if not any(m is not None for m in mids):
+        return x_rot.new_zeros((x_rot.shape[0], plan.irreps_out.dim))
+    return out_stage(plan, mids, weight, flat_w, bf16)
+
+
+def plain_zonal_core_backward(plan: PackedTPPlan, x_rot, weight, flat_w, gout_rot,
+                              bf16: bool = False):
     """Plain version of the core's backward (the VJP of the JAX package's
-    ``_zpipeline``): autograd through ``plain_zonal_core``.  Returns
-    (dx_rot, dw or None, d(flat_w)) for the output gradient ``gout_rot``."""
-    with torch.enable_grad():
-        x_, fw_ = (t.detach().requires_grad_(True) for t in (x_rot, flat_w))
-        w_ = None if weight is None else weight.detach().requires_grad_(True)
-        inputs = [t for t in (x_, w_, fw_) if t is not None]
-        grads = torch.autograd.grad(plain_zonal_core(plan, x_, w_, fw_), inputs,
-                                    gout_rot, allow_unused=True, materialize_grads=True)
-    return grads[0], (grads[1] if weight is not None else None), grads[-1]
+    ``_zpipeline``, ``ZonalPallasSpec._bwd_body``): the mids recomputed, the
+    two transposed Wcat-stage products (their operands rounded to bfloat16
+    with ``bf16``, the backward of ``HAMGNN_TP_BF16=bwd`` or ``all``), dw, and
+    dx_rot through the static coefficients.  Returns (dx_rot, dw or None,
+    d(flat_w)) for the output gradient ``gout_rot``."""
+    with torch.no_grad():
+        E = x_rot.shape[0]
+        mids = _zonal_mids(plan, x_rot)
+        dx = torch.zeros_like(x_rot)
+        if not any(m is not None for m in mids):
+            return dx, None if weight is None else torch.zeros_like(weight), \
+                torch.zeros_like(flat_w)
+        dmids, dw, dflat = out_stage_backward(plan, mids, weight, flat_w, gout_rot, bf16)
+        ztab = get_zonal_spec(plan).tables(x_rot.device)
+        for g, (sl, mul, d1, C, _groups) in enumerate(plan.per_chunk):
+            if dmids[g] is None:
+                continue
+            K = C.shape[-1]
+            i1, c1, i2, c2 = ztab[g]
+            dm = dmids[g].reshape(E, K, mul).transpose(1, 2)   # (E, mul, K)
+            dxr = x_rot.new_zeros((E, mul, d1))
+            dxr.index_add_(2, i1, dm * c1)
+            dxr.index_add_(2, i2, dm * c2)
+            dx[:, sl] = dxr.reshape(E, mul * d1)
+    return dx, dw, dflat
 
 
-def zonal_apply(plan: PackedTPPlan, x, sh, weight, flat_w):
+class PlainZonalCore(torch.autograd.Function):
+    """``plain_zonal_core`` with ``plain_zonal_core_backward`` as its
+    backward, each in the precision of a bf16 mode (``HAMGNN_TP_BF16``:
+    ``"bwd"`` rounds the backward's products, ``"all"`` the forward's too);
+    the CPU form of the zonal kernels under that mode."""
+
+    @staticmethod
+    def forward(ctx, x_rot, weight, flat_w, plan, bf16):
+        ctx.plan, ctx.bf16 = plan, bf16 in ("bwd", "all")
+        ctx.save_for_backward(x_rot, weight, flat_w)
+        return plain_zonal_core(plan, x_rot, weight, flat_w, bf16 == "all")
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gout):
+        x_rot, weight, flat_w = ctx.saved_tensors
+        dx, dw, dflat = plain_zonal_core_backward(ctx.plan, x_rot, weight, flat_w, gout,
+                                                  ctx.bf16)
+        return dx, dw, dflat, None, None
+
+
+def zonal_apply(plan: PackedTPPlan, x, sh, weight, flat_w, bf16: str = ""):
     """Drop-in equivalent of ``plain_apply`` through the edge frame, plain
     PyTorch on any device: rotate the input chunks into the edge frame, run
     ``plain_zonal_core``, rotate the output chunks back.  ``sh`` receives no
-    gradient."""
+    gradient.  ``bf16``: a mode of ``HAMGNN_TP_BF16`` for the core
+    (``PlainZonalCore``)."""
     Ds = edge_frames(get_zonal_spec(plan), sh)
-    out_rot = plain_zonal_core(plan, rotate_in(plan, x, Ds), weight, flat_w)
+    x_rot = rotate_in(plan, x, Ds)
+    if bf16:
+        out_rot = PlainZonalCore.apply(x_rot, weight, flat_w, plan, bf16)
+    else:
+        out_rot = plain_zonal_core(plan, x_rot, weight, flat_w)
     return rotate_out(plan, out_rot, Ds)

@@ -5,6 +5,15 @@ on a machine with only the port installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
+The bf16 instantiations of B1-B4 (``HAMGNN_TP_BF16``) against their plain
+bf16 versions within 1e-3 * max|plain| (a kernel's fp32 operand that differs
+from the plain version's in the last bit may round to the other bf16
+neighbour), each at least 10x closer to it than to the fp32 kernel, B2's and
+B4's repeats bit-identical, each launch counted on its own variant; the
+stored-mid pair (``HAMGNN_TP_STOREMID``) bit for bit against the recompute
+path in fp32 and bf16, its mids within 1e-5 of ``packed_tp.chunk_mids``; the
+switches through ``PackedTPPlan.__call__`` pick the variants.
+
 Tolerance: max|kernel - plain| <= 1e-4 * max|plain| in fp32 (only the
 summation order differs), per output of the forward (B1) and of the
 backward (B2: dx, dsh, dw, d(flat_w)), also at outputs wider than one work
@@ -59,7 +68,7 @@ import numpy as np
 import pytest
 import torch
 
-from hamgnn_tpu_torch.e3 import tp_kernel, zonal_kernel, zonal_tp
+from hamgnn_tpu_torch.e3 import packed_tp, tp_kernel, zonal_kernel, zonal_tp
 from hamgnn_tpu_torch.e3.irreps import Irreps
 from hamgnn_tpu_torch.e3.packed_tp import get_plan, plain_apply, plain_backward
 from hamgnn_tpu_torch.e3.spherical import spherical_harmonics
@@ -78,6 +87,11 @@ WIDE = ("16x0e+4x1o+2x2e", "0e+1o+2e", "128x0e+2x1o+57x4e")
 # meets 1e-5 * max|plain|, one kept long in the tensor cores' truncating
 # accumulator does not
 DFLAT_TOL = 1e-5
+# the bf16 instantiations against their plain bf16 versions, of max|plain|:
+# the kernel's fp32 operands differ from the plain version's in the last bit
+# (FFMA against multiply and add, the order of sums), and one next to a bf16
+# rounding boundary rounds to the other neighbour: one bf16 ulp of one term
+BF16_TOL = 1e-3
 
 
 @pytest.mark.cuda
@@ -340,6 +354,152 @@ def test_cuda_zonal_engine_runs_both_kernels(monkeypatch):
     ref = plain_backward(plan, x, sh, w, fw, 2 * out.detach())
     for a, b in zip(got, (ref[0], ref[2], ref[3])):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _all_counts():
+    return {n: k.launches for n, k in {**tp_kernel.KERNELS, **tp_kernel.VARIANTS}.items()}
+
+
+def _lab_inputs(irreps_in, seed, E=333):
+    f = repr(Irreps(BENCH_FEAT))
+    plan = get_plan(repr(Irreps(irreps_in)), repr(Irreps(BENCH_SH)), f, f)
+    rng = np.random.default_rng(seed)
+    return plan, [torch.as_tensor(rng.normal(size=shape).astype(np.float32), device="cuda")
+                  for shape in ((E, plan.irreps_in.dim), (E, plan.irreps_sh.dim),
+                                (E, plan.weight_numel), (plan.linear_numel,),
+                                (E, plan.irreps_out.dim))]
+
+
+def _bf16_close(name, got, ref, fp32):
+    """A bf16 instantiation against its plain bf16 version: within
+    BF16_TOL * max|plain|, and at least ten times farther from the fp32
+    kernel's result (the mode really rounds)."""
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    assert err <= BF16_TOL * scale, (name, err, scale)
+    assert float((got - fp32).abs().max()) >= 10 * err, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("irreps_in", BENCH_IN, ids=["pair", "node", "edge", "small"])
+def test_cuda_bf16_lab_kernels_match_plain(irreps_in):
+    """B1 and B2 in bf16 against ``plain_apply`` / ``plain_backward`` with
+    ``bf16``, counted on their own variants; B2 repeats bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan, (x, sh, w, fw, gy) = _lab_inputs(irreps_in, 16)
+    before = _all_counts()
+    with torch.inference_mode():
+        out = tp_kernel.packed_tp_forward(plan, x, sh, w, fw, "all")
+        out32 = tp_kernel.packed_tp_forward(plan, x, sh, w, fw)
+        ref = plain_apply(plan, x, sh, w, fw, bf16=True)
+    got = tp_kernel.packed_tp_backward(plan, x, sh, w, fw, gy, True, bf16=True)
+    again = tp_kernel.packed_tp_backward(plan, x, sh, w, fw, gy, True, bf16=True)
+    got32 = tp_kernel.packed_tp_backward(plan, x, sh, w, fw, gy, True)
+    refb = plain_backward(plan, x, sh, w, fw, gy, True, bf16=True)
+    torch.cuda.synchronize()
+    want = dict(before)
+    for n, k in (("packed_tp_fwd_bf16", 1), ("packed_tp_fwd", 1), ("packed_tp_bwd_bf16", 2),
+                 ("packed_tp_bwd", 1)):
+        want[n] += k
+    assert _all_counts() == want
+    _bf16_close("out", out, ref, out32)
+    for name, a, b, c, d in zip(("dx", "dsh", "dw", "dflat_w"), got, again, refb, got32):
+        assert torch.equal(a, b), name
+        _bf16_close(name, a, c, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("irreps_in", BENCH_IN, ids=["pair", "node", "edge", "small"])
+def test_cuda_bf16_zonal_kernels_match_plain(irreps_in):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan, x, w, fw, gy = _zonal_inputs(irreps_in, True, 17)
+    before = _all_counts()
+    with torch.inference_mode():
+        out = zonal_kernel.zonal_core_forward(plan, x, w, fw, "all")
+        out32 = zonal_kernel.zonal_core_forward(plan, x, w, fw)
+        ref = zonal_tp.plain_zonal_core(plan, x, w, fw, True)
+    got = zonal_kernel.zonal_core_backward(plan, x, w, fw, gy, bf16=True)
+    again = zonal_kernel.zonal_core_backward(plan, x, w, fw, gy, bf16=True)
+    got32 = zonal_kernel.zonal_core_backward(plan, x, w, fw, gy)
+    refb = zonal_tp.plain_zonal_core_backward(plan, x, w, fw, gy, True)
+    torch.cuda.synchronize()
+    want = dict(before)
+    for n, k in (("zonal_tp_fwd_bf16", 1), ("zonal_tp_fwd", 1), ("zonal_tp_bwd_bf16", 2),
+                 ("zonal_tp_bwd", 1)):
+        want[n] += k
+    assert _all_counts() == want
+    _bf16_close("out_rot", out, ref, out32)
+    for name, a, b, c, d in zip(("dx_rot", "dw", "dflat_w"), got, again, refb, got32):
+        assert torch.equal(a, b), name
+        _bf16_close(name, a, c, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("irreps_in", BENCH_IN, ids=["pair", "node", "edge", "small"])
+def test_cuda_stored_mids_are_bit_identical(irreps_in, bf16):
+    """B1 writing its mids gives the same output, and B2 reading them the
+    same gradients, bit for bit, as the recompute path; the mids are
+    ``packed_tp.chunk_mids`` within 1e-5 * max|ref| (FFMA against the plain
+    version's multiply and add)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan, (x, sh, w, fw, gy) = _lab_inputs(irreps_in, 18)
+    before = _all_counts()
+    out_s, mids = tp_kernel.packed_tp_store_forward(plan, x, sh, w, fw, bf16)
+    with torch.inference_mode():
+        out = tp_kernel.packed_tp_forward(plan, x, sh, w, fw, "all" if bf16 else "")
+    for need_dsh in (False, True):
+        stored = tp_kernel.packed_tp_backward(plan, x, sh, w, fw, gy, need_dsh, bf16, mids)
+        again = tp_kernel.packed_tp_backward(plan, x, sh, w, fw, gy, need_dsh, bf16)
+        for a, b in zip(stored, again):
+            assert (a is None and b is None) or torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out_s, out)
+    tag = "_bf16" if bf16 else ""
+    want = dict(before)
+    for n, k in (("packed_tp_fwd_storemid", 1), (f"packed_tp_fwd{tag}", 1),
+                 ("packed_tp_bwd_storemid", 2), (f"packed_tp_bwd{tag}", 2)):
+        want[n] += k
+    assert _all_counts() == want
+    ref = packed_tp.chunk_mids(plan, x, packed_tp.coupling(plan, sh, bf16))
+    for m, r in zip(packed_tp.split_mids(plan, mids), ref):
+        if r is not None:
+            assert float((m - r).abs().max()) <= 1e-5 * float(r.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,store", [("bwd", False), ("all", False), ("", True), ("all", True)])
+def test_cuda_autograd_takes_the_switches(monkeypatch, mode, store):
+    """Through ``PackedTPPlan.__call__``: the switches pick the variants B1
+    and B2 launch, and the gradients are the wrappers' under those modes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setenv("HAMGNN_TP_BF16", mode)
+    monkeypatch.setenv("HAMGNN_TP_STOREMID", "1" if store else "")
+    plan, (x, sh, w, fw, gy) = _lab_inputs(BENCH_IN[3], 19, E=100)
+    for t in (x, w, fw):
+        t.requires_grad_(True)
+    before = _all_counts()
+    out = plan(x, sh, w, fw)
+    got = torch.autograd.grad(out, (x, w, fw), gy)
+    torch.cuda.synchronize()
+    fwd = "packed_tp_fwd_storemid" if store else (
+        "packed_tp_fwd_bf16" if mode == "all" else "packed_tp_fwd")
+    bwd = "packed_tp_bwd_storemid" if store else (
+        "packed_tp_bwd_bf16" if mode else "packed_tp_bwd")
+    want = dict(before)
+    want[fwd] += 1
+    want[bwd] += 1
+    assert _all_counts() == want
+    with torch.inference_mode():
+        ref_out = tp_kernel.packed_tp_forward(plan, x, sh, w, fw, mode)
+    ref = tp_kernel.packed_tp_backward(plan, x.detach(), sh, w.detach(), fw.detach(), gy, False,
+                                       mode in ("bwd", "all"))
+    assert torch.equal(out.detach(), ref_out)
+    for a, b in zip(got, (ref[0], ref[2], ref[3])):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -618,6 +618,6 @@ def test_device_kernel_names_are_the_sources():
         text = (tp_kernel.CSRC / f"{k.source}.cu").read_text()
         defined = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
                                  text))
-        launched = set(re.findall(r"(\w+)(?:<\w+>)?<<<", text))
+        launched = set(re.findall(r"(\w+)(?:<[\w\s,]+>)?<<<", text))
         assert k.device_kernels and set(k.device_kernels) == launched, name
         assert set(k.device_kernels) <= defined, (name, defined)
