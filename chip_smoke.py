@@ -5,8 +5,8 @@
 
 Phases (any failure exits non-zero, before the result lines are printed):
   1. build every kernel of the port from ``hamgnn_tpu_torch/csrc`` (six
-     sources, one nvcc each, all started together) and print the card's name
-     and power limit as nvidia-smi reports them;
+     sources, one nvcc each, all started together) and print the card's name and
+     power limit as nvidia-smi reports them;
   2. hold each kernel against its plain PyTorch version at the shapes the
      main paths give it (bench widths, E = 19,968 padded edges), with
      max|kernel - plain| <= 1e-4 * max|plain| in fp32 (only the summation
@@ -79,13 +79,29 @@ Phases (any failure exits non-zero, before the result lines are printed):
      of 4 synthetic 16-atom crystals (H(k), S(k) of 1,216 x 1,216, complex64):
      a forward with finite outputs whose ``band_energy_ref`` agrees with a
      float64 ``scipy.linalg.eigh`` of the same H(k), S(k) on the host within
-     5e-4; one ``Trainer.train_step`` with the bench loss plus ``band_energy``
-     at 0.27211 (13 B1 and 13 B2 launches, finite loss and gradients; a head
-     with bands stays eager: it reads counts on the host); timed
-     steps and, by torch.profiler, the share of Cholesky and ``eigh``
-     (chiprun_out/profile_band_step.txt); then the CLI: ``stage: fit`` two
-     epochs with the band loss, ``stage: test`` from its ``best.pt`` and
-     ``tools.band_cal`` on the prediction;
+     5e-4; one eager ``Trainer.train_step`` with the bench loss plus
+     ``band_energy`` at 0.27211 (13 B1 and 13 B2 launches, finite loss and
+     gradients); before it, the band branch's eigensolve against
+     ``torch.linalg.eigh`` at the three band steps' sizes and the capture of
+     ``torch.linalg.eigh`` alone, which cuSOLVER refuses (``phase_eigh``, in
+     a process of its own); then the step and the eval step as the trainer runs them by
+     default, captured in segments around the eigensolve, against the eager
+     ones (``band_captured_vs_eager``: bit for bit under deterministic
+     algorithms; in the default mode loss 1e-6 relative and the gradient
+     within 2e-2 * max|g| on two shape keys, a batch whose overlap is
+     negative definite dropped by the replay with NaN reference bands, the eval
+     bands within 1e-5 of the spectrum's extent, one
+     replay's launches by the profiler on 2 crystals, 13 of each device
+     kernel, and its 2 eigensolve calls; on 4 crystals the kernel nodes of
+     the captured graphs, 13 of each, against the profiler's count of the
+     graphs replayed alone and of a whole replay (``replay_nodes``);
+     both forms timed in turns, wall and device ms,
+     chiprun_out/profile_band_step_{eager,captured}.txt), and one replay of
+     the zonal engine's captured band step (13 B3 and 13 B4 kernel nodes on
+     4 crystals, and by the profiler on 2 and 4); then the CLI:
+     ``stage: fit`` two epochs with the band loss captured and eager under
+     deterministic algorithms (the same losses bit for bit), ``stage: test``
+     from its ``best.pt`` and ``tools.band_cal`` on the prediction;
   8. the SOC slice (``phase_soc``): ``examples/sk_soc/config.yaml``'s model
      (2 layers, features up to ``4x4e+2x4o``, nao 14; the graph's 6 A cutoff
      in place of the config's 9 A, random weights from seed 0) on the bench
@@ -106,7 +122,8 @@ Phases (any failure exits non-zero, before the result lines are printed):
      checkpointing; the spinor band step (4 crystals x 16 atoms, 6 k, 2 x 8
      bands, H(k) of the batch's 64 padded atoms x 28 orbitals): reference bands
      within 5e-4 of a float64 host solve, one eager training step with the band
-     loss; the CLI: ``stage: fit`` two epochs, then ``stage: test`` from
+     loss, then ``band_captured_vs_eager``; the CLI: ``stage: fit`` two epochs,
+     then ``stage: test`` from
      ``<train_dir>/best``, whose predictions must differ from the untrained
      model's;
   9. the magnetic slice (``phase_magnetic``): ``examples/sk_collinear``,
@@ -124,8 +141,9 @@ Phases (any failure exits non-zero, before the result lines are printed):
      device kernel name (13 of each), the first step's peak memory; the
      collinear band step (4 crystals x 16 atoms, 6 k, 2 x 8 bands a spin
      channel): each channel's reference bands within 5e-4 of a float64 host
-     solve, one training step with the band loss, the share of ``eigh`` and
-     Cholesky; then the shipped configs through the CLI, only the epoch counts
+     solve, one eager training step with the band loss, then
+     ``band_captured_vs_eager`` (4 eigensolve calls a step); then the shipped
+     configs through the CLI, only the epoch counts
      changed, in a scratch directory holding their relative paths:
      sk_collinear fit, ``config_band_test.yaml`` from ``<train_dir>/best``,
      ``tools.band_cal`` on ``band_cal.yaml`` (``band_spin{0,1}_*``), sk_ncl
@@ -350,8 +368,7 @@ def rel_err(out, ref):
 
 def phase_build(tp_kernel):
     t0 = time.perf_counter()
-    built = tp_kernel.build_kernels(
-        sorted({k.source for k in all_kernels(tp_kernel).values()}))
+    built = tp_kernel.build_kernels(sorted({k.source for k in all_kernels(tp_kernel).values()}))
     for name, (path, log) in built.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1387,11 +1404,330 @@ def host_bands(crystal, k_cart, basis, nao, width):
                      for h, s_ in zip(*mats)])
 
 
-def phase_band(tp_kernel, dev, card):
-    """The band branch at the bench width on 4 crystals of 16 atoms."""
-    import numpy as np
+def phase_eigh():
+    """The band branch's eigensolve (``physics.eigh.hermitian_eigh``) against
+    ``torch.linalg.eigh`` at the three band steps' sizes (896, 1,216, 1,792;
+    24 matrices a call, as a step's solve): eigenvalues within 1e-5 *
+    max|lambda|, residual within 1e-4 * max|A|, times in turns; and the
+    capture of ``torch.linalg.eigh`` alone, which cuSOLVER refuses, in a
+    process of its own (``tools_dev/eigh_probe.py``): a failed capture can
+    leave a process's CUDA state unusable."""
+    proc = subprocess.run([sys.executable, "-m", "hamgnn_tpu_torch.tools_dev.eigh_probe"],
+                          capture_output=True, text=True, cwd=str(ROOT), timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"eigh_probe"')]
+    if proc.returncode != 0 or not lines:
+        fail(f"eigh probe: rc {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    result = json.loads(lines[-1])["eigh_probe"]
+    for r in result["sizes"]:
+        print(f"[eigh] n {r['n']} x {r['batch']}: eigenvalues vs torch.linalg.eigh "
+              f"{r['eig_rel_err']:.3e} of max|lambda| (limit {result['eig_tol']}), residual "
+              f"{r['residual_rel']:.3e} of max|A| (limit {result['residual_tol']}); ms a call: "
+              f"hermitian_eigh {r['ms']['hermitian_eigh']:.3f}, torch.linalg.eigh "
+              f"{r['ms']['torch_linalg_eigh']:.3f}", flush=True)
+    cap = result["capture_alone"]
+    print(f"[eigh] the solve captured alone in a CUDA graph: {cap['captured']}"
+          + ("" if cap["captured"] else f" ({cap['error']}): a captured band step runs it "
+             f"between its graphs"), flush=True)
+    return result
+
+
+@contextlib.contextmanager
+def graphs_kept():
+    """Every graph of a segmented capture begun in the body keeps its CUDA
+    graph (``keep_graph``; instantiated at its first replay), for
+    ``graph_kernel_nodes``."""
+    import torch
+
+    from hamgnn_tpu_torch.utils import cuda_graphs
+
+    begin = cuda_graphs.Segments.begin
+
+    def kept(self):
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        self.graphs.append(g)
+        g.capture_begin(pool=self.pool)
+
+    cuda_graphs.Segments.begin = kept
+    try:
+        yield
+    finally:
+        cuda_graphs.Segments.begin = begin
+
+
+def graph_kernel_nodes(segments, names, stem):
+    """(kernel nodes by each of ``names``, all kernel nodes) of the graphs of
+    a segmented capture made under ``graphs_kept``: each graph is written as
+    DOT (``cudaGraphDebugDotPrint``) to build/chip_smoke/<stem>_<i>.dot, and
+    its node statements are read; a kernel node's label starts with KERNEL
+    and names its function (mangled)."""
+    import re
+
+    counts, total = {n: 0 for n in names}, 0
+    WORK.mkdir(parents=True, exist_ok=True)
+    for i, g in enumerate(segments.graphs):
+        path = WORK / f"{stem}_{i}.dot"
+        g.debug_dump(str(path))
+        text = path.read_text(errors="replace")
+        if i == 0:
+            (ROOT / "chiprun_out").mkdir(exist_ok=True)
+            (ROOT / "chiprun_out" / f"{stem}_0_head.dot").write_text(text[:6000])
+        for node in re.split(r'\n(?=\s*"?\w*node_?\d+"?\s*\[)', text)[1:]:
+            if 'label="{KERNEL' not in node:
+                continue
+            total += 1
+            for n in names:
+                counts[n] += n in node
+    return counts, total
+
+
+def kernel_events(fn, names):
+    """(kernel launches by each of ``names``, all kernel launches) in a
+    torch.profiler trace of one ``fn()``, memory copies and sets left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from hamgnn_tpu_torch.utils.profiling import PROFILER_LEAD_S
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_LEAD_S)
+        fn()
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not ev.key.startswith(("Memcpy", "Memset"))]
+    return ({n: sum(ev.count for ev in kernels if n in ev.key) for n in names},
+            sum(ev.count for ev in kernels))
+
+
+def profiled_launches(fn, names, expected, tries=3):
+    """Launches of each of ``names`` in one ``fn()`` (a replay) by the
+    profiler, read in up to ``tries`` traces until one reads ``expected`` of
+    each; returns every reading.  A long trace can drop a kernel's record
+    (``replay_nodes`` shows it against the graphs' nodes) but never adds
+    one, so a reading above ``expected`` ends the tries and one below it is
+    taken again."""
+    from hamgnn_tpu_torch.utils.profiling import device_launches
+
+    reads = []
+    for _ in range(tries):
+        read = device_launches(fn, names)
+        reads.append(read)
+        if any(read[n] > expected for n in names) or all(read[n] == expected for n in names):
+            break
+    return reads
+
+
+def replay_nodes(trainer, graph, names, stem):
+    """What one replay of ``trainer``'s captured training step on ``graph``
+    (captured under ``graphs_kept``) runs, read against the profiler: the
+    kernel nodes of its graphs, by name and in all, against a trace of the
+    graphs replayed alone (the same kernels every time: a trace that counts
+    fewer dropped them); and the nodes plus the kernels of the eigensolves
+    between them (profiled apart; their count moves with the matrices)
+    against a trace of a whole replay.  The replays update the trainer's
+    state."""
+    from hamgnn_tpu_torch.train.captured import shape_key
+
+    seg = trainer.captured.train_graphs[shape_key(graph)].graph
+    trainer.train_step(graph)
+    nodes, node_total = graph_kernel_nodes(seg, names, f"{stem}_graph")
+    graphs_alone = kernel_events(lambda: [g.replay() for g in seg.graphs], names)
+    solver_total = kernel_events(lambda: [fn() for fn in seg.host], names)[1]
+    replay, replay_total = kernel_events(seg.replay, names)
+    return dict(nodes=nodes, node_kernels=node_total, graphs_alone=graphs_alone[0],
+                graphs_alone_kernels=graphs_alone[1], solve_kernels=solver_total,
+                profiler=replay, profiler_kernels=replay_total)
+
+
+def nodes_line(r):
+    return (f"graph kernel nodes {r['nodes']} of {r['node_kernels']}, the profiler on the "
+            f"graphs alone {r['graphs_alone']} of {r['graphs_alone_kernels']}; with "
+            f"{r['solve_kernels']} eigensolve kernels "
+            f"{r['node_kernels'] + r['solve_kernels']}, the profiler on a replay "
+            f"{r['profiler']} of {r['profiler_kernels']}")
+
+
+# captured vs eager band step in the default mode, where both sum with
+# atomics: the flat gradient within 2e-2 * max|g| (the band-loss term's limit,
+# PERF.md 2), and the eval step's bands within 1e-5 of the spectrum's extent
+# (the larger of the pad energy, 1e3, and max|band|): an fp32 eigenvalue moves
+# by ~eps * ||A|| when A's sums change order, and the random-weight
+# predictions' spectra reach far beyond the stored Hamiltonians'
+BAND_GRAD_TOL = 2e-2
+BAND_EVAL_TOL = 1e-5
+
+
+def band_captured_vs_eager(tp_kernel, dev, card, tag, build, graph, graph2, solves,
+                           tp_launches=13, count_nodes=False):
+    """A band step and its eval step as the trainer runs them by default
+    (captured in segments around the eigensolve, ``train/captured.py``)
+    against the eager ones (``capture=False``) from the same weights.
+    ``build(capture)`` makes a trainer on a fresh model of seed 0; ``graph``
+    and ``graph2`` are two shape keys; ``solves`` the eigensolves a step
+    hands to the host between its graphs, ``tp_launches`` its launches of
+    each TP device kernel.  Under deterministic algorithms:
+    the first step's loss, gradient and parameters and the eval step's
+    bands bit for bit.  In the default mode: per step from the same state,
+    the loss within 1e-6 relative and the flat gradient within 2e-2 *
+    max|g|, on both shape keys (two graphs captured); a batch whose
+    overlap is negative definite dropped by the replay, parameters and
+    optimizer state unchanged, and NaN reference bands from the eval
+    replay; one replay's TP launches on ``graph2`` by the profiler (``tp_launches`` of each
+    of the default engine's device kernels) and its eigensolve calls (the
+    host counter ``physics.eigh.CARD_SOLVES``); with ``count_nodes`` the
+    kernel nodes of the captured graphs of ``graph`` (``replay_nodes``),
+    ``tp_launches`` of each; the eval step's bands within
+    ``BAND_EVAL_TOL`` of the spectrum's extent; then both
+    forms timed in turns (wall, device ms by the profiler)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch.physics.band import _PAD_ENERGY
+    from hamgnn_tpu_torch.physics.eigh import CARD_SOLVES
+
+    state = lambda tr: [tr.flat, *tr.opt.state_dict().values()]  # noqa: E731
+
+    def copy_state(dst, src):
+        with torch.no_grad():
+            for a, b in zip(state(dst), state(src)):
+                a.copy_(b)
+
+    def grad_err(eager, cap):
+        """max|d g| / max|g| over the flat gradient (checked), and the worst
+        of the same per parameter tensor (reported)."""
+        err, scale = rel_err(cap.grad, eager.grad)
+        if not err <= BAND_GRAD_TOL * scale:
+            fail(f"{tag}: captured band step gradient: max|d| {err:.3e} > {BAND_GRAD_TOL} * "
+                 f"max|g| {scale:.3e}")
+        ofs, per_tensor = 0, 0.0
+        for p in eager.model.parameters():
+            e_, s_ = rel_err(cap.grad[ofs:ofs + p.numel()], eager.grad[ofs:ofs + p.numel()])
+            ofs += p.numel()
+            per_tensor = max(per_tensor, e_ / s_ if s_ else 0.0)
+        return err / scale, per_tensor
+
+    # deterministic algorithms: bit for bit
+    torch.use_deterministic_algorithms(True)
+    try:
+        cap, eager = build(None), build(False)
+        if cap.captured is None or eager.captured is not None:
+            fail(f"{tag}: a band head must capture by default on the card, and capture=False "
+                 f"run eagerly")
+        la, lb = eager.train_step(graph)[0], cap.train_step(graph)[0]
+        ea, eb = eager.eval_step(graph)[3]["band_energy"], cap.eval_step(graph)[3]["band_energy"]
+        bitwise = bool(torch.equal(la, lb) and torch.equal(eager.grad, cap.grad)
+                       and torch.equal(eager.flat, cap.flat) and torch.equal(ea, eb))
+        if not bitwise:
+            fail(f"{tag}: under deterministic algorithms the captured band step differs from "
+                 f"the eager one: loss {float(lb)!r} vs {float(la)!r}, max|d grad| "
+                 f"{float((eager.grad - cap.grad).abs().max()):.3e}, bands "
+                 f"{float((ea - eb).abs().max()):.3e}")
+        segments = len(cap.captured.train_graphs[next(iter(cap.captured.train_graphs))]
+                       .graph.graphs)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del cap, eager, ea, eb
+    torch.cuda.empty_cache()
+
+    # the default mode; the captured graphs kept for their kernel nodes
+    kept = graphs_kept if count_nodes else contextlib.nullcontext
+    with kept():
+        cap = build(None)
+    eager = build(False)
+    losses, worst, per_tensor = [], 0.0, 0.0
+    for g in (graph, graph2, graph):
+        copy_state(eager, cap)
+        with kept():
+            la, lb = float(eager.train_step(g)[0]), float(cap.train_step(g)[0])
+        losses.append((la, lb))
+        if not abs(lb - la) <= 1e-6 * abs(la):
+            fail(f"{tag}: captured band step loss {lb!r} vs eager {la!r}: above 1e-6 relative")
+        flat_err, tensor_err = grad_err(eager, cap)
+        worst, per_tensor = max(worst, flat_err), max(per_tensor, tensor_err)
+    if cap.captured.captures != 2:
+        fail(f"{tag}: {cap.captured.captures} band training graphs captured for two shape keys")
+
+    # a batch whose overlap is negative definite: dropped, NaN bands
+    bad = dataclasses.replace(graph, Son=-graph.Son, Soff=-graph.Soff)
+    before = [t.clone() for t in state(cap)]
+    loss, logs = cap.train_step(bad)
+    if bool(torch.isfinite(loss)) or float(logs["nonfinite_step"]) != 1.0 or not all(
+            torch.equal(a, b) for a, b in zip(state(cap), before)):
+        fail(f"{tag}: the replay did not drop a batch with an indefinite overlap "
+             f"(loss {float(loss)}, nonfinite_step {float(logs['nonfinite_step'])})")
+    bad_ref = cap.eval_step(bad)[3]["band_energy_ref"]
+    if not bool(torch.isnan(bad_ref).all()):
+        fail(f"{tag}: an indefinite overlap must give NaN reference bands")
+    del before, bad, bad_ref
+
+    # one replay's launches: on the smaller batch by the profiler and its
+    # eigensolve calls; on the larger one the captured graphs' kernel nodes
+    # (``replay_nodes``), against what the profiler sees of one replay
+    names = [n for k in ENGINES["auto"] for n in tp_kernel.KERNELS[k].device_kernels]
+    solves0 = CARD_SOLVES["calls"]
+    cap.train_step(graph2)
+    replay_solves = CARD_SOLVES["calls"] - solves0
+    reads = profiled_launches(lambda: cap.train_step(graph2), names, tp_launches)
+    replay = reads[-1]
+    if replay != {n: tp_launches for n in names} or replay_solves != solves:
+        fail(f"{tag}: one replay launched {reads} (profiler traces) and {replay_solves} "
+             f"eigensolve calls, expected {tp_launches} of each and {solves}")
+    nodes = replay_nodes(cap, graph, names, tag) if count_nodes else None
+    if nodes and nodes["nodes"] != {n: tp_launches for n in names}:
+        fail(f"{tag}: the captured graphs of the larger batch hold {nodes['nodes']} TP kernel "
+             f"nodes, expected {tp_launches} of each")
+
+    # the eval step from the same state
+    copy_state(eager, cap)
+    pa, pb = eager.eval_step(graph)[3], cap.eval_step(graph)[3]
+    eval_err = float((pa["band_energy"] - pb["band_energy"]).abs().max())
+    extent = max(_PAD_ENERGY, float(pa["band_energy"].abs().max()))
+    del pa, pb
+    if not eval_err <= BAND_EVAL_TOL * extent:
+        fail(f"{tag}: captured eval bands vs eager max|d| {eval_err:.3e} > {BAND_EVAL_TOL} * "
+             f"{extent:.3e}")
+
+    times = {"eager": [], "captured": []}
+    for _ in range(2):
+        for form, tr in (("eager", eager), ("captured", cap)):
+            times[form].append(1e3 * _host_time(lambda: tr.train_step(graph)))
+    device = {form: profile_train_step(tr, graph, f"profile_{tag}_step_{form}.txt")
+              for form, tr in (("eager", eager), ("captured", cap))}
+    ms = {form: float(np.median(t)) for form, t in times.items()}
+    print(f"[{tag}] captured in {segments} segments around {solves} eigensolve calls: "
+          f"deterministic bit for bit; default mode losses "
+          f"{[round(b / a - 1, 9) for a, b in losses]} (rel), gradient max|d| {worst:.3e} of "
+          f"max|g| (worst tensor {per_tensor:.3e} of its own max), two shape keys, "
+          f"indefinite overlap dropped with NaN bands, one replay (2 crystals) {replay} "
+          f"({len(reads)} trace(s)) + {replay_solves} eigensolve calls"
+          + (f"; 4 crystals: {nodes_line(nodes)}" if nodes else "")
+          + f"; eval bands max|d| {eval_err:.3e} (spectrum extent {extent:.3e}); step wall ms "
+          f"eager {ms['eager']:.3f} captured {ms['captured']:.3f} (in turns: "
+          f"{times}), device ms eager {device['eager']['__all__']:.3f} captured "
+          f"{device['captured']['__all__']:.3f}, card {card}", flush=True)
+    del cap, eager
+    torch.cuda.empty_cache()
+    return dict(segments=segments, bitwise_deterministic=True, losses=losses,
+                worst_grad_rel_err=worst, worst_tensor_grad_rel_err=per_tensor,
+                replay_launches=replay, replay_traces=reads, replay_solves=replay_solves,
+                replay_nodes=nodes,
+                eval_band_max_abs_err=eval_err, eval_band_extent=extent, wall_ms=ms,
+                wall_times_ms=times,
+                device_ms={f: d["__all__"] for f, d in device.items()},
+                device_ms_by_kernel=device)
+
+
+def phase_band(tp_kernel, dev, card):
+    """The band branch at the bench width on 4 crystals of 16 atoms: the
+    forward against a float64 host solve, one eager step's launches, then
+    the step and eval step as the trainer runs them by default, captured,
+    against the eager ones (``band_captured_vs_eager``; a second shape key of
+    2 crystals)."""
+    import numpy as np
+    import torch
 
     from hamgnn_tpu_torch.cli import build_model
     from hamgnn_tpu_torch.data.graph import pad_and_batch
@@ -1403,18 +1739,28 @@ def phase_band(tp_kernel, dev, card):
     from hamgnn_tpu_torch.train.trainer import Trainer
 
     nao, width, nk = 19, BAND_OUT["band_num_control"], BAND_OUT["num_k"]
-    rng = np.random.default_rng(5)
-    crystals = [add_random_hamiltonian_targets(
-        rng, make_crystal(rng, n_atoms=16, cell_size=8.0, cutoff=5.0), nao_max=nao)
-        for _ in range(4)]
-    n_edges = sum(c["edge_index"].shape[1] for c in crystals)
-    graph = pad_and_batch(crystals, node_bucket=64,
-                          edge_bucket=((n_edges + 255) // 256) * 256, device=dev)
+
+    def batch(seed, n):
+        rng = np.random.default_rng(seed)
+        crystals = [add_random_hamiltonian_targets(
+            rng, make_crystal(rng, n_atoms=16, cell_size=8.0, cutoff=5.0), nao_max=nao)
+            for _ in range(n)]
+        n_edges = sum(c["edge_index"].shape[1] for c in crystals)
+        return crystals, n_edges, pad_and_batch(
+            crystals, node_bucket=16 * n, edge_bucket=((n_edges + 255) // 256) * 256,
+            device=dev)
+
+    crystals, n_edges, graph = batch(5, 4)
+    graph2 = batch(7, 2)[2]
     norb = graph.num_nodes * nao
-    model = init_weights(build_model(load_config(None, overrides=band_config())), 0)
     WORK.mkdir(parents=True, exist_ok=True)
-    tr = Trainer(model, losses=BAND_LOSSES, metrics=[], lr=1e-3,
-                 train_dir=str(WORK / "train_band"), device=dev)
+
+    def build(capture):
+        model = init_weights(build_model(load_config(None, overrides=band_config())), 0)
+        return Trainer(model, losses=BAND_LOSSES, metrics=[], lr=1e-3,
+                       train_dir=str(WORK / "train_band"), device=dev, capture=capture)
+
+    tr = build(False)
     layers = BENCH_CFG["representation_nets"]["HamGNN_pre"]["num_layers"]
 
     # forward: shapes, finiteness, the reference bands against the host
@@ -1442,68 +1788,87 @@ def phase_band(tp_kernel, dev, card):
         fail(f"band_energy_ref vs the float64 host solve: max|d| {worst:.3e} > {BAND_TOL}")
     del out
 
-    # one training step with the band loss
+    # one eager training step with the band loss
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches(tp_kernel)
     loss, logs = tr.train_step(graph)
     torch.cuda.synchronize()
     launches = check_launches(tp_kernel, {k: 4 * layers + 1 for k in ENGINES["auto"]},
-                              "one band train step")
+                              "one eager band train step")
     if not math.isfinite(float(loss)) or float(logs["nonfinite_step"]) != 0.0 \
             or not math.isfinite(float(logs["mae_band_energy"])):
         fail(f"band train step: loss {float(loss)}, logs {logs}")
     if not bool(torch.isfinite(tr.grad).all()) or float(tr.grad.abs().max()) == 0.0:
         fail("band train step: gradients are not finite, or all zero")
-
-    times = [_host_time(lambda: tr.train_step(graph)) for _ in range(3)]
-    step_ms = 1e3 * float(np.median(times))
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.train_step(graph)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device_ms = _write_profile(prof, wall, 1, "profile_band_step.txt", "step")
-    # host time inside the solver ops (they wait for the card), per step
-    solver = {}
-    for ev in prof.key_averages():
-        if ev.key in ("aten::linalg_eigh", "aten::linalg_cholesky", "aten::linalg_cholesky_ex",
-                      "aten::linalg_solve_triangular"):
-            solver[ev.key] = ev.cpu_time_total / 1e3
-    solver_ms = solver.get("aten::linalg_eigh", 0.0) + max(
-        solver.get("aten::linalg_cholesky", 0.0), solver.get("aten::linalg_cholesky_ex", 0.0))
-
-    # Cholesky and eigh alone on matrices of the step's size, host clock
-    g = torch.Generator(device="cpu").manual_seed(1)
-    a = torch.randn((4, nk, norb, norb), dtype=torch.complex64, generator=g).to(dev)
-    spd = a @ a.mH / norb + torch.eye(norb, device=dev)
-    chol_ms = 1e3 * min(_host_time(lambda: torch.linalg.cholesky(spd)) for _ in range(2))
-    eigh_ms = 1e3 * min(_host_time(lambda: torch.linalg.eigh(spd)) for _ in range(2))
-    del a, spd
+    del tr
+    torch.cuda.empty_cache()
     print(f"[band] 4 crystals x 16 atoms ({n_edges} edges, {graph.num_edges} padded), "
           f"{nk} k, H(k) {norb} x {norb} complex64: band_energy_ref vs float64 host solve "
-          f"max|d| {worst:.3e} (limit {BAND_TOL}); train step {step_ms:.3f} ms (median of 3: "
-          + ", ".join(f"{1e3 * t:.3f}" for t in times)
-          + f"), launches {launches}, loss {float(loss):.6f}, mae_band_energy "
-          f"{float(logs['mae_band_energy']):.6f}; profiler: wall {1e3 * wall:.3f} ms/step, "
-          f"device kernels {device_ms['__all__']:.3f} ms/step, host time inside eigh + Cholesky "
-          f"{solver_ms:.3f} ms/step = {solver_ms / (1e3 * wall):.1%} of the step ({solver}); "
-          f"alone, one batch of 24: Cholesky {chol_ms:.3f} ms, eigh {eigh_ms:.3f} ms; "
-          f"peak memory {peak_gb:.2f} GB, card {card}", flush=True)
-    del tr, model
+          f"max|d| {worst:.3e} (limit {BAND_TOL}); eager step launches {launches}, loss "
+          f"{float(loss):.6f}, mae_band_energy {float(logs['mae_band_energy']):.6f}, peak "
+          f"memory {peak_gb:.2f} GB, card {card}", flush=True)
+    cmp = band_captured_vs_eager(tp_kernel, dev, card, "band", build, graph, graph2, solves=2,
+                                 count_nodes=True)
+
+    # the zonal engine's captured band step: one replay's launches by the
+    # profiler on the smaller batch, the kernel nodes of the larger one's graphs
+    names = [n for k in ENGINES["zonal"] for n in tp_kernel.KERNELS[k].device_kernels]
+    with engine("zonal"):
+        with graphs_kept():
+            tr = build(None)
+            zl, _ = tr.train_step(graph2)
+            tr.train_step(graph)
+        zonal_reads = profiled_launches(lambda: tr.train_step(graph2), names, 13)
+        zonal = zonal_reads[-1]
+        zonal_nodes = replay_nodes(tr, graph, names, "band_zonal")
+    if zonal != {n: 13 for n in names} or zonal_nodes["nodes"] != {n: 13 for n in names} \
+            or not math.isfinite(float(zl)):
+        fail(f"one replay of the zonal band step launched {zonal_reads} (2 crystals), its graphs "
+             f"hold {zonal_nodes['nodes']} (4 crystals), expected 13 of each, loss {float(zl)}")
+    print(f"[band] zonal engine: one replay of the captured band step (2 crystals) launched "
+          f"{zonal} ({len(zonal_reads)} trace(s)); 4 crystals: {nodes_line(zonal_nodes)}",
+          flush=True)
+    del tr
     torch.cuda.empty_cache()
-    return dict(step_ms=step_ms, step_times_ms=[1e3 * t for t in times], launches=launches,
-                n_edges=n_edges, padded_edges=graph.num_edges, norb=norb, nk=nk,
-                ref_vs_host_max_abs_err=worst, profile_wall_ms=1e3 * wall,
-                device_ms_by_kernel=device_ms, solver_host_ms=solver,
-                solver_share_of_step=solver_ms / (1e3 * wall), cholesky_alone_ms=chol_ms,
-                eigh_alone_ms=eigh_ms, peak_gb=peak_gb, loss=float(loss))
+    return dict(launches=launches, n_edges=n_edges, padded_edges=graph.num_edges, norb=norb,
+                nk=nk, ref_vs_host_max_abs_err=worst, peak_gb=peak_gb, loss=float(loss),
+                captured_vs_eager=cmp, step_ms=cmp["wall_ms"], zonal_replay_launches=zonal,
+                zonal_replay_nodes=zonal_nodes)
+
+
+@contextlib.contextmanager
+def trainers_capture(capture):
+    """Every ``Trainer`` made in the body is given ``capture`` (False: the
+    eager steps) unless its caller names one; yields a list that collects
+    each captured graph's (shape key, train or eval)."""
+    from hamgnn_tpu_torch.train import captured, trainer
+
+    init, cap = trainer.Trainer.__init__, captured.CapturedSteps._capture
+    graphs = []
+
+    def patched_init(self, *args, **kwargs):
+        kwargs.setdefault("capture", capture)
+        init(self, *args, **kwargs)
+
+    def counted(self, body, static, inputs, inference):
+        graphs.append((captured.shape_key(static), "eval" if inference else "train"))
+        return cap(self, body, static, inputs, inference)
+
+    trainer.Trainer.__init__, captured.CapturedSteps._capture = patched_init, counted
+    try:
+        yield graphs
+    finally:
+        trainer.Trainer.__init__, captured.CapturedSteps._capture = init, cap
 
 
 def phase_band_cli(tp_kernel):
-    """``stage: fit`` two epochs with the band loss, ``stage: test`` from its
-    best.pt, then ``tools.band_cal`` on the prediction."""
+    """``stage: fit`` two epochs with the band loss, as the trainer runs it by
+    default (captured) and eagerly, both under deterministic algorithms: the
+    same metrics.jsonl losses bit for bit; ``stage: test`` from its best.pt,
+    then ``tools.band_cal`` on the prediction."""
     import numpy as np
+    import torch
     import yaml
 
     from hamgnn_tpu_torch import cli
@@ -1527,21 +1892,40 @@ def phase_band_cli(tp_kernel):
     cfg["losses_metrics"] = {"losses": BAND_LOSSES, "metrics": [
         {"metric": "mae", "prediction": "band_energy", "target": "band_energy"},
         {"metric": "mae", "prediction": "band_gap", "target": "band_gap"}]}
-    cfg["profiler_params"] = {"train_dir": str(work / "fit")}
-    with open(work / "fit.yaml", "w") as f:
-        yaml.safe_dump(cfg, f)
-    reset_launches(tp_kernel)
-    t0 = time.perf_counter()
-    cli.main(["--config", str(work / "fit.yaml")])
-    fit_s = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in all_kernels(tp_kernel).items() if k.launches}
-    if set(launches) != set(ENGINES["auto"]):
-        fail(f"the band fit run should launch {ENGINES['auto']} and no other: {launches}")
-    records = [json.loads(line) for line in open(work / "fit" / "metrics.jsonl")]
+    runs, fit_s, captures = {}, {}, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for form, capture in (("captured", None), ("eager", False)):
+            shutil.rmtree(work / f"fit_{form}", ignore_errors=True)
+            cfg["profiler_params"] = {"train_dir": str(work / f"fit_{form}")}
+            with open(work / f"fit_{form}.yaml", "w") as f:
+                yaml.safe_dump(cfg, f)
+            reset_launches(tp_kernel)
+            t0 = time.perf_counter()
+            with trainers_capture(capture) as graphs:
+                cli.main(["--config", str(work / f"fit_{form}.yaml")])
+            fit_s[form] = time.perf_counter() - t0
+            captures[form] = graphs
+            launches = {n: k.launches for n, k in all_kernels(tp_kernel).items() if k.launches}
+            if set(launches) != set(ENGINES["auto"]):
+                fail(f"the band fit run ({form}) should launch {ENGINES['auto']} and no "
+                     f"other: {launches}")
+            runs[form] = [json.loads(line) for line in open(work / f"fit_{form}" / "metrics.jsonl")]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    records = runs["captured"]
+    keys = ("train_loss", "val_loss", "val/mae_band_energy", "val/mae_band_gap")
     if [r["epoch"] for r in records] != [0, 1] or not all(
-            math.isfinite(r[key]) for r in records
-            for key in ("train_loss", "val_loss", "val/mae_band_energy", "val/mae_band_gap")):
+            math.isfinite(r[key]) for r in records for key in keys):
         fail(f"band fit metrics.jsonl: {records}")
+    if not captures["captured"] or captures["eager"]:
+        fail(f"the band fit should capture its steps by default and not with capture=False: "
+             f"{captures}")
+    if [[r[k] for k in keys] for r in records] != [[r[k] for k in keys] for r in runs["eager"]]:
+        fail(f"band fit under deterministic algorithms: captured {records} vs eager "
+             f"{runs['eager']}")
+    shutil.rmtree(work / "fit", ignore_errors=True)
+    os.replace(work / "fit_captured", work / "fit")
 
     cfg["setup"] = {"stage": "test", "checkpoint_path": str(work / "fit" / "best.pt")}
     cfg["dataset_params"]["batch_size"] = 2
@@ -1566,11 +1950,15 @@ def phase_band_cli(tp_kernel):
         if res["bands"].shape[0] != 12 or not np.isfinite(res["bands"]).all():
             fail(f"band_cal: crystal {i} bands {res['bands'].shape}, expected 12 k, finite")
         gaps.append(float(res["gap"]))
-    print(f"[cli] band: stage fit 2 epochs in {fit_s:.1f} s, launches {launches}, val "
-          f"mae_band_energy {[round(r['val/mae_band_energy'], 6) for r in records]}; stage "
-          f"test from best.pt: {rows} rows x 361; band_cal: {len(gaps)} band structures, "
-          f"gaps {[round(g_, 4) for g_ in gaps]} eV", flush=True)
-    return dict(fit_s=fit_s, launches=launches, records=records, band_cal_gaps_ev=gaps)
+    print(f"[cli] band: stage fit 2 epochs, captured {fit_s['captured']:.1f} s "
+          f"({len(captures['captured'])} graphs: {captures['captured']}), eager "
+          f"{fit_s['eager']:.1f} s, losses and metrics bit for bit under deterministic "
+          f"algorithms; launches {launches}, val mae_band_energy "
+          f"{[round(r['val/mae_band_energy'], 6) for r in records]}; stage test from best.pt: "
+          f"{rows} rows x 361; band_cal: {len(gaps)} band structures, gaps "
+          f"{[round(g_, 4) for g_ in gaps]} eV", flush=True)
+    return dict(fit_s=fit_s, launches=launches, records=records, band_cal_gaps_ev=gaps,
+                captured_graphs=captures["captured"])
 
 
 # the SOC slice: examples/sk_soc/config.yaml's model (2 layers, features up
@@ -1868,13 +2256,13 @@ def host_soc_bands(crystal, k_cart, basis, width):
 
 def phase_soc_band(tp_kernel, dev, card):
     """The SOC head's spinor band branch at the sk_soc width on the band
-    smoke's 4 crystals of 16 atoms (6 k, 2 x 8 bands), eager: shapes, the
-    reference bands against a float64 host solve within 5e-4, one training
-    step with the band loss (9 + 9 launches), its time and the share of
-    eigh and Cholesky."""
+    smoke's 4 crystals of 16 atoms (6 k, 2 x 8 bands): shapes, the reference
+    bands against a float64 host solve within 5e-4, one eager training step
+    with the band loss (9 + 9 launches), then the step and eval step as the
+    trainer runs them by default, captured, against the eager ones
+    (``band_captured_vs_eager``; a second shape key of 2 crystals)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from hamgnn_tpu_torch.cli import build_model
     from hamgnn_tpu_torch.data.graph import pad_and_batch
@@ -1885,22 +2273,29 @@ def phase_soc_band(tp_kernel, dev, card):
     from hamgnn_tpu_torch.train.trainer import Trainer
 
     width, nk = BAND_OUT["band_num_control"], BAND_OUT["num_k"]
-    crystals = soc_crystals(np.random.default_rng(5), 4, 16, 8.0, 5.0)
-    n_edges = sum(c["edge_index"].shape[1] for c in crystals)
-    graph = pad_and_batch(crystals, node_bucket=64,
-                          edge_bucket=((n_edges + 255) // 256) * 256, device=dev)
+
+    def batch(seed, n):
+        crystals = soc_crystals(np.random.default_rng(seed), n, 16, 8.0, 5.0)
+        n_edges = sum(c["edge_index"].shape[1] for c in crystals)
+        return crystals, n_edges, pad_and_batch(
+            crystals, node_bucket=16 * n, edge_bucket=((n_edges + 255) // 256) * 256,
+            device=dev)
+
+    crystals, n_edges, graph = batch(5, 4)
+    graph2 = batch(7, 2)[2]
     norb = graph.num_nodes * 2 * SOC_NAO
     cfg, losses = soc_config("so3", **BAND_OUT)
     layers = cfg["representation_nets"]["HamGNN_pre"]["num_layers"]
     losses = losses + [{"metric": "mae", "prediction": "band_energy", "target": "band_energy",
                         "loss_weight": 0.27211}]
-    model = init_weights(build_model(load_config(None, overrides=cfg)), 0)
     WORK.mkdir(parents=True, exist_ok=True)
-    tr = Trainer(model, losses=losses, metrics=[], lr=1e-3, train_dir=str(WORK / "soc_band"),
-                 device=dev)
-    if tr.captured is not None:
-        fail("a SOC head with bands must run eagerly")
 
+    def build(capture):
+        model = init_weights(build_model(load_config(None, overrides=cfg)), 0)
+        return Trainer(model, losses=losses, metrics=[], lr=1e-3,
+                       train_dir=str(WORK / "soc_band"), device=dev, capture=capture)
+
+    tr = build(False)
     k_np = k_vecs_for_graph(graph, nk, None, rng=np.random.default_rng(6))
     tr.model.eval()
     with torch.inference_mode():
@@ -1929,44 +2324,25 @@ def phase_soc_band(tp_kernel, dev, card):
     loss, logs = tr.train_step(graph)
     torch.cuda.synchronize()
     launches = check_launches(tp_kernel, {k: 4 * layers + 1 for k in ENGINES["auto"]},
-                              "one SOC band train step")
+                              "one eager SOC band train step")
     if not math.isfinite(float(loss)) or float(logs["nonfinite_step"]) != 0.0 \
             or not math.isfinite(float(logs["mae_band_energy"])):
         fail(f"SOC band train step: loss {float(loss)}, logs {logs}")
     if not bool(torch.isfinite(tr.grad).all()) or float(tr.grad.abs().max()) == 0.0:
         fail("SOC band train step: gradients are not finite, or all zero")
-    times = [_host_time(lambda: tr.train_step(graph))]
-    step_ms = 1e3 * times[0]
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.train_step(graph)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device_ms = _write_profile(prof, wall, 1, "profile_soc_band_step.txt", "step")
-    solver = {}
-    for ev in prof.key_averages():
-        if ev.key in ("aten::linalg_eigh", "aten::linalg_cholesky", "aten::linalg_cholesky_ex",
-                      "aten::linalg_solve_triangular"):
-            solver[ev.key] = ev.cpu_time_total / 1e3
-    solver_ms = solver.get("aten::linalg_eigh", 0.0) + max(
-        solver.get("aten::linalg_cholesky", 0.0), solver.get("aten::linalg_cholesky_ex", 0.0))
+    del tr
+    torch.cuda.empty_cache()
     print(f"[soc] band: 4 crystals x 16 atoms ({n_edges} edges, {graph.num_edges} padded), "
           f"{nk} k, H(k) {norb} x {norb} complex64: band_energy_ref vs float64 host solve "
-          f"max|d| {worst:.3e} (limit {BAND_TOL}); train step {step_ms:.3f} ms (the second "
-          f"step), launches {launches}, loss {float(loss):.6f}, mae_band_energy "
-          f"{float(logs['mae_band_energy']):.6f}; profiler: wall {1e3 * wall:.3f} ms/step, "
-          f"device kernels {device_ms['__all__']:.3f} ms/step, host time inside eigh + Cholesky "
-          f"{solver_ms:.3f} ms/step = {solver_ms / (1e3 * wall):.1%} of the step ({solver}); "
-          f"peak memory {peak_gb:.2f} GB, card {card}", flush=True)
-    del tr, model
-    torch.cuda.empty_cache()
-    return dict(step_ms=step_ms, step_times_ms=[1e3 * t for t in times], launches=launches,
-                n_edges=n_edges, padded_edges=graph.num_edges, norb=norb, nk=nk,
-                ref_vs_host_max_abs_err=worst, profile_wall_ms=1e3 * wall,
-                device_ms_by_kernel=device_ms, solver_host_ms=solver,
-                solver_share_of_step=solver_ms / (1e3 * wall), peak_gb=peak_gb,
-                loss=float(loss))
+          f"max|d| {worst:.3e} (limit {BAND_TOL}); eager step launches {launches}, loss "
+          f"{float(loss):.6f}, mae_band_energy {float(logs['mae_band_energy']):.6f}; peak "
+          f"memory {peak_gb:.2f} GB, card {card}", flush=True)
+    cmp = band_captured_vs_eager(tp_kernel, dev, card, "soc_band", build, graph, graph2,
+                                 solves=2, tp_launches=4 * layers + 1)
+    return dict(launches=launches, n_edges=n_edges, padded_edges=graph.num_edges, norb=norb,
+                nk=nk, ref_vs_host_max_abs_err=worst, peak_gb=peak_gb, loss=float(loss),
+                captured_vs_eager=cmp, step_ms=cmp["wall_ms"])
 
 
 def phase_soc_cli(tp_kernel):
@@ -2261,13 +2637,14 @@ def phase_mag_case(tp_kernel, dev, card, graph, n_edges, mode, eng, learned=Fals
 
 def phase_mag_band(tp_kernel, dev, card):
     """The collinear head's band branch at the configs' width on 4 crystals
-    of 16 atoms (6 k, 2 x 8 bands per spin channel), eager: shapes, each
-    channel's reference bands against a float64 host solve within 5e-4, one
-    training step with the band loss (13 + 13 launches), its time and the
-    share of eigh and Cholesky."""
+    of 16 atoms (6 k, 2 x 8 bands per spin channel): shapes, each channel's
+    reference bands against a float64 host solve within 5e-4, one eager
+    training step with the band loss (13 + 13 launches), then the step and
+    eval step as the trainer runs them by default, captured, against the
+    eager ones (``band_captured_vs_eager``; a second shape key of 2
+    crystals)."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from hamgnn_tpu_torch.cli import build_model
     from hamgnn_tpu_torch.data.graph import pad_and_batch
@@ -2278,22 +2655,29 @@ def phase_mag_band(tp_kernel, dev, card):
     from hamgnn_tpu_torch.train.trainer import Trainer
 
     width, nk = BAND_OUT["band_num_control"], BAND_OUT["num_k"]
-    crystals = mag_crystals(np.random.default_rng(5), "collinear", 4, 16, 8.0, 5.0)
-    n_edges = sum(c["edge_index"].shape[1] for c in crystals)
-    graph = pad_and_batch(crystals, node_bucket=64,
-                          edge_bucket=((n_edges + 255) // 256) * 256, device=dev)
+
+    def batch(seed, n):
+        crystals = mag_crystals(np.random.default_rng(seed), "collinear", n, 16, 8.0, 5.0)
+        n_edges = sum(c["edge_index"].shape[1] for c in crystals)
+        return crystals, n_edges, pad_and_batch(
+            crystals, node_bucket=16 * n, edge_bucket=((n_edges + 255) // 256) * 256,
+            device=dev)
+
+    crystals, n_edges, graph = batch(5, 4)
+    graph2 = batch(7, 2)[2]
     norb = graph.num_nodes * MAG_NAO
     cfg, losses = mag_config("collinear", **BAND_OUT)
     layers = cfg["representation_nets"]["HamGNN_pre"]["num_layers"]
     losses = losses + [{"metric": "mae", "prediction": "band_energy", "target": "band_energy",
                         "loss_weight": 0.27211}]
-    model = init_weights(build_model(load_config(None, overrides=cfg)), 0)
     WORK.mkdir(parents=True, exist_ok=True)
-    tr = Trainer(model, losses=losses, metrics=[], lr=1e-3, train_dir=str(WORK / "mag_band"),
-                 device=dev)
-    if tr.captured is not None:
-        fail("a magnetic head with bands must run eagerly")
 
+    def build(capture):
+        model = init_weights(build_model(load_config(None, overrides=cfg)), 0)
+        return Trainer(model, losses=losses, metrics=[], lr=1e-3,
+                       train_dir=str(WORK / "mag_band"), device=dev, capture=capture)
+
+    tr = build(False)
     k_np = k_vecs_for_graph(graph, nk, None, rng=np.random.default_rng(6))
     tr.model.eval()
     with torch.inference_mode():
@@ -2327,38 +2711,23 @@ def phase_mag_band(tp_kernel, dev, card):
     loss, logs = tr.train_step(graph)
     torch.cuda.synchronize()
     launches = check_launches(tp_kernel, {k: 4 * layers + 1 for k in ENGINES["auto"]},
-                              "one collinear band train step")
+                              "one eager collinear band train step")
     if not math.isfinite(float(loss)) or float(logs["nonfinite_step"]) != 0.0 \
             or not math.isfinite(float(logs["mae_band_energy"])):
         fail(f"collinear band train step: loss {float(loss)}, logs {logs}")
-    step_ms = 1e3 * _host_time(lambda: tr.train_step(graph))
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.train_step(graph)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device_ms = _write_profile(prof, wall, 1, "profile_mag_band_step.txt", "step")
-    solver = {ev.key: ev.cpu_time_total / 1e3 for ev in prof.key_averages()
-              if ev.key in ("aten::linalg_eigh", "aten::linalg_cholesky",
-                            "aten::linalg_cholesky_ex")}
-    solver_ms = solver.get("aten::linalg_eigh", 0.0) + max(
-        solver.get("aten::linalg_cholesky", 0.0), solver.get("aten::linalg_cholesky_ex", 0.0))
+    del tr
+    torch.cuda.empty_cache()
     print(f"[magnetic] band: 4 crystals x 16 atoms ({n_edges} edges, {graph.num_edges} "
           f"padded), {nk} k, 2 spin channels, H(k) {norb} x {norb} complex64: band_energy_ref "
-          f"vs float64 host solve max|d| {worst:.3e} (limit {BAND_TOL}); train step "
-          f"{step_ms:.3f} ms (the second step), launches {launches}, loss {float(loss):.6f}; "
-          f"profiler: wall {1e3 * wall:.3f} ms/step, device kernels "
-          f"{device_ms['__all__']:.3f} ms/step, host time inside eigh + Cholesky "
-          f"{solver_ms:.3f} ms/step = {solver_ms / (1e3 * wall):.1%} of the step ({solver}); "
-          f"peak memory {peak_gb:.2f} GB, card {card}", flush=True)
-    del tr, model
-    torch.cuda.empty_cache()
-    return dict(step_ms=step_ms, launches=launches, n_edges=n_edges, norb=norb, nk=nk,
-                ref_vs_host_max_abs_err=worst, profile_wall_ms=1e3 * wall,
-                device_ms_by_kernel=device_ms, solver_host_ms=solver,
-                solver_share_of_step=solver_ms / (1e3 * wall), peak_gb=peak_gb,
-                loss=float(loss))
+          f"vs float64 host solve max|d| {worst:.3e} (limit {BAND_TOL}); eager step launches "
+          f"{launches}, loss {float(loss):.6f}; peak memory {peak_gb:.2f} GB, card {card}",
+          flush=True)
+    cmp = band_captured_vs_eager(tp_kernel, dev, card, "mag_band", build, graph, graph2,
+                                 solves=4, tp_launches=4 * layers + 1)
+    return dict(launches=launches, n_edges=n_edges, norb=norb, nk=nk,
+                ref_vs_host_max_abs_err=worst, peak_gb=peak_gb, loss=float(loss),
+                captured_vs_eager=cmp, step_ms=cmp["wall_ms"])
 
 
 def _shipped(path, work, name, **over):
@@ -4503,6 +4872,7 @@ def main():
         fit[eng] = timed(f"cli_fit_{eng}", phase_cli_fit, tp_kernel, eng, cfg, n_rows)
 
     probes = timed("probes", phase_probes, tp_kernel, dev)
+    eigh = timed("eigh", phase_eigh)
     band = timed("band", phase_band, tp_kernel, dev, card)
     band_fit = timed("band_cli", phase_band_cli, tp_kernel)
     soc = timed("soc", phase_soc, tp_kernel, dev, card)
@@ -4517,7 +4887,8 @@ def main():
               "model": model, "train": train, "captured": captured, "variants": variants,
               "fit": fit,
               "probes": probes,
-              "band": band, "band_fit": band_fit, "soc": soc, "magnetic": magnetic,
+              "eigh": eigh, "band": band, "band_fit": band_fit, "soc": soc,
+              "magnetic": magnetic,
               "lmdb": lmdb, "representation": representation, "datagen": datagen,
               "uni": uni, "parallel": parallel, "seconds": seconds}
     out_dir = ROOT / "chiprun_out"
@@ -4559,6 +4930,15 @@ def main():
                     uni["native"]["launches"][eng][name] // uni["native"]["crystals"]),
                 # one eager halo step (world 1, n_graph 1) at the bench width
                 "halo_launches_per_step": parallel[f"world1_{eng}"]["halo"]["launches"][name],
+                # one replay of the captured band steps, by device kernel
+                "band_replay_launches": (
+                    {tag: {dk: res["captured_vs_eager"]["replay_launches"][dk]
+                           for dk in tp_kernel.KERNELS[name].device_kernels}
+                     for tag, res in (("band", band), ("soc", soc["band"]),
+                                      ("collinear", magnetic["band"]))}
+                    if eng == "auto" else
+                    {"band": {dk: band["zonal_replay_launches"][dk]
+                              for dk in tp_kernel.KERNELS[name].device_kernels}}),
             })
             if eng == "auto":  # the step of the fit on the data the port made
                 kernels[-1]["sk_datagen_launches_per_step"] = {
@@ -4624,6 +5004,16 @@ def main():
         "band_grad": parallel["band"]["grad_rel_err"],
         "cli_mae": {m: [parallel["cli"][m]["test_mae"], parallel["cli"][m]["logged_mae"]]
                     for m in ("halo", "dp")},
+        "card": card}}))
+    print(json.dumps({"eigh": {
+        "hermitian_eigh_vs_torch": {r["n"]: {k: r[k] for k in ("batch", "eig_rel_err", "residual_rel",
+                                                      "ms")} for r in eigh["sizes"]},
+        "capture_alone": eigh["capture_alone"],
+        "band_steps": {tag: {k: res["captured_vs_eager"][k] for k in
+                             ("segments", "wall_ms", "device_ms", "replay_launches",
+                              "replay_solves", "worst_grad_rel_err")}
+                       for tag, res in (("band", band), ("soc", soc["band"]),
+                                        ("collinear", magnetic["band"]))},
         "card": card}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

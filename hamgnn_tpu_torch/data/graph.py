@@ -159,10 +159,14 @@ def pad_and_batch(crystals: Sequence[Dict[str, np.ndarray]],
         arr[: sum(r.shape[0] for r in rows)] = np.concatenate(rows, axis=0)
         packed[k] = t(arr)
 
-    return Graph(
+    graph = Graph(
         z=t(z), pos=t(pos), node_mask=t(node_mask), batch=t(batch),
         edge_index=t(edge_index), edge_mask=t(edge_mask), nbr_shift=t(nbr_shift),
         cell_shift=t(cell_shift), inv_edge_idx=t(inv_edge), cell=t(cell),
         node_counts=t(node_counts), edge_counts=t(edge_counts),
         doping_charge=t(doping), spin_vec=t(spin_vec), spin_length=t(spin_length),
         edge_group_tar=t(edge_group), **packed)
+    # the cells as collated, not a field: host code that needs them (the
+    # trainer's k-points) reads them here instead of waiting for the device
+    graph.cell_host = cell
+    return graph

@@ -135,6 +135,11 @@ class HamGNNPlusPlusOut(nn.Module):
         self.register_buffer(
             "n_orb", torch.as_tensor(self.basis.num_orbital_table, dtype=torch.float32),
             persistent=False)
+        if band_species_counts is not None:
+            from ..physics.band import species_count_table
+
+            self.register_buffer("band_count_table", species_count_table(band_species_counts),
+                                 persistent=False)
 
         heads = ["onsite_hamiltonian", "offsite_hamiltonian"]
         if not ham_only:
@@ -228,7 +233,7 @@ class HamGNNPlusPlusOut(nn.Module):
         graph = view.graph
         band_counts = None
         if self.band_species_counts is not None:
-            band_counts = band_counts_per_crystal(graph, self.band_species_counts)
+            band_counts = band_counts_per_crystal(graph, self.band_count_table)
         # ham_only=False + export_reciprocal: the exported SK comes from the
         # PREDICTED overlap while the solve factorizes the reference S
         sk_pred = {}

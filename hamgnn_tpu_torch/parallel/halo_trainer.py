@@ -23,6 +23,7 @@ the one-device forward on rank 0.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Iterable
 
@@ -44,8 +45,9 @@ def _bucket(n: int, quantum: int) -> int:
 
 def graph_to(graph: Graph, device) -> Graph:
     """The Graph with every tensor on ``device``."""
-    return Graph(**{k: (None if v is None else v.to(device))
-                    for k, v in vars(graph).items()})
+    return Graph(**{f.name: (None if getattr(graph, f.name) is None
+                             else getattr(graph, f.name).to(device))
+                    for f in dataclasses.fields(Graph)})
 
 
 class HaloDataAdapter:

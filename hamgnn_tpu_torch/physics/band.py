@@ -3,14 +3,22 @@ counterpart of ``hamgnn_tpu/physics/band.py``: the bands of the non-SOC head
 (``band_energies_batched``) and the spinor bands of the SOC head
 (``band_energies_soc_batched``).
 
-H(k) / S(k) of the whole batch are assembled with two scatter-adds over nodes
-and edges at static shapes, and the generalized eigenproblem is solved with
-identity padding: invalid or padded orbitals get S = 1, H = ``_PAD_ENERGY`` on
-the diagonal, which puts them at the top of the spectrum where they never
-meet the physical band window.  The XLA ops of the JAX module become
-``torch.linalg.cholesky``, ``solve_triangular`` and ``eigh``; the scatter-adds
-become ``_scatter_add_rows``, a sort-based sum without atomics, so an
-assembly repeats bit for bit on the card as well.
+H(k) / S(k) of the whole batch are assembled with two ``index_add_`` over
+nodes and edges at static shapes, and the generalized eigenproblem is solved
+with identity padding: invalid or padded orbitals get S = 1, H =
+``_PAD_ENERGY`` on the diagonal, which puts them at the top of the spectrum
+where they never meet the physical band window.  The XLA ops of the JAX
+module become ``physics.eigh.cholesky`` (``cholesky_ex``), ``solve_triangular``
+and ``physics.eigh.hermitian_eigh``, which give NaN where JAX's give NaN
+(an overlap that is not positive definite, a matrix that is not finite)
+instead of raising.  Nothing here reads the device on the host or builds a
+tensor from host data after a first call (the basis tables are made once
+per device, ``utils.constants.device_constant``), so a step through the
+band branch can be captured as CUDA graphs, cut around the eigensolve
+(``physics/eigh.py``).  On the card the assembly's ``index_add_`` sums rows that
+share a (crystal, atom, atom) block with atomics, in an order that can
+change from call to call; under ``torch.use_deterministic_algorithms(True)``
+it sorts them and repeats bit for bit.
 
 Phase convention: exp(+2*pi*i k . nbr_shift) with both k and nbr_shift
 Cartesian; the off-site block (src, dst) sits at row src, column dst.
@@ -26,30 +34,13 @@ import torch
 
 from ..data.graph import Graph
 from ..models.basis import BasisSetInfo
+from ..utils.constants import device_constant
+from .eigh import cholesky, hermitian_eigh
 
 # Pad-orbital diagonal energy: far above any physical band, but the fp32
 # eigh's absolute error grows with the largest entry (~1e-7 * |max|), so it
 # is kept as small as is safe (1e3 -> ~1e-4 eV band error).
 _PAD_ENERGY = 1.0e3
-
-
-def _scatter_add_rows(out: torch.Tensor, key: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """``out[key[i]] += vals[i]`` along the first axis, in place; rows that
-    share a key are first summed with one another in a fixed order (stable
-    sort, padded to the largest multiplicity, one reduction), then each key is
-    written once.  No atomics: the result is the same on every call."""
-    if key.numel() == 0:
-        return out
-    order = torch.argsort(key, stable=True)
-    k = key[order]
-    uniq, inverse, counts = torch.unique_consecutive(k, return_inverse=True,
-                                                     return_counts=True)
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(k.numel(), device=k.device) - starts[inverse]
-    padded = vals.new_zeros((uniq.numel(), int(counts.max()), *vals.shape[1:]))
-    padded[inverse, rank] = vals[order]
-    out[uniq] += padded.sum(dim=1)
-    return out
 
 
 def _local_index(graph: Graph, M: int):
@@ -80,42 +71,48 @@ def assemble_k_matrices(graph: Graph, h_on: torch.Tensor, h_off: torch.Tensor,
     # rows of hk: (crystal, atom i, atom j) -> (nk, nao, nao)
     hk = torch.zeros((B * M * M, nk, nao, nao), dtype=dtype_c, device=h_on.device)
     on_blocks = (h_on * graph.node_mask[:, None]).reshape(-1, 1, nao, nao).to(dtype_c)
-    _scatter_add_rows(hk, (graph.batch * M + local) * M + local,
+    hk.index_add_(0, (graph.batch * M + local) * M + local,
                       on_blocks.expand(-1, nk, -1, -1))
 
     # phases (E, nk): exp(+2*pi*i k . nbr_shift), Cartesian dot product
     dot = torch.sum(graph.nbr_shift[:, None, :] * k_vecs[b_e], dim=-1)
     phase = torch.exp((2j * math.pi) * dot.to(dtype_c))
     off_blocks = (h_off * graph.edge_mask[:, None]).reshape(-1, 1, nao, nao).to(dtype_c)
-    _scatter_add_rows(hk, (b_e * M + src_l) * M + dst_l,
-                      phase[:, :, None, None] * off_blocks)
+    hk.index_add_(0, (b_e * M + src_l) * M + dst_l, phase[:, :, None, None] * off_blocks)
 
     # (B, M, M, nk, nao, nao) -> (B, nk, M*nao, M*nao)
     return hk.reshape(B, M, M, nk, nao, nao).permute(0, 3, 1, 4, 2, 5).reshape(
         B, nk, M * nao, M * nao)
 
 
-def band_counts_per_crystal(graph: Graph, species_counts, num_species: int = 99
-                            ) -> torch.Tensor:
-    """Per-crystal band counts from per-species counts (the dict-valued
-    ``band_num_control`` of the reference): the per-atom counts summed over
-    each crystal.  ``species_counts``: iterable of (atomic number, count)."""
+def species_count_table(species_counts, num_species: int = 99) -> torch.Tensor:
+    """(num_species,) int64 band count per atomic number from (atomic
+    number, count) pairs, on the CPU."""
     table = np.zeros(num_species, np.int64)
     for z, cnt in species_counts:
         table[int(z)] = int(cnt)
-    per_node = torch.as_tensor(table, device=graph.z.device)[graph.z] * graph.node_mask.long()
+    return torch.as_tensor(table)
+
+
+def band_counts_per_crystal(graph: Graph, count_table: torch.Tensor) -> torch.Tensor:
+    """Per-crystal band counts from per-species counts (the dict-valued
+    ``band_num_control`` of the reference): the per-atom counts summed over
+    each crystal.  ``count_table``: the counts' ``species_count_table`` on
+    the graph's device."""
+    per_node = count_table[graph.z] * graph.node_mask.long()
     return torch.zeros(graph.num_graphs, dtype=torch.long, device=graph.z.device
                        ).index_add_(0, graph.batch, per_node)
 
 
 def _generalized_eigh(HK: torch.Tensor, SK: torch.Tensor):
     """Cholesky-reduced generalized eigensolve: L L^H = S, A = L^-1 H L^-H;
-    returns (eigenvalues ascending, psi = L^-H v, A)."""
-    L = torch.linalg.cholesky(SK)
+    returns (eigenvalues ascending, psi = L^-H v, A).  A crystal whose S(k)
+    is not positive definite gets NaN in all three, as in JAX."""
+    L = cholesky(SK)
     Hh = torch.linalg.solve_triangular(L, HK, upper=False)
     A = torch.linalg.solve_triangular(L, Hh.mH, upper=False).mH
     A = 0.5 * (A + A.mH)
-    eigvals, eigvecs = torch.linalg.eigh(A)
+    eigvals, eigvecs = hermitian_eigh(A)
     psi = torch.linalg.solve_triangular(L.mH, eigvecs, upper=True)
     return eigvals, psi, A
 
@@ -124,7 +121,8 @@ def _orbital_valid(graph: Graph, basis: BasisSetInfo, M: int, dtype,
                    spins: int = 1) -> torch.Tensor:
     """(B, M * spins * nao) 1/0: the orbitals of each crystal's local atoms
     that its species have (``spins`` copies per atom, spin-major)."""
-    mask_table = torch.as_tensor(basis.orbital_mask_table, dtype=dtype, device=graph.z.device)
+    mask_table = device_constant((basis.ham_type, basis.nao_max, "orbital_mask_table"),
+                                 lambda: basis.orbital_mask_table, dtype, graph.z.device)
     node_orb = (mask_table[graph.z] * graph.node_mask[:, None]).repeat(1, spins)
     width = node_orb.shape[1]
     _, local = _local_index(graph, M)
@@ -144,7 +142,8 @@ def _pad_invalid(mat: torch.Tensor, orb_valid: torch.Tensor, diag: float) -> tor
 
 def _crystal_valence(graph: Graph, basis: BasisSetInfo, dtype) -> torch.Tensor:
     """(B,) valence electrons of each crystal."""
-    table = torch.as_tensor(basis.num_valence_table, dtype=dtype, device=graph.z.device)
+    table = device_constant((basis.ham_type, basis.nao_max, "num_valence_table"),
+                            lambda: basis.num_valence_table, dtype, graph.z.device)
     return torch.zeros(graph.num_graphs, dtype=dtype, device=graph.z.device).index_add_(
         0, graph.batch, table[graph.z] * graph.node_mask)
 

@@ -76,11 +76,14 @@ def k_vecs_for_graph(graph, num_k: int, k_path_spec=None, rng=None) -> np.ndarra
 
     Mirrors the reference's in-forward k generation: a user k-path list is
     interpolated per crystal; otherwise uniform random reduced k in (-1, 1)
-    drawn from ``rng``.  Host-side data prep: the cells come to the host.
+    drawn from ``rng``.  Host-side data prep: the cells as ``pad_and_batch``
+    collated them (``graph.cell_host``), else read from ``graph.cell``.
     """
     rng = rng or np.random.default_rng(0)
-    cell = graph.cell
-    cells = np.asarray(cell.cpu() if hasattr(cell, "cpu") else cell)
+    cells = getattr(graph, "cell_host", None)
+    if cells is None:
+        cell = graph.cell
+        cells = np.asarray(cell.cpu() if hasattr(cell, "cpu") else cell)
     out = []
     for b in range(cells.shape[0]):
         lat = cells[b]

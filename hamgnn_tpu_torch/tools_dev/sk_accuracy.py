@@ -4,7 +4,7 @@
 ``tools_dev/soc_band_acceptance.py``).
 
     python -m hamgnn_tpu_torch.tools_dev.sk_accuracy [--out chiprun_out/sk_accuracy]
-        [--max-epochs N] [--resume] [--soc] [--device cpu]
+        [--max-epochs N] [--resume] [--soc] [--band-ft] [--device cpu]
 
 1. make the seeded teacher data (``tools.sk_dataset --band-set``, 150 Si,
    150 C and 100 SiC structures by default);
@@ -14,7 +14,14 @@
    ``--soc``) under the config's own stopping rule;
 4. predict the pristine band set from ``<train_dir>/best`` and compare its
    bands with the teacher's within +-5 eV of E_F (60 k-points along each
-   crystal's auto path, 48 with ``--soc``, as the JAX package's scripts).
+   crystal's auto path, 48 with ``--soc``, as the JAX package's scripts);
+5. with ``--band-ft``, the secondary (band-energy) training of the
+   reference's two-stage workflow: ``examples/sk/config_band_ft.yaml`` on the
+   training set of step 2, warm-started from ``<train_dir>/best.pt`` at the
+   config's fresh learning rate, its band steps captured on the card, under
+   its own stopping rule (``max_epochs`` capped by ``--max-epochs``) into
+   ``<out>/band_ft``; its epochs, test metrics and
+   seconds an epoch go into the result under ``band_ft``.
 
 Everything is written under ``--out``: the data, rewritten copies of the
 example YAMLs (paths moved under ``--out``, ``max_epochs`` from
@@ -134,6 +141,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--resume", action="store_true",
                     help="continue from <out>/train/best.pt")
     ap.add_argument("--soc", action="store_true", help="the SOC set and examples/sk_soc")
+    ap.add_argument("--band-ft", action="store_true",
+                    help="then fine-tune on bands with examples/sk/config_band_ft.yaml")
     ap.add_argument("--n-si", type=int, default=150)
     ap.add_argument("--n-c", type=int, default=150)
     ap.add_argument("--n-sic", type=int, default=100)
@@ -199,6 +208,38 @@ def main(argv=None) -> dict:
                            window=5.0, nk=48 if args.soc else 60)
     seconds["bands"] = time.perf_counter() - t0
 
+    band_ft = None
+    if args.band_ft:
+        if args.soc:
+            raise SystemExit("--band-ft fine-tunes the non-SOC model: no --soc")
+        ft_dir = out / "band_ft"
+        if (ft_dir / "metrics.jsonl").exists():
+            (ft_dir / "metrics.jsonl").unlink()
+        ft_src = example / "config_band_ft.yaml"
+        ft_max = int(yaml.safe_load(ft_src.read_text())["optim_params"]["max_epochs"])
+        ft_cfg = _rewrite(
+            ft_src, out / "config_band_ft.yaml",
+            {"dataset_params.graph_data_path": str(graphs["train"]),
+             "profiler_params.train_dir": str(ft_dir),
+             "setup.checkpoint_path": str(train_dir / "best")},
+            optim_params={"max_epochs": min(ft_max, args.max_epochs or ft_max)})
+        t0 = time.perf_counter()
+        ft_logs = cli.train_and_evaluate(load_config(ft_cfg), device=args.device)
+        seconds["band_ft"] = time.perf_counter() - t0
+        ft_records = _records(ft_dir / "metrics.jsonl")
+        ft_val = [r["val/mae_band_energy"] for r in ft_records]
+        band_ft = {
+            "epochs": len(ft_records),
+            "test_mae_band_energy_Ha": float(ft_logs["mae_band_energy"]),
+            "test_mae_hamiltonian_Ha": float(ft_logs["mae_hamiltonian"]),
+            "val_mae_band_energy_first_Ha": float(ft_val[0]) if ft_val else None,
+            "val_mae_band_energy_best_Ha": float(min(ft_val)) if ft_val else None,
+            "sec_per_epoch_median": float(np.median([r["sec"] for r in ft_records]))
+            if ft_records else None,
+            "nonfinite_steps": int(sum(r.get("nonfinite_steps", 0) for r in ft_records)),
+        }
+        print(f"[band_ft] {json.dumps(band_ft)}", flush=True)
+
     # the configs' metrics are MAEs in Ha (the mean of the real and the
     # imaginary parts' with --soc)
     mae_keys = [k for k in test_logs if k.startswith("mae_")]
@@ -219,6 +260,7 @@ def main(argv=None) -> dict:
         "bands": bands["per_structure"],
         "seconds": seconds,
         "resumed": args.resume,
+        "band_ft": band_ft,
         "card": _card(),
     }
     (out / "result.json").write_text(json.dumps(result, indent=1))

@@ -8,10 +8,18 @@ another.  Here each is one ``torch.cuda.CUDAGraph`` per shape key, which a
 step replays: the host launches one graph instead of the step's kernels.
 
 - A batch is copied into static buffers of its key, one for every tensor
-  field of ``Graph``, shared by the key's training and eval graphs.  The
-  loss and logs a step returns are clones: the next replay overwrites the
-  graph's outputs.  An eval step's predictions are the graph's own outputs,
-  valid until the next replay.
+  field of ``Graph`` and one for every input the step takes besides it (the
+  k-points of a head with bands, made on the host outside the graph),
+  shared by the key's training and eval graphs.  The loss and logs a step
+  returns are clones: the next replay overwrites the graph's outputs.  An
+  eval step's predictions are the graph's own outputs, valid until the next
+  replay.
+- Work that a graph cannot hold runs between graphs: the Hermitian
+  eigensolve of the band branch, which waits for the card inside its call.
+  Each step is captured through ``utils.cuda_graphs.segmented_capture``, so
+  a step that hands such work to ``host_step`` becomes one graph before
+  each such call and one after the last, and a replay runs the graphs and,
+  between them, the calls, in the order of the capture.
 - The parameters, their gradients and the optimizer state are the trainer's
   flat buffers, which a replay updates in place, as JAX donates them.  The
   learning rate is the trainer's 0-dim device tensor, refilled outside the
@@ -29,10 +37,10 @@ step replays: the host launches one graph instead of the step's kernels.
   that device (``capture_stream``).  cuBLAS keeps a workspace for each
   stream it has run on, for the life of the process: a new stream per
   trainer left one more workspace held after each trainer was gone.
-- The cyclic garbage collector is off during a capture (``torch.cuda.graph``
-  collects just before it): an earlier trainer's graph destroyed by a
-  collection in the middle of a capture calls the runtime while the stream
-  is capturing, which invalidates the capture.
+- The cyclic garbage collector runs just before a capture and is off
+  during it: an earlier trainer's graph destroyed by a collection in the
+  middle of a capture calls the runtime while the stream is capturing,
+  which invalidates the capture.
 
 A capture that fails raises: nothing falls back to the eager step.  The
 kernels' launch counters are host-side, so they count the warm-up and the
@@ -50,6 +58,7 @@ import torch
 
 from ..data.graph import Graph
 from ..e3 import zonal_tp
+from ..utils.cuda_graphs import Segments, segmented_capture
 
 
 def shape_key(graph: Graph) -> Tuple[int, int, int]:
@@ -86,6 +95,21 @@ def copy_into(static: Graph, graph: Graph) -> None:
         getattr(static, name).copy_(t)
 
 
+def _input_signature(inputs: Dict[str, torch.Tensor]) -> tuple:
+    return tuple((n, tuple(t.shape), t.dtype, t.device) for n, t in sorted(inputs.items()))
+
+
+def copy_inputs(static: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor]) -> None:
+    """Copy a step's inputs besides the batch into the buffers of
+    ``static``; raises unless the two have the same names, shapes, types and
+    device."""
+    if _input_signature(static) != _input_signature(inputs):
+        raise ValueError(f"step inputs {_input_signature(inputs)} differ from the captured "
+                         f"ones {_input_signature(static)}")
+    for name, t in inputs.items():
+        static[name].copy_(t)
+
+
 _CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
 
 
@@ -99,19 +123,21 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 @dataclasses.dataclass
 class _Captured:
-    graph: torch.cuda.CUDAGraph
+    graph: Segments
     out: tuple
 
 
 class CapturedSteps:
     """The captured training and eval steps of one trainer.
 
-    ``train_body(graph)`` is the trainer's step (gradient zeroed, forward,
-    loss, backward, guarded update at the device learning rate; returns
-    (loss, logs)); ``eval_body(graph)`` its eval step ((loss, logs, metrics,
-    predictions)), run under ``torch.inference_mode``; ``state()`` the
-    tensors a training step updates in place.  ``captures`` counts the
-    graphs captured."""
+    ``train_body(graph, **inputs)`` is the trainer's step (gradient zeroed,
+    forward, loss, backward, guarded update at the device learning rate;
+    returns (loss, logs)); ``eval_body(graph, **inputs)`` its eval step
+    ((loss, logs, metrics, predictions)), run under
+    ``torch.inference_mode``; ``inputs`` are the tensors a step takes
+    besides the batch (``k_vecs``), static buffers of the shape key like the
+    batch's; ``state()`` the tensors a training step updates in place.
+    ``captures`` counts the graphs captured."""
 
     def __init__(self, device, train_body: Callable, eval_body: Callable,
                  state: Callable):
@@ -123,25 +149,29 @@ class CapturedSteps:
         self.train_body, self.eval_body, self.state = train_body, eval_body, state
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = capture_stream(self.device)
-        self.static: Dict[tuple, Graph] = {}
+        self.static: Dict[tuple, Tuple[Graph, Dict[str, torch.Tensor]]] = {}
         self.train_graphs: Dict[tuple, _Captured] = {}
         self.eval_graphs: Dict[tuple, _Captured] = {}
         self.captures = 0
 
-    def _static_for(self, graph: Graph) -> Graph:
+    def _static_for(self, graph: Graph, inputs: Dict[str, torch.Tensor]):
         key = shape_key(graph)
         if key not in self.static:
-            self.static[key] = static_graph(graph)
-        static = self.static[key]
+            with torch.inference_mode(False):
+                self.static[key] = (static_graph(graph),
+                                    {n: t.clone() for n, t in inputs.items()})
+        static, static_inputs = self.static[key]
         copy_into(static, graph)
-        return static
+        copy_inputs(static_inputs, inputs)
+        return static, static_inputs
 
-    def _capture(self, body: Callable, static: Graph, inference: bool) -> _Captured:
+    def _capture(self, body: Callable, static: Graph, inputs: Dict[str, torch.Tensor],
+                 inference: bool) -> _Captured:
         cur = torch.cuda.current_stream(self.device)
         saved = None if inference else [t.clone() for t in self.state()]
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream), torch.inference_mode(inference):
-            body(static)
+            body(static, **inputs)
         cur.wait_stream(self.stream)
         if saved is not None:
             with torch.no_grad():
@@ -149,38 +179,44 @@ class CapturedSteps:
                     t.copy_(s)
         del saved
         zonal_tp.FRAME_MEMO.clear()
-        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize(self.device)
+        gc.collect()
+        torch.cuda.empty_cache()
         collecting = gc.isenabled()
+        gc.disable()
         try:
-            with torch.inference_mode(inference), \
-                    torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-                gc.disable()
-                out = body(static)
+            with torch.inference_mode(inference), torch.cuda.stream(self.stream), \
+                    segmented_capture(self.pool) as segments:
+                out = body(static, **inputs)
         finally:
             if collecting:
                 gc.enable()
         self.captures += 1
-        return _Captured(graph, out)
+        return _Captured(segments, out)
 
-    def train_step(self, graph: Graph):
-        """One replayed training step on ``graph`` (captured at the first
-        batch of its shape key): (loss, logs), clones of the graph's."""
-        static = self._static_for(graph)
+    def train_step(self, graph: Graph, **inputs):
+        """One replayed training step on ``graph`` and ``inputs`` (captured
+        at the first batch of its shape key): (loss, logs), clones of the
+        graph's."""
+        static, static_inputs = self._static_for(graph, inputs)
         key = shape_key(graph)
         if key not in self.train_graphs:
-            self.train_graphs[key] = self._capture(self.train_body, static, inference=False)
+            self.train_graphs[key] = self._capture(self.train_body, static, static_inputs,
+                                                   inference=False)
         entry = self.train_graphs[key]
         entry.graph.replay()
         loss, logs = entry.out
         return loss.clone(), {k: v.clone() for k, v in logs.items()}
 
-    def eval_step(self, graph: Graph):
-        """One replayed eval step on ``graph``: (loss, logs, metrics) as
-        clones, and the predictions as the graph's own outputs."""
-        static = self._static_for(graph)
+    def eval_step(self, graph: Graph, **inputs):
+        """One replayed eval step on ``graph`` and ``inputs``: (loss, logs,
+        metrics) as clones, and the predictions as the graph's own
+        outputs."""
+        static, static_inputs = self._static_for(graph, inputs)
         key = shape_key(graph)
         if key not in self.eval_graphs:
-            self.eval_graphs[key] = self._capture(self.eval_body, static, inference=True)
+            self.eval_graphs[key] = self._capture(self.eval_body, static, static_inputs,
+                                                  inference=True)
         entry = self.eval_graphs[key]
         entry.graph.replay()
         total, logs, mets, preds = entry.out

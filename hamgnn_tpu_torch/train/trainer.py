@@ -5,9 +5,10 @@ TP kernels on the card) and the flat-vector amsgrad update of
 ``train/optim.py``, with the JAX trainer's non-finite guard on the device.
 On the card the training and eval steps are captured as CUDA graphs, one per
 batch shape, and replayed (``train/captured.py``), as the JAX trainer jits
-one program per shape; on the CPU, with ``capture=False``, and for heads that
-compute bands (they read counts and draw k-points on the host) they run
-eagerly.
+one program per shape, the band steps of a head with
+``calculate_band_energy`` as well: their k-points are made on the host from
+the batch's cells before the step and copied into a static input of the
+graph.  On the CPU and with ``capture=False`` the steps run eagerly.
 Host-side ``PlateauScheduler`` (torch ReduceLROnPlateau semantics: factor
 lr_decay, threshold 1e-6, cooldown patience // 2, min_lr 1e-6) and
 ``EarlyStopping`` are the JAX classes.  ``fit`` writes ``metrics.jsonl``
@@ -86,8 +87,8 @@ class Trainer:
     """Single-device trainer.  The model's parameters become views of one
     flat buffer on ``device`` (cuda unless the caller asks for the CPU).
 
-    ``capture``: replay each step as a CUDA graph (default: on the card,
-    unless the head computes bands); False runs every step eagerly.  The
+    ``capture``: replay each step as a CUDA graph (default: on the card);
+    False runs every step eagerly.  The
     learning rate lives on the device as ``lr_t``, refilled from
     ``sched.lr`` before a step whenever the scheduler has changed it."""
 
@@ -112,16 +113,12 @@ class Trainer:
         self.opt = Amsgrad(self.flat.numel(), self.device, gradient_clip_val)
         self.lr_t = torch.tensor(lr, dtype=torch.float32, device=self.device)
         self._lr_filled = lr
-        bands = bool(getattr(self.model.output, "calculate_band_energy", False))
         if capture is None:
-            capture = self.device.type == "cuda" and not bands
-        elif capture and bands:
-            raise ValueError("a head with bands reads counts and draws k-points on the "
-                             "host: its steps cannot be captured")
+            capture = self.device.type == "cuda"
         elif capture and self.device.type != "cuda":
             raise ValueError(f"a captured step needs the card, not {self.device}")
         self.captured = CapturedSteps(
-            self.device, lambda g: self._step(g, self.lr_t), self._eval,
+            self.device, lambda g, **kw: self._step(g, self.lr_t, **kw), self._eval,
             lambda: (self.flat, self.grad, *self.opt.state_dict().values())) if capture else None
         self.nonfinite_steps = 0  # of the last train_epoch
         # the process that writes metrics.jsonl and checkpoints (rank 0 of a
@@ -133,11 +130,14 @@ class Trainer:
     # --- steps -----------------------------------------------------------
 
     def _band_kwargs(self, graph) -> Dict[str, torch.Tensor]:
-        """Host-generated k-points when the output head computes bands.
+        """Host-generated k-points when the output head computes bands, a
+        step's input besides the batch.
 
         Without a ``k_path`` the random k set comes from a fresh seeded
         generator at every call, as in the JAX trainer: each crystal slot of
-        a batch sees the same k set in every step and validation pass."""
+        a batch sees the same k set in every step and validation pass.  The
+        cells are the batch's host copy where it has one
+        (``graph.cell_host``): no read of the device."""
         out = self.model.output
         if not getattr(out, "calculate_band_energy", False):
             return {}
@@ -146,9 +146,9 @@ class Trainer:
         k = k_vecs_for_graph(graph, out.num_k, out.k_path)
         return {"k_vecs": torch.as_tensor(k, device=self.device)}
 
-    def _step(self, graph, lr):
+    def _step(self, graph, lr, **kw):
         self.grad.zero_()
-        preds = self.model(graph, **self._band_kwargs(graph))
+        preds = self.model(graph, **kw)
         total, logs = compute_losses(preds, graph, self.losses)
         total.backward()
         ok = self.opt.step(self.flat, self.grad, lr, loss=total.detach())
@@ -156,8 +156,8 @@ class Trainer:
         logs["nonfinite_step"] = 1.0 - ok.to(torch.float32)
         return total.detach(), logs
 
-    def _eval(self, graph):
-        preds = self.model(graph, **self._band_kwargs(graph))
+    def _eval(self, graph, **kw):
+        preds = self.model(graph, **kw)
         total, logs = compute_losses(preds, graph, self.losses)
         return total, logs, compute_metrics(preds, graph, self.metrics), preds
 
@@ -165,12 +165,13 @@ class Trainer:
         """One update on ``graph``; returns (loss, logs) as device scalars,
         with ``logs["nonfinite_step"]`` 1.0 where the guard dropped it."""
         self.model.train()
+        kw = self._band_kwargs(graph)
         if self.captured is None:
-            return self._step(graph, self.sched.lr)
+            return self._step(graph, self.sched.lr, **kw)
         if self._lr_filled != self.sched.lr:
             self.lr_t.fill_(self.sched.lr)
             self._lr_filled = self.sched.lr
-        return self.captured.train_step(graph)
+        return self.captured.train_step(graph, **kw)
 
     def eval_step(self, graph):
         """(loss, logs, metrics, predictions) of ``graph`` in inference mode.
@@ -178,9 +179,10 @@ class Trainer:
         next eval step."""
         self.model.eval()
         with torch.inference_mode():
+            kw = self._band_kwargs(graph)
             if self.captured is None:
-                return self._eval(graph)
-            return self.captured.eval_step(graph)
+                return self._eval(graph, **kw)
+            return self.captured.eval_step(graph, **kw)
 
     # --- loops -----------------------------------------------------------
 

@@ -35,11 +35,13 @@ from hamgnn_tpu.train.trainer import init_params_on_cpu
 from hamgnn_tpu_torch import cli as t_cli
 from hamgnn_tpu_torch.data.dataset import save_graph_npz
 from hamgnn_tpu_torch.data.graph import pad_and_batch as t_pad
+from hamgnn_tpu_torch.data.synthetic import add_random_soc_targets
 from hamgnn_tpu_torch.interfaces.jax_params import load_flax_params
 from hamgnn_tpu_torch.models.basis import get_basis_set as t_basis
 from hamgnn_tpu_torch.models.model import compute_losses as t_losses
 from hamgnn_tpu_torch.models.output import HamGNNPlusPlusOut as THead
 from hamgnn_tpu_torch.physics import band as t_band
+from hamgnn_tpu_torch.physics import eigh as t_eigh
 from hamgnn_tpu_torch.physics import kpoints as t_kp
 from hamgnn_tpu_torch.tools import band_cal as t_band_cal
 from hamgnn_tpu_torch.train.config import load_config
@@ -170,33 +172,52 @@ def test_assemble_k_matrices_matches_and_repeats():
     assert len(np.unique(pairs, axis=1).T) < pairs.shape[1]
 
 
-def test_scatter_add_rows_sums_duplicates_in_order():
-    rng = np.random.default_rng(0)
-    key = torch.as_tensor(rng.integers(0, 7, size=200))
-    vals = torch.as_tensor(rng.normal(size=(200, 3)).astype(np.float32) * 1e3)
-    base = torch.as_tensor(rng.normal(size=(9, 3)).astype(np.float32))
-    got = t_band._scatter_add_rows(base.clone(), key, vals)
-    again = t_band._scatter_add_rows(base.clone(), key, vals)
-    assert torch.equal(got, again)
-    ref = base.double().clone()
-    for i in range(200):
-        ref[key[i]] += vals[i].double()
-    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5, atol=1e-2)
-    assert torch.equal(got[7:], base[7:])  # keys that do not occur keep their rows
-    # a permutation of the rows that keeps each key's order gives the same bits
-    perm = torch.as_tensor(np.argsort(key.numpy(), kind="stable"))
-    assert torch.equal(t_band._scatter_add_rows(base.clone(), key[perm], vals[perm]), got)
-    # gradients reach the values
-    v = vals.clone().requires_grad_(True)
-    t_band._scatter_add_rows(torch.zeros(9, 3), key, v).sum().backward()
-    assert torch.equal(v.grad, torch.ones_like(v))
-    assert torch.equal(t_band._scatter_add_rows(base.clone(), key[:0], vals[:0]), base)
+def test_assembly_sums_duplicated_pairs_as_jax():
+    """``assemble_k_matrices`` (``index_add_``) against the JAX package's on
+    a batch where each (src, dst) pair of the first crystal occurs three
+    times with different shifts, and against a float64 sum over the edges;
+    gradients reach every row."""
+    crystals = _crystals()
+    c = dict(crystals[0])
+    n_e = c["edge_index"].shape[1]
+    c["edge_index"] = np.concatenate([c["edge_index"]] * 3, axis=1)
+    c["nbr_shift"] = np.concatenate([c["nbr_shift"], c["nbr_shift"] + 1.5,
+                                     c["nbr_shift"] - 0.5], axis=0)
+    c["Hoff"] = np.random.default_rng(3).normal(size=(3 * n_e, 196)).astype(np.float32)
+    for key in ("cell_shift", "Soff", "Hoff0"):
+        if key in c:
+            c[key] = np.concatenate([c[key]] * 3, axis=0)
+    # each copy's inverse edges within the copy
+    c["inv_edge_idx"] = np.concatenate([np.asarray(crystals[0]["inv_edge_idx"]) + r * n_e
+                                        for r in range(3)])
+    jg, tg = _graphs([c, crystals[1]])
+    k = _k(jg, 2)
+    M = 5
+    ref = np.asarray(j_band.assemble_k_matrices(jg, jg.Hon, jg.Hoff, jnp.asarray(k), 14, M))
+    h_off = tg.Hoff.clone().requires_grad_(True)
+    got = t_band.assemble_k_matrices(tg, tg.Hon, h_off, _t(k), 14, M)
+    np.testing.assert_allclose(_np(got), ref, **M_TOL)
+    # the first crystal's off-site part, summed in float64 on the host
+    e_idx = np.flatnonzero(_np(tg.edge_mask) & (_np(tg.batch)[_np(tg.edge_index[0])] == 0))
+    host = np.zeros((2, M, M, 14, 14), complex)
+    for e in e_idx:
+        s_, d_ = _np(tg.edge_index[:, e])
+        ph = np.exp(2j * np.pi * (k[0].astype(float) @ _np(tg.nbr_shift[e]).astype(float)))
+        host[:, s_, d_] += ph[:, None, None] * _np(tg.Hoff[e]).reshape(14, 14)
+    on = _np(tg.Hon)
+    for i in np.flatnonzero(_np(tg.node_mask) & (_np(tg.batch) == 0)):
+        host[:, i, i] += on[i].reshape(14, 14)
+    host = host.transpose(0, 1, 3, 2, 4).reshape(2, M * 14, M * 14)
+    np.testing.assert_allclose(_np(got[0]), host, atol=1e-4, rtol=1e-5)
+    got.abs().sum().backward()
+    assert bool((h_off.grad[_np(tg.edge_mask)].abs().sum(1) > 0).all())
 
 
 def test_band_counts_per_crystal():
     jg, tg = _graphs(_crystals())
     counts = ((6, 2), (14, 4))
-    np.testing.assert_array_equal(_np(t_band.band_counts_per_crystal(tg, counts)),
+    table = t_band.species_count_table(counts)
+    np.testing.assert_array_equal(_np(t_band.band_counts_per_crystal(tg, table)),
                                   np.asarray(j_band.band_counts_per_crystal(jg, counts)))
 
 
@@ -261,7 +282,7 @@ def test_band_counts_mode(solved):
         band_counts=j_band.band_counts_per_crystal(jg, counts))
     t_out = t_band.band_energies_batched(
         tg, tg.Hon, tg.Hoff, tg.Son, tg.Soff, _t(k), tb, num_bands=9, max_atoms=M,
-        band_counts=t_band.band_counts_per_crystal(tg, counts))
+        band_counts=t_band.band_counts_per_crystal(tg, t_band.species_count_table(counts)))
     assert len(t_out) == len(j_out) == 4
     np.testing.assert_allclose(_np(t_out[0]), np.asarray(j_out[0]), **E_TOL)
     np.testing.assert_allclose(_np(t_out[2]), np.asarray(j_out[2]), **E_TOL)
@@ -663,6 +684,147 @@ def test_cli_still_refuses_soc_and_spin(key):
         head = t_cli.build_model(load_config(None, overrides=_merge_out(
             BAND_CFG, {key: True}))).output
         assert type(head).__name__ == "HamGNNSOCOut" and head.calculate_band_energy
+
+
+# ---------------------------------------------------------------------------
+# an overlap that is not positive definite, a matrix that is not finite: NaN
+# where JAX gives NaN, never an exception
+# ---------------------------------------------------------------------------
+
+def _hermitian(rng, shape, n):
+    a = rng.normal(size=(*shape, n, n)) + 1j * rng.normal(size=(*shape, n, n))
+    return a + np.swapaxes(a, -1, -2).conj()
+
+
+def test_plain_eigensolve_and_cholesky_give_nan_where_jax_does():
+    """A NaN matrix through the plain eigensolve, an indefinite one through
+    the Cholesky factor: NaN for that matrix alone, as ``jnp.linalg.eigh``
+    and ``jnp.linalg.cholesky`` give, where ``torch.linalg.cholesky``
+    raises; the other matrices as ``torch.linalg.eigh`` / ``cholesky``."""
+    rng = np.random.default_rng(9)
+    a = _hermitian(rng, (3,), 6).astype(np.complex64)
+    a[1, 2, 3] = a[1, 3, 2] = np.nan
+    w, v = t_eigh.hermitian_eigh(_t(a))
+    jw, jv = jnp.linalg.eigh(jnp.asarray(a))
+    np.testing.assert_array_equal(np.isnan(_np(w)), np.isnan(np.asarray(jw)))
+    np.testing.assert_array_equal(np.isnan(_np(v)), np.isnan(np.asarray(jv)))
+    assert np.isnan(_np(w)[1]).all() and np.isfinite(_np(w)[[0, 2]]).all()
+    rw, rv = torch.linalg.eigh(_t(a[[0, 2]]))
+    assert torch.equal(w[[0, 2]], rw) and torch.equal(v[[0, 2]], rv)
+
+    s = _hermitian(rng, (3,), 6)
+    s = (s @ np.swapaxes(s, -1, -2).conj() / 6 + np.eye(6)).astype(np.complex64)
+    s[2] = -s[2]
+    with pytest.raises(RuntimeError):
+        torch.linalg.cholesky(_t(s))
+    L, jl = t_eigh.cholesky(_t(s)), np.asarray(jnp.linalg.cholesky(jnp.asarray(s)))
+    np.testing.assert_array_equal(np.isnan(_np(L)), np.isnan(jl))
+    np.testing.assert_array_equal(np.isnan(_np(L)[2]), np.tri(6, dtype=bool))
+    assert torch.equal(L[:2], torch.linalg.cholesky(_t(s[:2])))
+    np.testing.assert_allclose(_np(L[:2]), jl[:2], atol=1e-5, rtol=0)
+
+
+def test_eigensolve_gives_nan_for_a_matrix_that_does_not_converge(monkeypatch):
+    """Where ``torch.linalg.eigh`` raises that a finite matrix did not
+    converge (made here by a stand-in of it that raises for a marked
+    matrix), that matrix alone gets NaN, as ``jnp.linalg.eigh`` gives for a
+    failed solve; the others are ``torch.linalg.eigh``'s."""
+    rng = np.random.default_rng(11)
+    a = _t(_hermitian(rng, (3,), 5).astype(np.complex64))
+    a[1, 0, 0] = 99.0
+    eigh = torch.linalg.eigh
+
+    def failing(m, *args, **kwargs):
+        if bool((m[..., 0, 0].real == 99.0).any()):
+            raise torch.linalg.LinAlgError("linalg.eigh: the algorithm failed to converge")
+        return eigh(m, *args, **kwargs)
+
+    monkeypatch.setattr(torch.linalg, "eigh", failing)
+    w, v = t_eigh.hermitian_eigh(a)
+    assert torch.isnan(w[1]).all() and torch.isnan(v[1]).all()
+    rw, rv = eigh(a[[0, 2]])
+    assert torch.equal(w[[0, 2]], rw) and torch.equal(v[[0, 2]], rv)
+
+
+def test_eigh_backward_is_torchs():
+    """``eigh_backward`` against torch's own backward of ``linalg.eigh``, in
+    float64, for a loss on the eigenvalues and on |v|^2 (which does not
+    depend on the eigenvectors' phases)."""
+    rng = np.random.default_rng(10)
+    a = torch.as_tensor(_hermitian(rng, (2, 3), 7)).requires_grad_(True)
+    cw, cv = _t(rng.normal(size=(2, 3, 7))), _t(rng.normal(size=(2, 3, 7, 7)))
+
+    def grad(fn):
+        w, v = fn(a)
+        return torch.autograd.grad((w * cw).sum() + (v.abs() ** 2 * cv).sum(), a)[0]
+
+    ref = grad(torch.linalg.eigh)
+    np.testing.assert_allclose(_np(grad(t_eigh.hermitian_eigh)), _np(ref), atol=1e-10, rtol=0)
+    # the eigenvalues alone: no gradient through the eigenvectors' gaps
+    g = torch.autograd.grad(t_eigh.hermitian_eigh(a)[0].sum(), a)[0]
+    np.testing.assert_allclose(_np(g), _np(torch.eye(7).expand(2, 3, 7, 7)), atol=1e-12, rtol=0)
+
+
+SOC_BAND_LOSSES = [{"metric": "mae", "prediction": p, "target": p, "loss_weight": 27.211}
+                   for p in ("hamiltonian_real", "hamiltonian_imag")] + LOSSES[1:]
+
+
+@pytest.mark.parametrize("head", ["hamgnn", "soc"])
+def test_indefinite_overlap_drops_the_step_and_gives_nan_bands_as_jax(tmp_path, model_pair,
+                                                                      head):
+    """The same batch, whose first crystal's overlap is negative definite,
+    and the same weights through the JAX trainer's jitted steps and the
+    port's trainer: on both sides the training step is dropped
+    (``nonfinite_step`` 1, parameters and optimizer state unchanged) and the
+    eval step's bands are NaN at the same places, finite and equal
+    elsewhere; nothing raises.  The non-SOC head takes ``model_pair``'s
+    weights; most of the time is the JAX steps' compilation."""
+    from jax.flatten_util import ravel_pytree
+
+    from hamgnn_tpu.train.trainer import Trainer as JTrainer
+
+    _cfg, crystals, _jg, _tg, _k, params, *_rest = model_pair
+    crystals = list(crystals)
+    cfg, losses = BAND_CFG, LOSSES
+    if head == "soc":
+        rng = np.random.default_rng(12)
+        crystals = [add_random_soc_targets(rng, c, nao_max=14) for c in crystals]
+        cfg = _merge_out(BAND_CFG, {"soc_switch": True, "soc_basis": "so3",
+                                    "zero_point_shift": False})
+        losses = SOC_BAND_LOSSES
+    crystals[0] = dict(crystals[0], Son=-crystals[0]["Son"], Soff=-crystals[0]["Soff"])
+    jg, tg = _graphs(crystals)
+    j_tr = JTrainer(j_build(j_load_config(None, overrides=cfg)), losses=losses, metrics=[],
+                    lr=1e-3, train_dir=str(tmp_path / "j"))
+    if head == "soc":
+        params = init_params_on_cpu(j_tr.model, jg, 0)
+    j_tr.params = params
+    j_tr.opt_state = j_tr.tx.init(ravel_pytree(params)[0])
+    params0 = _flat(params)
+    tm = t_cli.build_model(load_config(None, overrides=cfg))
+    load_flax_params(tm, params0)
+    t_tr = Trainer(tm, losses=losses, metrics=[], lr=1e-3, train_dir=str(tmp_path / "t"),
+                   device="cpu")
+
+    kw = j_tr._band_kwargs(jg)
+    p1, _opt, j_loss, j_logs = j_tr._get_train_step(jg)(
+        j_tr.params, j_tr.opt_state, jg, jnp.asarray(1e-3, jnp.float32), **kw)
+    assert float(j_logs["nonfinite_step"]) == 1.0 and not np.isfinite(float(j_loss))
+    assert all(np.array_equal(v, params0[n]) for n, v in _flat(p1).items())
+    flat0, opt0 = t_tr.flat.clone(), {k: v.clone() for k, v in t_tr.opt.state_dict().items()}
+    t_loss, t_logs = t_tr.train_step(tg)
+    assert float(t_logs["nonfinite_step"]) == 1.0 and not np.isfinite(float(t_loss))
+    assert torch.equal(t_tr.flat, flat0)
+    assert all(torch.equal(v, opt0[k]) for k, v in t_tr.opt.state_dict().items())
+
+    jp = j_tr._get_eval_step(jg)(p1, jg, **kw)[3]
+    tp = t_tr.eval_step(tg)[3]
+    for key in ("band_energy", "band_energy_ref", "band_gap", "band_gap_ref"):
+        a, b = _np(tp[key]), np.asarray(jp[key])
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=key)
+        np.testing.assert_allclose(a[~np.isnan(b)], b[~np.isnan(b)], err_msg=key, **E_TOL)
+    ref = _np(tp["band_energy_ref"])
+    assert np.isnan(ref[0]).all() and np.isfinite(ref[1]).all()
 
 
 # ---------------------------------------------------------------------------

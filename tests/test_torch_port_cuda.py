@@ -59,7 +59,11 @@ engines), ConvE3 with the correlation block and ConvE3 with KAN generators at
 that width: the captured step equal to the eager one bit for bit under
 deterministic algorithms.  Captured trainers made one after another leave the
 memory held flat within 0.05 GB; a capture runs with the cyclic collector off,
-on the device's one capture stream.
+on the device's one capture stream.  The band branch's eigensolve against
+``torch.linalg.eigh`` (eigenvalues 1e-5 * max|lambda|, residual 1e-4 *
+max|A|, NaN where a matrix is not finite); a band head's step, captured in
+segments around it, equal to the eager one bit for bit under deterministic
+algorithms, and an indefinite overlap dropped by the replay.
 """
 
 import dataclasses
@@ -1126,3 +1130,74 @@ def test_cuda_captured_trainers_leave_held_memory_flat(tmp_path):
         torch.cuda.empty_cache()
         held.append(torch.cuda.memory_allocated())
     assert max(held[1:]) - held[0] <= 0.05e9, held
+
+
+@pytest.mark.cuda
+def test_cuda_hermitian_eigh_matches_torch():
+    """The band branch's eigensolve on the card against
+    ``torch.linalg.eigh``: eigenvalues within 1e-5 * max|lambda|, residual
+    within 1e-4 * max|A|, one counted solve a call; a NaN matrix gives NaN
+    for that matrix alone, an indefinite overlap a NaN Cholesky factor, and
+    nothing raises.  Inside a capture that is not a segmented one the solve
+    raises, since cuSOLVER's call cannot be recorded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from hamgnn_tpu_torch.physics import eigh
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+    a = torch.randn(3, 96, 96, dtype=torch.complex64, generator=g)
+    a = (0.5 * (a + a.mH)).cuda()
+    a[1, 2, 5] = a[1, 5, 2] = float("nan")
+    before = eigh.CARD_SOLVES["calls"]
+    w, v = eigh.hermitian_eigh(a)
+    torch.cuda.synchronize()
+    assert eigh.CARD_SOLVES["calls"] == before + 1
+    ok = a[[0, 2]]
+    ref = torch.linalg.eigvalsh(ok)
+    assert float((w[[0, 2]] - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    res = ok @ v[[0, 2]] - v[[0, 2]] * w[[0, 2], None, :]
+    assert float(res.abs().max()) <= 1e-4 * float(ok.abs().max())
+    assert bool(torch.isnan(w[1]).all() and torch.isnan(v[1]).all())
+    s = ok @ ok.mH / 96 + torch.eye(96, device="cuda")
+    s[1] = -s[1]
+    L = eigh.cholesky(s)
+    lower = torch.ones(96, 96, dtype=torch.bool, device="cuda").tril()
+    assert torch.equal(torch.isnan(L[1]), lower) and bool(torch.isfinite(L[0]).all())
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError):
+        with torch.cuda.graph(graph):
+            eigh.hermitian_eigh(ok)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_captured_band_step_equals_eager(tmp_path):
+    """A head with bands captures by default, in segments around the
+    eigensolve: under deterministic algorithms its first captured step equals
+    the eager one bit for bit, and a batch whose overlap is negative definite
+    is dropped by the replay with the state unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = {**SMALL_CFG, "output_nets": {"HamGNN_out": {
+        "nao_max": 14, "calculate_band_energy": True, "num_k": 2, "band_num_control": 2}}}
+    losses = HAM + [{"metric": "mae", "prediction": "band_energy", "target": "band_energy",
+                     "loss_weight": 0.27211}]
+    g1, _g2 = _step_batches()
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager, cap = _trainer_pair(tmp_path, cfg, losses)
+        la, lb = eager.train_step(g1)[0], cap.train_step(g1)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(la, lb) and torch.equal(eager.grad, cap.grad)
+        assert torch.equal(eager.flat, cap.flat)
+        segments = next(iter(cap.captured.train_graphs.values())).graph.graphs
+        assert len(segments) == 3  # two eigensolves: the prediction's and the reference's
+        state = [t.clone() for t in (cap.flat, *cap.opt.state_dict().values())]
+        bad = dataclasses.replace(g1, Son=-g1.Son, Soff=-g1.Soff)
+        loss, logs = cap.train_step(bad)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert not bool(torch.isfinite(loss)) and float(logs["nonfinite_step"]) == 1.0
+    assert all(torch.equal(a, b) for a, b in zip((cap.flat, *cap.opt.state_dict().values()),
+                                                  state))

@@ -446,6 +446,14 @@ def test_source_import_check_covers_the_magnetic_head_and_the_store():
         assert PKG / rel in set(PKG.rglob("*.py")), rel
 
 
+def test_source_import_check_covers_the_band_solver():
+    """The band branch's eigensolve and its probe, and the graphs cut around
+    it."""
+    for rel in ("physics/eigh.py", "tools_dev/eigh_probe.py", "train/captured.py",
+                "utils/cuda_graphs.py"):
+        assert PKG / rel in set(PKG.rglob("*.py")), rel
+
+
 def test_source_import_check_covers_the_data_tools():
     for rel in ("tools/sk_dataset.py", "tools/graph_data_gen.py", "tools/graph_data_gen_siesta.py",
                 "tools/graph_data_gen_abacus.py", "tools/poscar2openmx.py",

@@ -16,8 +16,8 @@
   the port writes ``best.pt``) with the trained weights; ``audit_config``
   warning on each knob the reference warns on, 9 for all together;
 * the trainer: a SOC head captures like any other (its step builds nothing
-  from host data and never reads the device after its first run), a SOC
-  head with bands stays eager; the reference's SOC band chain
+  from host data and never reads the device after its first run), with
+  bands too (no solver that checks its info on the host either); the reference's SOC band chain
   (``prediction_hamiltonian_{real,imag}.npy`` into ``band_structure_for_crystal``);
 * the lab-frame and zonal kernels' host schedules at the ``sk_soc`` width
   (``examples/sk_soc/config.yaml``: 2x4o and a new mix of paths) through the
@@ -597,15 +597,42 @@ def test_soc_steps_take_nothing_from_the_host_after_warm_up(tmp_path, monkeypatc
         assert calls == [] and mode.seen == [], basis
 
 
-def test_soc_band_trainer_stays_eager(tmp_path):
+@pytest.mark.parametrize("engine", ["auto", "zonal"])
+def test_soc_band_steps_take_nothing_from_the_host_after_warm_up(tmp_path, monkeypatch,
+                                                                  engine):
+    """The SOC head with spinor bands: after a first training and eval step
+    neither builds a tensor from host data, reads the device, calls a solver
+    that checks its info on the host nor copies to the CPU
+    (``band_step_traffic`` of test_torch_port_train.py), so its steps are
+    captured on the card; on the CPU they run eagerly and a capture
+    raises."""
+    from test_torch_port_train import band_step_traffic
+
+    if engine != "auto":
+        monkeypatch.setenv("HAMGNN_TP_ENGINE", engine)
     m = _soc_model(calculate_band_energy=True, num_k=2, band_num_control=2)
-    tr = t_trainer.Trainer(m, losses=SOC_LOSSES, metrics=[], train_dir=str(tmp_path / "a"),
-                           device="cpu")
-    assert tr.captured is None and tr._band_kwargs(
-        t_pad([_soc_crystal(np.random.default_rng(0))]))["k_vecs"].shape == (1, 2, 3)
-    with pytest.raises(ValueError, match="band"):
-        t_trainer.Trainer(m, losses=SOC_LOSSES, metrics=[], train_dir=str(tmp_path / "b"),
+    losses = SOC_LOSSES + [{"metric": "mae", "prediction": "band_energy",
+                            "target": "band_energy", "loss_weight": 0.27211}]
+    tr = t_trainer.Trainer(m, losses=losses, metrics=SOC_METRICS, lr=1e-3,
+                           train_dir=str(tmp_path / "a"), device="cpu")
+    assert tr.captured is None
+    with pytest.raises(ValueError, match="needs the card"):
+        t_trainer.Trainer(m, losses=losses, metrics=[], train_dir=str(tmp_path / "b"),
                           device="cpu", capture=True)
+    g = t_pad([_soc_crystal(np.random.default_rng(s)) for s in range(2)], bucket_multiple=8)
+    kw = tr._band_kwargs(g)
+    assert tuple(kw["k_vecs"].shape) == (2, 2, 3)
+    out = []
+
+    def steps():
+        out[:] = [tr._step(g, tr.lr_t, **kw)]
+        with torch.inference_mode():
+            out.append(tr._eval(g, **kw))
+
+    assert band_step_traffic(monkeypatch, steps) == []
+    (loss, logs), (_total, _logs, _mets, preds) = out
+    assert torch.isfinite(loss) and float(logs["nonfinite_step"]) == 0.0
+    assert tuple(preds["band_energy"].shape) == (2, 2, 4) and "mae_band_energy" in logs
 
 
 # ----------------------------------------------------------------------

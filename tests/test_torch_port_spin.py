@@ -20,7 +20,7 @@
   the JAX CLI's initial weights writes the same ``prediction_hamiltonian*.npy``;
   ``stage: fit`` then ``stage: test`` from ``<train_dir>/best``;
 * the trainer: the steps take nothing from the host after a first run, so the
-  trainer captures them on the card; a head with bands stays eager.
+  trainer captures them on the card, those of the collinear head with bands too.
 
 f32 on both sides; small widths (features up to 2e and 2o, one layer,
 3-atom crystals).
@@ -501,10 +501,40 @@ def test_magnetic_steps_take_nothing_from_the_host_after_warm_up(tmp_path, monke
         assert calls == [] and mode_.seen == [], mode
 
 
-def test_collinear_band_trainer_stays_eager(tmp_path):
+@pytest.mark.parametrize("engine", ["auto", "zonal"])
+def test_collinear_band_steps_take_nothing_from_the_host_after_warm_up(tmp_path, monkeypatch,
+                                                                        engine):
+    """The collinear head with each channel's bands: after a first training
+    and eval step neither builds a tensor from host data, reads the device,
+    calls a solver that checks its info on the host nor copies to the CPU
+    (``band_step_traffic`` of test_torch_port_train.py), so its steps are
+    captured on the card; on the CPU they run eagerly and a capture
+    raises."""
+    from test_torch_port_train import band_step_traffic
+
+    if engine != "auto":
+        monkeypatch.setenv("HAMGNN_TP_ENGINE", engine)
     m = _model(collinear_spin=True, calculate_band_energy=True, num_k=2, band_num_control=2)
-    tr = t_trainer.Trainer(m, losses=HAM, metrics=[], train_dir=str(tmp_path), device="cpu")
+    losses = HAM + [{"metric": "mae", "prediction": "band_energy", "target": "band_energy",
+                     "loss_weight": 0.27211}]
+    tr = t_trainer.Trainer(m, losses=losses, metrics=HAM, train_dir=str(tmp_path / "a"),
+                           device="cpu")
     assert tr.captured is None
-    g = t_pad([_spin_crystal(np.random.default_rng(0), "collinear")], bucket_multiple=8)
-    loss, logs = tr.train_step(g)
-    assert np.isfinite(float(loss)) and float(logs["nonfinite_step"]) == 0.0
+    with pytest.raises(ValueError, match="needs the card"):
+        t_trainer.Trainer(m, losses=losses, metrics=[], train_dir=str(tmp_path / "b"),
+                          device="cpu", capture=True)
+    g = t_pad([_spin_crystal(np.random.default_rng(s), "collinear") for s in range(2)],
+              bucket_multiple=8)
+    kw = tr._band_kwargs(g)
+    out = []
+
+    def steps():
+        out[:] = [tr._step(g, tr.lr_t, **kw)]
+        with torch.inference_mode():
+            out.append(tr._eval(g, **kw))
+
+    assert band_step_traffic(monkeypatch, steps) == []
+    (loss, logs), (_total, _logs, _mets, preds) = out
+    assert torch.isfinite(loss) and float(logs["nonfinite_step"]) == 0.0
+    # the two channels stacked on the crystal axis
+    assert tuple(preds["band_energy"].shape) == (4, 2, 4) and "mae_band_energy" in logs

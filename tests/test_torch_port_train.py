@@ -20,8 +20,9 @@
   learning rate as a device tensor (bit for bit the float form), the shape
   key (JAX's ``_shape_key``), static buffers that round-trip a batch, a
   step that builds nothing from host data and never waits for the device
-  after its first run (under both engines), and the trainers that stay
-  eager (CPU, band heads).  The captures themselves run on the card
+  after its first run (under both engines; band heads too, without a
+  solver that checks its info on the host), and the trainer that stays
+  eager (CPU).  The captures themselves run on the card
   (``tests/test_torch_port_cuda.py``).
 """
 
@@ -368,21 +369,6 @@ def test_cpu_trainer_does_not_capture(tmp_path):
                           device="cpu", capture=True)
 
 
-def test_band_trainer_stays_eager(tmp_path):
-    """A head that computes bands reads counts and draws k-points on the
-    host: its trainer never captures, and asking for it raises."""
-    cfg = _merge(BASE, {"output_nets": {"HamGNN_out": {
-        "calculate_band_energy": True, "num_k": 2, "band_num_control": 4}}})
-    tm = t_cli.build_model(load_config(None, overrides=cfg))
-    assert tm.output.calculate_band_energy
-    tr = t_trainer.Trainer(tm, losses=LOSSES, metrics=[], train_dir=str(tmp_path / "b"),
-                           device="cpu")
-    assert tr.captured is None
-    with pytest.raises(ValueError, match="band"):
-        t_trainer.Trainer(tm, losses=LOSSES, metrics=[], train_dir=str(tmp_path / "b2"),
-                          device="cpu", capture=True)
-
-
 class _HostTraffic(TorchDispatchMode):
     """Records, by the port's source line, every op of a step that builds a
     tensor from host data (``lift_fresh``: ``torch.tensor``, a list index) or
@@ -409,6 +395,101 @@ def _port_line():
     frames = [f for f in traceback.extract_stack() if "hamgnn_tpu_torch" in f.filename]
     return f"{frames[-1].filename.split('hamgnn_tpu_torch')[-1]}:{frames[-1].lineno}" \
         if frames else "?"
+
+
+class _BandTraffic(_HostTraffic):
+    """``_HostTraffic`` and, by name, what it cannot see, since it happens
+    inside an op's own kernel: the solver ops that read their ``info`` on
+    the host (``_linalg_eigh``, ``_linalg_check_errors``, through which a
+    Cholesky without ``_ex`` checks it) and a copy to the CPU.  The plain
+    eigensolve (``physics/eigh.py`` ``plain_hermitian_eigh``, ``linalg.eigh``
+    on the CPU, which a step on the card does not run) is the one
+    exception."""
+
+    SOLVERS = ("aten::_linalg_eigh", "aten::linalg_eigh", "aten::_linalg_check_errors",
+               "aten::linalg_cholesky")
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        to_cpu = func is torch.ops.aten._to_copy.default and \
+            str((kwargs or {}).get("device", "")).startswith("cpu")
+        if (func.name() in self.SOLVERS or to_cpu) and not _in_plain_eigh():
+            self.seen.append((func.name(), _port_line()))
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
+def _in_plain_eigh():
+    return any(f.name == "plain_hermitian_eigh" for f in traceback.extract_stack())
+
+
+def band_step_traffic(monkeypatch, steps):
+    """What ``steps()`` does, after a first run of it (a capture's warm-up),
+    that a CUDA graph cannot record: ``_BandTraffic``'s ops, and calls of
+    ``torch.tensor`` / ``as_tensor`` / ``from_numpy`` and of a tensor's
+    ``cpu`` / ``numpy`` / ``tolist``, each with the port's source line."""
+    steps()
+    mode = _BandTraffic()
+    calls = []
+    with monkeypatch.context() as m:
+        for owner, names in ((torch, ("tensor", "as_tensor", "from_numpy")),
+                             (torch.Tensor, ("cpu", "numpy", "tolist"))):
+            for name in names:
+                real = getattr(owner, name)
+                m.setattr(owner, name, lambda *a, _real=real, _n=name, **k: (
+                    None if _in_plain_eigh() else calls.append((_n, _port_line())),
+                    _real(*a, **k))[1])
+        with mode:
+            steps()
+    return calls + mode.seen
+
+
+BAND_LOSSES = LOSSES + [{"metric": "mae", "prediction": "band_energy",
+                         "target": "band_energy", "loss_weight": 0.27211}]
+
+
+@pytest.mark.parametrize("bands", ["window", "species_counts"])
+@pytest.mark.parametrize("engine", ["auto", "zonal"])
+def test_band_steps_take_nothing_from_the_host_after_warm_up(tmp_path, monkeypatch, engine,
+                                                              bands):
+    """A head with bands, in window mode and in the per-species count mode:
+    after a first training and eval step, neither builds a tensor from host
+    data, reads the device, calls a solver that checks its info on the host
+    or copies to the CPU (the k-points are an input made before the step),
+    so the trainer captures its steps on the card like any other head's.
+    On the CPU it runs eagerly, and asking it to capture raises."""
+    if engine != "auto":
+        monkeypatch.setenv("HAMGNN_TP_ENGINE", engine)
+    bnc = 2 if bands == "window" else {6: 2, 14: 4}
+    cfg = _merge(BASE, {"output_nets": {"HamGNN_out": {
+        "calculate_band_energy": True, "num_k": 2, "band_num_control": bnc}}})
+    tm = t_cli.build_model(load_config(None, overrides=cfg))
+    assert tm.output.calculate_band_energy
+    assert (tm.output.band_species_counts is None) == (bands == "window")
+    from hamgnn_tpu_torch.models.model import init_weights
+
+    init_weights(tm, 0)
+    tr = t_trainer.Trainer(tm, losses=BAND_LOSSES, metrics=METRICS, lr=1e-3,
+                           train_dir=str(tmp_path / "b"), device="cpu")
+    assert tr.captured is None
+    with pytest.raises(ValueError, match="needs the card"):
+        t_trainer.Trainer(tm, losses=BAND_LOSSES, metrics=[], train_dir=str(tmp_path / "c"),
+                          device="cpu", capture=True)
+    td = TDataModule(_crystals(2, seed=13), batch_size=2, train_ratio=1.0, val_ratio=0.0,
+                     test_ratio=0.0, device="cpu")
+    g = next(iter(td.train_batches(np.random.default_rng(0))))
+    kw = tr._band_kwargs(g)
+    assert tuple(kw["k_vecs"].shape) == (2, 2, 3)
+
+    out = []
+
+    def steps():
+        out[:] = [tr._step(g, tr.lr_t, **kw)]
+        with torch.inference_mode():
+            out.append(tr._eval(g, **kw))
+
+    assert band_step_traffic(monkeypatch, steps) == []
+    (loss, logs), (_total, _logs, _mets, preds) = out
+    assert torch.isfinite(loss) and float(logs["nonfinite_step"]) == 0.0
+    assert "mae_band_energy" in logs and ("band_mask" in preds) == (bands == "species_counts")
 
 
 @pytest.mark.parametrize("engine", ["auto", "zonal"])
