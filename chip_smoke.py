@@ -249,7 +249,18 @@ Phases (any failure exits non-zero, before the result lines are printed):
      gradients within 5e-2 * max|ref| per tensor), 13 + 13 launches of the
      mode's kernels (host counters of an eager pass; a replay by the
      profiler), wall and device ms, edges/s, peak memory;
- 16. print one JSON line ``{"uni": {...}}`` (launches a prediction, times,
+ 16. the shipped examples' accuracy chains (``phase_examples``, under
+     build/chip_smoke/examples): ``tools_dev/sk_accuracy.py --example`` for
+     sk_siesta, sk_abacus, sk_lmdb, sk_collinear, sk_ncl and sk_spinsoc at
+     their configs' widths on 2 structures a species (the spin sets 6), 1
+     epoch, on the card: teacher, packing (SIESTA and ABACUS through the
+     native readers, LMDB through ``tools.npz_to_lmdb``), fit, the
+     acceptance step from ``<train_dir>/best`` (bands, per-spin bands and the
+     spatial / splitting MAE); each result with every key and finite MAEs
+     and acceptance numbers, the run through B1 and B2 and no other kernel
+     (host counters), one replay of each chain's captured training step
+     (the profiler) at 4 * layers + 1 launches of each;
+ 17. print one JSON line ``{"uni": {...}}`` (launches a prediction, times,
      errors, peak memory), one ``{"parallel": {...}}``, one describing each
      kernel (the variants as entries of their own), then the result line
      ``{"ok": true, "device": {...}}`` last.
@@ -406,6 +417,7 @@ def phase_kernels(tp_kernel, dev, cfg=None, width="bench"):
     import torch
 
     from hamgnn_tpu_torch.e3.packed_tp import plain_apply
+    from hamgnn_tpu_torch.tools_dev.probe import device_normal
 
     rows = []
     for name, plan, has_w, per_fwd in bench_plans(cfg):
@@ -413,8 +425,7 @@ def phase_kernels(tp_kernel, dev, cfg=None, width="bench"):
         rng = np.random.default_rng(7)
         E = E_BENCH
 
-        def t(*shape):
-            return torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev)
+        t = device_normal(rng, dev)
 
         x, sh = t(E, spec.d_in), t(E, spec.S)
         w = t(E, spec.n_ch) if has_w else None
@@ -450,6 +461,7 @@ def phase_bwd_kernels(tp_kernel, dev, cfg=None, width="bench"):
     import torch
 
     from hamgnn_tpu_torch.e3.packed_tp import plain_backward
+    from hamgnn_tpu_torch.tools_dev.probe import device_normal
 
     rows = []
     for name, plan, has_w, per_step in bench_plans(cfg):
@@ -460,8 +472,7 @@ def phase_bwd_kernels(tp_kernel, dev, cfg=None, width="bench"):
         rng = np.random.default_rng(8)
         E = E_BENCH
 
-        def t(*shape):
-            return torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev)
+        t = device_normal(rng, dev)
 
         x, sh, w, fw, gy = (t(E, spec.d_in), t(E, spec.S), t(E, spec.n_ch),
                             t(plan.linear_numel), t(E, spec.d_out))
@@ -518,15 +529,16 @@ def phase_wide_kernels(tp_kernel, dev):
 
     from hamgnn_tpu_torch.e3.irreps import Irreps
     from hamgnn_tpu_torch.e3.packed_tp import get_plan, plain_apply, plain_backward
+    from hamgnn_tpu_torch.tools_dev.probe import device_normal
 
     plan = get_plan(*(repr(Irreps(s)) for s in
                       ("16x0e+4x1o+2x2e", "0e+1o+2e", WIDE_OUT, WIDE_OUT)))
     spec = tp_kernel.get_spec(plan)
     rng = np.random.default_rng(9)
     E = 333
-    x, sh, w, fw, gy = (torch.as_tensor(rng.normal(size=s_).astype(np.float32), device=dev)
-                        for s_ in ((E, spec.d_in), (E, spec.S), (E, spec.n_ch),
-                                   (plan.linear_numel,), (E, spec.d_out)))
+    t = device_normal(rng, dev)
+    x, sh, w, fw, gy = (t(*s_) for s_ in ((E, spec.d_in), (E, spec.S), (E, spec.n_ch),
+                                         (plan.linear_numel,), (E, spec.d_out)))
     with torch.inference_mode():
         out = tp_kernel.packed_tp_forward(plan, x, sh, w, fw)
         ref = plain_apply(plan, x, sh, w, fw)
@@ -608,12 +620,12 @@ def zonal_inputs(plan, has_w, seed, dev, with_gout=False):
 
     from hamgnn_tpu_torch.e3 import zonal_tp
     from hamgnn_tpu_torch.e3.spherical import spherical_harmonics
+    from hamgnn_tpu_torch.tools_dev.probe import device_normal
 
     rng = np.random.default_rng(seed)
     E = E_BENCH
 
-    def t(*shape):
-        return torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev)
+    t = device_normal(rng, dev)
 
     vec = rng.normal(size=(E, 3)).astype(np.float32)
     vec[:3] = [[0, 0, 1], [0, 0, -1], [1e-7, -1e-7, -1]]
@@ -1042,10 +1054,11 @@ def phase_captured(tp_kernel, dev, card, eng):
         # one replay's launches, from a profiler trace
         names = [n for k in ENGINES[eng] for n in tp_kernel.KERNELS[k].device_kernels]
         host = {n: k.launches for n, k in tp_kernel.KERNELS.items()}
-        replay_launches = device_launches(lambda: cap.train_step(graph), names)
+        reads = profiled_launches(lambda: cap.train_step(graph), names, 4 * layers + 1)
+        replay_launches = reads[-1]
         if replay_launches != {n: 4 * layers + 1 for n in names} or host != {
                 n: k.launches for n, k in tp_kernel.KERNELS.items()}:
-            fail(f"one replay of the step ({eng}) launched {replay_launches}, expected "
+            fail(f"one replay of the step ({eng}) launched {reads} (profiler traces), expected "
                  f"{4 * layers + 1} of each, and moved the host counters")
 
         # the eval step from the same state
@@ -1108,7 +1121,7 @@ def profile_train_step(tr, graph, fname, steps=1):
 
     from hamgnn_tpu_torch.utils.profiling import PROFILER_LEAD_S
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILER_LEAD_S)  # no kernel of the step before the session's start
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -1152,7 +1165,7 @@ def profile_eval(tr, graph, fname):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         tr.eval_step(graph)
         torch.cuda.synchronize()
@@ -1167,8 +1180,7 @@ def profile_forward(model, graph, fname):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
-                                                     ProfilerActivity.CUDA]) as prof:
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         model(graph)
         torch.cuda.synchronize()
@@ -2512,7 +2524,6 @@ def phase_mag_case(tp_kernel, dev, card, graph, n_edges, mode, eng, learned=Fals
     from hamgnn_tpu_torch.models.model import init_weights
     from hamgnn_tpu_torch.train.config import load_config
     from hamgnn_tpu_torch.train.trainer import Trainer
-    from hamgnn_tpu_torch.utils.profiling import device_launches
 
     cfg, losses = mag_config(mode, use_learned_weight=learned)
     layers = cfg["representation_nets"]["HamGNN_pre"]["num_layers"]
@@ -2604,10 +2615,11 @@ def phase_mag_case(tp_kernel, dev, card, graph, n_edges, mode, eng, learned=Fals
             for form in ("eager", "captured"):
                 times[form].append(_host_time(lambda: trs[form].train_step(graph)))
         names = [n for k in ENGINES[eng] for n in tp_kernel.KERNELS[k].device_kernels]
-        replay = device_launches(lambda: cap.train_step(graph), names)
+        reads = profiled_launches(lambda: cap.train_step(graph), names, per)
+        replay = reads[-1]
         if replay != {n: per for n in names}:
-            fail(f"one replay of the magnetic step ({tag}) launched {replay}, expected {per} "
-                 "of each")
+            fail(f"one replay of the magnetic step ({tag}) launched {reads} (profiler traces), "
+                 f"expected {per} of each")
         device = profile_train_step(cap, graph, f"profile_mag_step_{tag}.txt")
     result = dict(first_loss=[la, lb], worst_grad_rel_err=worst, peak_gb=peaks,
                   held_before_gb=held_gb, launches=launches, replay_launches=replay,
@@ -3002,7 +3014,6 @@ def phase_rep_case(tp_kernel, dev, card, graph, n_edges, case, eng):
     from hamgnn_tpu_torch.models.model import init_weights
     from hamgnn_tpu_torch.train.config import load_config
     from hamgnn_tpu_torch.train.trainer import Trainer
-    from hamgnn_tpu_torch.utils.profiling import device_launches
 
     cfg = rep_config(case)
     per = 4 * cfg["representation_nets"]["HamGNN_pre"]["num_layers"] + 1
@@ -3073,9 +3084,11 @@ def phase_rep_case(tp_kernel, dev, card, graph, n_edges, case, eng):
             for form in ("eager", "captured"):
                 times[form].append(_host_time(lambda: trs[form].train_step(graph)))
         names = [n for k in ENGINES[eng] for n in tp_kernel.KERNELS[k].device_kernels]
-        replay = device_launches(lambda: cap.train_step(graph), names)
+        reads = profiled_launches(lambda: cap.train_step(graph), names, per)
+        replay = reads[-1]
         if replay != {n: per for n in names}:
-            fail(f"one replay of the {tag} step launched {replay}, expected {per} of each")
+            fail(f"one replay of the {tag} step launched {reads} (profiler traces), expected "
+                 f"{per} of each")
         device = profile_train_step(cap, graph, f"profile_rep_{tag}.txt")
     result = dict(first_loss=[la, lb], default_mode=dict(loss=[la2, lb2], **spread),
                   peak_gb=peaks, held_before_gb=held_gb, launches=launches,
@@ -3579,7 +3592,6 @@ def _datagen_fit(tp_kernel):
     from hamgnn_tpu_torch.models.basis import get_basis_set
     from hamgnn_tpu_torch.physics.kpoints import k_path
     from hamgnn_tpu_torch.tools import band_cal
-    from hamgnn_tpu_torch.utils.profiling import device_launches
 
     work, train = DATAGEN_WORK / "run", DATAGEN_WORK / "run" / "train"
     work.mkdir(parents=True, exist_ok=True)
@@ -3606,9 +3618,11 @@ def _datagen_fit(tp_kernel):
         fail("the datagen fit built no captured training step")
     names = [n for k in ENGINES["auto"] for n in tp_kernel.KERNELS[k].device_kernels]
     first = next(iter(cap.train_graphs.values()))
-    replay = device_launches(first.graph.replay, names)
+    reads = profiled_launches(first.graph.replay, names, 13)
+    replay = reads[-1]
     if replay != {n: 13 for n in names}:
-        fail(f"one replay of the datagen fit's step launched {replay}, expected 13 of each")
+        fail(f"one replay of the datagen fit's step launched {reads} (profiler traces), "
+             "expected 13 of each")
 
     test_cfg = _shipped(ROOT / "examples" / "sk" / "config_band_test.yaml", work,
                         "sk_band_test.yaml",
@@ -3910,7 +3924,7 @@ def _uni_compat(tp_kernel, dev, card):
         peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
         times = [_host_time(lambda: model(graph)) for _ in range(3)]
         t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             model(graph)
             torch.cuda.synchronize()
         prof_rows = _write_profile(prof, time.perf_counter() - t0, 1, "profile_uni_compat.txt",
@@ -4549,13 +4563,13 @@ def _variant_lab(tp_kernel, dev, name, plan, has_w):
     import torch
 
     from hamgnn_tpu_torch.e3.packed_tp import plain_apply, plain_backward
+    from hamgnn_tpu_torch.tools_dev.probe import device_normal
 
     spec = tp_kernel.get_spec(plan)
     rng = np.random.default_rng(21)
     E = E_BENCH
 
-    def t(*shape):
-        return torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev)
+    t = device_normal(rng, dev)
 
     x, sh, fw, gy = t(E, spec.d_in), t(E, spec.S), t(plan.linear_numel), t(E, spec.d_out)
     w = t(E, spec.n_ch) if has_w else None
@@ -4681,7 +4695,6 @@ def _variant_step(tp_kernel, dev, card, graph, n_edges, key, ref=None):
     from hamgnn_tpu_torch.models.model import compute_losses, init_weights
     from hamgnn_tpu_torch.train.config import load_config
     from hamgnn_tpu_torch.train.trainer import Trainer
-    from hamgnn_tpu_torch.utils.profiling import device_launches
 
     eng, bf16, store = VARIANT_STEPS[key]
     layers = BENCH_CFG["representation_nets"]["HamGNN_pre"]["num_layers"]
@@ -4712,9 +4725,11 @@ def _variant_step(tp_kernel, dev, card, graph, n_edges, key, ref=None):
             fail(f"variant step {key}: loss {loss}")
         grad = tr.grad.clone()
         names = [n for k in ENGINES[eng] for n in tp_kernel.KERNELS[k].device_kernels]
-        replay = device_launches(lambda: tr.train_step(graph), names)
+        reads = profiled_launches(lambda: tr.train_step(graph), names, per)
+        replay = reads[-1]
         if replay != {n: per for n in names}:
-            fail(f"one replay of the {key} step launched {replay}, expected {per} of each")
+            fail(f"one replay of the {key} step launched {reads} (profiler traces), expected "
+                 f"{per} of each")
         times = [_host_time(lambda: tr.train_step(graph)) for _ in range(5)]
         device = profile_train_step(tr, graph, f"profile_variant_{key}.txt")
         # an eager pass through the same model: the mode's kernels, 13 + 13
@@ -4804,6 +4819,72 @@ def phase_variants(tp_kernel, dev, card):
     return dict(rows=rows, steps=steps)
 
 
+# phase 16: the shipped examples' accuracy chains at a tiny size, through the
+# harness a user runs (under build/chip_smoke/examples)
+EXAMPLES_WORK = WORK / "examples"
+EXAMPLE_CHAINS = ("sk_siesta", "sk_abacus", "sk_lmdb", "sk_collinear", "sk_ncl", "sk_spinsoc")
+EXAMPLE_KEYS = ("example", "test_mae_Ha", "test_metrics", "best_val_mae_Ha", "best_val_epoch",
+                "val_mae_last_Ha", "test_mae_best_Ha",
+                "epochs", "sec_per_epoch_median", "band_dev_max_meV", "band_dev_mean_meV",
+                "bands", "seconds", "resumed", "seed", "init_seed", "tp_launches_run",
+                "tp_launches_per_step", "jax", "marks", "card")
+
+
+def phase_examples(tp_kernel):
+    """Each example chain of ``tools_dev/sk_accuracy.py`` but ``sk`` and
+    ``sk_soc`` (whose data phase 12 makes) at its config's width on 2
+    structures a species, 1 epoch: the harness's result (and its
+    ``result.json``) with every key, finite MAEs and acceptance numbers,
+    the run through B1 and B2 and no other kernel, and one replay of its
+    captured training step (from its ``best.pt``, read by the profiler) at
+    4 * layers + 1 launches of each."""
+    import yaml
+
+    from hamgnn_tpu_torch.tools_dev import sk_accuracy
+    from hamgnn_tpu_torch.tools_dev.sk_examples import EXAMPLES
+
+    if EXAMPLES_WORK.exists():
+        shutil.rmtree(EXAMPLES_WORK)
+    out = {}
+    for name in EXAMPLE_CHAINS:
+        ex = EXAMPLES[name]
+        sizes = (["--n", "6"] if ex.data != "container"
+                 else ["--n-si", "2", "--n-c", "2", "--n-sic", "2"])
+        t0 = time.perf_counter()
+        r = sk_accuracy.main(["--example", name, "--out", str(EXAMPLES_WORK / name),
+                              "--max-epochs", "1"] + sizes)
+        seconds = time.perf_counter() - t0
+        saved = json.loads((EXAMPLES_WORK / name / "result.json").read_text())
+        missing = [k for k in EXAMPLE_KEYS if k not in saved]
+        if missing or saved != json.loads(json.dumps(r)):
+            fail(f"example {name}: result.json lacks {missing} or differs from the printed line")
+        cfg = yaml.safe_load((ROOT / "examples" / name / "config.yaml").read_text())
+        per = 4 * cfg["representation_nets"]["HamGNN_pre"]["num_layers"] + 1
+        run = r["tp_launches_run"]
+        if set(run) != set(ENGINES["auto"]) or min(run.values()) == 0 \
+                or r["tp_launches_per_step"] != {k: per for k in ENGINES["auto"]}:
+            fail(f"example {name}: launches over the run {run}, in one replay of its step "
+                 f"{r['tp_launches_per_step']}, expected B1 and B2 only, {per} of each a step")
+        numbers = [r["test_mae_Ha"], r["best_val_mae_Ha"], r["test_mae_best_Ha"],
+                   *r["test_metrics"].values()]
+        if ex.acceptance != "mae":
+            numbers += [r["band_dev_max_meV"], r["band_dev_mean_meV"]]
+        if ex.acceptance == "collinear":
+            numbers += [*r["decomposition"].values(),
+                        *(s["band_dev_mean_meV"] for s in r["spin_bands"].values())]
+        if r["epochs"] != 1 or not all(v is not None and math.isfinite(v) for v in numbers):
+            fail(f"example {name}: {r['epochs']} epochs, numbers {numbers}")
+        print(f"[examples] {name}: {seconds:.1f} s, test MAE {r['test_mae_Ha']:.4e} Ha, "
+              f"launches over the run {run}, one replay {r['tp_launches_per_step']}"
+              + (f", bands mean {r['band_dev_mean_meV']:.1f} meV" if ex.acceptance != "mae"
+                 else "") + (f", store {r['store']}" if "store" in r else ""), flush=True)
+        out[name] = dict(seconds=seconds, launches_run=run,
+                         launches_per_step=r["tp_launches_per_step"],
+                         test_mae_Ha=r["test_mae_Ha"], store=r.get("store"))
+    shutil.rmtree(EXAMPLES_WORK)
+    return out
+
+
 def rep_launches(representation, eng, name, tp_kernel) -> int:
     """A kernel's launches in one replay of the Transformer step under its
     engine (the profiler's count of each of its device kernels)."""
@@ -4882,6 +4963,7 @@ def main():
     datagen = timed("datagen", phase_datagen, tp_kernel)
     uni = timed("uni", phase_uni, tp_kernel, dev, card)
     parallel = timed("parallel", phase_parallel, tp_kernel, dev, card)
+    examples = timed("examples", phase_examples, tp_kernel)
 
     report = {"card": card, "kernel_rows": rows, "wide": wide, "zonal_engine": zonal_engine,
               "model": model, "train": train, "captured": captured, "variants": variants,
@@ -4890,7 +4972,7 @@ def main():
               "eigh": eigh, "band": band, "band_fit": band_fit, "soc": soc,
               "magnetic": magnetic,
               "lmdb": lmdb, "representation": representation, "datagen": datagen,
-              "uni": uni, "parallel": parallel, "seconds": seconds}
+              "uni": uni, "parallel": parallel, "examples": examples, "seconds": seconds}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -4930,6 +5012,11 @@ def main():
                     uni["native"]["launches"][eng][name] // uni["native"]["crystals"]),
                 # one eager halo step (world 1, n_graph 1) at the bench width
                 "halo_launches_per_step": parallel[f"world1_{eng}"]["halo"]["launches"][name],
+                # one replay of each example chain's captured training step,
+                # from its best.pt, by the profiler (phase 16)
+                "examples_launches_per_step": (
+                    {ex: r["launches_per_step"][name] for ex, r in examples.items()}
+                    if eng == "auto" else {}),
                 # one replay of the captured band steps, by device kernel
                 "band_replay_launches": (
                     {tag: {dk: res["captured_vs_eager"]["replay_launches"][dk]

@@ -37,6 +37,15 @@ BENCH_ROWS = 19_968  # bench.py crystal: 19,672 edges padded to a multiple of 51
 ODD_ROWS = 1_001     # a row count that fills no grid evenly
 SECTOR = 32          # bytes the card moves at least per read of device memory
 
+def device_normal(rng: np.random.Generator, device):
+    """A maker of standard-normal fp32 tensors on ``device`` (``t(*shape)``),
+    from a generator there seeded by ``rng``: drawing the bench-size inputs
+    on the host and copying them takes seconds each."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(2**62)))
+    return lambda *shape: torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+
+
 # every probe kernel by name ("probe_<name>"), with its count of launches
 PROBE_KERNELS: Dict[str, CudaKernel] = {}
 
@@ -97,9 +106,10 @@ class Probe:
 
     def inputs(self, rng: np.random.Generator, device, rows: Optional[int] = None):
         """Standard-normal inputs at ``rows`` rows (default: the probe's
-        size), drawn in fp32 and cast to the probe's type, on ``device``."""
-        return [torch.as_tensor(rng.normal(size=shape).astype(np.float32),
-                                device=device).to(self.dtype)
+        size), drawn in fp32 on ``device`` (``device_normal``) and cast to the
+        probe's type."""
+        t = device_normal(rng, device)
+        return [t(*shape).to(self.dtype)
                 for shape in self.shapes(self.rows if rows is None else rows)]
 
     def __call__(self, *tensors):

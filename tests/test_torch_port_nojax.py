@@ -460,7 +460,7 @@ def test_source_import_check_covers_the_data_tools():
                 "tools/poscar2abacus.py", "interfaces/openmx.py", "interfaces/siesta.py",
                 "interfaces/abacus.py", "interfaces/scfout_writer.py",
                 "interfaces/openmx_tables.py", "interfaces/native.py",
-                "tools_dev/sk_accuracy.py"):
+                "tools_dev/sk_accuracy.py", "tools_dev/sk_examples.py"):
         assert PKG / rel in set(PKG.rglob("*.py")), rel
 
 
