@@ -215,25 +215,43 @@ Phases (any failure exits non-zero, before the result lines are printed):
  14. multi-device training (``phase_parallel``, under build/chip_smoke/parallel):
      (a) a one-process NCCL group on a free localhost port; per engine, the
      one-device eager step at the bench width, then an eager halo step
-     (``HaloTrainer``, n_graph 1) and a data-parallel step
-     (``ParallelTrainer``) from the same seeded weights: loss within 1e-6
-     relative, flat gradient within 1e-5 * max|g|, 13 + 13 launches of the
-     engine's kernels by the host counters and by the profiler, wall and
-     device ms a step, peak memory, the plan's sizes; (b) two processes on the
-     one card over gloo, the bench crystal split 2 ways, against (a)'s step
-     (loss 1e-6, gradient 1e-4 * max|g|), halo rows a layer and the boundary
-     share, left out and reported where this build's gloo carries no CUDA
-     tensor; (c) one so3 halo step at phase 8's cell against the one-device
-     step under deterministic algorithms (phase 8's limits) and one band-mode
-     halo step (a 16-atom crystal of phase 7, 6 k) against the one-device band
-     step (loss 1e-5 relative, band MAE 5e-4, gradient 2e-2 * max|g|, the band
-     term's limit); (d)
+     (``HaloTrainer``, n_graph 1, ``capture=False``) and an eager
+     data-parallel step (``ParallelTrainer``) from the same seeded weights,
+     under deterministic algorithms: loss within 1e-6 relative, flat
+     gradient within 1e-5 * max|g|, 13 + 13 launches of the engine's kernels
+     by the host counters, the plan's sizes; (a') the same two trainers as
+     they run by default, captured as CUDA graphs over NCCL: the first step
+     bit for bit with the eager one under deterministic algorithms (loss,
+     logs, parameters, optimizer state), 13 + 13 kernel nodes of the
+     engine's kernels in the captured graph; in the default mode a new
+     captured trainer, its first step (warm-up, capture, replay) timed with
+     the peak memory, then eager and captured timed in turns (wall, median
+     of 3) and one step of each profiled (device ms, 13 + 13 launches), the
+     host spans of one captured step (slicing, copy, launch, wait); under the
+     default engine an epoch of ``HaloTrainer.train_epoch`` over batches
+     packed anew by ``HaloDataAdapter``, with the inputs copied from pinned
+     memory without waiting, copied synchronously, and with a loss read a
+     step, beside the host's packing alone (whether packing overlaps the
+     replays); (b) two processes on the one card over gloo, the bench crystal split 2
+     ways, against (a)'s step (loss 1e-6, gradient 1e-4 * max|g|), the
+     trainer eager by default over gloo and ``capture=True`` refused, halo
+     rows a layer and the boundary share, one step's wall, left out and
+     reported where this build's gloo carries no CUDA tensor; (c) one so3
+     halo step at phase 8's cell against the one-device step under
+     deterministic algorithms (phase 8's limits), and as the trainer runs it
+     by default (captured) bit for bit against the eager one with 9 + 9
+     kernel nodes of B1/B2 in its graph; one band-mode halo step
+     (a 16-atom crystal of phase 7, 6 k) eager against the one-device band
+     step and captured in segments against the eager one (loss 1e-5
+     relative, band MAE 5e-4, gradient 2e-2 * max|g|, the band term's
+     limit), both timed; (d)
      ``torch.distributed.run --standalone --nproc_per_node 1 -m
      hamgnn_tpu_torch.cli`` with ``setup.parallel.mode: halo``, then ``dp``,
-     2 epochs on phase 5's set; each run's ``best.pt`` tested under ``mode:
-     none`` on the validation crystal gives the MAE its halo evaluation logged
-     at the best epoch within 1e-5 relative; the magnetic head under ``mode:
-     halo`` raises the JAX package's NotImplementedError;
+     2 epochs on phase 5's set, each printing that its steps ran from
+     captured CUDA graphs; each run's ``best.pt`` tested under ``mode:
+     none`` on the validation crystal gives the MAE its halo evaluation
+     logged at the best epoch within 1e-5 relative; the magnetic head under
+     ``mode: halo`` raises the JAX package's NotImplementedError;
  15. the precision and schedule switches (``phase_variants``, run after
      phase 4): at the bench width and the pair, pair_lite, node and edge plans,
      each of B1-B4 in its bf16 instantiation (``HAMGNN_TP_BF16``) against its
@@ -1457,7 +1475,7 @@ def graphs_kept():
     def kept(self):
         g = torch.cuda.CUDAGraph(keep_graph=True)
         self.graphs.append(g)
-        g.capture_begin(pool=self.pool)
+        g.capture_begin(pool=self.pool, capture_error_mode=cuda_graphs.capture_mode())
 
     cuda_graphs.Segments.begin = kept
     try:
@@ -1864,7 +1882,7 @@ def trainers_capture(capture):
         init(self, *args, **kwargs)
 
     def counted(self, body, static, inputs, inference):
-        graphs.append((captured.shape_key(static), "eval" if inference else "train"))
+        graphs.append((captured.step_key(static, inputs), "eval" if inference else "train"))
         return cap(self, body, static, inputs, inference)
 
     trainer.Trainer.__init__, captured.CapturedSteps._capture = patched_init, counted
@@ -4063,98 +4081,278 @@ def _grad_check(what, got, ref, tol):
     return err / scale
 
 
-def _par_step_stats(tr, item, fname, names):
-    """Wall ms (median of 3, host clock to a sync), peak memory, and from one
-    profiled step its device ms and each named device kernel's launches
-    (written to chiprun_out/<fname>)."""
-    import numpy as np
+def _par_profile(tr, item, fname, names):
+    """Device ms and each named device kernel's launches of one profiled
+    step (written to chiprun_out/<fname>)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from hamgnn_tpu_torch.utils.profiling import PROFILER_LEAD_S
 
-    times = [_host_time(lambda: tr.train_step(item)) for _ in range(3)]
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILER_LEAD_S)  # no kernel of the step before the session's start
         wall = _host_time(lambda: tr.train_step(item))
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA]
-    return {"wall_ms": 1e3 * float(np.median(times)),
-            "device_ms": _write_profile(prof, wall, 1, fname, "step")["__all__"],
+    return {"device_ms": _write_profile(prof, wall, 1, fname, "step")["__all__"],
             "device_launches": {n: sum(ev.count for ev in kernels if n in ev.key)
-                                for n in names},
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+                                for n in names}}
+
+
+def _par_state(tr):
+    return [tr.flat, *tr.opt.state_dict().values()]
+
+
+def _par_host_split(tr, kind, item):
+    """The host spans of one captured step, ms, the median of 3: the rank's
+    inputs sliced from the packed batch on the host (``_args``; the dp batch
+    is a padded crystal already), their copy into the graph's buffers
+    (``copy_inputs``), the replay's launch, and the wait for the card after
+    it; the card is idle until the launch."""
+    import numpy as np
+    import torch
+
+    steps = tr.parallel_steps
+    spans = {"args": [], "copy": [], "launch": [], "wait": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inp, band = tr._args(item, "cpu") if kind == "halo" else (item, {})
+        t1 = time.perf_counter()
+        key, _, _ = steps._static_for(inp, band)
+        t2 = time.perf_counter()
+        steps.train_graphs[key].graph.replay()
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for name, a, b in (("args", t0, t1), ("copy", t1, t2), ("launch", t2, t3),
+                           ("wait", t3, t4)):
+            spans[name].append(1e3 * (b - a))
+    return {k: float(np.median(v)) for k, v in spans.items()}
+
+
+PAR_EPOCH_BATCHES = 4
+
+
+def _par_epoch(tr, device_ms, card):
+    """An epoch of ``HaloTrainer.train_epoch`` over batches packed anew by
+    ``HaloDataAdapter`` (the bench crystal, ``PAR_EPOCH_BATCHES`` of it),
+    through the captured step in three forms, in turns (two rounds after a
+    warm epoch, the lesser wall of each): ``async``, the trainer as it is
+    (the inputs copied from pinned memory without waiting, one read of the
+    losses an epoch); ``sync``, the inputs copied to the card by
+    ``local_inputs``, which waits for the card at its first copy, then into
+    the graph's buffers; ``sync_read``, ``async`` with the loss read after
+    every step.  Beside them the host's packing alone (the adapter's batches
+    and ``_args``, nothing on the card).  Packing overlaps the replays where
+    an epoch's wall a step stays near max(device, packing), not their sum."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch.data.synthetic import bench_crystal
+    from hamgnn_tpu_torch.parallel.halo_trainer import HaloDataAdapter
+
+    n = PAR_EPOCH_BATCHES
+    crystal = bench_crystal()
+    dm = types.SimpleNamespace(graphs=[crystal] * n, node_quantum=512, edge_quantum=512,
+                               train_idx=list(range(n)))
+    adapter = HaloDataAdapter(dm, n_data=1, n_graph=1, edge_quantum=tr.edge_quantum)
+    rng = np.random.default_rng(0)
+    args = tr._args
+
+    def pack():
+        for item in adapter.train_batches(rng):
+            args(item, "cpu")
+
+    def sync_read():
+        for item in adapter.train_batches(rng):
+            float(tr.train_step(item)[0])
+
+    def form(name):
+        if name == "pack":
+            return pack
+        if name == "sync_read":
+            return sync_read
+        if name == "sync":
+            return lambda: _with_args(tr, lambda item, device: args(item, tr.device),
+                                      lambda: tr.train_epoch(adapter.train_batches(rng)))
+        return lambda: tr.train_epoch(adapter.train_batches(rng))
+
+    captures = tr.parallel_steps.captures
+    tr.train_epoch(adapter.train_batches(rng))   # warm: the adapter's key, pinned blocks
+    forms = ("async", "sync", "sync_read", "pack")
+    walls = {f: [] for f in forms}
+    for _ in range(2):
+        for f in forms:
+            walls[f].append(1e3 * _host_time(form(f)) / n)
+    if not np.isfinite(tr.flat.detach().cpu().numpy()).all():
+        fail("the halo epochs left non-finite parameters")
+    per_step = {f: float(min(v)) for f, v in walls.items()}
+    res = dict(batches=n, wall_ms_per_step=per_step, walls_ms_per_step=walls,
+               device_ms_per_step=device_ms, new_captures=tr.parallel_steps.captures - captures)
+    print(f"[parallel] (a') halo epoch of {n} batches packed anew by HaloDataAdapter, wall a "
+          f"step (ms, best of 2): async (pinned, one read an epoch) {per_step['async']:.3f}, "
+          f"sync copies {per_step['sync']:.3f}, async with a read a step "
+          f"{per_step['sync_read']:.3f}; the host's packing alone {per_step['pack']:.3f}; "
+          f"device {device_ms:.3f} ms a step (profiled replay); "
+          f"{res['new_captures']} new capture(s); card {card}", flush=True)
+    return res
+
+
+def _with_args(tr, args, fn):
+    """``fn()`` with ``tr._args`` replaced by ``args``."""
+    tr._args = args
+    try:
+        return fn()
+    finally:
+        del tr._args
 
 
 def _par_world1(tp_kernel, dev, card, eng):
-    """(a) at world size 1 over NCCL: the one-device eager step, then a halo
-    step (``HaloTrainer``, n_graph 1) and a data-parallel step
-    (``ParallelTrainer``) from the same seeded weights, under ``eng``."""
+    """(a) and (a') at world size 1 over NCCL, under ``eng``, at the bench
+    width: the one-device eager step, then per kind (``HaloTrainer`` and
+    ``ParallelTrainer``, n_graph 1) the eager step (``capture=False``) and
+    the step as the trainer runs it by default (captured), from the same
+    seeded weights.  Under deterministic algorithms: the eager step against
+    the one-device step (loss within 1e-6 relative, flat gradient within
+    1e-5 * max|g|, 13 + 13 launches by the host counters), the captured one
+    against the eager one bit for bit (loss, logs, parameters, optimizer
+    state), and 13 + 13 kernel nodes of the engine's kernels in its graph.
+    In the default mode, a new captured trainer (its first step: warm-up,
+    capture and replay, timed, with the peak memory), then both forms timed
+    in turns (wall ms, median of 3) and one step of each profiled (device
+    ms, 13 + 13 launches of the engine's kernels).  The halo batch is the
+    packed host inputs; the dp batch a padded crystal on the card (eager) or
+    on the host (captured, staged as the trainer's epoch stages it)."""
+    import numpy as np
     import torch
 
     from hamgnn_tpu_torch.cli import build_model
     from hamgnn_tpu_torch.models.model import init_weights
-    from hamgnn_tpu_torch.parallel.halo_trainer import HaloTrainer
+    from hamgnn_tpu_torch.parallel.halo_model import build_halo_inputs, plan_for_graph
+    from hamgnn_tpu_torch.parallel.halo_trainer import HaloTrainer, graph_to
     from hamgnn_tpu_torch.parallel.trainer import ParallelTrainer
     from hamgnn_tpu_torch.train.config import load_config
     from hamgnn_tpu_torch.train.trainer import Trainer
 
     graph, n_edges = bench_graph(dev)
+    host = graph_to(graph, "cpu")
+    plan = plan_for_graph(host, 1)
+    halo_item = {k: v[None] for k, v in build_halo_inputs(host, plan).items()}
     layers = BENCH_CFG["representation_nets"]["HamGNN_pre"]["num_layers"]
     expect = {k: 4 * layers + 1 for k in ENGINES[eng]}
     names = [n for k in ENGINES[eng] for n in tp_kernel.KERNELS[k].device_kernels]
+    classes = {"halo": HaloTrainer, "dp": ParallelTrainer}
 
     def trainer(cls, tag, **kw):
         model = init_weights(build_model(load_config(None, overrides=BENCH_CFG)), 0)
         return cls(model, losses=BENCH_LOSSES, metrics=[], lr=1e-3, device=dev,
                    train_dir=str(PAR_WORK / f"{tag}_{eng}"), **kw)
 
-    out = {}
-    with engine(eng):
-        one = trainer(Trainer, "one", capture=False)
-        loss1 = float(one.train_step(graph)[0])
-        g1 = one.grad.clone()
-        del one
-        plan, loc = _local_batch(graph, 1, 0, dev)
-        for kind in ("halo", "dp"):
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
-            if kind == "halo":
-                tr, item = trainer(HaloTrainer, kind, n_data=1, n_graph=1), None
-                step = lambda: tr._halo_step()(loc, tr.sched.lr)  # noqa: E731
-            else:
-                tr, item = trainer(ParallelTrainer, kind, n_data=1, n_graph=1), graph
-                step = lambda: tr.train_step(graph)  # noqa: E731
-            reset_launches(tp_kernel)
-            loss, logs = step()
-            torch.cuda.synchronize()
-            launches = check_launches(tp_kernel, expect, f"one {kind} step ({eng})")
-            if not abs(float(loss) - loss1) <= 1e-6 * abs(loss1) \
-                    or float(logs["nonfinite_step"]) != 0.0:
-                fail(f"{kind} step ({eng}): loss {float(loss)!r} vs one-device {loss1!r}")
-            ratio = _grad_check(f"{kind} step ({eng})", tr.grad, g1, PAR_GRAD_TOL)
-            if kind == "halo":
-                # the step as the trainer runs it: host inputs sliced and moved each time
-                from hamgnn_tpu_torch.parallel.halo_model import build_halo_inputs
-                from hamgnn_tpu_torch.parallel.halo_trainer import graph_to
+    def item(kind, tr):
+        if kind == "halo":
+            return halo_item
+        return graph if tr.parallel_steps is None else host
 
-                item = build_halo_inputs(graph_to(graph, "cpu"), plan)
-                item = {k: v[None] for k, v in item.items()}
-            stats = _par_step_stats(tr, item, f"profile_{kind}_step_{eng}.txt", names)
-            if stats["device_launches"] != {n: 4 * layers + 1 for n in names}:
-                fail(f"{kind} step ({eng}): device launches {stats['device_launches']}")
-            out[kind] = dict(loss=float(loss), loss_one_device=loss1, grad_rel_err=ratio,
-                             launches=launches, **stats)
-            del tr
+    out, eagers = {}, {}
+    with engine(eng):
+        torch.use_deterministic_algorithms(True)
+        try:
+            one = trainer(Trainer, "one", capture=False)
+            loss1 = float(one.train_step(graph)[0])
+            g1 = one.grad.clone()
+            del one
+            for kind, cls in classes.items():
+                torch.cuda.empty_cache()
+                eager = trainer(cls, f"{kind}_eager", n_data=1, n_graph=1, capture=False)
+                reset_launches(tp_kernel)
+                le, logs_e = eager.train_step(item(kind, eager))
+                torch.cuda.synchronize()
+                launches = check_launches(tp_kernel, expect, f"one eager {kind} step ({eng})")
+                if not abs(float(le) - loss1) <= 1e-6 * abs(loss1) \
+                        or float(logs_e["nonfinite_step"]) != 0.0:
+                    fail(f"{kind} step ({eng}): loss {float(le)!r} vs one-device {loss1!r}")
+                ratio = _grad_check(f"{kind} step ({eng})", eager.grad, g1, PAR_GRAD_TOL)
+                with graphs_kept():
+                    cap = trainer(cls, f"{kind}_captured", n_data=1, n_graph=1)
+                    if eager.parallel_steps is not None or cap.parallel_steps is None:
+                        fail(f"{kind} ({eng}): the default trainer must capture on the card "
+                             f"under NCCL, and capture=False run eagerly")
+                    lc, logs_c = cap.train_step(item(kind, cap))
+                torch.cuda.synchronize()
+                same = (torch.equal(le, lc) and logs_e.keys() == logs_c.keys()
+                        and all(torch.equal(logs_e[k], logs_c[k]) for k in logs_e)
+                        and torch.equal(eager.grad, cap.grad)
+                        and all(torch.equal(a, b) for a, b in
+                                zip(_par_state(eager), _par_state(cap))))
+                if not same:
+                    fail(f"{kind} ({eng}): under deterministic algorithms the captured step "
+                         f"differs from the eager one: loss {float(lc)!r} vs {float(le)!r}, "
+                         f"max|d grad| {float((eager.grad - cap.grad).abs().max()):.3e}")
+                seg = next(iter(cap.parallel_steps.train_graphs.values())).graph
+                nodes, node_total = graph_kernel_nodes(seg, names, f"par_{kind}_{eng}")
+                if nodes != {n: 4 * layers + 1 for n in names}:
+                    fail(f"{kind} ({eng}): kernel nodes of the captured step {nodes}")
+                out[kind] = dict(loss=float(le), loss_one_device=loss1, grad_rel_err=ratio,
+                                 launches=launches, nodes=nodes, node_kernels=node_total,
+                                 segments=len(seg.graphs), bit_for_bit=True)
+                eagers[kind] = eager
+                del cap, seg
+        finally:
+            torch.use_deterministic_algorithms(False)
+        for kind, cls in classes.items():
+            eager = eagers.pop(kind)
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            cap = trainer(cls, f"{kind}_timed", n_data=1, n_graph=1)
+            capture_s = _host_time(lambda: cap.train_step(item(kind, cap)))
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            if cap.parallel_steps.captures != 1:
+                fail(f"{kind} ({eng}): {cap.parallel_steps.captures} captures after one step")
+            forms = {"eager": eager, "captured": cap}
+            walls = {f: [] for f in forms}
+            for _ in range(3):
+                for f, tr in forms.items():
+                    walls[f].append(1e3 * _host_time(lambda: tr.train_step(item(kind, tr))))
+            host_split = _par_host_split(cap, kind, item(kind, cap))
+            stats = {}
+            for f, tr in forms.items():
+                prof = _par_profile(tr, item(kind, tr), f"profile_{kind}_step_{f}_{eng}.txt",
+                                    names)
+                if prof["device_launches"] != {n: 4 * layers + 1 for n in names}:
+                    fail(f"{kind} step {f} ({eng}): device launches {prof['device_launches']}")
+                stats[f] = dict(wall_ms=float(np.median(walls[f])), walls_ms=walls[f], **prof)
+            stats["captured"]["host_split_ms"] = host_split
+            out[kind].update(
+                wall_ms=stats["eager"]["wall_ms"], device_ms=stats["eager"]["device_ms"],
+                captured=stats["captured"], eager=stats["eager"], capture_s=capture_s,
+                peak_gb=peak, captured_state_finite=bool(torch.isfinite(cap.flat).all()))
+            if kind == "halo" and eng == "auto":
+                out["halo_epoch"] = _par_epoch(cap, stats["captured"]["device_ms"], card)
+            del cap, eager, forms
     out["plan"] = _plan_sizes(plan)
     out["ref"] = (loss1, g1.cpu())
     torch.cuda.empty_cache()
     print(f"[parallel] (a) world 1 over NCCL, engine {eng}: one-device loss {loss1!r}; "
-          + "; ".join(f"{k} loss {r['loss']!r}, gradient {r['grad_rel_err']:.2e} of max|g|, "
-                      f"launches {r['launches']}, wall {r['wall_ms']:.3f} ms, device "
-                      f"{r['device_ms']:.3f} ms a step, peak {r['peak_gb']:.2f} GB"
-                      for k, r in out.items() if k in ("halo", "dp"))
+          + "; ".join(f"{k} eager loss {r['loss']!r}, gradient {r['grad_rel_err']:.2e} of "
+                      f"max|g|, launches {r['launches']}" for k, r in out.items()
+                      if k in ("halo", "dp"))
           + f"; plan (S=1) {out['plan']}; card {card}", flush=True)
+    for k in ("halo", "dp"):
+        r = out[k]
+        print(f"[parallel] (a') {k} step captured by default ({eng}): bit for bit with eager "
+              f"under deterministic algorithms, {r['segments']} graph(s), kernel nodes "
+              f"{r['nodes']} of {r['node_kernels']}; capture (warm-up, capture, first "
+              f"replay) {r['capture_s']:.3f} s, peak {r['peak_gb']:.2f} GB; wall a step "
+              f"captured {r['captured']['wall_ms']:.3f} ms on {r['captured']['device_ms']:.3f} "
+              f"ms of device, eager {r['eager']['wall_ms']:.3f} ms on "
+              f"{r['eager']['device_ms']:.3f} ms; host spans of one captured step (ms, "
+              f"median of 3) {r['captured']['host_split_ms']}; launches by the profiler "
+              f"captured {r['captured']['device_launches']}; card {card}", flush=True)
     return out
 
 
@@ -4190,21 +4388,29 @@ def _par_rank(rank, world, port, work):
 
         graph, _ = bench_graph(dev)
         plan, loc = _local_batch(graph, world, rank, dev)
+        from hamgnn_tpu_torch.parallel.sharding import capture_default
+
         tr = HaloTrainer(init_weights(build_model(load_config(None, overrides=BENCH_CFG)), 0),
                          losses=BENCH_LOSSES, metrics=[], lr=1e-3, device=dev,
                          train_dir=str(Path(work) / f"two_{rank}"), n_data=1, n_graph=world)
+        # over gloo the default is the eager step, and asking for a capture raises
+        result["default_eager"] = tr.parallel_steps is None and tr.captured is None
+        try:
+            capture_default(True, dev)
+            result["capture_true"] = "no error"
+        except ValueError as exc:
+            result["capture_true"] = str(exc)
         reset_launches(tp_kernel)
-        loss, _ = tr._halo_step()(loc, tr.sched.lr)
+        loss, _ = tr._halo_step()(loc, tr.lr_t)
         torch.cuda.synchronize()
         result.update(loss=float(loss), plan=_plan_sizes(plan),
                       launches={n: k.launches for n, k in tp_kernel.KERNELS.items()})
-        if rank == 0:  # the first step's gradient, before the timed steps overwrite it
+        if rank == 0:  # the first step's gradient, before the timed step overwrites it
             torch.save(tr.grad.cpu(), Path(work) / "two_rank_grad.pt")
         t0 = time.perf_counter()
-        for _ in range(3):
-            tr._halo_step()(loc, tr.sched.lr)
+        tr._halo_step()(loc, tr.lr_t)
         torch.cuda.synchronize()
-        result["wall_ms_shared_card"] = (time.perf_counter() - t0) / 3 * 1e3
+        result["wall_ms_shared_card"] = (time.perf_counter() - t0) * 1e3
     every = [None] * world
     dist.all_gather_object(every, result)
     if rank == 0:
@@ -4231,6 +4437,10 @@ def _par_two_ranks(card, ref):
         return {"ran": False, "gloo_cuda": ranks[0]["gloo_cuda"]}
     loss1, g1 = ref
     for r in ranks:
+        if not r["default_eager"] or "needs an NCCL process group, not gloo" not in \
+                r["capture_true"]:
+            fail(f"two ranks over gloo: rank {r['rank']} default eager {r['default_eager']}, "
+                 f"capture=True gave {r['capture_true']!r}")
         if not abs(r["loss"] - loss1) <= 1e-6 * abs(loss1):
             fail(f"two ranks: rank {r['rank']} loss {r['loss']!r} vs one-device {loss1!r}")
     g2 = torch.load(PAR_WORK / "two_rank_grad.pt")
@@ -4240,8 +4450,9 @@ def _par_two_ranks(card, ref):
           f"{loss1!r}, gradient {ratio:.2e} of max|g|; plan (S=2) E_loc {plan['E_loc']}, "
           f"H {plan['H']}, HE {plan['HE']}, E_b {plan['E_b']}, halo rows a layer per rank "
           f"{plan['halo_rows_per_shard']}, boundary share {plan['boundary_share']:.4f}; "
-          f"launches a rank {ranks[0]['launches']}; wall (both ranks on one card, not a "
-          f"speed) {[round(r['wall_ms_shared_card'], 3) for r in ranks]} ms; card {card}",
+          f"launches a rank {ranks[0]['launches']}; eager by default over gloo, capture=True "
+          f"raises; wall of one step (both ranks on one card, not a speed) "
+          f"{[round(r['wall_ms_shared_card'], 3) for r in ranks]} ms; card {card}",
           flush=True)
     return {"ran": True, "gloo_cuda": "supported", "grad_rel_err": ratio,
             "losses": [r["loss"] for r in ranks], "plan": plan,
@@ -4250,39 +4461,49 @@ def _par_two_ranks(card, ref):
 
 
 def _par_soc(tp_kernel, dev, card):
-    """(c) one so3 halo step at the SOC cell against the one-device eager
-    step, deterministic algorithms on (phase_soc's limits)."""
+    """(c) one so3 halo step at the SOC cell, deterministic algorithms on:
+    eager (``capture=False``) against the one-device eager step
+    (phase_soc's limits), and as the trainer runs it by default (captured)
+    against the eager one bit for bit (loss, logs, parameters, optimizer
+    state), with 9 + 9 kernel nodes of B1/B2 in its graph."""
     import torch
 
     from hamgnn_tpu_torch.cli import build_model
     from hamgnn_tpu_torch.models.model import init_weights
-    from hamgnn_tpu_torch.parallel.halo_trainer import HaloTrainer
+    from hamgnn_tpu_torch.parallel.halo_model import build_halo_inputs, plan_for_graph
+    from hamgnn_tpu_torch.parallel.halo_trainer import HaloTrainer, graph_to
     from hamgnn_tpu_torch.train.config import load_config
     from hamgnn_tpu_torch.train.trainer import Trainer
 
     graph, _ = soc_bench_graph(dev)
+    host = graph_to(graph, "cpu")
+    item = {k: v[None] for k, v in build_halo_inputs(host, plan_for_graph(host, 1)).items()}
     cfg, losses = soc_config("so3")
     layers = cfg["representation_nets"]["HamGNN_pre"]["num_layers"]
-    _, loc = _local_batch(graph, 1, 0, dev)
+    names = [n for k in ENGINES["auto"] for n in tp_kernel.KERNELS[k].device_kernels]
+    halo_kw = {"n_data": 1, "n_graph": 1}
     trs, res = {}, {}
     torch.use_deterministic_algorithms(True)
     try:
         for kind, cls, kw in (("one", Trainer, {"capture": False}),
-                              ("halo", HaloTrainer, {"n_data": 1, "n_graph": 1})):
+                              ("halo", HaloTrainer, dict(halo_kw, capture=False)),
+                              ("halo_captured", HaloTrainer, halo_kw)):
             model = init_weights(build_model(load_config(None, overrides=cfg)), 0)
-            trs[kind] = cls(model, losses=losses, metrics=[], lr=1e-3, device=dev,
-                            train_dir=str(PAR_WORK / f"soc_{kind}"), **kw)
-            reset_launches(tp_kernel)
-            loss, _ = (trs[kind].train_step(graph) if kind == "one"
-                       else trs[kind]._halo_step()(loc, trs[kind].sched.lr))
+            with graphs_kept():
+                trs[kind] = cls(model, losses=losses, metrics=[], lr=1e-3, device=dev,
+                                train_dir=str(PAR_WORK / f"soc_{kind}"), **kw)
+                reset_launches(tp_kernel)
+                res[kind] = trs[kind].train_step(graph if kind == "one" else item)
             torch.cuda.synchronize()
-            res[kind] = float(loss)
-        launches = check_launches(tp_kernel, {k: 4 * layers + 1 for k in ENGINES["auto"]},
-                                  "one so3 halo step")
+            if kind == "halo":
+                launches = check_launches(tp_kernel,
+                                          {k: 4 * layers + 1 for k in ENGINES["auto"]},
+                                          "one so3 halo step")
     finally:
         torch.use_deterministic_algorithms(False)
-    if not abs(res["halo"] - res["one"]) <= 1e-6 * abs(res["one"]):
-        fail(f"so3 halo step loss {res['halo']!r} vs one-device {res['one']!r}")
+    loss = {k: float(v[0]) for k, v in res.items()}
+    if not abs(loss["halo"] - loss["one"]) <= 1e-6 * abs(loss["one"]):
+        fail(f"so3 halo step loss {loss['halo']!r} vs one-device {loss['one']!r}")
     ofs, worst = 0, 0.0
     for name, p in trs["one"].model.named_parameters():
         err, scale = rel_err(trs["halo"].grad[ofs:ofs + p.numel()],
@@ -4291,18 +4512,39 @@ def _par_soc(tp_kernel, dev, card):
         if not err <= 1e-5 * scale:
             fail(f"so3 halo step gradient {name}: max|d| {err:.3e} > 1e-5 * {scale:.3e}")
         worst = max(worst, err / scale if scale else 0.0)
-    del trs
+    eager, cap = trs["halo"], trs["halo_captured"]
+    if eager.parallel_steps is not None or cap.parallel_steps is None:
+        fail("so3 halo: the default trainer must capture on the card under NCCL, and "
+             "capture=False run eagerly")
+    (le, logs_e), (lc, logs_c) = res["halo"], res["halo_captured"]
+    same = (torch.equal(le, lc) and logs_e.keys() == logs_c.keys()
+            and all(torch.equal(logs_e[k], logs_c[k]) for k in logs_e)
+            and torch.equal(eager.grad, cap.grad)
+            and all(torch.equal(a, b) for a, b in zip(_par_state(eager), _par_state(cap))))
+    if not same:
+        fail(f"so3 halo: under deterministic algorithms the captured step differs from the "
+             f"eager one: loss {float(lc)!r} vs {float(le)!r}, max|d grad| "
+             f"{float((eager.grad - cap.grad).abs().max()):.3e}")
+    seg = next(iter(cap.parallel_steps.train_graphs.values())).graph
+    nodes, node_total = graph_kernel_nodes(seg, names, "par_soc")
+    if nodes != {n: 4 * layers + 1 for n in names}:
+        fail(f"so3 halo: kernel nodes of the captured step {nodes}")
+    del trs, res, eager, cap, seg
     torch.cuda.empty_cache()
-    print(f"[parallel] (c) so3 halo step (world 1, deterministic): loss {res['halo']!r} vs "
-          f"{res['one']!r}, worst gradient {worst:.2e} of max|ref| per tensor, launches "
-          f"{launches}; card {card}", flush=True)
-    return dict(losses=res, worst_grad_rel_err=worst, launches=launches)
+    print(f"[parallel] (c) so3 halo step (world 1, deterministic): loss {loss['halo']!r} vs "
+          f"{loss['one']!r}, worst gradient {worst:.2e} of max|ref| per tensor, launches "
+          f"{launches}; captured by default: bit for bit with eager, kernel nodes {nodes} "
+          f"of {node_total}; card {card}", flush=True)
+    return dict(losses=loss, worst_grad_rel_err=worst, launches=launches,
+                captured=dict(bit_for_bit=True, nodes=nodes, node_kernels=node_total))
 
 
 def _par_band(tp_kernel, dev, card):
     """(c) one band-mode halo step (one 16-atom crystal of the band phase,
-    6 k, n_data 1) against the one-device eager band step: loss within 1e-5
-    relative, band MAE within 5e-4, the flat gradient within 2e-2 * max|g|."""
+    6 k, n_data 1), eager (``capture=False``) against the one-device band
+    step, and as the trainer runs it by default (captured in segments around
+    the eigensolve) against the eager one: loss within 1e-5 relative, band
+    MAE within 5e-4, the flat gradient within 2e-2 * max|g|; both timed."""
     import numpy as np
     import torch
 
@@ -4325,9 +4567,11 @@ def _par_band(tp_kernel, dev, card):
     item = ({k: v[None] for k, v in build_halo_inputs(host, plan_for_graph(host, 1)).items()},
             host)
     layers = BENCH_CFG["representation_nets"]["HamGNN_pre"]["num_layers"]
+    halo_kw = {"n_data": 1, "n_graph": 1}
     trs, res = {}, {}
-    for kind, cls, kw in (("one", Trainer, {}), ("halo", HaloTrainer, {"n_data": 1,
-                                                                     "n_graph": 1})):
+    for kind, cls, kw in (("one", Trainer, {}),
+                          ("halo", HaloTrainer, dict(halo_kw, capture=False)),
+                          ("halo_captured", HaloTrainer, halo_kw)):
         model = init_weights(build_model(load_config(None, overrides=band_config())), 0)
         trs[kind] = cls(model, losses=BAND_LOSSES, metrics=[], lr=1e-3, device=dev,
                         train_dir=str(PAR_WORK / f"band_{kind}"), **kw)
@@ -4335,20 +4579,40 @@ def _par_band(tp_kernel, dev, card):
         loss, logs = trs[kind].train_step(graph if kind == "one" else item)
         torch.cuda.synchronize()
         res[kind] = (float(loss), float(logs["mae_band_energy"]))
-    launches = check_launches(tp_kernel, {k: 4 * layers + 1 for k in ENGINES["auto"]},
-                              "one band-mode halo step")
-    if not (abs(res["halo"][0] - res["one"][0]) <= 1e-5 * abs(res["one"][0])
-            and abs(res["halo"][1] - res["one"][1]) <= BAND_TOL):
-        fail(f"band-mode halo step (loss, band MAE) {res['halo']} vs one-device {res['one']}")
+        if kind == "halo":
+            launches = check_launches(tp_kernel, {k: 4 * layers + 1 for k in ENGINES["auto"]},
+                                      "one band-mode halo step")
+    cap = trs["halo_captured"].parallel_steps
+    if trs["halo"].parallel_steps is not None or cap is None:
+        fail("band-mode halo: the default trainer must capture, capture=False run eagerly")
+    segments = len(next(iter(cap.train_graphs.values())).graph.graphs)
+    if segments < 2:
+        fail(f"the band-mode halo step was captured as {segments} graph(s), not in segments "
+             f"around the eigensolve")
+    for kind, ref in (("halo", "one"), ("halo_captured", "halo")):
+        if not (abs(res[kind][0] - res[ref][0]) <= 1e-5 * abs(res[ref][0])
+                and abs(res[kind][1] - res[ref][1]) <= BAND_TOL):
+            fail(f"band-mode {kind} step (loss, band MAE) {res[kind]} vs {ref} {res[ref]}")
     # the band-loss term's limit (PERF.md section 2): fp32 eigenvectors beside the pad
     # states at 1e3 carry the rounding of the two paths' sums into the gradient
     ratio = _grad_check("band-mode halo step", trs["halo"].grad, trs["one"].grad, 2e-2)
-    del trs
+    ratio_cap = _grad_check("captured band-mode halo step", trs["halo_captured"].grad,
+                            trs["halo"].grad, 2e-2)
+    walls = {k: [] for k in ("halo", "halo_captured")}
+    for _ in range(2):
+        for k in walls:
+            walls[k].append(1e3 * _host_time(lambda: trs[k].train_step(item)))
+    wall = {k: min(v) for k, v in walls.items()}
+    del trs, cap
     torch.cuda.empty_cache()
     print(f"[parallel] (c) band-mode halo step (16 atoms, 6 k, world 1): (loss, band MAE) "
           f"{res['halo']} vs one-device {res['one']}, gradient {ratio:.2e} of max|g|, "
-          f"launches {launches}; card {card}", flush=True)
-    return dict(losses=res, grad_rel_err=ratio, launches=launches)
+          f"launches {launches}; captured in {segments} segments around the eigensolve: "
+          f"{res['halo_captured']}, gradient {ratio_cap:.2e} of max|g| of the eager step's; "
+          f"wall a step (best of 2) eager {wall['halo']:.3f} ms, captured "
+          f"{wall['halo_captured']:.3f} ms; card {card}", flush=True)
+    return dict(losses=res, grad_rel_err=ratio, captured_grad_rel_err=ratio_cap,
+                segments=segments, wall_ms=wall, launches=launches)
 
 
 def _par_cli(dev, card):
@@ -4357,6 +4621,8 @@ def _par_cli(dev, card):
     each run's best.pt tested under ``mode: none`` on the validation crystal
     must give the MAE the run's halo evaluation logged at its best epoch;
     the magnetic head under ``mode: halo`` raises NotImplementedError."""
+    import re
+
     import numpy as np
     import yaml
 
@@ -4392,6 +4658,12 @@ def _par_cli(dev, card):
         if r.returncode != 0:
             fail(f"torchrun mode {mode}: exit {r.returncode}\n{r.stdout[-2000:]}\n"
                  f"{r.stderr[-3000:]}")
+        steps = [line for line in r.stdout.splitlines() if line.startswith(f"{mode} steps: ")]
+        m = re.match(rf"{mode} steps: (\d+) CUDA graph\(s\) captured, (\d+) for the one-device "
+                     r"export", steps[-1] if steps else "")
+        # 2 epochs: the training and eval steps' graphs, and the export's eval graph
+        if m is None or int(m.group(1)) < 2 or int(m.group(2)) < 1:
+            fail(f"torchrun mode {mode}: the steps did not run captured: {steps}")
         train_dir = PAR_WORK / f"cli_{mode}"
         records = [json.loads(line) for line in open(train_dir / "metrics.jsonl")]
         if [x["epoch"] for x in records] != [0, 1] or not all(
@@ -4411,9 +4683,11 @@ def _par_cli(dev, card):
         if not abs(got - want) <= 1e-5 * abs(want):
             fail(f"mode {mode}: best.pt tested under mode none gives MAE {got!r}, the halo "
                  f"evaluation logged {want!r}")
-        out[mode] = dict(wall_s=wall, records=records, test_mae=got, logged_mae=want)
+        out[mode] = dict(wall_s=wall, records=records, test_mae=got, logged_mae=want,
+                         steps=steps[-1])
         print(f"[parallel] (d) torchrun mode {mode}: 2 epochs in {wall:.1f} s (process "
-              f"start included), val_loss {[round(x['val_loss'], 6) for x in records]}; "
+              f"start included), {steps[-1]}, val_loss "
+              f"{[round(x['val_loss'], 6) for x in records]}; "
               f"best.pt under mode none on the validation crystal: MAE {got!r} vs logged "
               f"{want!r}; card {card}", flush=True)
 
@@ -5012,6 +5286,11 @@ def main():
                     uni["native"]["launches"][eng][name] // uni["native"]["crystals"]),
                 # one eager halo step (world 1, n_graph 1) at the bench width
                 "halo_launches_per_step": parallel[f"world1_{eng}"]["halo"]["launches"][name],
+                # kernel nodes per replay of the captured halo / dp step (world 1)
+                "halo_dp_replay_nodes": [
+                    sum(parallel[f"world1_{eng}"][kind]["nodes"][dk]
+                        for dk in tp_kernel.KERNELS[name].device_kernels)
+                    for kind in ("halo", "dp")],
                 # one replay of each example chain's captured training step,
                 # from its best.pt, by the profiler (phase 16)
                 "examples_launches_per_step": (
@@ -5081,14 +5360,20 @@ def main():
         "card": card}}))
     two = parallel["two_ranks"]
     print(json.dumps({"parallel": {
-        "world1": {eng: {kind: {k: parallel[f"world1_{eng}"][kind][k] for k in
-                                ("wall_ms", "device_ms", "peak_gb", "grad_rel_err")}
-                         for kind in ("halo", "dp")} for eng in ENGINES},
+        "world1": {eng: {kind: {
+            **{k: parallel[f"world1_{eng}"][kind][k] for k in
+               ("wall_ms", "device_ms", "peak_gb", "grad_rel_err", "capture_s", "segments")},
+            "captured_wall_ms": parallel[f"world1_{eng}"][kind]["captured"]["wall_ms"],
+            "captured_device_ms": parallel[f"world1_{eng}"][kind]["captured"]["device_ms"]}
+            for kind in ("halo", "dp")} for eng in ENGINES},
         "plan_s1": parallel["world1_auto"]["plan"],
         "two_ranks": ({k: two[k] for k in ("grad_rel_err", "plan", "wall_ms_shared_card")}
                       if two["ran"] else {"left_out": two["gloo_cuda"]}),
         "soc_worst_grad": parallel["soc"]["worst_grad_rel_err"],
         "band_grad": parallel["band"]["grad_rel_err"],
+        "band_captured": {k: parallel["band"][k] for k in
+                          ("captured_grad_rel_err", "segments", "wall_ms")},
+        "cli_steps": {m: parallel["cli"][m]["steps"] for m in ("halo", "dp")},
         "cli_mae": {m: [parallel["cli"][m]["test_mae"], parallel["cli"][m]["logged_mae"]]
                     for m in ("halo", "dp")},
         "card": card}}))

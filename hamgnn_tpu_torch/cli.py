@@ -16,7 +16,8 @@ representation keys say), then
   ``parallel.halo_trainer.HaloTrainer`` over ``torch.distributed``, one
   process per card (``torchrun --nproc_per_node <cards> -m
   hamgnn_tpu_torch.cli --config ...``; without a launcher, one process);
-  rank 0 alone writes files;
+  rank 0 alone writes files and prints how the steps ran (on the card under
+  NCCL replayed from CUDA graphs, over gloo eagerly);
 * ``setup.stage: test``: load weights from ``setup.checkpoint_path`` (a
   trainer checkpoint, the port's ``torch.save`` state dict, an ``.npz`` of
   the flattened flax tree, or an orbax directory of the JAX trainer) and run
@@ -377,8 +378,19 @@ def _train_and_evaluate(config, mode, dev) -> dict:
     _, logs, preds_all = trainer.eval_epoch(data.test_batches(), collect=True)
     if primary:
         _save_predictions(config, preds_all)
+        if mode != "none":
+            print(f"{mode} steps: " + _steps_report(trainer))
         print("test metrics:", logs)
     return logs
+
+
+def _steps_report(trainer) -> str:
+    """How a multi-device trainer ran its steps: eagerly, or the CUDA graphs
+    it captured (the halo or dp steps', the export's one-device eval's)."""
+    if trainer.parallel_steps is None:
+        return "eager"
+    return (f"{trainer.parallel_steps.captures} CUDA graph(s) captured, "
+            f"{trainer.captured.captures} for the one-device export")
 
 
 def _parallel_trainer(par, mode, model, data, trainer_kwargs):

@@ -194,11 +194,13 @@ def make_halo_loss_fn(model, mesh: Mesh, losses: Optional[Sequence[Dict[str, Any
 
 def make_halo_train_step(model, opt, losses, mesh: Mesh, flat: torch.Tensor,
                          grad: torch.Tensor, with_band: bool = False):
-    """An eager data-parallel x halo train step over the flat-vector amsgrad
+    """A data-parallel x halo train step over the flat-vector amsgrad
     (``train/optim.py``): ``step(inp, lr, band_graph=None, k_vecs=None,
     edge_unperm=None) -> (mean loss, mean logs)``, the means over the data
     rows, the same on every rank; ``logs["nonfinite_step"]`` is 1.0 where the
-    guard dropped the step (on every rank alike)."""
+    guard dropped the step (on every rank alike).  ``lr`` is the trainer's
+    0-dim float32 device tensor ``lr_t``: the step reads nothing from the
+    host, so ``HaloTrainer`` captures it as a CUDA graph."""
     loss_fn = make_halo_loss_fn(model, mesh, losses, with_band=with_band)
 
     def step(inp, lr, band_graph=None, k_vecs=None, edge_unperm=None):

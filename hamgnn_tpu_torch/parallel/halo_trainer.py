@@ -14,11 +14,23 @@ stopping, ``metrics.jsonl`` and ``best.pt`` (written by rank 0 alone, in the
 one-device format, so a halo-trained ``best.pt`` loads into ``mode: none``;
 every rank reads it on resume).  What changes: the parameters and the
 optimizer state start from rank 0's, the train and eval steps are the halo
-steps of ``parallel/halo_model.py`` (eager: a step with collectives is not
-captured), and batches are packed halo inputs.  With a band loss a step
-takes one crystal (``n_data`` 1) and the whole-crystal Graph rides along for
-the band solve.  ``eval_epoch(collect=True)``, the prediction export, runs
-the one-device forward on rank 0.
+steps of ``parallel/halo_model.py``, and batches are packed halo inputs.
+With a band loss a step takes one crystal (``n_data`` 1) and the
+whole-crystal Graph rides along for the band solve.
+``eval_epoch(collect=True)``, the prediction export, runs the one-device
+forward on rank 0.
+
+On the card under an NCCL group the steps are replayed from CUDA graphs,
+one set per shape key (``train/captured.py``), as the JAX trainer jits them
+(``hamgnn_tpu/parallel/halo_model.py:347``, ``halo_trainer.py:177``): the
+collectives of the halo exchange, the sums and the gathers are recorded in
+the graphs; a band-mode step is captured in segments around the
+eigensolve.  A batch's packed inputs stay on the host until they are
+copied into the graphs' buffers from pinned memory, without waiting for
+the card (``train/captured.py``, ``copy_inputs``).  The export's one-device
+forward replays its own captured eval.  On the CPU and over gloo the steps
+run eagerly (``sharding.capture_default``); ``capture=False`` keeps them
+eager on the card too.
 """
 
 from __future__ import annotations
@@ -31,12 +43,13 @@ import numpy as np
 import torch
 
 from ..data.graph import Graph, pad_and_batch
+from ..train.captured import CapturedSteps
 from ..train.trainer import Trainer
 from .halo_model import (edge_unperm_for_plan, halo_bucket_sizes, local_inputs,
                          make_halo_loss_fn, make_halo_train_step, plan_for_graph,
                          stack_halo_inputs)
 from .multihost import is_primary
-from .sharding import make_mesh, mean_over_data, replicate_to_mesh
+from .sharding import capture_default, make_mesh, mean_over_data, replicate_to_mesh
 
 
 def _bucket(n: int, quantum: int) -> int:
@@ -104,10 +117,14 @@ class HaloDataAdapter:
 
 
 class HaloTrainer(Trainer):
+    """``capture``: replay the halo steps from CUDA graphs (default: on the
+    card under an NCCL group, ``sharding.capture_default``); False runs them
+    eagerly.  ``parallel_steps`` holds the captured halo steps (None when
+    eager), ``captured`` the export's captured one-device eval."""
+
     def __init__(self, *args, n_data: int = 1, n_graph: int = 1,
-                 edge_quantum: int = 64, **kwargs):
-        kwargs["capture"] = False
-        super().__init__(*args, **kwargs)
+                 edge_quantum: int = 64, capture=None, **kwargs):
+        super().__init__(*args, capture=False, **kwargs)
         self.mesh = make_mesh(n_data, n_graph)
         self.n_data = n_data
         self.n_graph = n_graph
@@ -119,6 +136,11 @@ class HaloTrainer(Trainer):
         self._hstep = None
         self._heval = None
         self._plan_cache: Dict[tuple, torch.Tensor] = {}
+        capture = capture_default(capture, self.device)
+        self.parallel_steps = CapturedSteps(
+            self.device, lambda inp, **kw: self._halo_step()(inp, self.lr_t, **kw),
+            self._halo_eval_step, self.state) if capture else None
+        self.captured = self.captured_steps() if capture else None
 
     @property
     def _band_mode(self) -> bool:
@@ -137,16 +159,26 @@ class HaloTrainer(Trainer):
                                             metrics=self.metrics, with_band=self._band_mode)
         return self._heval
 
-    def _args(self, item):
-        """(this rank's local inputs, band arguments) of a batch."""
-        if not self._band_mode:
-            return local_inputs(item, self.n_graph, self.mesh.graph_rank, self.device,
-                                data_row=self.mesh.data_rank), ()
-        inputs, graph = item
-        return (local_inputs(inputs, self.n_graph, self.mesh.graph_rank, self.device,
-                             data_row=0), self._band_args(graph))
+    def _halo_eval_step(self, inp, **band):
+        """(mean loss, mean logs and metrics, {}, {}) over the data rows: an
+        eval step as ``CapturedSteps`` takes it."""
+        total, logs, mets = self._halo_eval()(inp, **band)
+        d = {**logs, **mets}
+        means = mean_over_data(self.mesh, [total] + list(d.values()))
+        return means[0], dict(zip(d, means[1:])), {}, {}
 
-    def _band_args(self, graph: Graph):
+    def _args(self, item, device):
+        """(this rank's local inputs, band arguments by name) of a batch, on
+        ``device``: the card for the eager step, the host for the captured
+        one (copied into its buffers from pinned memory)."""
+        if not self._band_mode:
+            return local_inputs(item, self.n_graph, self.mesh.graph_rank, device,
+                                data_row=self.mesh.data_rank), {}
+        inputs, graph = item
+        return (local_inputs(inputs, self.n_graph, self.mesh.graph_rank, device, data_row=0),
+                self._band_args(graph, device))
+
+    def _band_args(self, graph: Graph, device):
         """(band graph, k_vecs, edge_unperm) of a band-mode step.  The
         partition plan depends on the crystal's edge topology alone and is
         cached by it; the k-points are drawn anew, as the one-device trainer
@@ -154,25 +186,28 @@ class HaloTrainer(Trainer):
         from ..physics.kpoints import k_vecs_for_graph
 
         out = self.model.output
-        k_vecs = torch.as_tensor(k_vecs_for_graph(graph, out.num_k, out.k_path),
-                                 device=self.device)
+        k_vecs = torch.as_tensor(k_vecs_for_graph(graph, out.num_k, out.k_path))
         ei = graph.edge_index.numpy()
         key = (graph.num_nodes, graph.num_edges, hash(ei.tobytes()))
         unperm = self._plan_cache.get(key)
         if unperm is None:
             plan = plan_for_graph(graph, self.n_graph, self.edge_quantum)
-            unperm = torch.as_tensor(edge_unperm_for_plan(plan, graph.num_edges),
-                                     device=self.device)
+            unperm = torch.as_tensor(edge_unperm_for_plan(plan, graph.num_edges))
             self._plan_cache[key] = unperm
-        return graph_to(graph, self.device), k_vecs, unperm
+        return {"band_graph": graph_to(graph, device), "k_vecs": k_vecs.to(device),
+                "edge_unperm": unperm.to(device)}
 
     def train_step(self, item):
         """One update on a batch as ``HaloDataAdapter`` yields it; returns the
         means over the data rows of the loss and the logs, the same on every
         rank (``logs["nonfinite_step"]`` 1.0 where the guard dropped it)."""
         self.model.train()
-        inp, band = self._args(item)
-        return self._halo_step()(inp, self.sched.lr, *band)
+        self.fill_lr()
+        if self.parallel_steps is None:
+            inp, band = self._args(item, self.device)
+            return self._halo_step()(inp, self.lr_t, **band)
+        inp, band = self._args(item, "cpu")
+        return self.parallel_steps.train_step(inp, **band)
 
     def train_epoch(self, batches: Iterable) -> float:
         losses, bad = [], []
@@ -197,16 +232,17 @@ class HaloTrainer(Trainer):
                 return super().eval_epoch(batches, collect=True)
             return 0.0, {}, []
         self.model.eval()
-        loss_fn = self._halo_eval()
         losses, aggs = [], []
         with torch.inference_mode():
             for item in batches:
-                inp, band = self._args(item)
-                total, logs, mets = loss_fn(inp, *band)
-                d = {**logs, **mets}
-                means = mean_over_data(self.mesh, [total] + list(d.values()))
-                losses.append(means[0])
-                aggs.append(dict(zip(d, means[1:])))
+                if self.parallel_steps is None:
+                    inp, band = self._args(item, self.device)
+                    total, logs, _, _ = self._halo_eval_step(inp, **band)
+                else:
+                    inp, band = self._args(item, "cpu")
+                    total, logs, _, _ = self.parallel_steps.eval_step(inp, **band)
+                losses.append(total)
+                aggs.append(logs)
         agg: Dict[str, float] = {}
         if aggs:
             keys = list(aggs[0])

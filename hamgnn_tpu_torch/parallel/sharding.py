@@ -13,12 +13,16 @@ crystals.  Every rank creates every group, in the same order, as
 each rank runs the one-device forward on its own crystal, and the loss is
 the mean of the per-crystal losses over the data rows (what the JAX ``vmap``
 gives, not the masked mean of one stacked batch).
+
+The multi-device trainers capture their steps as CUDA graphs on the card
+under an NCCL group (``capture_default``), as the JAX package jits them: no
+step reads the host, and the learning rate is the trainer's device tensor.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -69,11 +73,28 @@ def make_mesh(n_data: int, n_graph: int) -> Mesh:
     return Mesh(n_data, n_graph, rank, graph_group, data_group)
 
 
+def capture_default(capture: Optional[bool], device: torch.device) -> bool:
+    """Whether a multi-device trainer replays its steps from CUDA graphs.
+    By default on the card under an NCCL process group.  The CPU has no
+    graphs, and a gloo collective is host code that no graph can hold, so
+    both run the steps eagerly (a stated rule, not a fallback: ``capture=
+    True`` there raises ``ValueError``)."""
+    backend = dist.get_backend()
+    if capture is None:
+        return device.type == "cuda" and backend == "nccl"
+    if capture and device.type != "cuda":
+        raise ValueError(f"a captured step needs the card, not {device}")
+    if capture and backend != "nccl":
+        raise ValueError(f"a captured step with collectives needs an NCCL process group, "
+                         f"not {backend}")
+    return bool(capture)
+
+
 def mean_over_data(mesh: Mesh, values: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """The means over the data rows of per-crystal scalars that every rank
     of a graph group holds alike.  One sum over the world, to which only
     graph column 0 contributes: every rank gets the same bits."""
-    v = torch.stack([torch.as_tensor(x) for x in values]).detach()
+    v = torch.stack(list(values)).detach()
     v = v * float(mesh.graph_rank == 0)
     dist.all_reduce(v)
     return list((v / mesh.n_data).unbind(0))
@@ -119,9 +140,10 @@ def _losses(model, graph, losses):
 def make_parallel_train_step(model, opt, losses: List[Dict[str, Any]], mesh: Mesh,
                              flat: torch.Tensor, grad: torch.Tensor):
     """``step(graph, lr) -> (mean loss, mean logs)``: ``graph`` is this rank's
-    crystal; the gradient is the mean over the data rows of the crystals'
-    gradients (ranks of one graph group hold the same crystal and count it
-    once)."""
+    crystal, ``lr`` the trainer's 0-dim float32 device tensor ``lr_t`` (a
+    captured step reads it at every replay); the gradient is the mean over
+    the data rows of the crystals' gradients (ranks of one graph group hold
+    the same crystal and count it once)."""
 
     def step(graph, lr):
         grad.zero_()

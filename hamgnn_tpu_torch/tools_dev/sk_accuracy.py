@@ -65,7 +65,8 @@ optimizer state and learning rate (``setup.resume``), appending to
 card unless ``--device cpu``; the data tools run on the host.  Prints one
 JSON line: the example, the test MAE (of the final parameters, and of
 ``best``) and the best and last validation MAE (Ha), the epochs run, seconds per epoch, the acceptance step's numbers, each mark
-against its limit beside the JAX result, the TP kernels' launches over the
+against its limit beside the JAX result, each test crystal's MAE at
+``best`` with its atom count (``test_mae_per_crystal``), the TP kernels' launches over the
 run (host counters: on the card, the eager passes that warm up and capture
 each step; replays are not counted there) and in one training step from
 ``best.pt`` (on the card one replay of the captured step, read by the
@@ -176,6 +177,36 @@ def step_launches(config_path: str, device, train_dir: Path) -> dict:
                 counts[n] = one.pop() if len(one) == 1 else seen
     shutil.rmtree(train_dir / "launch_step", ignore_errors=True)
     return counts
+
+
+def per_crystal_test_mae(config_path: str, device, train_dir: Path) -> list:
+    """The test split crystal by crystal at ``<train_dir>/best.pt``'s
+    parameters: each crystal's index in the set, atom count and MAE (the
+    mean of the config's MAE metrics, as ``test_mae_Ha``), each crystal a
+    batch of its own through the eager eval step (a capture a crystal would
+    cost more than it saves)."""
+    from .. import cli, resolve_device
+    from ..data.graph import pad_and_batch
+    from ..train.config import config_to_dict, load_config
+
+    cfg = load_config(config_path)
+    dev = resolve_device(device)
+    data = cli.prepare_dataset(cfg, dev)
+    metrics = [config_to_dict(m) for m in cfg.losses_metrics.metrics]
+    trainer = cli.Trainer(cli.build_model(cfg), losses=[config_to_dict(s) for s in
+                                                        cfg.losses_metrics.losses],
+                          metrics=metrics, device=dev, capture=False,
+                          train_dir=str(train_dir / "per_crystal"))
+    trainer.load_checkpoint(str(train_dir / "best.pt"))
+    out = []
+    for i in data.test_idx:
+        crystal = data.graphs[i]
+        mets = trainer.eval_step(pad_and_batch([crystal], device=dev))[2]
+        maes = [float(v) for k, v in mets.items() if k.startswith("mae_")]
+        out.append({"index": int(i), "atoms": int(crystal["z"].shape[0]),
+                    "mae_Ha": float(np.mean(maes))})
+    shutil.rmtree(train_dir / "per_crystal", ignore_errors=True)
+    return out
 
 
 def initial_checkpoint(config_path: Path, seed: int, path: Path) -> Path:
@@ -395,6 +426,7 @@ def main(argv=None) -> dict:
         seconds["band_ft"] = time.perf_counter() - t0
     run_launches = {n: c - launches0[n] for n, c in tp_launches().items() if c - launches0[n]}
     per_step = step_launches(fit_cfg, args.device, train_dir)
+    per_crystal = per_crystal_test_mae(fit_cfg, args.device, train_dir)
 
     # the configs' metrics are MAEs in Ha (the mean of the real and the
     # imaginary parts' where there are both)
@@ -413,6 +445,7 @@ def main(argv=None) -> dict:
         "best_val_epoch": best,
         "val_mae_last_Ha": float(val[-1]) if val else None,
         "test_mae_best_Ha": float(np.mean([best_logs[k] for k in mae_keys])),
+        "test_mae_per_crystal": per_crystal,
         "epochs": len(records),
         "sec_per_epoch_median": float(np.median(epoch_s)) if epoch_s else None,
         "sec_first_epoch": float(epoch_s[0]) if epoch_s else None,

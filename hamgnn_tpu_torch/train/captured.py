@@ -10,10 +10,17 @@ step replays: the host launches one graph instead of the step's kernels.
 - A batch is copied into static buffers of its key, one for every tensor
   field of ``Graph`` and one for every input the step takes besides it (the
   k-points of a head with bands, made on the host outside the graph),
-  shared by the key's training and eval graphs.  The loss and logs a step
-  returns are clones: the next replay overwrites the graph's outputs.  An
-  eval step's predictions are the graph's own outputs, valid until the next
-  replay.
+  shared by the key's training and eval graphs.  The batch of a
+  multi-device step is a dict of the rank's packed halo inputs, and its
+  inputs may hold a Graph (the whole crystal of a band-mode halo step): the
+  key is then the shapes of all the step's tensors by name (``step_key``).
+- A tensor that comes from the host (a multi-device step's packed inputs)
+  is copied into its static buffer from pinned memory without waiting
+  (``non_blocking``); PyTorch's caching host allocator keeps the pinned
+  block until the copy is done.
+- The loss and logs a step returns are clones: the next replay overwrites
+  the graph's outputs.  An eval step's predictions are the graph's own
+  outputs, valid until the next replay.
 - Work that a graph cannot hold runs between graphs: the Hermitian
   eigensolve of the band branch, which waits for the card inside its call.
   Each step is captured through ``utils.cuda_graphs.segmented_capture``, so
@@ -41,6 +48,10 @@ step replays: the host launches one graph instead of the step's kernels.
   during it: an earlier trainer's graph destroyed by a collection in the
   middle of a capture calls the runtime while the stream is capturing,
   which invalidates the capture.
+- Under an NCCL process group (the multi-device trainers) the graphs are
+  captured in the ``thread_local`` error mode (``utils.cuda_graphs.
+  capture_mode``).  The warm-up runs every collective of the step once, so
+  each process group has made its communicator before the capture.
 
 A capture that fails raises: nothing falls back to the eager step.  The
 kernels' launch counters are host-side, so they count the warm-up and the
@@ -52,7 +63,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
@@ -73,41 +84,76 @@ def tensor_fields(graph: Graph) -> Dict[str, torch.Tensor]:
             if isinstance(getattr(graph, f.name), torch.Tensor)}
 
 
-def _signature(graph: Graph) -> tuple:
-    return tuple((n, tuple(t.shape), t.dtype, t.device) for n, t in tensor_fields(graph).items())
+def step_tensors(x, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Every tensor of a step argument by name: a Graph's tensor fields, a
+    dict's entries (a Graph or dict inside one as ``name.field``), a tensor
+    itself under ``prefix``.  None is left out."""
+    if isinstance(x, torch.Tensor):
+        return {prefix: x}
+    items = tensor_fields(x) if isinstance(x, Graph) else x
+    out: Dict[str, torch.Tensor] = {}
+    for name, v in items.items():
+        if v is not None:
+            out.update(step_tensors(v, f"{prefix}.{name}" if prefix else name))
+    return out
+
+
+def step_key(batch, inputs: Dict[str, Any]) -> tuple:
+    """The key a step is captured under.  A Graph batch: its ``shape_key``
+    (the one-device trainer's, JAX's ``_shape_key``); any other batch (a
+    rank's packed halo inputs): the shapes of every tensor of the batch and
+    the inputs, in the order of their names.  The names and types must be
+    the key's capture's: ``copy_inputs`` raises otherwise."""
+    if isinstance(batch, Graph):
+        return shape_key(batch)
+    return tuple(tuple(t.shape) for _, t in
+                 sorted(step_tensors({"batch": batch, **inputs}).items()))
+
+
+def static_copy(x, device=None):
+    """New contiguous buffers on ``device`` (``x``'s by default) holding a
+    copy of a step argument, of the same structure (Graph, dict, tensor)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device or x.device, copy=True, memory_format=torch.contiguous_format)
+    if isinstance(x, Graph):
+        return dataclasses.replace(x, **{n: static_copy(t, device)
+                                         for n, t in tensor_fields(x).items()})
+    return {n: static_copy(v, device) for n, v in x.items() if v is not None}
 
 
 def static_graph(graph: Graph) -> Graph:
     """A ``Graph`` of new buffers holding a copy of ``graph``'s tensors."""
     with torch.inference_mode(False):
-        return dataclasses.replace(graph, **{n: t.clone(memory_format=torch.contiguous_format)
-                                             for n, t in tensor_fields(graph).items()})
+        return static_copy(graph)
+
+
+def _input_signature(inputs: Dict[str, torch.Tensor]) -> tuple:
+    return tuple((n, tuple(t.shape), t.dtype) for n, t in sorted(inputs.items()))
+
+
+def copy_inputs(static, inputs) -> None:
+    """Copy a step's arguments (a Graph, a dict of tensors and Graphs, a
+    tensor) into the buffers of ``static``, of the same structure; raises
+    unless every tensor has the same name, shape and type, and lies on its
+    buffer's device or on the host.  A tensor on the host fills a buffer on
+    the card from pinned memory, without waiting for the card."""
+    dst, src = step_tensors(static), step_tensors(inputs)
+    if _input_signature(dst) != _input_signature(src) or any(
+            t.device != dst[n].device and t.device.type != "cpu" for n, t in src.items()):
+        raise ValueError(f"step arguments {_input_signature(src)} have other fields than "
+                         f"the captured ones {_input_signature(dst)}")
+    for name, t in src.items():
+        if dst[name].is_cuda and not t.is_cuda:
+            dst[name].copy_(t.pin_memory(), non_blocking=True)
+        else:
+            dst[name].copy_(t)
 
 
 def copy_into(static: Graph, graph: Graph) -> None:
     """Copy ``graph``'s tensors into the buffers of ``static``; raises unless
-    the two have the same tensor fields of the same shapes, types and
-    device."""
-    if _signature(static) != _signature(graph):
-        raise ValueError(f"batch of shape key {shape_key(graph)} has other fields than the "
-                         f"captured one: {_signature(graph)} vs {_signature(static)}")
-    for name, t in tensor_fields(graph).items():
-        getattr(static, name).copy_(t)
-
-
-def _input_signature(inputs: Dict[str, torch.Tensor]) -> tuple:
-    return tuple((n, tuple(t.shape), t.dtype, t.device) for n, t in sorted(inputs.items()))
-
-
-def copy_inputs(static: Dict[str, torch.Tensor], inputs: Dict[str, torch.Tensor]) -> None:
-    """Copy a step's inputs besides the batch into the buffers of
-    ``static``; raises unless the two have the same names, shapes, types and
-    device."""
-    if _input_signature(static) != _input_signature(inputs):
-        raise ValueError(f"step inputs {_input_signature(inputs)} differ from the captured "
-                         f"ones {_input_signature(static)}")
-    for name, t in inputs.items():
-        static[name].copy_(t)
+    the two have the same tensor fields of the same shapes and types
+    (``copy_inputs`` of a batch)."""
+    copy_inputs(static, graph)
 
 
 _CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
@@ -130,13 +176,15 @@ class _Captured:
 class CapturedSteps:
     """The captured training and eval steps of one trainer.
 
-    ``train_body(graph, **inputs)`` is the trainer's step (gradient zeroed,
+    ``train_body(batch, **inputs)`` is the trainer's step (gradient zeroed,
     forward, loss, backward, guarded update at the device learning rate;
-    returns (loss, logs)); ``eval_body(graph, **inputs)`` its eval step
+    returns (loss, logs)); ``eval_body(batch, **inputs)`` its eval step
     ((loss, logs, metrics, predictions)), run under
-    ``torch.inference_mode``; ``inputs`` are the tensors a step takes
-    besides the batch (``k_vecs``), static buffers of the shape key like the
-    batch's; ``state()`` the tensors a training step updates in place.
+    ``torch.inference_mode``.  ``batch`` is a ``Graph`` or a dict of a
+    rank's packed halo inputs; ``inputs`` are what a step takes besides it
+    (``k_vecs``; a band-mode halo step's whole-crystal Graph and edge
+    unpermutation), static buffers of the step key like the batch's.
+    ``state()`` gives the tensors a training step updates in place.
     ``captures`` counts the graphs captured."""
 
     def __init__(self, device, train_body: Callable, eval_body: Callable,
@@ -149,23 +197,22 @@ class CapturedSteps:
         self.train_body, self.eval_body, self.state = train_body, eval_body, state
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = capture_stream(self.device)
-        self.static: Dict[tuple, Tuple[Graph, Dict[str, torch.Tensor]]] = {}
+        self.static: Dict[tuple, Tuple[Any, Dict[str, Any]]] = {}
         self.train_graphs: Dict[tuple, _Captured] = {}
         self.eval_graphs: Dict[tuple, _Captured] = {}
         self.captures = 0
 
-    def _static_for(self, graph: Graph, inputs: Dict[str, torch.Tensor]):
-        key = shape_key(graph)
+    def _static_for(self, batch, inputs: Dict[str, Any]):
+        key = step_key(batch, inputs)
         if key not in self.static:
             with torch.inference_mode(False):
-                self.static[key] = (static_graph(graph),
-                                    {n: t.clone() for n, t in inputs.items()})
+                self.static[key] = (static_copy(batch, self.device),
+                                    {n: static_copy(t, self.device) for n, t in inputs.items()})
         static, static_inputs = self.static[key]
-        copy_into(static, graph)
-        copy_inputs(static_inputs, inputs)
-        return static, static_inputs
+        copy_inputs({"batch": static, **static_inputs}, {"batch": batch, **inputs})
+        return key, static, static_inputs
 
-    def _capture(self, body: Callable, static: Graph, inputs: Dict[str, torch.Tensor],
+    def _capture(self, body: Callable, static, inputs: Dict[str, Any],
                  inference: bool) -> _Captured:
         cur = torch.cuda.current_stream(self.device)
         saved = None if inference else [t.clone() for t in self.state()]
@@ -194,12 +241,11 @@ class CapturedSteps:
         self.captures += 1
         return _Captured(segments, out)
 
-    def train_step(self, graph: Graph, **inputs):
-        """One replayed training step on ``graph`` and ``inputs`` (captured
-        at the first batch of its shape key): (loss, logs), clones of the
+    def train_step(self, batch, **inputs):
+        """One replayed training step on ``batch`` and ``inputs`` (captured
+        at the first step of its key): (loss, logs), clones of the
         graph's."""
-        static, static_inputs = self._static_for(graph, inputs)
-        key = shape_key(graph)
+        key, static, static_inputs = self._static_for(batch, inputs)
         if key not in self.train_graphs:
             self.train_graphs[key] = self._capture(self.train_body, static, static_inputs,
                                                    inference=False)
@@ -208,12 +254,11 @@ class CapturedSteps:
         loss, logs = entry.out
         return loss.clone(), {k: v.clone() for k, v in logs.items()}
 
-    def eval_step(self, graph: Graph, **inputs):
-        """One replayed eval step on ``graph`` and ``inputs``: (loss, logs,
+    def eval_step(self, batch, **inputs):
+        """One replayed eval step on ``batch`` and ``inputs``: (loss, logs,
         metrics) as clones, and the predictions as the graph's own
         outputs."""
-        static, static_inputs = self._static_for(graph, inputs)
-        key = shape_key(graph)
+        key, static, static_inputs = self._static_for(batch, inputs)
         if key not in self.eval_graphs:
             self.eval_graphs[key] = self._capture(self.eval_body, static, static_inputs,
                                                   inference=True)

@@ -117,9 +117,7 @@ class Trainer:
             capture = self.device.type == "cuda"
         elif capture and self.device.type != "cuda":
             raise ValueError(f"a captured step needs the card, not {self.device}")
-        self.captured = CapturedSteps(
-            self.device, lambda g, **kw: self._step(g, self.lr_t, **kw), self._eval,
-            lambda: (self.flat, self.grad, *self.opt.state_dict().values())) if capture else None
+        self.captured = self.captured_steps() if capture else None
         self.nonfinite_steps = 0  # of the last train_epoch
         # the process that writes metrics.jsonl and checkpoints (rank 0 of a
         # multi-process trainer)
@@ -128,6 +126,24 @@ class Trainer:
         self._log_path = os.path.join(train_dir, "metrics.jsonl")
 
     # --- steps -----------------------------------------------------------
+
+    def state(self):
+        """The tensors a training step updates in place: the flat
+        parameters, their gradient and the optimizer state."""
+        return (self.flat, self.grad, *self.opt.state_dict().values())
+
+    def captured_steps(self) -> CapturedSteps:
+        """This trainer's one-device steps, captured."""
+        return CapturedSteps(self.device, lambda g, **kw: self._step(g, self.lr_t, **kw),
+                             self._eval, self.state)
+
+    def fill_lr(self) -> None:
+        """Refill the device learning rate ``lr_t`` from ``sched.lr`` when
+        the scheduler has changed it (outside any graph: a replay reads
+        ``lr_t``)."""
+        if self._lr_filled != self.sched.lr:
+            self.lr_t.fill_(self.sched.lr)
+            self._lr_filled = self.sched.lr
 
     def _band_kwargs(self, graph) -> Dict[str, torch.Tensor]:
         """Host-generated k-points when the output head computes bands, a
@@ -168,9 +184,7 @@ class Trainer:
         kw = self._band_kwargs(graph)
         if self.captured is None:
             return self._step(graph, self.sched.lr, **kw)
-        if self._lr_filled != self.sched.lr:
-            self.lr_t.fill_(self.sched.lr)
-            self._lr_filled = self.sched.lr
+        self.fill_lr()
         return self.captured.train_step(graph, **kw)
 
     def eval_step(self, graph):

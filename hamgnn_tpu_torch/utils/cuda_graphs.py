@@ -9,6 +9,15 @@ one graph before each ``host_step`` and one after the last, and its
 work, in the order of the capture.  The work's inputs and outputs are
 tensors of the capture's pool, as the graphs' own, so every replay finds
 them at the same addresses.
+
+In a process with an NCCL process group every graph is captured in the
+``thread_local`` error mode (``capture_mode``): ``ProcessGroupNCCL``'s
+watchdog thread queries the events of collectives issued before the
+capture, and in the default ``global`` mode such a query from another
+thread invalidates it.  Draining the pending work first does not stop it,
+since the watchdog polls on its own schedule.  ``thread_local`` still
+refuses every unsafe call of the capturing thread.  Elsewhere the mode is
+``global``.
 """
 
 from __future__ import annotations
@@ -17,6 +26,15 @@ import contextlib
 from typing import Callable, Iterator, List, Optional
 
 import torch
+import torch.distributed as dist
+
+
+def capture_mode() -> str:
+    """The capture error mode of this process: ``thread_local`` under an
+    NCCL process group, else ``global``."""
+    if dist.is_available() and dist.is_initialized() and dist.get_backend() == "nccl":
+        return "thread_local"
+    return "global"
 
 
 class Segments:
@@ -30,7 +48,7 @@ class Segments:
 
     def begin(self) -> None:
         self.graphs.append(torch.cuda.CUDAGraph())
-        self.graphs[-1].capture_begin(pool=self.pool)
+        self.graphs[-1].capture_begin(pool=self.pool, capture_error_mode=capture_mode())
 
     def cut(self, fn: Callable) -> None:
         self.graphs[-1].capture_end()
