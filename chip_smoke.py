@@ -232,7 +232,21 @@ Phases (any failure exits non-zero, before the result lines are printed):
      packed anew by ``HaloDataAdapter``, with the inputs copied from pinned
      memory without waiting, copied synchronously, and with a loss read a
      step, beside the host's packing alone (whether packing overlaps the
-     replays); (b) two processes on the one card over gloo, the bench crystal split 2
+     replays); (a'') the overlap split's exchange in flight: ``HaloTrainer``
+     with the split forced at world 1 (its exchange NCCL's all-to-all to
+     the one rank, its boundary pass on padding), the exchange in flight
+     (``exchange="async"``, the default) and blocking (``"sync"``), eager
+     and captured, under deterministic algorithms bit for bit with each
+     other (loss, logs, gradient, parameters, optimizer state), 13 + 13
+     launches plus the boundary passes' 4 a layer of B1 and of B2; in each
+     captured graph its nodes by kind, its TP kernel nodes (as many as the
+     eager launches) and those the graph leaves unordered with another
+     node (the DOT dump's edges): the interior passes of the forward and
+     the backward beside the exchange in flight (4 launches a layer of B1
+     and of B2), with the exchanges' nodes (4 a layer) as the only ones
+     beside them, none when blocking; both captured forms and the eager
+     step timed in turns (wall, median of 3, device ms of one profiled
+     step); (b) two processes on the one card over gloo, the bench crystal split 2
      ways, against (a)'s step (loss 1e-6, gradient 1e-4 * max|g|), the
      trainer eager by default over gloo and ``capture=True`` refused, halo
      rows a layer and the boundary share, one step's wall, left out and
@@ -4356,6 +4370,192 @@ def _par_world1(tp_kernel, dev, card, eng):
     return out
 
 
+def graph_structure(segments, groups, stem):
+    """The nodes of the graphs of a segmented capture made under
+    ``graphs_kept`` (``cudaGraphDebugDotPrint``, read as ``graph_kernel_nodes``
+    reads it, edges too): the nodes by kind (a KERNEL node of an NCCL kernel
+    as ``nccl``), and per group of ``groups`` (name -> device kernel names)
+    its kernel nodes and those that the graph leaves unordered with some
+    node (neither reaches the other: they may run at once), with the kinds
+    of all the nodes beside them.  A stream's work captured alone is a chain; a fork
+    to another stream and its join leave the work between them unordered."""
+    import re
+    from collections import Counter, defaultdict
+
+    kinds, beside = Counter(), {}
+    nodes, concurrent = {g: 0 for g in groups}, {g: 0 for g in groups}
+    WORK.mkdir(parents=True, exist_ok=True)
+    for i, g in enumerate(segments.graphs):
+        path = WORK / f"{stem}_{i}.dot"
+        g.debug_dump(str(path))
+        text = path.read_text(errors="replace")
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        kind, label, samples = {}, {}, {}
+        for m in re.finditer(r'^\s*"?(\w*node_?\d+)"?\s*\[(.*?)\];\s*$', text, re.S | re.M):
+            node = m.group(1)
+            label[node] = m.group(2)
+            k = re.search(r'label="\W*(\w+)', label[node])
+            kind[node] = k.group(1) if k else "?"
+            samples.setdefault(kind[node], label[node][:800])
+            if kind[node] == "KERNEL" and "nccl" in label[node].lower():
+                kind[node] = "nccl"
+        if not kind:
+            fail(f"{path}: no node statement read")
+        (ROOT / "chiprun_out" / f"{stem}_{i}_kinds.txt").write_text(
+            "".join(f"{k}: {v}\n\n" for k, v in samples.items()))
+        succ, pred = defaultdict(list), defaultdict(list)
+        for a, b in re.findall(r'"?(\w*node_?\d+)"?\s*->\s*"?(\w*node_?\d+)"?', text):
+            succ[a].append(b)
+            pred[b].append(a)
+        kinds.update(kind.values())
+
+        def reach(start, nxt):
+            seen, todo = set(), [start]
+            while todo:
+                for m in nxt[todo.pop()]:
+                    if m not in seen:
+                        seen.add(m)
+                        todo.append(m)
+            return seen
+
+        for gname, names in groups.items():
+            for node in kind:
+                if kind[node] != "KERNEL" or not any(n in label[node] for n in names):
+                    continue
+                nodes[gname] += 1
+                free = set(kind) - reach(node, succ) - reach(node, pred) - {node}
+                if free:
+                    concurrent[gname] += 1
+                    beside.update({m: kind[m] for m in free})
+    return {"nodes_by_kind": dict(kinds), "tp_nodes": nodes, "concurrent": concurrent,
+            "beside": dict(Counter(beside.values())), "beside_nodes": len(beside)}
+
+
+def _par_async(tp_kernel, dev, card):
+    """(a'') the overlap split's exchange in flight (``parallel/halo.py``
+    ``halo_recv_start``): the bench crystal through ``HaloTrainer`` with the
+    split forced on the one-rank NCCL group (``split=True``; the exchange is
+    an all-to-all to the one rank, the boundary pass runs on padding) under
+    the default engine, from the same seeded weights: the exchange in flight
+    (``async``) and blocking (``sync``), eager and as the trainer runs them
+    by default (captured).  Under deterministic algorithms the four first
+    steps equal bit for bit; each eager step launches 13 + 13 plus 4 a layer
+    of B1 and of B2 (the boundary passes); each captured graph is read by
+    ``graph_structure``: in flight, the interior passes' B1 and B2 nodes (4
+    launches a layer each, B2's 3 kernels a launch) are left unordered with
+    the exchange's nodes (4 a layer), blocking none.
+    In the default mode the captured forms and the eager in-flight step are
+    timed in turns (wall ms, median of 3) and profiled (device ms, the same
+    launches)."""
+    import numpy as np
+    import torch
+
+    from hamgnn_tpu_torch.cli import build_model
+    from hamgnn_tpu_torch.models.model import init_weights
+    from hamgnn_tpu_torch.parallel.halo_model import build_halo_inputs, plan_for_graph
+    from hamgnn_tpu_torch.parallel.halo_trainer import HaloTrainer, graph_to
+    from hamgnn_tpu_torch.train.config import load_config
+
+    graph, _ = bench_graph(dev)
+    host = graph_to(graph, "cpu")
+    item = {k: v[None] for k, v in build_halo_inputs(host, plan_for_graph(host, 1)).items()}
+    del graph
+    layers = BENCH_CFG["representation_nets"]["HamGNN_pre"]["num_layers"]
+    # a block's message pass launches 2 of each TP kernel (13 = 1 + 4 a layer):
+    # the boundary passes add 4 a layer, each beside an interior pass
+    boundary = 4 * layers
+    per = 4 * layers + 1 + boundary
+    groups = {k: tp_kernel.KERNELS[k].device_kernels for k in ENGINES["auto"]}
+    names = [n for v in groups.values() for n in v]
+    forms = {"eager_sync": ("sync", False), "eager_async": ("async", False),
+             "captured_async": ("async", None), "captured_sync": ("sync", None)}
+
+    def trainer(tag):
+        exchange, capture = forms[tag]
+        model = init_weights(build_model(load_config(None, overrides=BENCH_CFG)), 0)
+        tr = HaloTrainer(model, losses=BENCH_LOSSES, metrics=[], lr=1e-3, device=dev,
+                         train_dir=str(PAR_WORK / f"async_{tag}"), n_data=1, n_graph=1,
+                         capture=capture, split=True, exchange=exchange)
+        if (tr.parallel_steps is None) != (capture is False):
+            fail(f"split halo step {tag}: the trainer's capture is not the asked one")
+        return tr
+
+    def outcome(tr, out):
+        loss, logs = out
+        return [loss, *(logs[k] for k in sorted(logs)), tr.grad, *_par_state(tr)]
+
+    firsts, structure, launches = {}, {}, {}
+    with engine("auto"):
+        torch.use_deterministic_algorithms(True)
+        try:
+            for tag in forms:
+                torch.cuda.empty_cache()
+                with graphs_kept():
+                    tr = trainer(tag)
+                    reset_launches(tp_kernel)
+                    out = tr.train_step(item)
+                torch.cuda.synchronize()
+                firsts[tag] = outcome(tr, out)
+                if tr.parallel_steps is None:
+                    launches[tag] = check_launches(tp_kernel, {k: per for k in groups},
+                                                   f"eager split halo step ({tag})")
+                else:
+                    seg = next(iter(tr.parallel_steps.train_graphs.values())).graph
+                    structure[tag] = graph_structure(seg, groups, f"par_{tag}")
+                    del seg
+                del tr, out
+        finally:
+            torch.use_deterministic_algorithms(False)
+    for a, b in (("eager_async", "eager_sync"), ("captured_async", "eager_async"),
+                 ("captured_sync", "eager_sync")):
+        if not all(torch.equal(x, y) for x, y in zip(firsts[a], firsts[b])):
+            fail(f"split halo step: {a} differs from {b} under deterministic algorithms: "
+                 f"loss {float(firsts[a][0])!r} vs {float(firsts[b][0])!r}")
+    for tag, r in structure.items():
+        if r["tp_nodes"] != {k: per * len(v) for k, v in groups.items()}:
+            fail(f"split halo step {tag}: TP kernel nodes {r['tp_nodes']}, {per} a kernel "
+                 f"expected")
+        want = {k: boundary * len(v) if "async" in tag else 0 for k, v in groups.items()}
+        if r["concurrent"] != want or ("async" in tag and r["beside_nodes"] != 4 * layers):
+            fail(f"split halo step {tag}: TP kernel nodes unordered with another node "
+                 f"{r['concurrent']} (expected {want}), beside them {r['beside_nodes']} "
+                 f"node(s) {r['beside']}")
+    del firsts
+    torch.cuda.empty_cache()
+    with engine("auto"):
+        trs = {tag: trainer(tag) for tag in ("captured_async", "captured_sync", "eager_async")}
+        for tr in trs.values():
+            tr.train_step(item)   # the captures
+        walls = {tag: [] for tag in trs}
+        for _ in range(3):
+            for tag, tr in trs.items():
+                walls[tag].append(1e3 * _host_time(lambda: tr.train_step(item)))
+        timed = {}
+        for tag, tr in trs.items():
+            prof = _par_profile(tr, item, f"profile_halo_split_{tag}.txt", names)
+            if prof["device_launches"] != {n: per for n in names}:
+                fail(f"split halo step {tag}: device launches {prof['device_launches']}")
+            timed[tag] = dict(wall_ms=float(np.median(walls[tag])), walls_ms=walls[tag],
+                              **prof)
+        finite = all(bool(torch.isfinite(tr.flat).all()) for tr in trs.values())
+        del trs
+    if not finite:
+        fail("split halo steps left non-finite parameters")
+    torch.cuda.empty_cache()
+    r_async, r_sync = structure["captured_async"], structure["captured_sync"]
+    print(f"[parallel] (a'') the split's exchange in flight at world 1 over NCCL (auto): eager "
+          f"and captured, in flight and blocking, bit for bit under deterministic algorithms; "
+          f"eager launches {launches['eager_async']}; captured graph nodes in flight "
+          f"{r_async['nodes_by_kind']}, blocking {r_sync['nodes_by_kind']}, of them TP kernel "
+          f"nodes {r_async['tp_nodes']} and {r_sync['tp_nodes']}; TP kernel nodes "
+          f"unordered with another node: in flight {r_async['concurrent']} beside "
+          f"{r_async['beside_nodes']} node(s) {r_async['beside']}, blocking "
+          f"{r_sync['concurrent']}; wall a step (median of 3) on device ms: "
+          + ", ".join(f"{t} {v['wall_ms']:.3f} on {v['device_ms']:.3f}"
+                      for t, v in timed.items()) + f"; card {card}", flush=True)
+    return {"launches": launches, "graphs": structure, "timed": timed, "bit_for_bit": True}
+
+
 def _par_rank(rank, world, port, work):
     """(b) one of two ranks on one card over gloo: the bench crystal split
     2 ways, one halo step; rank 0 saves the loss and the flat gradient."""
@@ -4728,6 +4928,7 @@ def phase_parallel(tp_kernel, dev, card):
         for name, fn, *args in (
                 ("world1_auto", _par_world1, tp_kernel, dev, card, "auto"),
                 ("world1_zonal", _par_world1, tp_kernel, dev, card, "zonal"),
+                ("async", _par_async, tp_kernel, dev, card),
                 ("two_ranks", _par_two_ranks, card),
                 ("soc", _par_soc, tp_kernel, dev, card),
                 ("band", _par_band, tp_kernel, dev, card),
@@ -5367,6 +5568,14 @@ def main():
             "captured_device_ms": parallel[f"world1_{eng}"][kind]["captured"]["device_ms"]}
             for kind in ("halo", "dp")} for eng in ENGINES},
         "plan_s1": parallel["world1_auto"]["plan"],
+        "split_exchange": {
+            "timed": {t: {k: v[k] for k in ("wall_ms", "device_ms")}
+                      for t, v in parallel["async"]["timed"].items()},
+            "tp_nodes": {t: g["tp_nodes"] for t, g in parallel["async"]["graphs"].items()},
+            "concurrent_tp_nodes": {t: g["concurrent"]
+                                    for t, g in parallel["async"]["graphs"].items()},
+            "nodes_by_kind": {t: g["nodes_by_kind"]
+                              for t, g in parallel["async"]["graphs"].items()}},
         "two_ranks": ({k: two[k] for k in ("grad_rel_err", "plan", "wall_ms_shared_card")}
                       if two["ran"] else {"left_out": two["gloo_cuda"]}),
         "soc_worst_grad": parallel["soc"]["worst_grad_rel_err"],

@@ -126,6 +126,13 @@ def _embed(net: nn.Module, view):
     return node_attrs, edge_len, edge_sh, edge_scalars, edge_feats, node_feats
 
 
+def _rows_at(recv, pos):
+    """A thunk of the received rows at ``pos``: ``recv`` is the thunk of an
+    exchange in flight (``GraphView.halo_start``); bound here, not in the
+    layer loop, so a checkpointed layer's recompute reads its own exchange."""
+    return lambda: recv()[pos]
+
+
 class HamGNNConvE3(nn.Module):
     """Representation network producing {node_attr, edge_attr} features."""
 
@@ -180,16 +187,21 @@ class HamGNNConvE3(nn.Module):
         overlap = view.boundary_pos is not None
         if overlap:
             # the overlap split: the interior pass reads owned source rows,
-            # the boundary pass the rows the exchange received
+            # the boundary pass the rows the exchange received.  Each exchange
+            # starts before its interior pass; the boundary tuple carries a
+            # thunk that waits for the rows, which gathered_call calls after
+            # the interior contraction
             b_pos, b_mask, halo_pos = view.boundary_pos, view.boundary_mask, view.src_halo_pos
             sh_b, scal_b, dst_b = edge_sh[b_pos], edge_scalars[b_pos], view.dst_index[b_pos]
         for i in range(self.num_layers):
             conv = getattr(self, f"conv_{i}")
             pair = getattr(self, f"pair_{i}")
+            if overlap:
+                src_b = _rows_at(view.halo_start(node_feats), halo_pos)
             dst_rows = view.gather_dst(node_feats)
             if overlap:
-                boundary = (view.halo_rows(node_feats)[halo_pos], dst_rows[b_pos],
-                            edge_feats[b_pos], sh_b, scal_b, dst_b, b_mask)
+                boundary = (src_b, dst_rows[b_pos], edge_feats[b_pos], sh_b, scal_b, dst_b,
+                            b_mask)
                 node_feats = call(conv.gathered_call, node_feats,
                                   view.gather_src_interior(node_feats), dst_rows,
                                   edge_feats, edge_sh, edge_scalars, view.dst_index,
@@ -201,10 +213,12 @@ class HamGNNConvE3(nn.Module):
             if self.use_corr_prod:
                 node_feats = call(getattr(self, f"corr_{i}"), node_feats, node_attrs)
             up_src, up_dst = call(pair.lift, node_feats)
+            if overlap:
+                src_b = _rows_at(view.halo_start(up_src), halo_pos)
             up_dst_rows = view.gather_dst(up_dst)
             if overlap:
-                boundary = (view.halo_rows(up_src)[halo_pos], up_dst_rows[b_pos],
-                            edge_feats[b_pos], sh_b, scal_b, b_pos, b_mask)
+                boundary = (src_b, up_dst_rows[b_pos], edge_feats[b_pos], sh_b, scal_b, b_pos,
+                            b_mask)
                 edge_feats = call(pair.gathered_call, view.gather_src_interior(up_src),
                                   up_dst_rows, edge_feats, edge_sh, edge_scalars, boundary)
             else:

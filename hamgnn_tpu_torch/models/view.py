@@ -18,7 +18,8 @@ Hooks (N owned nodes, E local edges):
 * ``inv_exchange(rows)``: (E, D) -> (E, D) rows of each edge's inverse edge;
 * ``psum(x)``: the sum over the partition (differentiable);
 * the overlap hooks (the partition only): ``gather_src_interior`` reads owned
-  rows, ``halo_rows`` returns the received (S*H, D) rows, ``interior_mask``,
+  rows, ``halo_start(rows)`` starts the exchange and returns a thunk that
+  gives the received (S*H, D) rows (it waits for them), ``interior_mask``,
   ``boundary_pos`` / ``boundary_mask`` (the local rows of the edges whose
   source is remote) and ``src_halo_pos`` (their sources in the halo rows);
 * ``gather_nodes_global`` / ``gather_edges_global``: the whole crystal's rows
@@ -61,7 +62,7 @@ class GraphView:
     psum: Callable = _identity
     # the overlap split (the partition only)
     gather_src_interior: Optional[Callable] = None
-    halo_rows: Optional[Callable] = None
+    halo_start: Optional[Callable] = None
     interior_mask: Optional[Any] = None
     boundary_pos: Optional[Any] = None
     boundary_mask: Optional[Any] = None

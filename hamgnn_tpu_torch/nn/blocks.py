@@ -155,7 +155,9 @@ class ConvBlockE3(nn.Module):
         ``(src_b, dst_b, edge_b, sh_b, scal_b, dst_idx_b, mask_b)`` of the
         boundary edges' rows.  With it, ``edge_mask`` covers the interior
         edges only; the boundary messages come from the same
-        ``MessagePackBlock`` and join the same aggregate."""
+        ``MessagePackBlock`` and join the same aggregate.  ``src_b`` may be
+        a thunk (an exchange in flight): it is called after the interior
+        contraction, where the wait for the rows goes."""
         num_nodes = node_feats_own.shape[0]
         messages = self.conv_tp(src_feats, dst_feats, edge_feats, edge_sh,
                                 edge_scalars)
@@ -163,6 +165,7 @@ class ConvBlockE3(nn.Module):
         agg = segment_sum(messages, dst_idx, num_nodes)
         if boundary is not None:
             src_b, dst_b, edge_b, sh_b, scal_b, dst_idx_b, mask_b = boundary
+            src_b = src_b() if callable(src_b) else src_b
             msg_b = self.conv_tp(src_b, dst_b, edge_b, sh_b, scal_b)
             msg_b = torch.where(mask_b[:, None], msg_b, torch.zeros_like(msg_b))
             agg = agg + segment_sum(msg_b, dst_idx_b, num_nodes)
@@ -210,10 +213,12 @@ class PairInteractionBlock(nn.Module):
         sh_b, scal_b, pos_b, mask_b)``.  With it, ``src_lifted`` holds owned
         rows only (the boundary rows are arbitrary); the boundary rows are
         computed from the received rows and put in place at ``pos_b``, so
-        every edge's output equals the joint call's."""
+        every edge's output equals the joint call's.  ``src_b`` may be a
+        thunk, called after the interior pass (``ConvBlockE3.gathered_call``)."""
         mix = self.conv_tp(src_lifted, dst_lifted, edge_feats, edge_sh, edge_scalars)
         if boundary is not None:
             src_b, dst_b, edge_b, sh_b, scal_b, pos_b, mask_b = boundary
+            src_b = src_b() if callable(src_b) else src_b
             mix_b = self.conv_tp(src_b, dst_b, edge_b, sh_b, scal_b)
             # zero the main pass's boundary rows, then add the boundary
             # results; padded pos_b rows add zero

@@ -10,6 +10,15 @@ the collectives are ``torch.distributed`` calls over the graph group, each
 wrapped in an autograd function whose backward is the matching collective
 (an all-to-all's is the reverse all-to-all, a sum's is a sum, a gather's is a
 sum of the ranks' gradients for the owner's block).
+
+The overlap split's exchange runs in flight (``halo_recv_start`` /
+``halo_recv_finish``), as XLA schedules the JAX package's: the all-to-all is
+issued with ``async_op=True`` before the interior pass and waited on where
+the boundary pass first reads the rows; its backward issues the reverse
+all-to-all where the boundary pass's gradient reaches the rows and waits on
+it after the interior pass's backward.  Under NCCL a wait makes the current
+stream wait on the collective's stream (a fork and a join, which a CUDA graph
+records as edges); the host does not block.
 """
 
 from __future__ import annotations
@@ -279,6 +288,86 @@ def halo_recv_rows(local_feats: torch.Tensor, send_idx: torch.Tensor, group) -> 
     pass does not depend on the exchange."""
     send = local_feats[send_idx.reshape(-1)]                 # (S*H, D)
     return all_to_all_rows(send, group)
+
+
+class InFlight:
+    """An all-to-all of halo rows that ``halo_recv_start`` issued: ``rows``
+    the (S*H, D) buffer the collective writes, ``work`` its handle (None once
+    waited on).  The same object carries the reverse exchange of the
+    backward between its two autograd nodes."""
+
+    def __init__(self, group):
+        self.group = group
+        self.rows: Optional[torch.Tensor] = None
+        self.work = None
+        self.sent: Optional[torch.Tensor] = None   # held until the wait
+        self.done: Optional[torch.Tensor] = None   # the rows after the wait
+
+
+def _issue(ex: InFlight, x: torch.Tensor) -> torch.Tensor:
+    out = torch.empty_like(x)
+    work = dist.all_to_all_single(out, x, group=ex.group, async_op=True)
+    if work is None:
+        raise RuntimeError("all_to_all_single(async_op=True) gave no handle: "
+                           "this rank is not in the group")
+    ex.work, ex.sent = work, x
+    return out
+
+
+def _complete(ex: InFlight) -> None:
+    ex.work.wait()
+    ex.work = ex.sent = None
+
+
+class _StartExchange(torch.autograd.Function):
+    """Issues the all-to-all and returns its buffer before the rows are in
+    it.  The backward gets the buffer of the reverse exchange that
+    ``_FinishExchange.backward`` issued and waits on it: autograd runs the
+    nodes made between the two (the interior pass's) first."""
+
+    @staticmethod
+    def forward(ctx, send, ex):
+        ctx.ex = ex
+        return _issue(ex, send.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        _complete(ctx.ex)
+        return g, None
+
+
+class _FinishExchange(torch.autograd.Function):
+    """Waits on the exchange and returns the rows; the backward issues the
+    reverse all-to-all of their gradient and returns its buffer unwaited."""
+
+    @staticmethod
+    def forward(ctx, out, ex):
+        ctx.ex = ex
+        _complete(ex)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _issue(ctx.ex, g.contiguous()), None
+
+
+def halo_recv_start(local_feats: torch.Tensor, send_idx: torch.Tensor, group) -> InFlight:
+    """Gather the rows each peer requested and issue their all-to-all with
+    ``async_op=True``; ``halo_recv_finish`` waits on it.  No fallback: a
+    collective that cannot be issued raises."""
+    ex = InFlight(group)
+    ex.rows = _StartExchange.apply(local_feats[send_idx.reshape(-1)], ex)
+    return ex
+
+
+def halo_recv_finish(ex: InFlight) -> torch.Tensor:
+    """The (S*H, D) rows of ``halo_recv_start``'s exchange, after waiting on
+    it.  A second call returns the same tensor (a checkpointed pass calls it
+    again in its recompute)."""
+    if ex.done is None:
+        ex.done = _FinishExchange.apply(ex.rows, ex)
+        ex.rows = None
+    return ex.done
 
 
 def halo_gather(local_feats: torch.Tensor, send_idx: torch.Tensor, group) -> torch.Tensor:

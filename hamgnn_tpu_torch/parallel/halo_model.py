@@ -7,8 +7,9 @@ the heads speak ``GraphView`` (``models/view.py``).  This module
 * packs a padded Graph into per-shard halo inputs (host numpy, once a batch;
   each rank slices out its own shard, ``local_inputs``);
 * builds the rank's ``GraphView`` whose hooks are the collectives over its
-  graph group (``halo_view``): an all-to-all of the requested source rows, an
-  all-to-all of the inverse-edge rows for the Hermitian symmetrisation, a
+  graph group (``halo_view``): an all-to-all of the requested source rows (in
+  flight while the interior pass runs, ``halo_recv_start``), an all-to-all of
+  the inverse-edge rows for the Hermitian symmetrisation, a
   differentiable sum for the global reductions, and a gather of the block rows
   in the global order for the band solve;
 * and runs ``model.forward_view`` and the loss on it.
@@ -31,7 +32,7 @@ import torch.distributed as dist
 from ..data.graph import Graph
 from ..models.view import GraphView
 from .halo import (EdgePartitionPlan, all_gather_rows, all_to_all_rows, halo_gather,
-                   halo_recv_rows, make_plan, psum)
+                   halo_recv_finish, halo_recv_rows, halo_recv_start, make_plan, psum)
 from .sharding import Mesh, mean_over_data, reduce_gradient
 
 _NODE_TARGETS = ("Hon", "Son", "Hon0", "iHon", "iHon0", "Lon", "spin_vec", "spin_length")
@@ -126,24 +127,42 @@ def local_inputs(inputs: Dict[str, np.ndarray], n_shards: int, shard: int,
     return out
 
 
+EXCHANGES = ("async", "sync")
+
+
 def halo_view(inp: Dict[str, torch.Tensor], group, band_graph: Optional[Graph] = None,
-              edge_unperm: Optional[torch.Tensor] = None) -> GraphView:
+              edge_unperm: Optional[torch.Tensor] = None, split: Optional[bool] = None,
+              exchange: str = "async") -> GraphView:
     """The rank's GraphView over its local halo inputs, with the collectives
-    over ``group`` (its graph group) as hooks.  A group of one rank has no
-    remote source: the overlap split is left out (its boundary pass would
-    run on padding alone), and the step launches what the one-device step
-    does."""
+    over ``group`` (its graph group) as hooks.  ``split``: the overlap split
+    (default: where the group has more than one rank; a group of one has no
+    remote source, its boundary pass would run on padding alone, and without
+    the split the step launches what the one-device step does).
+    ``exchange``: the split's exchange, ``async`` in flight while the
+    interior pass runs, or ``sync`` done before it (the reference form)."""
+    if exchange not in EXCHANGES:
+        raise ValueError(f"exchange {exchange!r}: expected one of {EXCHANGES}")
     src_pos, dst_local = inp["src_pos"], inp["dst_local"]
     send_idx, inv_pos, edge_send_idx = inp["send_idx"], inp["inv_pos"], inp["edge_send_idx"]
     n_loc = inp["z"].shape[0]
+    if split is None:
+        split = dist.get_world_size(group) > 1
     overlap = {}
-    if dist.get_world_size(group) > 1:
+    if split:
         boundary_pos = inp["boundary_pos"]
         is_interior = src_pos < n_loc
         src_pos_int = torch.where(is_interior, src_pos, torch.zeros_like(src_pos))
+
+        def halo_start(rows):
+            if exchange == "sync":
+                recv = halo_recv_rows(rows, send_idx, group)
+                return lambda: recv
+            ex = halo_recv_start(rows, send_idx, group)
+            return lambda: halo_recv_finish(ex)
+
         overlap = dict(
             gather_src_interior=lambda rows: rows[src_pos_int],
-            halo_rows=lambda rows: halo_recv_rows(rows, send_idx, group),
+            halo_start=halo_start,
             interior_mask=inp["edge_mask_sh"] & is_interior,
             boundary_pos=boundary_pos, boundary_mask=inp["boundary_mask"],
             src_halo_pos=torch.clamp(src_pos[boundary_pos] - n_loc, min=0))
@@ -168,12 +187,13 @@ def halo_view(inp: Dict[str, torch.Tensor], group, band_graph: Optional[Graph] =
 
 
 def make_halo_loss_fn(model, mesh: Mesh, losses: Optional[Sequence[Dict[str, Any]]] = None,
-                      metrics: Sequence[Dict[str, Any]] = (), with_band: bool = False):
+                      metrics: Sequence[Dict[str, Any]] = (), with_band: bool = False,
+                      split: Optional[bool] = None, exchange: str = "async"):
     """``loss_fn(inp, band_graph=None, k_vecs=None, edge_unperm=None) ->
     (loss, logs, metrics)`` of this rank's crystal, the same on every rank of
     its graph group.  ``with_band``: the whole-crystal Graph, k-points and the
     edge unpermutation come along for the band solve (one crystal a step,
-    ``n_data`` 1)."""
+    ``n_data`` 1).  ``split`` and ``exchange``: ``halo_view``'s."""
     from ..models.model import compute_losses, compute_metrics
 
     losses = losses or [{"metric": "mae", "prediction": "hamiltonian",
@@ -183,7 +203,7 @@ def make_halo_loss_fn(model, mesh: Mesh, losses: Optional[Sequence[Dict[str, Any
 
     def loss_fn(inp, band_graph=None, k_vecs=None, edge_unperm=None):
         view = halo_view(inp, mesh.graph_group, band_graph=band_graph,
-                         edge_unperm=edge_unperm)
+                         edge_unperm=edge_unperm, split=split, exchange=exchange)
         preds = model.forward_view(view, k_vecs=k_vecs)
         total, logs = compute_losses(preds, view, losses, psum=view.psum)
         mets = compute_metrics(preds, view, metrics, psum=view.psum) if metrics else {}
@@ -193,15 +213,18 @@ def make_halo_loss_fn(model, mesh: Mesh, losses: Optional[Sequence[Dict[str, Any
 
 
 def make_halo_train_step(model, opt, losses, mesh: Mesh, flat: torch.Tensor,
-                         grad: torch.Tensor, with_band: bool = False):
+                         grad: torch.Tensor, with_band: bool = False,
+                         split: Optional[bool] = None, exchange: str = "async"):
     """A data-parallel x halo train step over the flat-vector amsgrad
     (``train/optim.py``): ``step(inp, lr, band_graph=None, k_vecs=None,
     edge_unperm=None) -> (mean loss, mean logs)``, the means over the data
     rows, the same on every rank; ``logs["nonfinite_step"]`` is 1.0 where the
     guard dropped the step (on every rank alike).  ``lr`` is the trainer's
     0-dim float32 device tensor ``lr_t``: the step reads nothing from the
-    host, so ``HaloTrainer`` captures it as a CUDA graph."""
-    loss_fn = make_halo_loss_fn(model, mesh, losses, with_band=with_band)
+    host, so ``HaloTrainer`` captures it as a CUDA graph.  ``split`` and
+    ``exchange``: ``halo_view``'s."""
+    loss_fn = make_halo_loss_fn(model, mesh, losses, with_band=with_band, split=split,
+                                exchange=exchange)
 
     def step(inp, lr, band_graph=None, k_vecs=None, edge_unperm=None):
         grad.zero_()

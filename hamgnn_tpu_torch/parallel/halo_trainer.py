@@ -24,11 +24,13 @@ On the card under an NCCL group the steps are replayed from CUDA graphs,
 one set per shape key (``train/captured.py``), as the JAX trainer jits them
 (``hamgnn_tpu/parallel/halo_model.py:347``, ``halo_trainer.py:177``): the
 collectives of the halo exchange, the sums and the gathers are recorded in
-the graphs; a band-mode step is captured in segments around the
-eigensolve.  A batch's packed inputs stay on the host until they are
-copied into the graphs' buffers from pinned memory, without waiting for
-the card (``train/captured.py``, ``copy_inputs``).  The export's one-device
-forward replays its own captured eval.  On the CPU and over gloo the steps
+the graphs (the overlap split's exchange as a fork to the collective's
+stream and a join after the interior pass, ``parallel/halo.py``); a
+band-mode step is captured in segments around the eigensolve.  A batch's
+packed inputs stay on the host until they are copied into the graphs'
+buffers from pinned memory, without waiting for the card
+(``train/captured.py``, ``copy_inputs``).  The export's one-device forward
+replays its own captured eval.  On the CPU and over gloo the steps
 run eagerly (``sharding.capture_default``); ``capture=False`` keeps them
 eager on the card too.
 """
@@ -120,11 +122,17 @@ class HaloTrainer(Trainer):
     """``capture``: replay the halo steps from CUDA graphs (default: on the
     card under an NCCL group, ``sharding.capture_default``); False runs them
     eagerly.  ``parallel_steps`` holds the captured halo steps (None when
-    eager), ``captured`` the export's captured one-device eval."""
+    eager), ``captured`` the export's captured one-device eval.  ``split``
+    and ``exchange``: the overlap split and its exchange
+    (``halo_model.halo_view``; by default the split where ``n_graph`` > 1,
+    its exchange in flight)."""
 
     def __init__(self, *args, n_data: int = 1, n_graph: int = 1,
-                 edge_quantum: int = 64, capture=None, **kwargs):
+                 edge_quantum: int = 64, capture=None, split=None, exchange: str = "async",
+                 **kwargs):
         super().__init__(*args, capture=False, **kwargs)
+        self.split = split
+        self.exchange = exchange
         self.mesh = make_mesh(n_data, n_graph)
         self.n_data = n_data
         self.n_graph = n_graph
@@ -150,13 +158,15 @@ class HaloTrainer(Trainer):
         if self._hstep is None:
             self._hstep = make_halo_train_step(self.model, self.opt, self.losses, self.mesh,
                                                self.flat, self.grad,
-                                               with_band=self._band_mode)
+                                               with_band=self._band_mode, split=self.split,
+                                               exchange=self.exchange)
         return self._hstep
 
     def _halo_eval(self):
         if self._heval is None:
             self._heval = make_halo_loss_fn(self.model, self.mesh, self.losses,
-                                            metrics=self.metrics, with_band=self._band_mode)
+                                            metrics=self.metrics, with_band=self._band_mode,
+                                            split=self.split, exchange=self.exchange)
         return self._heval
 
     def _halo_eval_step(self, inp, **band):
