@@ -69,8 +69,9 @@ Phases (any failure exits non-zero, before the result lines are printed):
      ``p7_tf32`` bit-identical on a repeat, ``p7``'s scratch as sized in
      Python equal to the library's count; time kernel, plain version and
      library call at each timed size (``p7_tf32``'s a ``torch.matmul`` with
-     TF32 allowed for that call alone, printed beside the full-fp32 one),
-     and fail where a
+     TF32 allowed for that call alone, printed beside the full-fp32 one;
+     ``k_acc``'s one ``a.t() @ a[:, :24]``, the block its tiles add into),
+     with the library call's max|d| from the plain version, and fail where a
      kernel reads above 1.05 of its bound; then run the three entry points on
      the card with every count at 0 before: each probe kernel must have
      launched, and no kernel of the model;
@@ -196,19 +197,31 @@ Phases (any failure exits non-zero, before the result lines are printed):
      ``examples/sk/config.yaml`` (3 layers) and ``examples/sk_soc/config.yaml``
      (2 layers, ``add_H_nonsoc`` forced), seeded weights, saved in the port's
      package form and read back equal, then ``tools.uni_hamgnn``'s CLI with
-     ``calculate_mae`` under the plain TP, the default and the zonal engine:
-     13 + 9 launches of the engine's forward kernel a crystal and no other
-     (none under the plain TP), the default engine within 1e-4 * max|ref| of
-     the plain TP and the zonal within the engine limit of the default, the
-     SOC rows Hermitian within 1e-6 * max|ref| per crystal, each stage timed
-     warm per crystal with its peak memory; ``HamGNNConvE3Compat`` at its own
-     default widths (96 types, SH to 5o, ``64x0e+32x1o+16x2e``, 3 layers, 64
-     radial) with the openmx nao-14 head, filled from a synthetic
+     ``calculate_mae`` under the plain TP (eager) and, each stage replayed
+     from a CUDA graph per shape key as the predictor runs by default, the
+     default and the zonal engine: each graph's 13 (non-SOC) or 9 (SOC)
+     kernel nodes of the engine's forward kernel, read from its DOT dump,
+     and no other TP node, so 13 + 9 a crystal (the host counters: one
+     warm-up and one capture a key and stage); every prediction of both
+     stages captured against an eager predictor (13 + 9 launches a crystal)
+     bit for bit under deterministic algorithms; the default engine within
+     1e-4 * max|ref| of the plain TP and the zonal within the engine limit
+     of the default, the SOC rows Hermitian within 1e-6 * max|ref| per
+     crystal, a replay's TP launches by the profiler, each stage timed warm
+     per crystal captured and eager (wall, device ms), the capture's seconds
+     a key and the memory held; ``HamGNNConvE3Compat`` at its own default
+     widths (96 types, SH to 5o, ``64x0e+32x1o+16x2e``, 3 layers, 64 radial)
+     with the openmx nao-14 head, as the non-SOC stage of
+     ``HamiltonianPredictor(compat=True)``, filled from a synthetic
      reference-format state dict through ``map_reference_state`` (full
-     coverage both ways), one forward on the bench crystal at 6 A (the
+     coverage both ways), one eager forward on the bench crystal at 6 A (the
      default cutoff is 26 A) launching no kernel of the port, within 1e-4 *
-     max|ref| of the same model in float64 on the CPU, timed, its peak memory
-     and its device time by kind (``profile_uni_compat.txt``); and
+     max|ref| of the same model in float64 on the CPU, its peak memory and
+     its device time by kind (``profile_uni_compat.txt``); the stage
+     replayed from its CUDA graph (no TP node in it), bit for bit with eager
+     under deterministic algorithms, both forms timed (wall, device ms,
+     ``profile_uni_compat_captured.txt``), the capture's seconds and the
+     memory held; and
      ``tools.band_cal_parallel.solve_bands_batched`` on the band phase's
      crystals, 60 k along a path, 32 k a solve, within the band phase's 5e-4
      Ha of scipy's float64 ``eigh``, timed with the host assembly beside it;
@@ -293,7 +306,8 @@ Phases (any failure exits non-zero, before the result lines are printed):
      (host counters), one replay of each chain's captured training step
      (the profiler) at 4 * layers + 1 launches of each;
  17. print one JSON line ``{"uni": {...}}`` (launches a prediction, times,
-     errors, peak memory), one ``{"parallel": {...}}``, one describing each
+     captured and eager stage times, replay TP nodes, capture seconds, held
+     memory, errors, peak memory), one ``{"parallel": {...}}``, one describing each
      kernel (the variants as entries of their own), then the result line
      ``{"ok": true, "device": {...}}`` last.
 
@@ -1375,8 +1389,16 @@ def phase_probes(tp_kernel, dev):
                     if m["share"] > SHARE_MAX:
                         fail(f"probe {name} at {n} rows: {m['ms']:.5f} ms is "
                              f"{m['share']:.2f} of its bound {m['bound_ms']:.5f} ms")
+                    lib = "none"
+                    if p.library is not None:  # its max|d| from the plain version
+                        plain = p.plain(*tensors)
+                        part = plain if p.library_part is None else p.library_part(plain)
+                        m["library_max_abs_err"] = float(
+                            (p.library(*tensors).float() - part.float()).abs().max())
+                        lib = (f"{m['library_ms']:.4f} ms (max|d| "
+                               f"{m['library_max_abs_err']:.3e})")
+                        del plain, part
                     at_rows[n] = {**m, "max_abs_err": row["max_abs_err"]}
-                    lib = "none" if m["library_ms"] is None else f"{m['library_ms']:.4f} ms"
                     print(f"[probe] {name:11s} rows={n} max|d|={row['max_abs_err']:.3e} "
                           f"(max|ref| {row['max_abs_ref']:.3e}, limit {p.tol:g}) kernel "
                           f"{m['ms']:.4f} ms plain {m['plain_ms']:.4f} ms library {lib} bound "
@@ -3775,6 +3797,8 @@ UNI_NONSOC_CONFIG = ROOT / "examples" / "sk" / "config.yaml"
 UNI_LAYERS = (3, 2)  # the sk and sk_soc models: 13 + 9 forward-kernel launches
 UNI_COMPAT_CUTOFF = 6.0  # the bench crystal's graph; the compat default is 26 A
 UNI_COMPAT_ATOMS = 512
+UNI_COMPAT_FEAT = "64x0e+32x1o+16x2e"  # HamGNNConvE3Compat's defaults
+UNI_COMPAT_SH = "0e + 1o + 2e + 3o + 4e + 5o"
 UNI_BAND_NK, UNI_BAND_KBATCH = 60, 32
 SOC_KEYS = ("hamiltonian_real_on", "hamiltonian_real_off", "hamiltonian_imag_on",
             "hamiltonian_imag_off")
@@ -3812,11 +3836,171 @@ def _uni_sets():
     return sets
 
 
+@contextlib.contextmanager
+def predictors_made(capture=None):
+    """Every ``tools.uni_hamgnn.HamiltonianPredictor`` made in the body, kept
+    in a list; one whose caller does not say whether it captures is given
+    ``capture`` (None: the default, captured on the card)."""
+    from hamgnn_tpu_torch.tools import uni_hamgnn
+
+    cls = uni_hamgnn.HamiltonianPredictor
+    init, made = cls.__init__, []
+
+    def patched(self, *args, **kwargs):
+        if kwargs.get("capture") is None:
+            kwargs["capture"] = capture
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    cls.__init__ = patched
+    try:
+        yield made
+    finally:
+        cls.__init__ = init
+
+
+@contextlib.contextmanager
+def capture_seconds():
+    """Yields a list of (key, seconds) of each capture made in the body: its
+    warm-up and its recording (``CapturedSteps._capture``), in order."""
+    import torch
+
+    from hamgnn_tpu_torch.train import captured
+
+    cap, out = captured.CapturedSteps._capture, []
+
+    def timed(self, body, static, inputs, inference):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        entry = cap(self, body, static, inputs, inference)
+        torch.cuda.synchronize()
+        out.append((captured.step_key(static, inputs), time.perf_counter() - t0))
+        return entry
+
+    captured.CapturedSteps._capture = timed
+    try:
+        yield out
+    finally:
+        captured.CapturedSteps._capture = cap
+
+
+def held_base(dev) -> int:
+    """Bytes reserved on ``dev`` after a garbage collection and with the
+    cache emptied: the base of ``held_mb``."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(dev)
+
+
+def held_mb(dev, base) -> float:
+    """MiB reserved on ``dev`` above ``base`` after a garbage collection and
+    with the cache emptied: what live tensors and the CUDA graphs' pools
+    hold."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    return (torch.cuda.memory_reserved(dev) - base) / 2**20
+
+
+def stage_nodes(cap, names, want, stem) -> dict:
+    """The kernel nodes by each of ``names`` of every graph of a predictor
+    stage's ``CapturedSteps`` (captured under ``graphs_kept``), by key;
+    fails unless each graph holds ``want`` of each."""
+    nodes = {}
+    for i, (key, entry) in enumerate(cap.eval_graphs.items()):
+        counts, _total = graph_kernel_nodes(entry.graph, names, f"{stem}_{i}")
+        if any(n != want for n in counts.values()):
+            fail(f"{stem}: the graph of key {key} holds {counts} kernel nodes, expected "
+                 f"{want} of each")
+        nodes[key] = sum(counts.values()) // max(len(names), 1)
+    return nodes
+
+
+def _uni_equal(got, want, keys, what) -> None:
+    """Fails unless each of ``keys`` of ``got`` equals ``want``'s bit for bit."""
+    import torch
+
+    for k in keys:
+        if not torch.equal(got[k], want[k]):
+            fail(f"{what}: {k} captured vs eager max|d| "
+                 f"{float((got[k] - want[k]).abs().max()):.3e} of "
+                 f"{float(want[k].abs().max()):.3e} under deterministic algorithms")
+
+
+def _uni_stage_times(pred, data):
+    """Per crystal, warm: each stage's wall ms (median of 3 calls, host
+    clock around the call and a synchronize) and device ms (torch.profiler,
+    kernels summed, 3 calls after one), the profiler's launches a call, and
+    the peak memory above what was allocated before."""
+    import numpy as np
+    import torch
+
+    wall = {"nonsoc": [], "soc": []}
+    device = {"nonsoc": [], "soc": []}
+    launches = {}
+    dev = pred.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    for g, g_soc in zip(data["nonsoc"], data["soc"]):
+        p1 = pred.predict_nonsoc(g)
+        h_on, h_off = p1["hamiltonian_on"].clone(), p1["hamiltonian_off"].clone()
+        for stage, fn in (("nonsoc", lambda: pred.predict_nonsoc(g)),
+                          ("soc", lambda: pred.predict_soc(g_soc, h_on, h_off))):
+            wall[stage].append(1e3 * float(np.median([_host_time(fn) for _ in range(3)])))
+            ms, n = _device_ms(fn)
+            device[stage].append(ms)
+            launches[stage] = n
+    return dict(wall_ms=wall, device_ms=device, device_launches=launches,
+                peak_mb=(torch.cuda.max_memory_allocated(dev) - base) / 2**20,
+                wall_ms_median={k: float(np.median(v)) for k, v in wall.items()},
+                device_ms_median={k: float(np.median(v)) for k, v in device.items()})
+
+
+def _uni_deterministic(tp_kernel, pkg, dev, data, eng, want) -> None:
+    """Every prediction of both stages, captured against eager (two
+    predictors of one package) under deterministic algorithms: fails unless
+    bit for bit, or unless the eager predictor's pass launched ``want``
+    kernels (by name) on the host counters."""
+    import torch
+
+    from hamgnn_tpu_torch.tools import uni_hamgnn
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        eag = uni_hamgnn.HamiltonianPredictor.load(pkg, device=dev, capture=False)
+        reset_launches(tp_kernel)
+        eager = []
+        for g, g_soc in zip(data["nonsoc"], data["soc"]):
+            e1 = eag.predict_nonsoc(g)
+            eager.append((e1, eag.predict_soc(g_soc, e1["hamiltonian_on"],
+                                              e1["hamiltonian_off"])))
+        check_launches(tp_kernel, want, f"the eager predictor ({eng})")
+        del eag
+        cap = uni_hamgnn.HamiltonianPredictor.load(pkg, device=dev)
+        for g, g_soc, (e1, e2) in zip(data["nonsoc"], data["soc"], eager):
+            c1 = cap.predict_nonsoc(g)
+            _uni_equal(c1, e1, ("hamiltonian_on", "hamiltonian_off"),
+                       f"uni non-SOC stage ({eng})")
+            c2 = cap.predict_soc(g_soc, c1["hamiltonian_on"], c1["hamiltonian_off"])
+            _uni_equal(c2, e2, SOC_KEYS, f"uni SOC stage ({eng})")
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def _uni_native(tp_kernel, dev, card, sets):
     """The native predictor (sk + sk_soc models, seeded weights) saved in the
     port's package form, loaded back and run through its CLI under the plain
-    TP, the default and the zonal engine; per crystal the stages timed warm
-    and the SOC rows' Hermitian structure."""
+    TP (eager), the default and the zonal engine (each stage replayed from
+    a CUDA graph per shape key, the default): the graphs' kernel nodes,
+    each prediction captured against an eager predictor's under
+    deterministic algorithms, the eager predictor's host launches; per
+    crystal the stages timed warm in both forms and the SOC rows' Hermitian
+    structure."""
     import io
 
     import numpy as np
@@ -3826,9 +4010,13 @@ def _uni_native(tp_kernel, dev, card, sets):
     from hamgnn_tpu_torch.data.dataset import GraphDataModule
     from hamgnn_tpu_torch.models.model import init_weights
     from hamgnn_tpu_torch.tools import uni_hamgnn
+    from hamgnn_tpu_torch.train.captured import shape_key
 
+    base = held_base(dev)
     pred = uni_hamgnn.HamiltonianPredictor(str(UNI_NONSOC_CONFIG), str(SOC_CONFIG),
                                            soc_switch=True, device=dev)
+    if pred.captured_nonsoc is None or pred.captured_soc is None:
+        fail("uni: the predictor must capture both stages by default on the card")
     init_weights(pred.model_nonsoc, 0)
     init_weights(pred.model_soc, 1)
     pkg = UNI_WORK / "package"
@@ -3838,30 +4026,72 @@ def _uni_native(tp_kernel, dev, card, sets):
         sa, sb = a.state_dict(), b.state_dict()
         if set(sa) != set(sb) or not all(torch.equal(sa[k], sb[k]) for k in sa):
             fail("uni: the package read back differs from the predictor saved")
+    del pred
     n_cryst = len(sets["nonsoc"])
-    per_pred = 4 * UNI_LAYERS[0] + 1 + 4 * UNI_LAYERS[1] + 1
-    preds, maes, launches = {}, {}, {}
-    for eng in ("xla", "auto", "zonal"):
-        out = UNI_WORK / f"out_{eng}"
+    per_stage = (4 * UNI_LAYERS[0] + 1, 4 * UNI_LAYERS[1] + 1)
+    per_pred = sum(per_stage)
+    data = {name: list(GraphDataModule(sets[name], batch_size=1, test_mode=True,
+                                       device=dev).test_batches()) for name in sets}
+    preds, maes, launches, host, capture_s, keys, tp_nodes = {}, {}, {}, {}, {}, {}, {}
+    rows = sum(c["z"].shape[0] + c["edge_index"].shape[1] for c in sets["soc"])
+
+    def cli(eng, tag, capture):
+        out = UNI_WORK / f"out_{tag}"
         cfg = {"model_pkl_path": str(pkg),
                "non_soc_data_dir": str(UNI_WORK / "graph_nonsoc" / "graph_data.npz"),
                "soc_data_dir": str(UNI_WORK / "graph_soc" / "graph_data.npz"),
                "output_dir": str(out), "calculate_mae": True}
-        (UNI_WORK / f"Input_{eng}.yaml").write_text(yaml.safe_dump(cfg))
-        with engine(eng):
-            reset_launches(tp_kernel)
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                uni_hamgnn.main(["--config", str(UNI_WORK / f"Input_{eng}.yaml")])
-            torch.cuda.synchronize()
-            expect = {} if eng == "xla" else {ENGINES[eng][0]: n_cryst * per_pred}
-            launches[eng] = check_launches(tp_kernel, expect, f"the uni_hamgnn CLI ({eng})")
-        preds[eng] = np.load(out / "prediction_hamiltonian.npy")
-        maes[eng] = float(buf.getvalue().split("masked MAE:")[1].split()[0])
-        rows = sum(c["z"].shape[0] + c["edge_index"].shape[1] for c in sets["soc"])
-        if preds[eng].shape != (rows, (2 * SOC_NAO) ** 2) or not np.isfinite(preds[eng]).all():
-            fail(f"uni ({eng}): prediction {preds[eng].shape}, expected ({rows}, "
+        (UNI_WORK / f"Input_{tag}.yaml").write_text(yaml.safe_dump(cfg))
+        buf = io.StringIO()
+        with predictors_made(capture) as made, contextlib.redirect_stdout(buf):
+            uni_hamgnn.main(["--config", str(UNI_WORK / f"Input_{tag}.yaml")])
+        torch.cuda.synchronize()
+        got = np.load(out / "prediction_hamiltonian.npy")
+        if got.shape != (rows, (2 * SOC_NAO) ** 2) or not np.isfinite(got).all():
+            fail(f"uni ({tag}): prediction {got.shape}, expected ({rows}, "
                  f"{(2 * SOC_NAO) ** 2}) finite")
+        if (made[-1].captured_nonsoc is None) != (capture is False):
+            fail(f"uni ({tag}): the CLI's predictor captured {made[-1].captured_nonsoc}, "
+                 f"asked {capture}")
+        return made[-1], got, float(buf.getvalue().split("masked MAE:")[1].split()[0])
+
+    for eng in ("xla", "auto", "zonal"):
+        with engine(eng):
+            if eng == "xla":  # the plain TP: eager
+                reset_launches(tp_kernel)
+                _made, preds[eng], maes[eng] = cli(eng, eng, False)
+                launches[eng] = check_launches(tp_kernel, {}, "the uni_hamgnn CLI (xla)")
+                del _made
+                continue
+            name = ENGINES[eng][0]
+            dks = tp_kernel.KERNELS[name].device_kernels
+            reset_launches(tp_kernel)
+            with graphs_kept(), capture_seconds() as caps:
+                made, preds[eng], maes[eng] = cli(eng, eng, None)
+            keys[eng] = {"nonsoc": list(made.captured_nonsoc.eval_graphs),
+                         "soc": list(made.captured_soc.eval_graphs)}
+            # the host counters: one warm-up and one capture a key and stage
+            host[eng] = check_launches(tp_kernel, {name: 2 * (
+                per_stage[0] * len(keys[eng]["nonsoc"]) + per_stage[1] * len(keys[eng]["soc"]))},
+                f"the uni_hamgnn CLI's captures ({eng})")
+            nodes = {"nonsoc": stage_nodes(made.captured_nonsoc, dks, per_stage[0],
+                                           f"uni_{eng}_nonsoc"),
+                     "soc": stage_nodes(made.captured_soc, dks, per_stage[1],
+                                        f"uni_{eng}_soc")}
+            # the CLI's launches: each crystal's replay of its key's graphs
+            replayed = sum(nodes["nonsoc"][shape_key(g)] + nodes["soc"][shape_key(g_soc)]
+                           for g, g_soc in zip(data["nonsoc"], data["soc"]))
+            if replayed != n_cryst * per_pred:
+                fail(f"uni ({eng}): {replayed} {name} nodes replayed by the CLI, expected "
+                     f"{n_cryst} x {per_pred}")
+            launches[eng] = {n: (replayed if n == name else 0) for n in tp_kernel.KERNELS}
+            tp_nodes[eng] = {stage: sorted(set(v.values())) for stage, v in nodes.items()}
+            capture_s[eng] = [{"key": list(k), "s": t} for k, t in caps]
+            del made
+            # eager: n_cryst x per_pred launches on the host counters, and
+            # every prediction equal to the captured one's
+            _uni_deterministic(tp_kernel, str(pkg), dev, data, eng, {name: n_cryst * per_pred})
+    torch.cuda.empty_cache()
     scale = float(np.abs(preds["xla"]).max())
     err_plain = float(np.abs(preds["auto"] - preds["xla"]).max())
     err_zonal = float(np.abs(preds["zonal"] - preds["auto"]).max())
@@ -3870,13 +4100,9 @@ def _uni_native(tp_kernel, dev, card, sets):
     if not err_zonal <= ENGINE_TOL * scale:
         fail(f"uni: zonal vs default engine max|d| {err_zonal:.3e} > {ENGINE_TOL} * {scale:.3e}")
 
-    # per crystal, warm: each stage's time, the SOC rows' Hermitian structure
-    data = {name: list(GraphDataModule(sets[name], batch_size=1, test_mode=True,
-                                       device=dev).test_batches()) for name in sets}
-    times = {"nonsoc": [], "soc": []}
+    # per crystal, warm, both forms: each stage's time; the SOC rows'
+    # Hermitian structure; a replay's TP launches by the profiler
     herm = 0.0
-    torch.cuda.reset_peak_memory_stats(dev)
-    base = torch.cuda.memory_allocated(dev)
     for g, g_soc in zip(data["nonsoc"], data["soc"]):
         p1 = loaded.predict_nonsoc(g)
         p2 = loaded.predict_soc(g_soc, p1["hamiltonian_on"], p1["hamiltonian_off"])
@@ -3885,30 +4111,93 @@ def _uni_native(tp_kernel, dev, card, sets):
         if not h <= 1e-6 * s2:
             fail(f"uni: SOC rows Hermitian to {h:.3e} > 1e-6 * {s2:.3e}")
         herm = max(herm, h / s2)
-        for _ in range(3):
-            times["nonsoc"].append(_host_time(lambda: loaded.predict_nonsoc(g)))
-            times["soc"].append(_host_time(lambda: loaded.predict_soc(
-                g_soc, p1["hamiltonian_on"], p1["hamiltonian_off"])))
-    peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
-    ms = {k: 1e3 * float(np.median(v)) for k, v in times.items()}
-    print(f"[uni] native two-stage CLI on {n_cryst} crystals: {per_pred} forward-kernel "
-          f"launches a prediction (B1 default, B3 zonal, none plain); vs plain TP max|d| "
+    dks = tp_kernel.KERNELS[ENGINES["auto"][0]].device_kernels
+    g, g_soc = data["nonsoc"][0], data["soc"][0]
+    p1 = loaded.predict_nonsoc(g)
+    h_on, h_off = p1["hamiltonian_on"].clone(), p1["hamiltonian_off"].clone()
+    profiled = {stage: profiled_launches(fn, dks, want)[-1] for stage, fn, want in (
+        ("nonsoc", lambda: loaded.predict_nonsoc(g), per_stage[0]),
+        ("soc", lambda: loaded.predict_soc(g_soc, h_on, h_off), per_stage[1]))}
+    captured_t = _uni_stage_times(loaded, data)
+    held = {"captured": held_mb(dev, base)}
+    del loaded, p1, p2  # the graphs' outputs too, so that their pool goes
+    eager = uni_hamgnn.HamiltonianPredictor.load(str(pkg), device=dev, capture=False)
+    eager_t = _uni_stage_times(eager, data)
+    held["eager"] = held_mb(dev, base)
+    del eager
+    cap_s = [c["s"] for c in capture_s["auto"]]
+    ms = captured_t["wall_ms_median"]
+    print(f"[uni] native two-stage CLI on {n_cryst} crystals, each stage a CUDA graph per key "
+          f"({len(keys['auto']['nonsoc'])} + {len(keys['auto']['soc'])} keys): "
+          f"{per_stage[0]} + {per_stage[1]} forward-kernel nodes a prediction (B1 default, B3 "
+          f"zonal; none plain, eager), in the graphs {tp_nodes}, the profiler on a replay "
+          f"{profiled}; host counters {host['auto'][ENGINES['auto'][0]]} (warm-ups and "
+          f"captures); captured vs eager bit for bit (deterministic); vs plain TP max|d| "
           f"{err_plain:.3e}, zonal vs default {err_zonal:.3e} of {scale:.3e}; SOC rows Hermitian "
-          f"to {herm:.3e} relative; masked MAE (random weights) {maes['auto']:.4e} Ha; per "
-          f"crystal non-SOC {ms['nonsoc']:.3f} ms, SOC {ms['soc']:.3f} ms (median of "
-          f"{len(times['soc'])}), peak {peak_mb:.1f} MiB over the models; card {card}", flush=True)
-    del pred, loaded
+          f"to {herm:.3e} relative; masked MAE (random weights) {maes['auto']:.4e} Ha; per crystal "
+          f"captured wall non-SOC {ms['nonsoc']:.3f} ms, SOC {ms['soc']:.3f} ms, device "
+          f"{captured_t['device_ms_median']}; eager wall {eager_t['wall_ms_median']}, device "
+          f"{eager_t['device_ms_median']}; capture {sum(cap_s):.2f} s over {len(cap_s)} "
+          f"captures ({', '.join(f'{t:.2f}' for t in cap_s)}); held {held['captured']:.1f} MiB "
+          f"captured, {held['eager']:.1f} MiB eager; card {card}", flush=True)
     torch.cuda.empty_cache()
     return dict(crystals=n_cryst, launches_per_prediction=per_pred, launches=launches,
+                host_launches=host, keys={e: {s: [list(k) for k in v] for s, v in ks.items()}
+                                          for e, ks in keys.items()},
+                capture_s=capture_s, replay_tp_nodes=tp_nodes, profiled_replay=profiled,
                 err_vs_plain=err_plain, err_zonal=err_zonal, scale=scale,
-                hermiticity=herm, mae=maes, ms_per_crystal=ms, peak_mb=peak_mb)
+                hermiticity=herm, mae=maes, ms_per_crystal=ms, captured=captured_t,
+                eager=eager_t, held_mb=held)
+
+
+def _uni_compat_predictor(dev, assignments, capture):
+    """A compat ``HamiltonianPredictor`` (non-SOC stage) of the compat
+    defaults with the openmx nao-14 head, filled with ``assignments``; fails
+    unless they cover its model both ways."""
+    from hamgnn_tpu_torch.interfaces.torch_ckpt import assign_params, flatten_params
+    from hamgnn_tpu_torch.tools import uni_hamgnn
+    from hamgnn_tpu_torch.train.config import load_config
+
+    config = load_config(None, overrides={
+        "representation_nets": {"HamGNN_pre": {
+            "num_types": 96, "irreps_edge_sh": UNI_COMPAT_SH,
+            "irreps_node_features": UNI_COMPAT_FEAT, "num_layers": 3, "num_radial": 64,
+            "rbf_func": "bessel", "cutoff": 26.0, "radial_MLP": [64, 64]}},
+        "output_nets": {"HamGNN_out": {"nao_max": SOC_NAO, "ham_type": "openmx",
+                                       "add_H0": True, "zero_point_shift": True}}})
+    pred = uni_hamgnn.HamiltonianPredictor(config, compat=True, device=dev, capture=capture)
+    _, untouched = assign_params(pred.model_nonsoc, assignments)
+    if untouched or set(assignments) != set(flatten_params(pred.model_nonsoc)):
+        fail(f"uni compat: the import does not cover the model both ways ({untouched[:5]})")
+    return pred
+
+
+def _uni_compat_deterministic(dev, assignments, graph, keys) -> None:
+    """The compat forward captured (through ``HamiltonianPredictor``) and
+    eager under deterministic algorithms: fails unless bit for bit."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        cap = _uni_compat_predictor(dev, assignments, True)
+        eag = _uni_compat_predictor(dev, assignments, False)
+        _uni_equal(cap.predict_nonsoc(graph), eag.predict_nonsoc(graph), keys,
+                   "uni compat forward")
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def _uni_compat(tp_kernel, dev, card):
     """``HamGNNConvE3Compat`` at its own default widths with the openmx
-    nao-14 head, filled from a synthetic reference-format state dict, one
-    forward on the bench crystal at 6 A against the same model in float64
-    on the CPU."""
+    nao-14 head, filled from a synthetic reference-format state dict, as the
+    non-SOC stage of ``HamiltonianPredictor(compat=True)``: one eager
+    forward on the bench crystal at 6 A against the same model in float64 on
+    the CPU; the stage as the predictor runs it by default, replayed from a
+    CUDA graph, against eager bit for bit under deterministic algorithms (in
+    the default mode, whose atomic sums move its ~20k-edge segment sums by
+    ~1e-6 relative from one eager run to the next, the difference is
+    reported beside eager against eager), both forms timed, the capture's
+    seconds and the memory held."""
     import copy
 
     import numpy as np
@@ -3918,51 +4207,85 @@ def _uni_compat(tp_kernel, dev, card):
     from hamgnn_tpu_torch.data.graph import pad_and_batch
     from hamgnn_tpu_torch.data.synthetic import bench_crystal
     from hamgnn_tpu_torch.interfaces import e3nn_compat
-    from hamgnn_tpu_torch.interfaces.torch_ckpt import assign_params, flatten_params
     from hamgnn_tpu_torch.models.basis import get_basis_set, hamiltonian_irreps
-    from hamgnn_tpu_torch.models.model import HamGNNModel
-    from hamgnn_tpu_torch.models.output import HamGNNPlusPlusOut
     from hamgnn_tpu_torch.tools_dev.profile_summary import summarize
 
-    rep = e3nn_compat.HamGNNConvE3Compat()
-    feat = "64x0e+32x1o+16x2e"
-    kw = dict(num_types=96, irreps_node_features=feat,
-              irreps_edge_sh="0e + 1o + 2e + 3o + 4e + 5o", num_layers=3,
+    feat = UNI_COMPAT_FEAT
+    kw = dict(num_types=96, irreps_node_features=feat, irreps_edge_sh=UNI_COMPAT_SH,
+              num_layers=3,
               irreps_ham=repr(hamiltonian_irreps(get_basis_set("openmx", SOC_NAO))))
     shapes = e3nn_compat.reference_state_shapes(num_radial=64, radial_mlp=(64, 64), **kw)
     rng = np.random.default_rng(0)
     state = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
     state["representation.radial_basis.basis.bessel_weights"] = (
         np.pi * np.arange(1, 65) * rng.uniform(0.9, 1.1, 64)).astype(np.float32)
-    model = HamGNNModel(rep, HamGNNPlusPlusOut(feat, feat, nao_max=SOC_NAO, ham_type="openmx",
-                                               ham_only=True))
     assignments = e3nn_compat.map_reference_state(state, **kw)
-    _, untouched = assign_params(model, assignments)
-    if untouched or set(assignments) != set(flatten_params(model)):
-        fail(f"uni compat: the import does not cover the model both ways ({untouched[:5]})")
     crystal = bench_crystal(n_atoms=UNI_COMPAT_ATOMS, cutoff=UNI_COMPAT_CUTOFF, nao_max=SOC_NAO)
     n_edges = int(crystal["edge_index"].shape[1])
     buckets = dict(node_bucket=512, edge_bucket=((n_edges + 511) // 512) * 512)
     graph = pad_and_batch([crystal], device=dev, **buckets)
-    model = model.to(dev).eval()
     keys = ("hamiltonian_on", "hamiltonian_off")
+    base = held_base(dev)
+    eager = _uni_compat_predictor(dev, assignments, False)
+    if eager.captured_nonsoc is not None:
+        fail("uni compat: capture=False must run the stage eagerly")
+    model = eager.model_nonsoc
     with torch.inference_mode():
         torch.cuda.reset_peak_memory_stats(dev)
-        base = torch.cuda.memory_allocated(dev)
+        alloc = torch.cuda.memory_allocated(dev)
         reset_launches(tp_kernel)
-        out = model(graph)
+        out = eager.predict_nonsoc(graph)
         torch.cuda.synchronize()
         check_launches(tp_kernel, {}, "the compat forward")  # plain einsums: no kernel
-        peak_mb = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
-        times = [_host_time(lambda: model(graph)) for _ in range(3)]
+        peak_mb = (torch.cuda.max_memory_allocated(dev) - alloc) / 2**20
+        times = [_host_time(lambda: eager.predict_nonsoc(graph)) for _ in range(3)]
+        eager_dev = _device_ms(lambda: eager.predict_nonsoc(graph))
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            model(graph)
+            eager.predict_nonsoc(graph)
             torch.cuda.synchronize()
         prof_rows = _write_profile(prof, time.perf_counter() - t0, 1, "profile_uni_compat.txt",
                                    "forward")
+    held = {"eager": held_mb(dev, base)}
     with open(ROOT / "chiprun_out" / "profile_uni_compat.txt") as f:
         kinds = {k: {"ms": ms, "launches": n} for k, (ms, n) in summarize(f).items()}
+
+    # the stage as the predictor runs it by default: a CUDA graph, replayed
+    tp_names = [dk for n in ("packed_tp_fwd", "zonal_tp_fwd")
+                for dk in tp_kernel.KERNELS[n].device_kernels]
+    reset_launches(tp_kernel)
+    with graphs_kept(), capture_seconds() as caps:
+        cap = _uni_compat_predictor(dev, assignments, None)
+        if cap.captured_nonsoc is None:
+            fail("uni compat: the predictor must capture its stage by default on the card")
+        got = cap.predict_nonsoc(graph)
+    torch.cuda.synchronize()
+    check_launches(tp_kernel, {}, "the compat capture")
+    # the default mode sums with atomics: captured vs eager beside eager vs
+    # eager, reported (the check is the deterministic one below)
+    with torch.inference_mode():
+        again = eager.predict_nonsoc(graph)
+    err_cap = max(float((got[k] - out[k]).abs().max()) / float(out[k].abs().max())
+                  for k in keys)
+    err_again = max(float((again[k] - out[k]).abs().max()) / float(out[k].abs().max())
+                    for k in keys)
+    del again
+    entry = next(iter(cap.captured_nonsoc.eval_graphs.values()))
+    tp_nodes, node_kernels = graph_kernel_nodes(entry.graph, tp_names, "uni_compat")
+    if any(tp_nodes.values()):
+        fail(f"uni compat: the captured forward holds TP kernel nodes {tp_nodes}")
+    cap_times = [_host_time(lambda: cap.predict_nonsoc(graph)) for _ in range(3)]
+    cap_dev = _device_ms(lambda: cap.predict_nonsoc(graph))
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        cap.predict_nonsoc(graph)
+        torch.cuda.synchronize()
+    cap_rows = _write_profile(prof, time.perf_counter() - t0, 1,
+                              "profile_uni_compat_captured.txt", "forward")
+    held["captured"] = held_mb(dev, base)
+    del cap, got
+    _uni_compat_deterministic(dev, assignments, graph, keys)
+
     t0 = time.perf_counter()
     cpu64 = copy.deepcopy(model).cpu().double()
     with torch.no_grad():
@@ -3973,19 +4296,35 @@ def _uni_compat(tp_kernel, dev, card):
     if not all(math.isfinite(e) and e <= TOL * scale for e in errs.values()):
         fail(f"uni compat vs float64 on the CPU: {errs} > {TOL} * {scale:.3e}")
     ms = 1e3 * float(np.median(times))
+    cap_ms = 1e3 * float(np.median(cap_times))
+    cap_s = sum(t for _k, t in caps)
     print(f"[uni] compat HamGNNConvE3Compat defaults (96 types, SH to 5o, {feat}, 3 layers, "
-          f"64 radial) + openmx head, {len(assignments)} reference tensors imported, bench "
-          f"crystal at {UNI_COMPAT_CUTOFF} A ({n_edges} edges): no port kernel launched; vs "
-          f"float64 CPU max|d| " + ", ".join(f"{k[12:]} {e:.3e}" for k, e in errs.items())
-          + f" of {scale:.3e} (limit {TOL}); forward {ms:.3f} ms (median of 3), peak "
-          f"{peak_mb:.1f} MiB; by kind " + ", ".join(f"{k} {v['ms']:.3f} ms"
-                                                      for k, v in kinds.items())
+          f"64 radial) + openmx head through HamiltonianPredictor(compat=True), "
+          f"{len(assignments)} reference tensors imported, bench crystal at "
+          f"{UNI_COMPAT_CUTOFF} A ({n_edges} edges): no port kernel launched, no TP node in "
+          f"the captured graph ({node_kernels} kernel nodes); vs float64 CPU max|d| "
+          + ", ".join(f"{k[12:]} {e:.3e}" for k, e in errs.items())
+          + f" of {scale:.3e} (limit {TOL}); captured vs eager {err_cap:.3e} relative in the "
+          f"default mode (eager vs eager {err_again:.3e}), deterministic bit for bit; "
+          f"eager forward wall {ms:.3f} ms "
+          f"(median of 3), device {eager_dev[0]:.3f} ms in {eager_dev[1]} launches, peak "
+          f"{peak_mb:.1f} MiB; captured wall {cap_ms:.3f} ms, device {cap_dev[0]:.3f} ms in "
+          f"{cap_dev[1]} launches, capture {cap_s:.2f} s; held {held['eager']:.1f} MiB eager, "
+          f"{held['captured']:.1f} MiB with the graph; by kind "
+          + ", ".join(f"{k} {v['ms']:.3f} ms" for k, v in kinds.items())
           + f"; card {card}", flush=True)
-    del model, cpu64, out
+    del model, eager, cpu64, out
     torch.cuda.empty_cache()
     return dict(edges=n_edges, tensors=len(assignments), errors=errs, scale=scale,
                 forward_ms=ms, forward_times_ms=[1e3 * t for t in times], peak_mb=peak_mb,
-                cpu_float64_s=cpu_s, device_by_kind=kinds, profile=prof_rows)
+                device_ms=eager_dev[0], device_launches=eager_dev[1],
+                captured=dict(wall_ms=cap_ms, wall_times_ms=[1e3 * t for t in cap_times],
+                              device_ms=cap_dev[0], device_launches=cap_dev[1],
+                              capture_s=cap_s, kernel_nodes=node_kernels, tp_nodes=tp_nodes,
+                              err_vs_eager=err_cap, eager_vs_eager=err_again,
+                              deterministic_bitwise=True,
+                              profile=cap_rows),
+                held_mb=held, cpu_float64_s=cpu_s, device_by_kind=kinds, profile=prof_rows)
 
 
 def _uni_bands(tp_kernel, dev, card):
@@ -4043,7 +4382,9 @@ def _uni_bands(tp_kernel, dev, card):
 
 
 def phase_uni(tp_kernel, dev, card):
-    """Phase 13 (see the module docstring)."""
+    """Phase 13 (see the module docstring); also the memory the phase leaves
+    held once its predictors are gone."""
+    base = held_base(dev)
     seconds, out = {}, {}
     for name, fn, *args in (("sets", _uni_sets), ("native", _uni_native, tp_kernel, dev, card),
                             ("compat", _uni_compat, tp_kernel, dev, card),
@@ -4054,7 +4395,9 @@ def phase_uni(tp_kernel, dev, card):
         out[name] = fn(*args)
         seconds[name] = time.perf_counter() - t0
     out["sets"] = {name: len(v) for name, v in out["sets"].items()}
-    return dict(out, seconds=seconds)
+    left = held_mb(dev, base)
+    print(f"[uni] held after the phase: {left:.1f} MiB above its start; card {card}", flush=True)
+    return dict(out, seconds=seconds, held_after_mb=left)
 
 
 PAR_WORK = WORK / "parallel"
@@ -5550,13 +5893,37 @@ def main():
                "soc_per_crystal": uni["native"]["ms_per_crystal"]["soc"],
                "compat_forward": uni["compat"]["forward_ms"],
                "band_solve": float(sum(uni["bands"]["solve_ms"]) / len(uni["bands"]["solve_ms"]))},
+        # per crystal and stage (median over the crystals) and per compat
+        # forward: wall and device ms, replayed from the CUDA graphs (the
+        # default) and eager
+        "stages": {form: {"wall_ms": uni["native"][form]["wall_ms_median"],
+                          "device_ms": uni["native"][form]["device_ms_median"]}
+                   for form in ("captured", "eager")},
+        "compat": {"captured": {k: uni["compat"]["captured"][k] for k in
+                                ("wall_ms", "device_ms", "device_launches", "capture_s",
+                                 "kernel_nodes")},
+                   "eager": {"wall_ms": uni["compat"]["forward_ms"],
+                             "device_ms": uni["compat"]["device_ms"],
+                             "device_launches": uni["compat"]["device_launches"]}},
+        # each stage's TP kernel nodes in its graphs (one value: every key
+        # holds the same), read from the graphs' DOT dumps
+        "replay_tp_nodes": {**uni["native"]["replay_tp_nodes"],
+                            "compat": sum(uni["compat"]["captured"]["tp_nodes"].values())},
+        "capture_s": {"native": uni["native"]["capture_s"]["auto"],
+                      "compat": uni["compat"]["captured"]["capture_s"]},
+        "held_mb": {"native": uni["native"]["held_mb"], "compat": uni["compat"]["held_mb"],
+                    "after_phase": uni["held_after_mb"]},
         "errors": {"vs_plain_tp": uni["native"]["err_vs_plain"],
                    "zonal_vs_default": uni["native"]["err_zonal"],
                    "scale": uni["native"]["scale"],
+                   "captured_vs_eager": {"deterministic_bitwise": True},
+                   "compat_captured_vs_eager": uni["compat"]["captured"]["err_vs_eager"],
+                   "compat_eager_vs_eager": uni["compat"]["captured"]["eager_vs_eager"],
                    "compat_vs_cpu_float64": max(uni["compat"]["errors"].values()),
                    "compat_scale": uni["compat"]["scale"],
                    "bands_vs_scipy_ha": uni["bands"]["max_abs_err"]},
-        "peak_mb": {"predictor": uni["native"]["peak_mb"],
+        "peak_mb": {"predictor": uni["native"]["eager"]["peak_mb"],
+                    "predictor_captured": uni["native"]["captured"]["peak_mb"],
                     "compat_forward": uni["compat"]["peak_mb"]},
         "card": card}}))
     two = parallel["two_ranks"]

@@ -206,6 +206,14 @@ class DenseRegressionCompat(nn.Module):
         return self.fc_out(x)
 
 
+def _one_hot(z, num_types: int, dtype):
+    """one-hot(z) by comparison, as the native embedding makes it: zeros for
+    a type out of range, as ``jax.nn.one_hot`` gives.  ``F.one_hot`` checks
+    the range of ``z`` on the host (on the CPU, and on the card in some
+    PyTorch builds), which a CUDA graph cannot capture."""
+    return (z[:, None] == torch.arange(num_types, device=z.device)).to(dtype)
+
+
 class ChargeDopedOneHotCompat(nn.Module):
     """The reference's ``Embedding_block_q``: one-hot + mlp_q(smear(q)) -
     mlp_q(smear(0))."""
@@ -217,7 +225,7 @@ class ChargeDopedOneHotCompat(nn.Module):
         self.mlp_q = DenseRegressionCompat(num_charge_attr_feas, num_types)
 
     def forward(self, z, per_node_charge):
-        one_hot = F.one_hot(z, self.num_types).to(per_node_charge.dtype)
+        one_hot = _one_hot(z, self.num_types, per_node_charge.dtype)
         cmin, cmax = -8.0, 8.0
         n = self.n
         width = (cmax - cmin) / (n - 1) if n > 1 else 1.0
@@ -278,7 +286,7 @@ class HamGNNConvE3Compat(nn.Module):
         if self.apply_charge_doping and graph.doping_charge is not None:
             node_attrs = self.atomic_embedding(graph.z, graph.doping_charge[graph.batch])
         else:
-            node_attrs = F.one_hot(graph.z, self.num_types).to(graph.pos.dtype)
+            node_attrs = _one_hot(graph.z, self.num_types, graph.pos.dtype)
         edge_vec = graph.edge_vectors()
         edge_len = torch.sqrt(torch.sum(edge_vec * edge_vec, dim=-1))
         edge_len = torch.where(graph.edge_mask, edge_len, torch.ones_like(edge_len))

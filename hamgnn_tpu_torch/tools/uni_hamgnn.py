@@ -14,10 +14,18 @@ directory, not a pickled live object: ``nonsoc.yaml`` and ``soc.yaml`` (and
 ``tensorstore``.  ``load`` also reads the JAX package's ``nonsoc_params/`` /
 ``soc_params/`` orbax directories (``interfaces/orbax_reader.py``).
 
-Both stages run on the card (``cuda`` unless ``device="cpu"``) under
-``torch.no_grad()``: the native models through the packed TP kernels (B1, or
-B3 under ``HAMGNN_TP_ENGINE=zonal``), the compat models through the plain
-uvw einsums of ``interfaces/e3nn_compat.py``.
+Both stages run on the card (``cuda`` unless ``device="cpu"``): the native
+models through the packed TP kernels (B1, or B3 under
+``HAMGNN_TP_ENGINE=zonal``), the compat models through the plain uvw einsums
+of ``interfaces/e3nn_compat.py``.  As the JAX tool jits each stage, and so
+compiles one program per bucket shape of ``GraphDataModule(test_mode=True)``,
+each stage on the card is a CUDA graph per shape key (``train/captured.py``),
+captured at its key's first prediction and replayed after it; the SOC
+stage's upstream prediction is copied into static inputs of its key.  The
+two stages have a capture cache each (a non-SOC and a SOC graph of one
+structure share a key) and one memory pool; each prediction is copied out
+of its graph, so it is fresh tensors, as eager and as JAX.  ``capture=False``
+runs the stages eagerly under ``torch.no_grad()``, as the CPU always does.
 
 The CLI takes the reference's keys: ``model_pkl_path`` (a package directory;
 ``model_package_path`` too), ``non_soc_data_dir`` and ``soc_data_dir``
@@ -29,7 +37,9 @@ prints the masked MAE against the stored targets.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,6 +49,7 @@ from .. import resolve_device
 from ..cli import build_model
 from ..data.dataset import GraphDataModule, load_graph_npz
 from ..models.output import concatenate_by_crystal
+from ..train.captured import CapturedSteps
 from ..train.config import config_to_dict, load_config
 
 _SOC_OVERRIDES = {"output_nets": {"HamGNN_out": {
@@ -121,16 +132,41 @@ def _stage_params(package_dir: str, stage: str):
     return checkpoint_params(os.path.join(package_dir, f"{stage}_params"))
 
 
+def nonsoc_stage(model, graph):
+    """The non-SOC stage's body: the body of JAX's
+    ``jax.jit(model_nonsoc.apply)``."""
+    return model(graph)
+
+
+def soc_stage(model, graph_soc, h_nonsoc_on, h_nonsoc_off):
+    """The SOC stage's body, the upstream prediction's rows as its inputs:
+    the body of JAX's jitted ``run``."""
+    return model.output(graph_soc, model.representation(graph_soc),
+                        h_nonsoc=(h_nonsoc_on, h_nonsoc_off))
+
+
+def _fresh(out):
+    """A replay's outputs copied out of its graph's buffers."""
+    return {k: v.clone() for k, v in out.items()}
+
+
 class HamiltonianPredictor:
     """Bundles a non-SOC model and an optional SOC model (add_H_nonsoc).
 
     ``config_nonsoc`` / ``config_soc``: config file paths or loaded configs.
     The models' weights are what they were built with (zeros) until
     ``load`` fills them, or the caller does (``models.model.init_weights``,
-    ``interfaces.jax_params.load_flax_params``)."""
+    ``interfaces.jax_params.load_flax_params``).
+
+    ``capture``: replay each stage as a CUDA graph per shape key (default:
+    on the card); False runs the stages eagerly.  Either way a prediction
+    is fresh tensors: a replay's outputs are copied out of its graph, whose
+    buffers the next replay of any stage or key may reuse (the graphs share
+    one pool).  A replay reads the parameters in place; the
+    ``HAMGNN_TP_ENGINE`` switches are those of its key's first prediction."""
 
     def __init__(self, config_nonsoc, config_soc=None, soc_switch: bool = False,
-                 compat: bool = False, device=None):
+                 compat: bool = False, device=None, capture: Optional[bool] = None):
         self.device = resolve_device(device)
         self.soc_enabled = soc_switch
         self.compat = compat
@@ -142,6 +178,21 @@ class HamiltonianPredictor:
             self.config_soc = _load_config(config_soc, _SOC_OVERRIDES)
             self.model_soc = (_build_compat_soc_model(self.config_soc) if compat
                               else build_model(self.config_soc)).to(self.device).eval()
+        if capture is None:
+            capture = self.device.type == "cuda"
+        elif capture and self.device.type != "cuda":
+            raise ValueError(f"a captured prediction needs the card, not {self.device}")
+        # the stage bodies hold their model, not the predictor: a dropped
+        # predictor frees its graphs' pool without a garbage collection
+        self.nonsoc_stage = functools.partial(nonsoc_stage, self.model_nonsoc)
+        self.soc_stage = (functools.partial(soc_stage, self.model_soc) if soc_switch
+                          else None)
+        self.captured_nonsoc = self.captured_soc = None
+        if capture:
+            self.captured_nonsoc = CapturedSteps(self.device, None, self.nonsoc_stage)
+            if soc_switch:
+                self.captured_soc = CapturedSteps(self.device, None, self.soc_stage,
+                                                  pool=self.captured_nonsoc.pool)
 
     # -- persistence -----------------------------------------------------
 
@@ -162,14 +213,15 @@ class HamiltonianPredictor:
                 yaml.safe_dump({"execution_path": "e3nn_compat"}, f)
 
     @classmethod
-    def load(cls, package_dir: str, device=None) -> "HamiltonianPredictor":
+    def load(cls, package_dir: str, device=None,
+             capture: Optional[bool] = None) -> "HamiltonianPredictor":
         from ..interfaces.jax_params import load_flax_params
 
         soc = os.path.exists(os.path.join(package_dir, "soc.yaml"))
         compat = os.path.exists(os.path.join(package_dir, "compat.yaml"))
         pred = cls(os.path.join(package_dir, "nonsoc.yaml"),
                    os.path.join(package_dir, "soc.yaml") if soc else None,
-                   soc_switch=soc, compat=compat, device=device)
+                   soc_switch=soc, compat=compat, device=device, capture=capture)
         load_flax_params(pred.model_nonsoc, _stage_params(package_dir, "nonsoc"))
         if soc:
             load_flax_params(pred.model_soc, _stage_params(package_dir, "soc"))
@@ -179,13 +231,16 @@ class HamiltonianPredictor:
 
     @torch.no_grad()
     def predict_nonsoc(self, graph):
-        return self.model_nonsoc(graph)
+        if self.captured_nonsoc is None:
+            return self.nonsoc_stage(graph)
+        return _fresh(self.captured_nonsoc.forward(graph))
 
     @torch.no_grad()
     def predict_soc(self, graph_soc, h_nonsoc_on, h_nonsoc_off):
-        model = self.model_soc
-        return model.output(graph_soc, model.representation(graph_soc),
-                            h_nonsoc=(h_nonsoc_on, h_nonsoc_off))
+        if self.captured_soc is None:
+            return self.soc_stage(graph_soc, h_nonsoc_on, h_nonsoc_off)
+        return _fresh(self.captured_soc.forward(graph_soc, h_nonsoc_on=h_nonsoc_on,
+                                                h_nonsoc_off=h_nonsoc_off))
 
 
 def masked_mae(pred, target, mask):

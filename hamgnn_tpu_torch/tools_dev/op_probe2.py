@@ -111,11 +111,13 @@ PROBES = {p.name: p for p in [
           work=lambda rows: (2 * rows * MUL * NV,
                              4 * words((rows, MUL), (rows, NV), (MUL, NV))),
           library=lambda a, b: torch.matmul(a.t(), b), row_quantum=TE, max_rows=TE),
-    # no library call: four products, each added into a slice of one output
+    # the library call: the whole sum as one product, the block the tiles
+    # add into
     Probe(name="k_acc", source="probe_ops", replaces=f"{_SRC}:111",
           what="out[3:51,:24] += a_t^T @ a_t[:, :24] over 4 tiles of one output block",
           rows=4 * TE, shapes=lambda rows: [(rows, MUL)],
           out_shape=lambda rows: (64, 32), plain=plain_k_acc,
+          library=lambda a: a.t() @ a[:, :NV], library_part=lambda out: out[3 : 3 + MUL, :NV],
           work=lambda rows: (2 * rows * MUL * NV + (rows // TE) * MUL * NV,
                              4 * words((rows, MUL), (64, 32))),
           row_quantum=TE, scratch=lambda rows: (rows // TE, MUL * NV),

@@ -62,7 +62,8 @@ class Probe:
     the output's.  ``work(rows)``: (FLOPs, bytes) the function needs, what it
     reads of each input read once and the output written once.  ``library``:
     one PyTorch call that computes the same function, timed as a yardstick
-    only.  ``rows`` is the size the probe runs at, ``bench_rows`` a second
+    only; ``library_part(out)`` the part of the plain output it computes
+    (None: all of it).  ``rows`` is the size the probe runs at, ``bench_rows`` a second
     size it is timed at, ``odd_rows`` one it is only checked at (None: none);
     the kernel takes a multiple of ``row_quantum`` and at most ``max_rows``.
     ``tol``: max|kernel - plain| <= tol * max|plain| on the card.
@@ -78,6 +79,7 @@ class Probe:
     plain: Callable
     work: Callable[[int], Tuple[int, int]]
     library: Optional[Callable] = None
+    library_part: Optional[Callable] = None
     dtype: torch.dtype = torch.float32
     tol: float = 1e-4
     peak_flops: float = H100_FP32_FLOPS

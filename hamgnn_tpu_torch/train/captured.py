@@ -1,11 +1,15 @@
 """The training and eval steps captured as CUDA graphs: the counterpart of
-the JAX trainer's jitted steps (``hamgnn_tpu/train/trainer.py:185-248``).
+the JAX trainer's jitted steps (``hamgnn_tpu/train/trainer.py:185-248``)
+and of the Uni-HamGNN predictor's jitted stages
+(``hamgnn_tpu/tools/uni_hamgnn.py:143``, ``:151``).
 
 JAX compiles the forward, the loss, the gradient, the non-finite guard and
 the amsgrad update into one XLA program per batch shape (``_shape_key``:
 nodes, edges, graphs), and the eval forward, losses and metrics into
 another.  Here each is one ``torch.cuda.CUDAGraph`` per shape key, which a
 step replays: the host launches one graph instead of the step's kernels.
+A user with no training step (a predictor stage) holds ``CapturedSteps``
+with only a forward body and replays it through ``forward``.
 
 - A batch is copied into static buffers of its key, one for every tensor
   field of ``Graph`` and one for every input the step takes besides it (the
@@ -63,7 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -174,7 +178,8 @@ class _Captured:
 
 
 class CapturedSteps:
-    """The captured training and eval steps of one trainer.
+    """The captured training and eval steps of one trainer, or the captured
+    forward of one predictor stage.
 
     ``train_body(batch, **inputs)`` is the trainer's step (gradient zeroed,
     forward, loss, backward, guarded update at the device learning rate;
@@ -183,19 +188,25 @@ class CapturedSteps:
     ``torch.inference_mode``.  ``batch`` is a ``Graph`` or a dict of a
     rank's packed halo inputs; ``inputs`` are what a step takes besides it
     (``k_vecs``; a band-mode halo step's whole-crystal Graph and edge
-    unpermutation), static buffers of the step key like the batch's.
-    ``state()`` gives the tensors a training step updates in place.
-    ``captures`` counts the graphs captured."""
+    unpermutation; the upstream prediction of a SOC stage), static buffers
+    of the step key like the batch's.  ``state()`` gives the tensors a
+    training step updates in place.  Without a training step
+    (``train_body`` and ``state`` None) ``eval_body`` may return anything,
+    and ``forward`` replays it.  ``pool``: the memory pool of the graphs
+    (a new one by default; several ``CapturedSteps`` whose graphs never
+    replay at once may share one, if each replay's outputs are read
+    before the next: a graph of the pool may reuse another's freed memory
+    for its outputs).  ``captures`` counts the graphs captured."""
 
-    def __init__(self, device, train_body: Callable, eval_body: Callable,
-                 state: Callable):
+    def __init__(self, device, train_body: Optional[Callable], eval_body: Callable,
+                 state: Optional[Callable] = None, pool=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         if self.device.type != "cuda":
             raise ValueError(f"a captured step runs on the card, not {self.device}")
         self.train_body, self.eval_body, self.state = train_body, eval_body, state
-        self.pool = torch.cuda.graph_pool_handle()
+        self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
         self.stream = capture_stream(self.device)
         self.static: Dict[tuple, Tuple[Any, Dict[str, Any]]] = {}
         self.train_graphs: Dict[tuple, _Captured] = {}
@@ -254,16 +265,22 @@ class CapturedSteps:
         loss, logs = entry.out
         return loss.clone(), {k: v.clone() for k, v in logs.items()}
 
-    def eval_step(self, batch, **inputs):
-        """One replayed eval step on ``batch`` and ``inputs``: (loss, logs,
-        metrics) as clones, and the predictions as the graph's own
-        outputs."""
+    def forward(self, batch, **inputs):
+        """One replay of ``eval_body`` on ``batch`` and ``inputs`` (captured
+        in inference mode at the first call of its key): its outputs, the
+        graph's own, valid until the next replay of any graph of the pool."""
         key, static, static_inputs = self._static_for(batch, inputs)
         if key not in self.eval_graphs:
             self.eval_graphs[key] = self._capture(self.eval_body, static, static_inputs,
                                                   inference=True)
         entry = self.eval_graphs[key]
         entry.graph.replay()
-        total, logs, mets, preds = entry.out
+        return entry.out
+
+    def eval_step(self, batch, **inputs):
+        """One replayed eval step on ``batch`` and ``inputs``: (loss, logs,
+        metrics) as clones, and the predictions as the graph's own
+        outputs."""
+        total, logs, mets, preds = self.forward(batch, **inputs)
         return (total.clone(), {k: v.clone() for k, v in logs.items()},
                 {k: v.clone() for k, v in mets.items()}, preds)
