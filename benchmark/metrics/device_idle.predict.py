@@ -1,0 +1,7 @@
+"""Percent of the traced window in which no operation ran on the device."""
+
+from harness.layers import device_idle
+
+
+def read(ctx):
+    return device_idle(ctx, "predict")
